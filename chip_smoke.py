@@ -11,9 +11,11 @@ JSON line; any failure raises and exits non-zero):
 1. build   — compile the CUDA kernels of ``src/repro_torch/csrc`` with
              nvcc; print the card's name and power limit.
 2. kernels — each kernel against its plain PyTorch version on the card at
-             the serving shapes, in bf16 and f32, with times (CUDA events)
-             beside the plain version, the one-call PyTorch library
-             equivalent where there is one, and the card's lower bound.
+             the shapes of its path (serving for flash, rmsnorm and qdq;
+             training swarm-1b-bottleneck for the codec's encode and
+             decode), in bf16 and f32, with times (CUDA events) beside the
+             plain version, the one-call PyTorch library equivalent where
+             there is one, and the card's lower bound.
 3. serve   — ``ServeRunner`` serving yi-6b at full width and depth
              (random weights from a seed) through one decode chain
              (0,2)->(2,4), tokens identical to the port's single-process
@@ -22,6 +24,21 @@ JSON line; any failure raises and exits non-zero):
              span-edge crossing.
 5. churn   — a spare (2,4) peer; the chain's (2,4) peer dies mid-decode;
              exactly-once KV recovery.
+6. train   — ``SwarmRunner`` training swarm-1b-bottleneck at full width
+             and depth (48 layer applications, random weights from a
+             seed), 3 stages, one peer each, seq 512, microbatch 2, global
+             batch 8, adamw, 3 steps; per-step losses against the staged
+             reference (``repro_torch.train.reference``) on the same card
+             and weights; wall-clock tokens/s, peak memory, launches of
+             flash, encode and decode.
+7. train_q — the same with ``wire_quant=True`` for 2 steps: the encode
+             kernel's fused QDQ and the cotangent ``qdq_flat`` launch.
+8. train_churn — a second stage-1 peer; one stage-1 peer dies mid-step;
+             each (stage, microbatch) admitted exactly once, the ledger
+             drained, losses equal to the fault-free ``train`` losses.
+9. train_profile — one training microbatch under ``torch.profiler``:
+             device time per kernel, grouped, and the device's idle
+             share.
 
 The next-to-last line is the ``{"kernels": [...]}`` summary, the last
 ``{"ok": true, "device": {...}}``.
@@ -59,6 +76,10 @@ def setup():
     sys.path.insert(0, src)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the plain versions' bf16 products accumulate in f32 and round once,
+    # as the codec kernel and the JAX package do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
     return torch
 
 
@@ -246,13 +267,129 @@ def check_qdq(torch, gen, rows: list) -> dict:
     return main
 
 
+def _codec_err(torch, out, ref, tol, qb=None, n_ulps=1):
+    """(max |out - ref|, elements beyond ``tol`` that are within
+    ``n_ulps`` ulps of the output dtype, one-code-step QDQ flips).
+    Raises if an element is off by more: ``max(tol, n_ulps ulps of the
+    larger of the two)`` elementwise, or one int8 code step (the block's
+    absmax / 127) where the two sides' pre-QDQ values straddle a rounding
+    boundary."""
+    a, b = out.double(), ref.double()
+    err = (a - b).abs()
+    eps = torch.finfo(ref.dtype).eps
+    ulp = torch.exp2(torch.floor(torch.log2(
+        torch.maximum(a.abs(), b.abs()) + 1e-30))) * eps
+    lim = torch.clamp(n_ulps * ulp, min=tol)
+    ok = err <= lim
+    flips = torch.zeros_like(ok)
+    if qb is not None:
+        blk = b.abs().reshape(*b.shape[:-1], -1, qb).amax(-1) / 127.0
+        step = blk.repeat_interleave(qb, dim=-1).reshape(b.shape)
+        flips = ~ok & (err <= step * 1.01 + lim)
+    bad = ~(ok | flips)
+    if bool(bad.any()):
+        raise AssertionError(f"codec kernel: {int(bad.sum())} elements off "
+                             f"by up to {float(err[bad].max())}")
+    n_ulp = int((ok & (err > tol)).sum())
+    return float(err.max()), n_ulp, int(flips.sum())
+
+
+def check_codec(torch, gen, rows: list) -> dict:
+    """encode (bottleneck / maxout k 2, QDQ off and on) and decode
+    (bottleneck / maxout) against their plain versions at the training
+    path's shapes: N = 2 x 512 rows, d 4096, c 1024 (maxout 2048)."""
+    from repro_torch.kernels.boundary import kernel as K
+    from repro_torch.kernels.boundary import ref as R
+    N, d = 1024, 4096
+    main = {}
+    for dt, tol, peak in ((torch.bfloat16, 2e-2, H100_BF16_FLOPS),
+                          (torch.float32, 1e-4, H100_F32_FLOPS)):
+        es = torch.finfo(dt).bits // 8
+        x = (torch.randn(N, d, generator=gen, device="cuda") * 3
+             + 1).to(dt)
+        w_c = torch.randn(d, 1024, generator=gen, device="cuda") / 64
+        for mode, w, k, c in (("bottleneck", w_c, 1, 1024),
+                              ("maxout", None, 2, 2048)):
+            for quantize in (False, True):
+                qb = R.wire_qblock(c)
+                out = _counted(torch, lambda: K.encode(x, w, mode, k, qb,
+                                                       quantize))
+                torch.cuda.synchronize()
+                z = R.encode_ref(x, w, mode, k)
+                ref = R.qdq_ref(z, qb) if quantize else z
+                # the bottleneck product sums 4096 terms in another
+                # order than cuBLAS, so its bf16 rounding may differ by
+                # one ulp, which the second LayerNorm carries into the
+                # output (times its rstd) beside the output's own
+                # rounding: two output ulps there, one elsewhere
+                err, n_ulp, flips = _codec_err(
+                    torch, out, ref, tol, qb if quantize else None,
+                    2 if mode == "bottleneck" else 1)
+                ms = _counted(torch, lambda: time_ms(
+                    torch, lambda: K.encode(x, w, mode, k, qb, quantize)))
+                plain = time_ms(torch, lambda: R.encode_ref(x, w, mode, k))
+                nbytes = (N * d + N * c) * es + (0 if w is None else
+                                                 w.numel() * 4)
+                ops = 8.0 * N * d + (2.0 * N * d * c + 8.0 * N * c
+                                     if mode == "bottleneck" else 0.0)
+                ops += 5.0 * N * c if quantize else 0.0
+                b_ms, b_by = bound_ms(nbytes, ops, peak if mode ==
+                                      "bottleneck" else H100_F32_FLOPS)
+                row = {"kernel": "encode", "mode": mode,
+                       "quantize": quantize, "shape": f"[{N}, {d}] -> "
+                       f"[{N}, {c}]", "dtype": str(dt),
+                       "max_abs_err": err, "bound": f"{tol} or "
+                       + ("2 ulps" if mode == "bottleneck" else "1 ulp")
+                       + (" or one code step" if quantize else ""),
+                       "within_one_ulp_beyond_bound": n_ulp,
+                       "code_flips": flips, "ms": ms, "plain_ms": plain,
+                       "library_ms": None, "bound_ms": b_ms,
+                       "bound_by": b_by}
+                emit(row)
+                rows.append(row)
+                if (dt, mode, quantize) == (torch.bfloat16, "bottleneck",
+                                            False):
+                    main["encode"] = row
+        for mode, c in (("bottleneck", 1024), ("maxout", 2048)):
+            z = torch.randn(N, c, generator=gen, device="cuda").to(dt)
+            w_d = torch.randn(c, d, generator=gen, device="cuda") / c ** 0.5
+            out = _counted(torch, lambda: K.decode(z, w_d, mode))
+            torch.cuda.synchronize()
+            ref = R.decode_ref(z, w_d, mode)
+            err, n_ulp, _ = _codec_err(torch, out, ref, tol)
+            ms = _counted(torch, lambda: time_ms(
+                torch, lambda: K.decode(z, w_d, mode)))
+            plain = time_ms(torch, lambda: R.decode_ref(z, w_d, mode))
+            # bottleneck decode is one product: its library yardstick is
+            # torch.matmul on the weight already in the activation dtype
+            w_dt = w_d.to(dt)
+            lib = (time_ms(torch, lambda: torch.matmul(z, w_dt))
+                   if mode == "bottleneck" else None)
+            nbytes = (N * c + N * d) * es + w_d.numel() * 4
+            ops = 2.0 * N * c * d + (8.0 * N * c if mode == "maxout"
+                                     else 0.0)
+            b_ms, b_by = bound_ms(nbytes, ops, peak)
+            row = {"kernel": "decode", "mode": mode, "shape":
+                   f"[{N}, {c}] -> [{N}, {d}]", "dtype": str(dt),
+                   "max_abs_err": err, "bound": f"{tol} or 1 ulp",
+                   "within_one_ulp_beyond_bound": n_ulp, "ms": ms,
+                   "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+                   "bound_by": b_by}
+            emit(row)
+            rows.append(row)
+            if (dt, mode) == (torch.bfloat16, "bottleneck"):
+                main["decode"] = row
+    return main
+
+
 def phase_kernels(torch) -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows: list = []
     return {"flash_attention_fwd": check_flash(torch, gen, rows),
             "rmsnorm": check_rmsnorm(torch, gen, rows),
-            "qdq_flat": check_qdq(torch, gen, rows)}
+            "qdq_flat": check_qdq(torch, gen, rows),
+            **check_codec(torch, gen, rows)}
 
 
 # ------------------------------------------------------------ phases 3-5
@@ -264,7 +401,7 @@ def yi6b(torch):
     from repro_torch.configs import get_config
     from repro_torch.models import model as model_lib
     from repro_torch.models import params as P
-    cfg = get_config("yi-6b").with_overrides(kernels="pallas")
+    cfg = get_config("yi-6b")
     t0 = time.time()
     params = P.init(0, model_lib.lm_specs(cfg), "cuda")
     torch.cuda.synchronize()
@@ -388,10 +525,10 @@ def phase_serve(torch, cfg, params, prompts, ref, codec: str) -> dict:
             f"(request, token) {np.argwhere(toks != ref)[0].tolist()}")
     if summary["failed"] or summary["completed"] != N_REQ:
         raise AssertionError(f"{codec}: {summary}")
-    for name, n in launches.items():
-        if name == "qdq_flat" and codec == "none":
-            continue
-        if n <= 0:
+    # the serving path's kernels (the codec's are the training path's)
+    for name in ("flash_attention_fwd", "rmsnorm") + (
+            ("qdq_flat",) if codec == "int8" else ()):
+        if launches[name] <= 0:
             raise AssertionError(f"{codec}: kernel {name} never launched")
     sessions = N_REQ // r.scfg.max_batch
     crossings = sessions * NEW          # prefill + NEW-1 decode hops
@@ -491,6 +628,223 @@ def phase_churn(torch, cfg, params, prompts, ref) -> dict:
     return row
 
 
+# ------------------------------------------------------------ phases 6-8
+TRAIN_SEQ, TRAIN_MB, TRAIN_GB, TRAIN_STEPS = 512, 2, 8, 3
+STEP1_RTOL, LATER_ATOL = 1e-5, 1e-3
+
+
+def swarm1b(wire_quant: bool = False):
+    from repro_torch.configs import get_config
+    return get_config("swarm-1b-bottleneck").with_overrides(
+        wire_quant=wire_quant)
+
+
+def train_opt():
+    from repro_torch.optim import adamw
+    return adamw(lr=1e-4)
+
+
+def train_reference(torch, cfg, steps: int, device="cuda") -> list:
+    """The staged reference's per-step losses from the same seed (the
+    same stage params a ``SwarmRunner(seed=0)`` installs)."""
+    from repro_torch.runtime import build_stage_programs
+    from repro_torch.train.reference import reference_losses
+    progs = build_stage_programs(cfg, 3, TRAIN_SEQ)
+    losses = _counted(torch, lambda: reference_losses(
+        cfg, progs, train_opt(), 0, steps, TRAIN_SEQ, TRAIN_MB, TRAIN_GB,
+        device=device))
+    del progs
+    free(torch)
+    return losses
+
+
+def _kill_holder(runner, stage: int):
+    """Sim process: once a peer of ``stage`` holds gradients of the
+    current round and another peer of the stage is alive, preempt the
+    holder (its gradients die with it and must be recomputed)."""
+    from repro_torch.core.sim import Sleep
+    while not runner.stopped:
+        group = runner._covering(stage)
+        held = {p.id: sum(1 for pid in runner.ledger.acc[stage].values()
+                          if pid == p.id) for p in group}
+        victim = max(group, key=lambda p: held[p.id], default=None)
+        if len(group) > 1 and held[victim.id] > 0 and \
+                not runner.ledger.complete():
+            runner._fail_peer(victim)
+            return
+        yield Sleep(0.01)
+
+
+def _exactly_once(runner) -> int:
+    """Replay the runner's audit trail: a (round, stage, index) is never
+    held twice and every barrier sees each stage hold exactly the
+    round's microbatches.  Returns the number of barriers checked."""
+    K = runner.scfg.global_batch // runner.scfg.microbatch_size
+    held, barriers = set(), 0
+    for kind, step, stage, idx, _attempt, pid in runner.ledger_log:
+        key = (step, stage, idx)
+        if kind == "acc":
+            if key in held:
+                raise AssertionError(f"double accumulation {key} ({pid})")
+            held.add(key)
+        elif kind == "rel":
+            held.discard(key)
+        else:
+            barriers += 1
+            for s in range(runner.n_stages):
+                n = sum(1 for (t, sg, _i) in held if t == step and sg == s)
+                if n != K:
+                    raise AssertionError(f"step {step} stage {s}: {n} of "
+                                         f"{K} microbatches")
+    return barriers
+
+
+def run_swarm(torch, cfg, steps: int, peers, kill: bool = False,
+              device="cuda"):
+    """Train ``steps`` steps of ``SwarmRunner`` (counters zeroed just
+    before); returns (metrics, runner, launches, wall seconds, peak
+    GB)."""
+    from repro_torch import kernels
+    from repro_torch.core.swarm import SwarmConfig, SwarmRunner
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runner = SwarmRunner(cfg, SwarmConfig(
+        n_stages=3, microbatch_size=TRAIN_MB, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_GB, n_trainers=2, rebalance_period=0.0,
+        codec="bottleneck", max_steps=steps), train_opt(), seed=0,
+        record_accumulation=True, device=device)
+    runner.build(peers)
+    if kill:
+        runner.sim.spawn(_kill_holder(runner, 1))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.time()
+    m = runner.run(until=1e9)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(kernels.LAUNCHES)
+    return m, runner, launches, wall, \
+        torch.cuda.max_memory_allocated() / 1e9
+
+
+def _check_losses(name: str, got: list, want: list) -> float:
+    if len(got) != len(want):
+        raise AssertionError(f"{name}: {len(got)} steps, want {len(want)}")
+    if abs(got[0] - want[0]) > STEP1_RTOL * abs(want[0]):
+        raise AssertionError(f"{name}: step 1 loss {got[0]} vs {want[0]}")
+    diff = max(abs(a - b) for a, b in zip(got, want))
+    if diff > LATER_ATOL:
+        raise AssertionError(f"{name}: losses {got} vs {want}")
+    return diff
+
+
+def phase_train(torch, name: str, cfg, steps: int, want: list,
+                peers=1, kill: bool = False, device="cuda") -> dict:
+    m, runner, launches, wall, peak = run_swarm(torch, cfg, steps, peers,
+                                                kill, device)
+    got = m["loss"]
+    diff = _check_losses(name, got, want)
+    if not all(math.isfinite(v) for v in got):
+        raise AssertionError(f"{name}: non-finite losses {got}")
+    must = ["flash_attention_fwd", "encode", "decode"]
+    if cfg.wire_quant:
+        must.append("qdq_flat")
+    for k in must:
+        if launches[k] <= 0:
+            raise AssertionError(f"{name}: kernel {k} never launched")
+    barriers = _exactly_once(runner)
+    if barriers != steps or runner._inflight or any(
+            runner.ledger.stage_counts()):
+        raise AssertionError(f"{name}: ledger not drained "
+                             f"({barriers} barriers, "
+                             f"{runner.ledger.stage_counts()})")
+    tokens = steps * TRAIN_GB * TRAIN_SEQ
+    row = {"phase": name, "arch": cfg.name, "wire_quant": cfg.wire_quant,
+           "steps": steps, "losses": got, "reference_losses": want,
+           "max_abs_loss_diff": diff,
+           "step1_rel_diff": abs(got[0] - want[0]) / abs(want[0]),
+           "launches": launches, "wall_s": wall,
+           "tokens_per_s": tokens / wall, "max_memory_allocated_gb": peak,
+           "failures": m["failures"],
+           "recomputed_microbatches": m["recomputed_microbatches"],
+           "barriers_exactly_once": barriers}
+    if kill and not (m["failures"] == 1
+                     and m["recomputed_microbatches"] >= 1):
+        raise AssertionError(f"{name}: no peer died mid-step: {row}")
+    emit(row)
+    del runner, m
+    free(torch)
+    return row
+
+
+def phase_train_profile(torch) -> dict:
+    """Where a training microbatch's device time goes: one microbatch of
+    swarm-1b-bottleneck (forward through the three stage programs, then
+    the three recompute backwards, as the trainer runs it) under
+    ``torch.profiler``, after a warm-up microbatch.  Device time is
+    summed per kernel name and grouped; the host clock around the
+    synchronised microbatch gives the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.runtime import build_stage_programs, init_stage_params
+    cfg = swarm1b()
+    progs = build_stage_programs(cfg, 3, TRAIN_SEQ)
+    params = init_stage_params(progs, 0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tok = torch.randint(0, cfg.vocab_size, (TRAIN_MB, TRAIN_SEQ),
+                        generator=gen, device="cuda")
+    lab = torch.randint(0, cfg.vocab_size, (TRAIN_MB, TRAIN_SEQ),
+                        generator=gen, device="cuda")
+
+    def microbatch():
+        x1 = progs[0].fwd(params[0], tok)
+        x2 = progs[1].fwd(params[1], x1)
+        _, gx, _ = progs[2].bwd(params[2], x2, lab)
+        gx, _ = progs[1].bwd(params[1], x1, gx)
+        progs[0].bwd(params[0], tok, gx)
+
+    _counted(torch, microbatch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        _counted(torch, microbatch)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    per_kernel: dict = {}
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) is not None and \
+                "CUDA" not in str(ev.device_type):
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if us > 0:
+            per_kernel[ev.key] = per_kernel.get(ev.key, 0.0) + us / 1e3
+    groups = {"flash_fwd (kernel)": "flash_fwd_kernel",
+              "codec (kernels)": ("ln_rows_kernel", "gemm_kernel<"),
+              "matmul (library)": ("gemm", "nvjet", "Kernel2", "cutlass",
+                                   "xmma", "sm90"),
+              "elementwise and reductions": ""}
+    grouped = {g: 0.0 for g in groups}
+    for name, ms in per_kernel.items():
+        for g, pat in groups.items():
+            pats = (pat,) if isinstance(pat, str) else pat
+            if any(p in name for p in pats):
+                grouped[g] += ms
+                break
+    device_ms = sum(per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
+    row = {"phase": "train_profile", "arch": cfg.name,
+           "tokens": TRAIN_MB * TRAIN_SEQ, "wall_ms": wall * 1e3,
+           "device_ms": device_ms,
+           "device_idle_share": max(0.0, 1.0 - device_ms / (wall * 1e3)),
+           "grouped_ms": grouped,
+           "top_kernels_ms": [[k[:90], v] for k, v in top]}
+    emit(row)
+    del progs, params
+    free(torch)
+    return row
+
+
 # -------------------------------------------------------------------- main
 def main() -> None:
     import numpy as np
@@ -518,6 +872,16 @@ def main() -> None:
     phase_churn(torch, cfg, params, prompts, ref)
     del params, ref
     free(torch)
+    ref_losses = train_reference(torch, swarm1b(), TRAIN_STEPS)
+    train = phase_train(torch, "train", swarm1b(), TRAIN_STEPS, ref_losses)
+    for k in ("encode", "decode"):
+        launches[k] = train["launches"][k]
+    ref_q = train_reference(torch, swarm1b(wire_quant=True), 2)
+    phase_train(torch, "train_q", swarm1b(wire_quant=True), 2, ref_q)
+    # the churn run is held to the fault-free train run's losses
+    phase_train(torch, "train_churn", swarm1b(), TRAIN_STEPS,
+                train["losses"], peers=[1, 2, 1], kill=True)
+    phase_train_profile(torch)
     replaces = {
         "flash_attention_fwd":
             ("src/repro_torch/csrc/flash_attention.cu",
@@ -526,6 +890,10 @@ def main() -> None:
                     "src/repro/kernels/rmsnorm/kernel.py:27"),
         "qdq_flat": ("src/repro_torch/csrc/qdq.cu",
                      "src/repro/kernels/boundary/kernel.py:168"),
+        "encode": ("src/repro_torch/csrc/codec.cu",
+                   "src/repro/kernels/boundary/kernel.py:183"),
+        "decode": ("src/repro_torch/csrc/codec.cu",
+                   "src/repro/kernels/boundary/kernel.py:222"),
     }
     summary = []
     for name, (source, rep) in replaces.items():

@@ -1,18 +1,33 @@
-"""Boundary-codec dispatch (port of ``repro.compression.codecs``) for the
-parameter-free modes: ``none`` (raw activations, 2-byte wire elements)
-and ``int8`` (blockwise 8-bit round trip, :mod:`repro_torch.compression
-.quant8`).  The learned codecs (``bottleneck``, ``maxout``) and their
-params come with the learned-codec slice; the mode names, the width
-helpers and the FLOP accounting already know them so the cost model is
-the JAX package's.
+"""Boundary-codec dispatch (port of ``repro.compression.codecs``): what
+crosses a SWARM stage boundary under each ``cfg.boundary_compression``
+mode (paper App. J).
+
+* ``none``        — raw activations (2-byte wire elements);
+* ``int8``        — blockwise 8-bit round trip (:mod:`.quant8`),
+                    parameter-free;
+* ``bottleneck``  — learned linear bottleneck: the sending stage owns
+                    ``w_c`` ([m, c]), the receiving stage ``w_d`` ([c, m]);
+* ``maxout``      — maxout_k pooling (parameter-free) + a learned ``w_d``
+                    ([m/k, m]) on the receiving stage.
+
+The crossings always go through the ops of
+:mod:`repro_torch.kernels.boundary.ops`: their wrappers launch the CUDA
+kernels on a CUDA tensor and run the plain versions on a CPU tensor,
+whatever ``cfg.kernels`` says (it is kept for parity with the JAX
+configs).  The GSPMD pipeline's stage-stacked codec specs
+(``pipeline_boundary_specs``) come with the multi-GPU slice (ROADMAP
+queue 1 item 5).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.params import ParamSpec
+
+Tree = Any
 
 MODES = ("none", "int8", "bottleneck", "maxout")
 LEARNED = ("bottleneck", "maxout")
@@ -55,20 +70,70 @@ def wire_dim(cfg: ArchConfig, compress: Optional[str] = None) -> int:
     return cfg.d_model
 
 
+# ------------------------------------------------------------ ParamSpecs
+def sender_specs(cfg: ArchConfig, compress: Optional[str] = None) -> Tree:
+    """Codec params owned by a SENDING stage (compress side)."""
+    mode = resolve_mode(cfg, compress)
+    if mode == "bottleneck":
+        return {"w_c": ParamSpec((cfg.d_model, wire_dim(cfg, mode)),
+                                 cfg.param_jdtype,
+                                 axes=("embed", "bottleneck"))}
+    return {}                                # maxout compress is param-free
+
+
+def receiver_specs(cfg: ArchConfig, compress: Optional[str] = None) -> Tree:
+    """Codec params owned by a RECEIVING stage (decompress side)."""
+    mode = resolve_mode(cfg, compress)
+    if mode in LEARNED:
+        return {"w_d": ParamSpec((wire_dim(cfg, mode), cfg.d_model),
+                                 cfg.param_jdtype,
+                                 axes=("bottleneck", "embed"))}
+    return {}
+
+
+# ------------------------------------------------------------ apply
 def wire_qblock(cfg: ArchConfig, compress: Optional[str] = None) -> int:
-    """Quantization block for the wire tensor under ``cfg.wire_quant``."""
+    """Quantization block for the wire tensor under ``cfg.wire_quant`` —
+    the paper's 64, gcd-aligned down so it divides the wire width."""
     from repro_torch.kernels.boundary import ref as bref
     return bref.wire_qblock(wire_dim(cfg, compress))
 
 
+def encode_wire(cfg: ArchConfig, mode: str, p: Tree,
+                x: torch.Tensor) -> torch.Tensor:
+    """Sending side of a boundary crossing: codec encode (+ the blockwise
+    int8 wire QDQ under ``cfg.wire_quant``) through the autograd op of
+    :mod:`repro_torch.kernels.boundary.ops` — the ``encode`` kernel on a
+    CUDA tensor, the plain version on a CPU tensor."""
+    if mode not in LEARNED:
+        return x
+    from repro_torch.kernels.boundary import ops as bops
+    w = (p or {}).get("w_c") if mode == "bottleneck" else None
+    k = maxout_k(cfg) if mode == "maxout" else 1
+    return bops.encode_wire(x, w, mode, k, wire_qblock(cfg, mode),
+                            cfg.wire_quant)
+
+
+def decode_wire(cfg: ArchConfig, mode: str, p: Tree,
+                z: torch.Tensor) -> torch.Tensor:
+    """Receiving side of a boundary crossing (mirror of
+    :func:`encode_wire`; the wire QDQ lives on the sending side only, so
+    each direction quantizes exactly once)."""
+    if mode not in LEARNED:
+        return z
+    from repro_torch.kernels.boundary import ops as bops
+    return bops.decode_wire(z, p["w_d"], mode)
+
+
 def int8_boundary(cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    """The ``int8`` boundary mode, routed by ``cfg.kernels``: the plain
-    quantize/dequantize pair, or the CUDA single-launch round trip
-    (same codes)."""
+    """The parameter-free ``int8`` boundary mode: the single-launch round
+    trip (the CUDA kernel on a CUDA tensor, the plain quantize/dequantize
+    pair on a CPU tensor; same codes) with its straight-through
+    backward."""
     from repro_torch.compression import quant8
     from repro_torch.kernels.boundary.ops import int8_roundtrip
-    return int8_roundtrip(x, quant8.BLOCK,
-                          use_kernel=cfg.kernels == "pallas")
+    del cfg
+    return int8_roundtrip(x, quant8.BLOCK, quant8.BLOCK)
 
 
 def codec_flops_per_token(cfg: ArchConfig, mode: str, *, sender: bool,

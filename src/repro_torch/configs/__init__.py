@@ -1,15 +1,17 @@
 """Architecture registry: ``get_config(name)``.
 
 The port registers each architecture with the slice that brings its
-block kinds; the serving slice brings yi-6b only.
+block kinds: yi-6b (serving slice) and the paper's swarm-1b with its
+int8, bottleneck and maxout boundaries (training slice).
 """
 from __future__ import annotations
 
 from repro_torch.models.config import ArchConfig
 
-from repro_torch.configs import yi_6b
+from repro_torch.configs import swarm1b, swarm1b_bottleneck, \
+    swarm1b_maxout, yi_6b
 
-_MODULES = [yi_6b]
+_MODULES = [yi_6b, swarm1b, swarm1b_bottleneck, swarm1b_maxout]
 
 REGISTRY: dict[str, ArchConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 

@@ -10,7 +10,7 @@ moves only where a kernel is launched.
 from __future__ import annotations
 
 LAUNCHES: dict[str, int] = {"flash_attention_fwd": 0, "rmsnorm": 0,
-                            "qdq_flat": 0}
+                            "qdq_flat": 0, "encode": 0, "decode": 0}
 
 
 def reset_launches() -> None:

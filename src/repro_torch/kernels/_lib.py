@@ -116,6 +116,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_flash_fwd.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P, F,
                                     I, I, I, P]
     lib.repro_flash_fwd.restype = I
+    lib.repro_codec_ln_rows.argtypes = [P, P, I64, I, I, I, I, P]
+    lib.repro_codec_ln_rows.restype = I
+    lib.repro_codec_gemm.argtypes = [P, P, P, I64, I, I, I, P]
+    lib.repro_codec_gemm.restype = I
 
 
 def lib() -> ctypes.CDLL:

@@ -1,12 +1,27 @@
-"""Plain PyTorch versions for the int8 boundary wire (port of the QDQ
-part of ``repro.kernels.boundary.ref``; the learned-codec oracles come
-with the learned-codec slice)."""
+"""Plain PyTorch versions of the boundary crossing (port of
+``repro.kernels.boundary.ref``): the row-blocked int8 round trip and the
+learned codecs' two sides, ``encode_ref`` and ``decode_ref``.
+
+They define what the CUDA kernels of ``csrc/codec.cu`` compute and are
+the recompute target of the autograd ops in :mod:`.ops`: the backward of
+a crossing always differentiates THESE functions, on the CPU and on the
+card alike, as the JAX package's custom VJPs do.
+
+Dtype discipline, as ``repro.kernels.boundary.kernel._encode32``: the
+LayerNorm core runs in f32 (statistics summed in f64 and rounded once,
+see :func:`repro_torch.compression.bottleneck.ln_core`), its output is
+rounded to the activation dtype before the product, the weights are
+rounded to the activation dtype, the product accumulates in f32 and is
+rounded to the activation dtype before the second LayerNorm.
+"""
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
+from repro_torch.compression.bottleneck import _ln
 from repro_torch.compression.quant8 import div127
 
 QBLOCK = 64          # default quantization granularity (paper-faithful)
@@ -28,3 +43,25 @@ def qdq_ref(x: torch.Tensor, qb: int) -> torch.Tensor:
     q = torch.clamp(torch.round(blocks / torch.clamp(scale, min=1e-12)
                                 * 127.0), -127, 127)
     return div127(q * scale).reshape(shape).to(dtype)
+
+
+def encode_ref(x: torch.Tensor, w: Optional[torch.Tensor], mode: str,
+               k: int) -> torch.Tensor:
+    """Sending side: [..., d] -> [..., c] (bottleneck: ln -> @w_c -> ln;
+    maxout: ln -> max-pool over windows of ``k``)."""
+    if mode == "bottleneck":
+        return _ln(_ln(x) @ w.to(x.dtype))
+    if mode == "maxout":
+        z = _ln(x)
+        m = z.shape[-1]
+        return z.reshape(*z.shape[:-1], m // k, k).amax(-1)
+    raise ValueError(f"not a learned codec: {mode!r}")
+
+
+def decode_ref(z: torch.Tensor, w: torch.Tensor, mode: str) -> torch.Tensor:
+    """Receiving side: [..., c] -> [..., d]."""
+    if mode == "bottleneck":
+        return z @ w.to(z.dtype)
+    if mode == "maxout":
+        return _ln(z) @ w.to(z.dtype)
+    raise ValueError(f"not a learned codec: {mode!r}")

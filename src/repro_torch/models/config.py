@@ -1,11 +1,11 @@
 """Unified architecture configuration (port of ``repro.models.config``).
 
 Same fields and defaults as the JAX package, so a config maps 1:1.
-``kernels`` keeps its JAX spellings: ``"jnp"`` runs plain PyTorch
-everywhere, ``"pallas"`` routes flash attention, RMSNorm and the int8
-boundary round trip through the hand-written CUDA kernels in
-``repro_torch.kernels`` (their plain PyTorch versions on CPU tensors).
-The ``*_jdtype`` properties return ``torch.dtype``s here."""
+``kernels`` is kept for that parity (and the weight converter) but
+selects nothing: the tensor's device does — the hand-written CUDA
+kernels of ``repro_torch.kernels`` on a CUDA tensor, their plain PyTorch
+versions on a CPU tensor.  The ``*_jdtype`` properties return
+``torch.dtype``s here."""
 from __future__ import annotations
 
 import dataclasses
@@ -68,11 +68,8 @@ class ArchConfig:
     undefined); encoder-decoder configs plan stage 0 as the encoder pod
     and split decoder layers over the remaining stages.
 
-    ``kernels`` selects the hot-path backend for every execution path
-    that reads this config (the four runtime executors, the GSPMD
-    pipeline, and the single-process step): ``"jnp"`` is the oracle
-    math, ``"pallas"`` the CUDA kernels in ``repro_torch.kernels`` — a pure
-    backend switch, identical numerics within float tolerance.
+    ``kernels`` is the JAX package's backend switch, kept for parity; in
+    the port the device routes (see the module docstring).
     ``wire_quant`` additionally int8-quantizes the learned codec's wire
     tensor (a *semantic* switch: it changes what crosses the boundary,
     identically on both backends).
@@ -121,12 +118,11 @@ class ArchConfig:
     pipeline_stages: int = 0         # declared pipeline depth: >1 attaches
                                      # the stage-stacked learned-codec params
                                      # to model_specs (one pair per boundary)
-    kernels: str = "jnp"             # hot-path backend: "jnp" (default) runs
-                                     # plain PyTorch math; "pallas"
-                                     # routes flash attention, rmsnorm and
-                                     # the int8 boundary round trip through
-                                     # the CUDA kernels in
-                                     # repro_torch.kernels
+    kernels: str = "jnp"             # the JAX package's backend switch,
+                                     # kept for parity: selects nothing
+                                     # here (a CUDA tensor takes the CUDA
+                                     # kernels, a CPU tensor the plain
+                                     # versions)
     wire_quant: bool = False         # blockwise-int8 quantize the LEARNED
                                      # codec's c-dim wire tensor in both
                                      # directions (activations fwd,

@@ -1,5 +1,7 @@
 """Norms, FFNs and dense attention (port of ``repro.models.layers``;
-MoE comes with its slice).
+MoE comes with its slice).  RMSNorm and flash attention go through the
+kernel wrappers: the CUDA kernels on a CUDA tensor, their plain versions
+on a CPU tensor.
 
 Weights are stored in ``cfg.param_dtype`` and cast to the activation's
 dtype at each matmul, as the JAX package does.  The projections and the
@@ -40,13 +42,10 @@ def apply_norm(cfg: ArchConfig, p: Tree, x: torch.Tensor) -> torch.Tensor:
         y = (x - mu) * torch.rsqrt(var + 1e-6)
         return (y * p["scale"].to(torch.float32)
                 + p["bias"].to(torch.float32)).to(dt)
-    if cfg.kernels == "pallas":
-        from repro_torch.kernels.rmsnorm.ops import rmsnorm_op
-        return rmsnorm_op(x, p["scale"])
-    x = x.to(torch.float32)
-    var = (x * x).mean(-1, keepdim=True)
-    y = x * torch.rsqrt(var + 1e-6)
-    return (y * p["scale"].to(torch.float32)).to(dt)
+    # the kernel on a CUDA tensor, its plain version on a CPU tensor;
+    # closed-form backward under autograd
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_train
+    return rmsnorm_train(x, p["scale"])
 
 
 # ---------------------------------------------------------------- FFN
@@ -140,7 +139,7 @@ def apply_attn(cfg: ArchConfig, p: Tree, x: torch.Tensor,
         causal=cfg.causal if causal is None else causal,
         window=cfg.sliding_window if window is None else window,
         softcap=cfg.attn_logit_softcap,
-        chunk_q=chunk_q, chunk_k=chunk_k, impl=cfg.kernels)
+        chunk_q=chunk_q, chunk_k=chunk_k)
     y = _out_proj(out, p["wo"], x.dtype)
     if return_kv:
         return y, (k, v)

@@ -7,7 +7,8 @@ Where JAX scans over the stack, the port loops over layers and indexes
 the stack (``a[i]`` is a view, no copy).  The GSPMD sharding hints
 (``dist.constrain``) have no effect on one device and are left out;
 ``remat`` is accepted and ignored (serving computes no gradients).
-ALBERT-shared stacks come with the swarm-1b slice.
+Serving ALBERT-shared stacks is still to port; the training stage
+programs (``repro_torch.runtime.stage_model``) re-apply shared layers.
 """
 from __future__ import annotations
 
@@ -37,7 +38,9 @@ def segments(pattern: tuple[str, ...]) -> list[tuple[str, int]]:
 def _no_sharing(cfg: ArchConfig) -> None:
     if cfg.share_groups:
         raise NotImplementedError(
-            f"{cfg.name}: ALBERT-shared layers come with the swarm-1b slice")
+            f"{cfg.name}: serving ALBERT-shared layers is not ported yet "
+            "(ROADMAP queue 1 item 3; the training stage programs share "
+            "them)")
 
 
 def stack_specs(tree: Tree, n: int) -> Tree:

@@ -111,7 +111,7 @@ def _bf16_numpy_type():
 
 def tensor_from_numpy(a, device, dtype: Optional[torch.dtype] = None
                       ) -> torch.Tensor:
-    a = np.ascontiguousarray(a)
+    a = np.ascontiguousarray(a).reshape(np.shape(a))   # keeps 0-d 0-d
     if not a.flags.writeable:             # jax.device_get hands out
         a = a.copy()                      # read-only views
     if a.dtype.name == "bfloat16":

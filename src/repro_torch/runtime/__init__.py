@@ -1,5 +1,6 @@
-"""Stage-runtime layer (port of ``repro.runtime``, serving half): one
-executor protocol, single-stage and span backends on one device."""
+"""Stage-runtime layer (port of ``repro.runtime``): one executor
+protocol, single-stage (training and serving) and span (serving)
+backends on one device."""
 from repro_torch.runtime.base import StageExecutor, StageState, \
     host_snapshot
 from repro_torch.runtime.numeric import (NumericExecutor,
@@ -7,9 +8,12 @@ from repro_torch.runtime.numeric import (NumericExecutor,
                                          compile_stats,
                                          reset_compile_stats)
 from repro_torch.runtime.pipeline import PipelineExecutor
+from repro_torch.runtime.stage_model import StageProgram, \
+    build_stage_programs, init_stage_params
 
 __all__ = [
     "StageExecutor", "StageState", "host_snapshot", "NumericExecutor",
     "PipelineExecutor", "build_numeric_executors", "compile_stats",
-    "reset_compile_stats",
+    "reset_compile_stats", "StageProgram", "build_stage_programs",
+    "init_stage_params",
 ]

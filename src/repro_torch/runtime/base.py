@@ -13,7 +13,9 @@ tensor already there is installed as is (aliased, no copy — the torch
 counterpart of ``jnp.asarray`` on a device array).  Serving peers of a
 yi-6b chain therefore hold views of the one full parameter tree.
 
-``fold_into`` and ``wire_bwd_codec`` come with the training slice.
+``fold_into`` folds microbatch gradients into a state's accumulator;
+``wire_fwd_codec`` / ``wire_bwd_codec`` are the int8 wire of both
+directions.
 """
 from __future__ import annotations
 
@@ -134,10 +136,9 @@ class StageState:
 
 @runtime_checkable
 class StageExecutor(Protocol):
-    """How a peer runs its pipeline stages — the serving half of the JAX
-    package's protocol.  ``run_fwd``/``run_bwd``/``accumulate``/
-    ``adopt_step`` raise ``NotImplementedError`` until the training
-    slice."""
+    """How a peer runs its pipeline stages (the JAX package's protocol
+    without the async ``dispatch_fwd``/``dispatch_bwd`` pair, which
+    comes with the async slice)."""
 
     stage: int
     stages: range
@@ -151,7 +152,29 @@ class StageExecutor(Protocol):
 
     def session_program(self, total_len: int): ...
 
+    def run_fwd(self, state: StageState, inp: Tree,
+                labels: Optional[torch.Tensor] = None) -> Tree: ...
+
+    def run_bwd(self, state: StageState, inp: Tree,
+                dy: Optional[Tree] = None,
+                labels: Optional[torch.Tensor] = None): ...
+
     def wire_fwd(self, y: Tree) -> Tree: ...
+
+    def wire_bwd(self, gx: Tree) -> Tree: ...
+
+    def accumulate(self, state: StageState, gp: Optional[Tree],
+                   loss: Optional[float], n_tokens: int,
+                   stage: Optional[int] = None) -> None: ...
+
+    def export_grads(self, state: StageState,
+                     stage: Optional[int] = None) -> Tree: ...
+
+    def export_state(self, state: StageState,
+                     stage: Optional[int] = None): ...
+
+    def adopt_step(self, state: StageState, new_params: Tree,
+                   new_opt: Tree, stage: Optional[int] = None) -> None: ...
 
     def snapshot(self, state: StageState, stage: Optional[int] = None,
                  slots: Iterable[str] = ()) -> Tree: ...
@@ -237,28 +260,62 @@ def single_stage(ex: StageExecutor, stage: Optional[int]) -> None:
             f"{type(ex).__name__} serves stage {ex.stage}, not {stage}")
 
 
-def _int8_roundtrip_tree(tree: Tree, quant_block: int,
-                         use_kernel: bool = False) -> Tree:
+def fold_into(state: StageState, gp: Optional[Tree],
+              loss: Optional[float], n_tokens: int) -> None:
+    """Default ``accumulate``: fold one microbatch gradient + bookkeeping
+    into ``state``.
+
+    The accumulator is f64 from a round's first fold on (the zeros
+    ``reset_progress`` leaves, in the params' dtype, are replaced), and
+    later folds add in place.  A sum of a round's few f32 gradients is
+    then exact in f64, so its value does not depend on the order the
+    microbatches arrive in or on how they split across a stage's peers:
+    a round with a dead peer's microbatches recomputed by a survivor
+    gives the fault-free round's gradient bit for bit.  (The JAX package
+    adds in f32, in arrival order; bf16 compute turns that last-bit
+    difference into a visible loss difference within two steps.)
+    ``SwarmRunner`` rounds the sum to the params' dtype before averaging."""
+    if gp is not None:
+        if state.token_count == 0:
+            state.grad_acc = tree_map(lambda b: b.to(torch.float64), gp)
+        else:
+            tree_map(lambda a, b: a.add_(b), state.grad_acc, gp)
+    state.token_count += n_tokens
+    if loss is not None:
+        state.loss_sum += loss
+
+
+def _int8_roundtrip_tree(tree: Tree, quant_block: int) -> Tree:
     """int8-round-trip every floating leaf of a wire payload, passing
-    integer leaves through.  ``use_kernel`` routes through the CUDA
-    single-launch round trip (same codes)."""
+    integer leaves through: the CUDA single-launch round trip on CUDA
+    tensors, the plain one on CPU tensors (same codes)."""
     from repro_torch.kernels.boundary.ops import int8_roundtrip
-    return tree_map(lambda a: int8_roundtrip(a, quant_block, use_kernel),
+    return tree_map(lambda a: int8_roundtrip(a, quant_block, quant_block),
                     tree)
-
-
-def _wire_use_kernel(ex: StageExecutor) -> bool:
-    return getattr(getattr(ex, "cfg", None), "kernels", "jnp") == "pallas"
 
 
 def wire_fwd_codec(ex: StageExecutor, y: Tree) -> Tree:
     """Shared ``wire_fwd`` codec step: int8 quantize-on-send on live
-    span-edge boundaries; ``none`` crosses raw; a span ending at the
-    pipeline's last stage emits tokens, not a boundary."""
+    span-edge boundaries.  Learned codecs already emitted the c-dim wire
+    tensor inside the stage program; ``none`` crosses raw; a span ending
+    at the pipeline's last stage emits tokens or a loss, not a
+    boundary."""
     if ex.compress_mode == "int8" and ex.stages.stop < ex.n_stages:
-        return _int8_roundtrip_tree(y, ex.quant_block, _wire_use_kernel(ex))
+        return _int8_roundtrip_tree(y, ex.quant_block)
     return y
 
 
-def training_slice(name: str):
-    raise NotImplementedError(f"{name}: training slice")
+def wire_bwd_codec(ex: StageExecutor, gx: Optional[Tree]
+                   ) -> Optional[Tree]:
+    """Shared ``wire_bwd`` codec step: int8 quantizes the boundary
+    cotangent (None when the span starts at stage 0 — nothing crosses
+    back)."""
+    if gx is not None and ex.compress_mode == "int8":
+        return _int8_roundtrip_tree(gx, ex.quant_block)
+    return gx
+
+
+def not_in_slice(name: str, item: str):
+    """Raise for a part of the JAX package's protocol that a later slice
+    of the port brings (``item`` names its ROADMAP queue item)."""
+    raise NotImplementedError(f"{name}: not ported yet ({item})")

@@ -1,15 +1,17 @@
-"""NumericExecutor — single-device stage execution (port of the serving
-half of ``repro.runtime.numeric``).
+"""NumericExecutor — single-device stage execution (port of
+``repro.runtime.numeric``).
 
 PyTorch runs eagerly, so there is no jit to cache; the structure of the
-JAX package stays: programs are built once per ``(config, stages, span,
-horizon, codec)`` and shared process-wide by every peer of a span
+JAX package stays: stage programs are built once per executor family
+(one per stage, shared by every peer of the stage), session programs
+once per ``(config, stages, span, horizon, codec)`` process-wide
 (``repro_torch.serve.programs.get_session_program``), and
-``record_trace`` / ``compile_stats`` count one "trace" per program
-build, where the JAX package counts XLA traces.
+``record_trace`` / ``compile_stats`` count one "trace" per session
+program build, where the JAX package counts XLA traces.
 
-``run_fwd``, ``run_bwd``, ``accumulate`` and ``adopt_step`` raise
-``NotImplementedError`` until the training slice.
+Inputs are placed on the executor's device as they arrive (a trainer
+may hand host numpy batches or tensors); gradient accumulation adds in
+place into the state's own accumulator.
 """
 from __future__ import annotations
 
@@ -23,10 +25,11 @@ from repro_torch.compression import codecs
 from repro_torch.models.config import ArchConfig
 from repro_torch.models import params as P
 from repro_torch.models.stage_plan import get_stage_plan
-from repro_torch.runtime.base import StageState, host_snapshot, \
-    install_snapshot, single_stage, slot_export, slot_install, \
-    training_slice, wire_fwd_codec
-from repro_torch.runtime.stage_model import _stage_fwd_flops, _stage_specs
+from repro_torch.runtime.base import StageState, fold_into, place, \
+    host_snapshot, install_snapshot, single_stage, slot_export, \
+    slot_install, wire_bwd_codec, wire_fwd_codec
+from repro_torch.runtime.stage_model import StageProgram, \
+    build_stage_programs
 
 Tree = Any
 
@@ -64,7 +67,8 @@ class NumericExecutor:
     def __init__(self, cfg: ArchConfig, stage: int, n_stages: int,
                  compress_mode: str, quant_block: int = 64,
                  family: Optional[list["NumericExecutor"]] = None,
-                 seq_len: Optional[int] = None, device="cuda"):
+                 seq_len: Optional[int] = None, device="cuda",
+                 prog: Optional[StageProgram] = None):
         self.cfg = cfg
         self.stage = stage
         self.n_stages = n_stages
@@ -73,10 +77,12 @@ class NumericExecutor:
         self.compress_mode = compress_mode
         self.quant_block = quant_block
         self.device = P.resolve_device(device)
-        learned = compress_mode in codecs.LEARNED and n_stages > 1
-        self.fwd_flops_per_token = _stage_fwd_flops(
-            cfg, stage, n_stages, seq_len or 1, compress_mode, learned)
-        self.bwd_flops_per_token = 3.0 * self.fwd_flops_per_token
+        if prog is None:
+            prog = build_stage_programs(cfg, n_stages, seq_len or 1,
+                                        compress_mode)[stage]
+        self.prog = prog
+        self.fwd_flops_per_token = prog.fwd_flops_per_token
+        self.bwd_flops_per_token = prog.bwd_flops_per_token
         # all executors of one pipeline, so migrations can swap stages
         self._family = family if family is not None else [self]
 
@@ -86,9 +92,8 @@ class NumericExecutor:
 
     # ---------------------------------------------------------- lifecycle
     def init_state(self, seed: int) -> StageState:
-        state = StageState(params=P.init(
-            seed, _stage_specs(self.cfg, self.stage, self.n_stages),
-            self.device))
+        state = StageState(params=P.init(seed, self.prog.specs,
+                                         self.device))
         state.reset_progress()
         return state
 
@@ -118,22 +123,59 @@ class NumericExecutor:
             self.cfg, self.n_stages, (self.stage, self.stage + 1),
             total_len, compress=self.compress_mode)
 
-    # ------------------------------------------------- training (stubbed)
-    def run_fwd(self, *a, **k):
-        training_slice("run_fwd")
+    # ---------------------------------------------------------- execution
+    def _here(self, t):
+        """A batch or boundary tensor on this executor's device."""
+        return None if t is None else place(t, self.device)
 
-    def run_bwd(self, *a, **k):
-        training_slice("run_bwd")
+    def run_fwd(self, state: StageState, inp: Tree,
+                labels: Optional[torch.Tensor] = None) -> Tree:
+        if self.stage == self.n_stages - 1:
+            return self.prog.fwd(state.params, self._here(inp),
+                                 self._here(labels))
+        return self.prog.fwd(state.params, self._here(inp))
 
-    def accumulate(self, *a, **k):
-        training_slice("accumulate")
-
-    def adopt_step(self, *a, **k):
-        training_slice("adopt_step")
+    def run_bwd(self, state: StageState, inp: Tree,
+                dy: Optional[Tree] = None,
+                labels: Optional[torch.Tensor] = None):
+        if self.stage == self.n_stages - 1:
+            return self.prog.bwd(state.params, self._here(inp),
+                                 self._here(labels))
+        gx, gp = self.prog.bwd(state.params, self._here(inp),
+                               self._here(dy))
+        return None, gx, gp
 
     # --------------------------------------------------------- wire codec
     def wire_fwd(self, y: Tree) -> Tree:
         return wire_fwd_codec(self, y)
+
+    def wire_bwd(self, gx: Tree) -> Tree:
+        return wire_bwd_codec(self, gx)
+
+    # -------------------------------------------------------- accumulation
+    def accumulate(self, state: StageState, gp: Optional[Tree],
+                   loss: Optional[float], n_tokens: int,
+                   stage: Optional[int] = None) -> None:
+        single_stage(self, stage)
+        fold_into(state, gp, loss, n_tokens)
+
+    def export_grads(self, state: StageState,
+                     stage: Optional[int] = None) -> Tree:
+        single_stage(self, stage)
+        return state.grad_acc                   # already on this device
+
+    def export_state(self, state: StageState,
+                     stage: Optional[int] = None):
+        single_stage(self, stage)
+        return state.params, state.opt
+
+    def adopt_step(self, state: StageState, new_params: Tree,
+                   new_opt: Tree, stage: Optional[int] = None) -> None:
+        single_stage(self, stage)
+        state.params = place(new_params, self.device)
+        state.opt = place(new_opt, self.device)
+        state.version += 1
+        state.reset_progress()
 
     # ---------------------------------------------------- state transfer
     def snapshot(self, state: StageState, stage: Optional[int] = None,
@@ -165,14 +207,18 @@ class NumericExecutor:
 
 def build_numeric_executors(cfg: ArchConfig, n_stages: int, seq_len: int,
                             compress: Optional[str] = None,
-                            quant_block: int = 64, device="cuda"
+                            quant_block: int = 64, device="cuda",
+                            programs: Optional[list[StageProgram]] = None
                             ) -> list[NumericExecutor]:
-    """One executor per stage, sharing one family list."""
+    """One executor per stage, sharing one family list and one set of
+    stage programs (built here, or an injected pre-built list)."""
     comp = codecs.resolve_mode(cfg, compress)
     get_stage_plan(cfg, n_stages)      # validates the split (ValueError)
+    if programs is None:
+        programs = build_stage_programs(cfg, n_stages, seq_len, comp)
     family: list[NumericExecutor] = []
     for s in range(n_stages):
         family.append(NumericExecutor(cfg, s, n_stages, comp, quant_block,
                                       family=family, seq_len=seq_len,
-                                      device=device))
+                                      device=device, prog=programs[s]))
     return family

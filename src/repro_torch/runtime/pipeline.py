@@ -15,11 +15,13 @@ from repro_torch.compression import codecs
 from repro_torch.models.config import ArchConfig
 from repro_torch.models import params as P
 from repro_torch.runtime.base import StageState, host_snapshot, \
-    install_snapshot, slot_export, slot_install, training_slice, \
+    install_snapshot, not_in_slice, slot_export, slot_install, \
     wire_fwd_codec
 from repro_torch.runtime.stage_model import _stage_fwd_flops, _stage_specs
 
 Tree = Any
+
+_SPANS = "ROADMAP queue 1 item 4, training span programs"
 
 
 class PipelineExecutor:
@@ -101,18 +103,27 @@ class PipelineExecutor:
             raise ValueError(f"stage {stage} outside span {self.span}")
         return stage
 
-    # ------------------------------------------------- training (stubbed)
+    # ----------------------------- training (the spans slice brings it)
     def run_fwd(self, *a, **k):
-        training_slice("run_fwd")
+        not_in_slice("PipelineExecutor.run_fwd", _SPANS)
 
     def run_bwd(self, *a, **k):
-        training_slice("run_bwd")
+        not_in_slice("PipelineExecutor.run_bwd", _SPANS)
 
     def accumulate(self, *a, **k):
-        training_slice("accumulate")
+        not_in_slice("PipelineExecutor.accumulate", _SPANS)
 
     def adopt_step(self, *a, **k):
-        training_slice("adopt_step")
+        not_in_slice("PipelineExecutor.adopt_step", _SPANS)
+
+    def export_grads(self, *a, **k):
+        not_in_slice("PipelineExecutor.export_grads", _SPANS)
+
+    def export_state(self, *a, **k):
+        not_in_slice("PipelineExecutor.export_state", _SPANS)
+
+    def wire_bwd(self, *a, **k):
+        not_in_slice("PipelineExecutor.wire_bwd", _SPANS)
 
     # --------------------------------------------------------- wire codec
     def wire_fwd(self, y: Tree) -> Tree:

@@ -1,14 +1,33 @@
-"""Partition an ArchConfig into SWARM pipeline stages (port of the
-serving half of ``repro.runtime.stage_model``).
+"""Partition an ArchConfig into SWARM pipeline stages: the stage
+programs (port of ``repro.runtime.stage_model``).
 
-Stage 0 owns the embedding, the last stage the final norm + LM head.
-The training stage/span programs (forward + recompute backward) come
-with the training slice; serving runs the session programs of
-:mod:`repro_torch.serve.programs` over the per-stage trees cut here.
+Stage 0 owns the embedding, the last stage the final norm + LM head +
+loss (the paper's §4.3 placement).  Backward runs by activation
+checkpointing: a stage's ``bwd`` recomputes its forward from the
+boundary input it is handed, under autograd, so backward can be
+re-routed to *any* peer of the stage after a failure (App. A).
+
+Under a learned boundary codec (``"bottleneck"`` / ``"maxout"``, paper
+App. J) each stage program *includes* its side of the codec: a sending
+stage encodes its output (owning ``w_c`` for the bottleneck), a
+receiving stage decodes its input (owning ``w_d``) — so the tensor a
+trainer carries between peers IS the c-dim wire tensor, and codec
+gradients arrive through the ordinary per-stage ``bwd``.  ``"int8"``
+stays outside the programs (the executor round-trips the wire tensor).
+
+The per-stage layer math is :func:`make_block_core` (the stage core of
+``repro.dist.pipeline.make_block_core``): ``reps > 1`` re-applies each
+layer (ALBERT-style sharing), with the layer's weights cast to the
+compute dtype once per stage call, outside the ``reps`` loop — under
+autograd a cast inside it would save one copy per application.  Fused
+span programs come with the spans slice (ROADMAP queue 1 item 4);
+serving runs the session programs of :mod:`repro_torch.serve.programs`
+over the per-stage trees cut by :func:`split_lm_params`.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+import dataclasses
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -19,9 +38,20 @@ from repro_torch.models import params as P
 from repro_torch.models import layers as L
 from repro_torch.models import model as model_lib
 from repro_torch.models.blocks import REGISTRY
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten_like
 
 Tree = Any
+
+
+@dataclasses.dataclass
+class StageProgram:
+    stage: int
+    n_stages: int
+    specs: Tree
+    fwd: Callable                 # no_grad forward
+    bwd: Callable                 # recompute + autograd backward
+    fwd_flops_per_token: float
+    bwd_flops_per_token: float    # includes checkpoint recompute
 
 
 def _stage_runs(cfg: ArchConfig, s: int, n_stages: int):
@@ -31,8 +61,10 @@ def _stage_runs(cfg: ArchConfig, s: int, n_stages: int):
     return spec.kinds, list(spec.runs), spec.reps
 
 
-def _stage_specs(cfg: ArchConfig, s: int, n_stages: int) -> Tree:
-    """One stage's ParamSpec tree: blocks + edge extras (embed / head)."""
+def _stage_specs(cfg: ArchConfig, s: int, n_stages: int,
+                 comp: str = "none", learned: bool = False) -> Tree:
+    """One stage's ParamSpec tree: blocks + edge extras (embed / head) +
+    its side(s) of the learned boundary codec."""
     _, runs, _ = _stage_runs(cfg, s, n_stages)
     specs: Tree = {"blocks": [
         model_lib.stack_specs(REGISTRY[k][0](cfg), n) for k, n in runs]}
@@ -46,17 +78,138 @@ def _stage_specs(cfg: ArchConfig, s: int, n_stages: int) -> Tree:
             specs["head"] = P.ParamSpec(
                 (cfg.d_model, cfg.vocab_size), cfg.param_jdtype,
                 "normal", ("embed", "vocab"))
+    if learned:
+        # receiving side (w_d) for s > 0, sending side (w_c) for
+        # s < S-1; maxout's compress is param-free so its stage-0
+        # "boundary" tree is empty and omitted
+        bnd: Tree = {}
+        if s > 0:
+            bnd.update(codecs.receiver_specs(cfg, comp))
+        if s < n_stages - 1:
+            bnd.update(codecs.sender_specs(cfg, comp))
+        if bnd:
+            specs["boundary"] = bnd
     return specs
+
+
+# norm parameters are read in f32 by apply_norm (the rmsnorm kernel takes
+# an f32 scale); every other block weight is cast to the activation
+# dtype at its matmul, so casting it once up front computes the same
+_NORM_KEYS = frozenset({"ln1", "ln2"})
+
+
+class _SharedCast(torch.autograd.Function):
+    """One application's view of a weight already cast to the compute
+    dtype: the forward returns a view of the shared low-precision copy
+    (no new memory, and what the application's matmuls save for their
+    backward is that one copy), the backward hands the f32 weight its
+    cotangent in f32.  Each application is its own node, so the
+    ``reps`` cotangents add in f32 at the weight, as the JAX package's
+    per-use casts do; one shared cast node would add them in bf16."""
+
+    @staticmethod
+    def forward(ctx, w, w_low):
+        ctx.dtype = w.dtype
+        return w_low.view_as(w_low)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype), None
+
+
+def _compute_cast(tree: Tree, dtype: torch.dtype) -> Tree:
+    """A block's params with every non-norm floating leaf cast to
+    ``dtype`` (a no-op, no copy, where it already has that dtype),
+    outside autograd."""
+    with torch.no_grad():
+        return {key: (sub if key in _NORM_KEYS else tree_map(
+                    lambda a: a.to(dtype) if a.is_floating_point() else a,
+                    sub))
+                for key, sub in tree.items()}
+
+
+def _application(p32: Tree, p_low: Tree) -> Tree:
+    """One application's params: the shared cast copies, each behind its
+    own :class:`_SharedCast` node when gradients flow to the f32
+    weights."""
+    def one(w, w_low):
+        if w_low is w or not (torch.is_grad_enabled() and w.requires_grad):
+            return w_low
+        return _SharedCast.apply(w, w_low)
+    return tree_map(one, p32, p_low)
+
+
+def make_block_core(cfg: ArchConfig, runs: list[tuple[str, int]],
+                    reps: int = 1) -> Callable:
+    """The stage core: walk ``runs`` of stacked layer params over ``x``.
+    ``blocks_s`` is one stage's ``[tree-per-run]`` list (leaves stacked
+    ``[count, ...]``); ``reps > 1`` re-applies each layer (ALBERT-style
+    sharing, paper §4.3).  Each layer's weights are cast to the compute
+    dtype once, outside the ``reps`` loop: under autograd one cast copy
+    per application would be saved for backward (16 x 537 MB per
+    swarm-1b stage); the applications share one copy and add their
+    weight cotangents in f32 (:class:`_SharedCast`)."""
+    def block_fn(blocks_s: Tree, x: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+        for (kind, _), seg in zip(runs, blocks_s):
+            apply_fn = REGISTRY[kind][1]
+            for i in range(model_lib.n_stacked(seg)):
+                p32 = model_lib.layer(seg, i)
+                p_low = _compute_cast(p32, x.dtype)
+                for _ in range(reps):
+                    x, _aux = apply_fn(cfg, _application(p32, p_low), x,
+                                       positions)
+        return x
+
+    return block_fn
+
+
+def _make_stage_fwd(cfg: ArchConfig, s: int, n_stages: int, comp: str,
+                    learned: bool) -> Callable:
+    """Stage ``s``'s wire-to-wire forward: decode the inbound wire tensor
+    (embed for stage 0), run the stage's layers through the block core,
+    emit the outbound wire tensor (hidden for the last stage — the
+    head/loss is applied by the caller)."""
+    _, runs, reps = _stage_runs(cfg, s, n_stages)
+    core = make_block_core(cfg, runs, reps)
+    is_first, is_last = s == 0, s == n_stages - 1
+
+    def stage_fwd(params: Tree, inp: torch.Tensor) -> torch.Tensor:
+        if is_first:
+            x = model_lib.embed(cfg, params, inp)
+        else:
+            x = inp.to(cfg.compute_jdtype)
+            if learned:          # wire tensor arrives c-dim: restore
+                x = codecs.decode_wire(cfg, comp,
+                                       params.get("boundary"), x)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x = core(params["blocks"], x, positions)
+        if learned and not is_last:    # emit the c-dim wire tensor
+            x = codecs.encode_wire(cfg, comp, params.get("boundary"), x)
+        return x
+
+    return stage_fwd
 
 
 def _head_logits(cfg: ArchConfig, params: Tree, x: torch.Tensor
                  ) -> torch.Tensor:
     """Final norm + LM head, f32 logits — the last stage's extra
-    ownership, shared by the serving session programs."""
+    ownership, shared by the training loss and the serving session
+    programs."""
     x = L.apply_norm(cfg, params["final_norm"], x)
     w = (params["embed"].T if cfg.tie_embeddings and "head" not in
          params else params["head"])
     return (x @ w.to(x.dtype)).to(torch.float32)
+
+
+def _head_loss(cfg: ArchConfig, params: Tree, x: torch.Tensor,
+               labels: torch.Tensor) -> torch.Tensor:
+    """Logits + token-sum CE (so microbatch gradients add exactly,
+    App. E)."""
+    logits = _head_logits(cfg, params, x)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return (lse - gold).sum()
 
 
 def _stage_fwd_flops(cfg: ArchConfig, s: int, n_stages: int, seq_len: int,
@@ -66,6 +219,82 @@ def _stage_fwd_flops(cfg: ArchConfig, s: int, n_stages: int, seq_len: int,
         cfg, comp, sender=learned and not is_last,
         receiver=learned and not is_first)
     return get_stage_plan(cfg, n_stages).stage_flops(s, seq_len) + codec_f
+
+
+def _grad_leaves(params: Tree) -> list[torch.Tensor]:
+    """The floating leaves of ``params`` as fresh autograd leaves
+    (detached views: no copy)."""
+    return [a.detach().requires_grad_() for a in tree_leaves(params)]
+
+
+def _grads_like(params: Tree, leaves: list, grads) -> Tree:
+    """Rebuild the gradient tree; a leaf the loss does not reach gets
+    zeros (JAX's vjp returns zeros there too)."""
+    return tree_unflatten_like(params, [
+        torch.zeros_like(a) if g is None else g
+        for a, g in zip(leaves, grads)])
+
+
+def build_stage_programs(cfg: ArchConfig, n_stages: int, seq_len: int,
+                         compress: Optional[str] = None
+                         ) -> list[StageProgram]:
+    """Per-stage ``fwd``/``bwd`` for the elastic path.  ``fwd`` runs
+    under ``torch.no_grad()`` (the last stage's returns the token-sum
+    loss); ``bwd`` recomputes the stage from its boundary input under
+    autograd and returns ``(gx, gp)`` as ``jax.vjp`` does (``(loss, gx,
+    gp)`` on the last stage; ``gx`` is None on stage 0)."""
+    get_stage_plan(cfg, n_stages)      # validates the split (ValueError)
+    comp = codecs.resolve_mode(cfg, compress)
+    learned = comp in codecs.LEARNED and n_stages > 1
+    if cfg.encoder_layers:
+        raise NotImplementedError(
+            "encoder-decoder stage programs come with the other-kinds "
+            "slice (ROADMAP queue 1 item 6)")
+    programs = []
+    for s in range(n_stages):
+        specs = _stage_specs(cfg, s, n_stages, comp, learned)
+        stage_fwd = _make_stage_fwd(cfg, s, n_stages, comp, learned)
+        is_first, is_last = s == 0, s == n_stages - 1
+
+        def fwd(params, inp, labels=None, _sf=stage_fwd, _last=is_last):
+            with torch.no_grad():
+                y = _sf(params, inp)
+                return _head_loss(cfg, params, y, labels) if _last else y
+
+        def bwd(params, inp, dy_or_labels, _sf=stage_fwd, _first=is_first,
+                _last=is_last):
+            leaves = _grad_leaves(params)
+            with torch.enable_grad():
+                p = tree_unflatten_like(params, leaves)
+                x = inp if _first else inp.detach().requires_grad_()
+                ins = leaves if _first else leaves + [x]
+                y = _sf(p, x)
+                if _last:
+                    out, seed = _head_loss(cfg, p, y, dy_or_labels), None
+                else:
+                    out, seed = y, dy_or_labels.to(y.dtype)
+                grads = torch.autograd.grad(out, ins, seed,
+                                            allow_unused=True)
+            gp = _grads_like(params, leaves, grads[:len(leaves)])
+            gx = None if _first else grads[-1]
+            if _last:
+                return out.detach(), gx, gp
+            return gx, gp
+
+        fwd_f = _stage_fwd_flops(cfg, s, n_stages, seq_len, comp, learned)
+        programs.append(StageProgram(
+            stage=s, n_stages=n_stages, specs=specs, fwd=fwd, bwd=bwd,
+            fwd_flops_per_token=fwd_f,
+            bwd_flops_per_token=3.0 * fwd_f))  # recompute + 2x backward
+    return programs
+
+
+def init_stage_params(programs: list[StageProgram], seed: int,
+                      device="cuda") -> list[Tree]:
+    """Random stage params from ``seed`` (stage ``s`` draws from its own
+    generator, seeded ``(seed << 16) + s``)."""
+    return [P.init((int(seed) << 16) + i, p.specs, device)
+            for i, p in enumerate(programs)]
 
 
 def split_lm_params(cfg: ArchConfig, n_stages: int, params: Tree,

@@ -154,7 +154,8 @@ def build_session_program(cfg: ArchConfig, n_stages: int,
     learned = comp in codecs.LEARNED and n_stages > 1
     if learned:
         raise NotImplementedError(
-            f"codec {comp!r}: learned codecs come with their slice")
+            f"codec {comp!r}: serving through learned codecs is not "
+            "ported yet (ROADMAP queue 1 item 3; training has them)")
     covers_last = hi == n_stages
     prefs = {s: _make_stage_prefill(cfg, s, n_stages)
              for s in range(lo, hi)}

@@ -149,3 +149,53 @@ def test_single_stage_guard(stage):
         tex.snapshot(TStageState(params={}), stage=0)
     if stage is None:
         assert tex.snapshot(TStageState(params={}))["params"] == {}
+
+
+@pytest.mark.parametrize("codec", ["bottleneck", "maxout"])
+def test_training_stage_trees_cross_through_restore(codec):
+    """A JAX runner's per-stage training state (ALBERT-shared ``blocks``,
+    ``embed``, ``head``, ``final_norm``, ``boundary.{w_c,w_d}``, AdamW
+    moments and count) installs into the port's peers through
+    ``restore`` leaf for leaf, trains on, and snapshots back into JAX."""
+    from repro.core import SwarmConfig as JSwarmConfig
+    from repro.core import SwarmRunner as JSwarmRunner
+    from repro.optim import adamw as j_adamw
+    from repro_torch.core.swarm import SwarmConfig, SwarmRunner
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_leaves
+    cfg = tiny_dense_config(n_layers=6, share_groups=3,
+                            boundary_compression=codec, bottleneck_dim=16,
+                            maxout_k=4, pipeline_stages=3)
+    kw = dict(n_stages=3, microbatch_size=2, seq_len=16, global_batch=4,
+              n_trainers=1, rebalance_period=0.0, codec=codec,
+              max_steps=1)
+    jr = JSwarmRunner(cfg, JSwarmConfig(**kw), j_adamw(), seed=0)
+    jr.build(peers_per_stage=1)
+    tr = SwarmRunner(port_cfg(cfg), SwarmConfig(**kw), adamw(), seed=0,
+                     device="cpu")
+    tr.build(peers_per_stage=1)
+    jpeers = sorted(jr.peers.values(), key=lambda p: p.stage)
+    tpeers = sorted(tr.peers.values(), key=lambda p: p.stage)
+    for jp, tp in zip(jpeers, tpeers):
+        snap = jax.device_get(jp.executor.snapshot(jp.state))
+        assert "boundary" in snap["params"] or (codec, jp.stage) == \
+            ("maxout", 0)
+        if jp.stage == 0:
+            assert {"embed", "blocks"} <= set(snap["params"])
+        if jp.stage == 2:
+            assert {"head", "final_norm"} <= set(snap["params"])
+        # one shared layer per stage, re-applied n_layers / groups times
+        assert jax.tree.leaves(snap["params"]["blocks"])[0].shape[0] == 1
+        tp.executor.restore(tp.state, snap)
+        _assert_tree_equal(to_numpy_tree(tp.state.params), snap["params"])
+        _assert_tree_equal(to_numpy_tree(tp.state.opt), snap["opt"])
+        assert [tuple(a.shape) for a in tree_leaves(tp.state.grad_acc)] \
+            == [a.shape for a in jax.tree.leaves(snap["params"])]
+    tr.run(until=1e6)
+    for jp, tp in zip(jpeers, tpeers):
+        back = tp.executor.snapshot(tp.state)
+        assert back["version"] == 1
+        jp.executor.restore(jp.state, back)
+        _assert_tree_equal(jax.device_get(jp.state.params),
+                           back["params"])
+        assert int(jax.device_get(jp.state.opt["count"])) == 1

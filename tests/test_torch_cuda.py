@@ -192,3 +192,108 @@ def test_cuda_serve_runner_disaggregated(codec):
                 for pool, spans in layout.items()}
         edges = hops["prefill"] - 1 + (new - 1) * (hops["decode"] - 1)
         assert launches["qdq_flat"] == (n_req // batch) * edges
+
+
+@pytest.mark.cuda
+def test_cuda_default_config_serve_path_launches_kernels():
+    """Regression test of the routing by ``cfg.kernels``: an unmodified
+    config (``kernels`` left at its default) on the card still goes
+    through the CUDA kernels."""
+    from repro_torch.serve import ServeConfig, ServeRunner
+    dev = _card()
+    cfg = _cuda_cfg(kernels=ArchConfig.__dataclass_fields__[
+        "kernels"].default)
+    assert cfg.kernels == "jnp"
+    r = ServeRunner(cfg, ServeConfig(n_stages=4, max_batch=2,
+                                     max_sessions=2, codec="int8"),
+                    seed=0, device=dev)
+    r.build_pools(n_prefill=2, n_decode=2)       # span edges: int8 QDQ
+    kernels.reset_launches()
+    reqs = [r.submit(p, 3) for p in np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=(2, 16))]
+    summary = r.run()
+    assert summary["completed"] == 2 and all(q.tokens is not None
+                                             for q in reqs)
+    for name in ("flash_attention_fwd", "rmsnorm", "qdq_flat"):
+        assert kernels.LAUNCHES[name] > 0, name
+
+
+def _codec_close(out, ref, tol, qb=None, n_ulps=1):
+    """Elementwise ``max(tol, n_ulps ulps)``, or one int8 code step under
+    QDQ (see ``chip_smoke._codec_err``)."""
+    a, b = out.double(), ref.double()
+    err = (a - b).abs()
+    ulp = torch.exp2(torch.floor(torch.log2(
+        torch.maximum(a.abs(), b.abs()) + 1e-30))) * \
+        torch.finfo(ref.dtype).eps
+    lim = torch.clamp(n_ulps * ulp, min=tol)
+    ok = err <= lim
+    if qb is not None:
+        step = (b.abs().reshape(*b.shape[:-1], -1, qb).amax(-1) / 127.0
+                ).repeat_interleave(qb, dim=-1).reshape(b.shape)
+        ok |= err <= step * 1.01 + lim
+    assert bool(ok.all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode,k,quantize", [
+    ("bottleneck", 1, False), ("bottleneck", 1, True),
+    ("maxout", 2, False), ("maxout", 4, True)])
+def test_cuda_codec_kernels_match_plain(mode, k, quantize, dtype):
+    from repro_torch.kernels.boundary import kernel as K
+    from repro_torch.kernels.boundary import ref as R
+    dev = _card()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    g = _gen(dev)
+    d = 256
+    c = 96 if mode == "bottleneck" else d // k
+    x = (torch.randn(3, 70, d, generator=g, device=dev) * 2 + 1).to(dtype)
+    w = (torch.randn(d, c, generator=g, device=dev) / 16
+         if mode == "bottleneck" else None)
+    qb = R.wire_qblock(c)
+    before = dict(kernels.LAUNCHES)
+    z = K.encode(x, w, mode, k, qb, quantize)
+    assert kernels.LAUNCHES["encode"] == before["encode"] + 1
+    ref = R.encode_ref(x, w, mode, k)
+    ref = R.qdq_ref(ref, qb) if quantize else ref
+    tol = FLASH_BOUND[dtype]
+    # the bottleneck's bf16 product may round one ulp apart, carried by
+    # the second LayerNorm (see chip_smoke.check_codec)
+    _codec_close(z, ref, tol, qb if quantize else None,
+                 2 if mode == "bottleneck" else 1)
+    w_d = torch.randn(c, d, generator=g, device=dev) / 10
+    y = K.decode(z, w_d, mode)
+    assert kernels.LAUNCHES["decode"] == before["decode"] + 1
+    assert y.dtype == dtype and y.shape == (3, 70, d)
+    _codec_close(y, R.decode_ref(z, w_d, mode), tol)
+
+
+@pytest.mark.cuda
+def test_cuda_swarm_training_matches_staged_reference():
+    """A 3-stage ALBERT-shared bottleneck swarm (wire quantized) trains
+    on the card through the flash, encode, decode and qdq kernels, with
+    the staged reference's losses."""
+    from repro_torch.core.swarm import SwarmConfig, SwarmRunner
+    from repro_torch.optim import adamw
+    from repro_torch.train.reference import reference_losses
+    dev = _card()
+    cfg = _cuda_cfg(n_layers=6, share_groups=3, norm="layernorm",
+                    act="geglu", boundary_compression="bottleneck",
+                    bottleneck_dim=64, pipeline_stages=3, wire_quant=True)
+    opt = adamw(lr=1e-3)
+    r = SwarmRunner(cfg, SwarmConfig(
+        n_stages=3, microbatch_size=2, seq_len=64, global_batch=8,
+        n_trainers=1, rebalance_period=0.0, codec="bottleneck",
+        max_steps=3), opt, seed=0, device=dev)
+    r.build(peers_per_stage=1)
+    kernels.reset_launches()
+    losses = r.run(until=1e6)["loss"]
+    for name in ("flash_attention_fwd", "encode", "decode", "qdq_flat"):
+        assert kernels.LAUNCHES[name] > 0, name
+    ref = reference_losses(cfg, r.programs, opt, 0, 3, 64, 2, 8,
+                           device=dev)
+    # one trainer, one peer per stage: the reference's order of
+    # accumulation, so the same f32 arithmetic on the same kernels
+    np.testing.assert_allclose(losses, ref, rtol=1e-6, atol=0)

@@ -64,8 +64,7 @@ def test_pallas_wrappers_take_plain_version_on_cpu():
     s = torch.rand(64) + 0.5
     assert torch.equal(layers.apply_norm(cfg, {"scale": s}, x),
                        rmsnorm_ref(x, s))
-    assert torch.equal(int8_roundtrip(x, 64, use_kernel=True),
-                       _roundtrip(x, 64))
+    assert torch.equal(int8_roundtrip(x, 64), _roundtrip(x, 64))
     assert kernels.LAUNCHES == before
 
 
@@ -84,3 +83,63 @@ def test_cuda_device_without_card_raises():
         ServeRunner(cfg)                         # the default is the card
     with pytest.raises(RuntimeError, match="cuda"):
         from_numpy_tree({"a": __import__("numpy").zeros(2)})
+
+
+def test_training_slice_modules_are_in_the_guard():
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
+             for p in PORT_FILES if "repro_torch" in str(p)}
+    for mod in ("core/swarm.py", "core/trainer.py", "core/dht.py",
+                "core/wiring.py", "core/faults.py", "optim/adamw.py",
+                "optim/lamb.py", "data/synthetic.py", "train/reference.py",
+                "compression/bottleneck.py", "compression/maxout.py",
+                "configs/swarm1b.py", "configs/swarm1b_bottleneck.py",
+                "configs/swarm1b_maxout.py"):
+        assert mod in names, mod
+    from repro_torch.configs import get_config
+    assert get_config("swarm-1b-bottleneck").bottleneck_dim == 1024
+    assert get_config("swarm-1b-maxout").maxout_k == 2
+
+
+@pytest.mark.parametrize("kernels_flag", ["jnp", "pallas"])
+def test_wrappers_route_by_device_not_by_config(kernels_flag):
+    """``cfg.kernels`` selects nothing: a tensor on a device other than
+    the CPU reaches the kernel wrapper whatever the flag says (here the
+    ``meta`` device, which the wrappers refuse, so the call raises
+    instead of quietly running the plain version), and a CPU tensor runs
+    the plain version and launches nothing."""
+    from repro_torch import kernels
+    from repro_torch.compression import codecs
+    from repro_torch.models import layers
+    from repro_torch.models.config import ArchConfig
+    from repro_torch.models.flash import flash_attention
+    base = dict(name="t", family="dense", n_layers=1, d_model=64,
+                n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=16,
+                compute_dtype="float32", kernels=kernels_flag,
+                boundary_compression="bottleneck", bottleneck_dim=32)
+    cfg = ArchConfig(**base)
+    lcfg = ArchConfig(**{**base, "boundary_compression": "maxout",
+                         "maxout_k": 2})
+    before = dict(kernels.LAUNCHES)
+
+    def calls(dev):
+        x = torch.randn(2, 8, 64, device=dev)
+        q = torch.randn(1, 8, 4, 64, device=dev)
+        kv = torch.randn(1, 8, 2, 64, device=dev)
+        w_c = torch.randn(64, 32, device=dev)
+        w_d = torch.randn(32, 64, device=dev)
+        return [
+            lambda: layers.apply_norm(cfg, {"scale": torch.ones(
+                64, device=dev)}, x),
+            lambda: flash_attention(q, kv, kv),
+            lambda: codecs.int8_boundary(cfg, x),
+            lambda: codecs.encode_wire(cfg, "bottleneck", {"w_c": w_c}, x),
+            lambda: codecs.encode_wire(lcfg, "maxout", {}, x),
+            lambda: codecs.decode_wire(cfg, "bottleneck", {"w_d": w_d},
+                                       x[..., :32]),
+        ]
+    for call in calls("meta"):
+        with pytest.raises(ValueError, match="unsupported device meta"):
+            call()
+    for call in calls("cpu"):
+        assert call().device.type == "cpu"
+    assert kernels.LAUNCHES == before
