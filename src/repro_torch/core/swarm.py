@@ -409,9 +409,9 @@ class SwarmRunner:
 
     def _ar_plan(self):
         """Gradient averaging + optimizer step per stage: the group's
-        gradients summed (exactly, in f64: see ``runtime.base.fold_into``)
-        and divided by the group's token count, the update applied as
-        ``p + u.to(p.dtype)``."""
+        gradients summed (in f64, order-independent: see
+        ``runtime.base.fold_into``) and divided by the group's token
+        count, the update applied as ``p + u.to(p.dtype)``."""
         if self.record_accumulation:
             self.ledger_log.append(("step", self.step, -1, -1, 0, ""))
         plan = []
@@ -431,7 +431,7 @@ class SwarmRunner:
                                 p.executor.export_grads(p.state, stage=s))
             params, opt = group[0].executor.export_state(group[0].state,
                                                          stage=s)
-            # the exact (f64) sum rounded once to the params' dtype
+            # the f64 sum rounded once to the params' dtype
             gmean = tree_map(lambda g, p: g.to(p.dtype)
                              / max(total_tokens, 1), gsum, params)
             updates, new_opt = self.optimizer.update(gmean, opt, params)

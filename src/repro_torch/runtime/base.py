@@ -267,14 +267,18 @@ def fold_into(state: StageState, gp: Optional[Tree],
 
     The accumulator is f64 from a round's first fold on (the zeros
     ``reset_progress`` leaves, in the params' dtype, are replaced), and
-    later folds add in place.  A sum of a round's few f32 gradients is
-    then exact in f64, so its value does not depend on the order the
-    microbatches arrive in or on how they split across a stage's peers:
-    a round with a dead peer's microbatches recomputed by a survivor
-    gives the fault-free round's gradient bit for bit.  (The JAX package
-    adds in f32, in arrival order; bf16 compute turns that last-bit
-    difference into a visible loss difference within two steps.)
-    ``SwarmRunner`` rounds the sum to the params' dtype before averaging."""
+    later folds add in place.  The f64 sum of a round's few f32
+    gradients is order-independent: it is exact while an element's
+    addends lie within f64's 29 extra bits of exponent spread, as a
+    round's few microbatches do.  So its value does not depend on the
+    order the microbatches arrive in or on how they split across a
+    stage's peers: a round with a dead peer's microbatches recomputed by
+    a survivor gives the fault-free round's gradient bit for bit.  This
+    departs from the JAX package, which adds in f32 in arrival order
+    (bf16 compute turns that last-bit difference into a visible loss
+    difference within two steps), and costs the slots twice the params'
+    f32 bytes.  ``SwarmRunner`` rounds the sum to the params' dtype
+    before averaging."""
     if gp is not None:
         if state.token_count == 0:
             state.grad_acc = tree_map(lambda b: b.to(torch.float64), gp)

@@ -4,9 +4,10 @@
 Same stage programs, same data order, same params, and the accumulation
 and token-weighted averaging conventions of
 ``SwarmRunner._ar_plan``: per step, every microbatch's gradient is summed
-into a per-stage f64 accumulator (exact, as ``runtime.base.fold_into``),
-rounded to the params' dtype, divided by the step's token count, and the
-optimizer update is applied as ``p + u.to(p.dtype)``.  The boundary
+into a per-stage f64 accumulator (order-independent, as
+``runtime.base.fold_into``), rounded to the params' dtype, divided by the
+step's token count, and the optimizer update is applied as
+``p + u.to(p.dtype)``.  The boundary
 tensors cross between stages as the stage programs emit them (learned
 codecs live inside the programs); the executors' int8 wire codec is not
 applied, as in the JAX oracle.  ``SwarmRunner`` runs under churn must

@@ -10,6 +10,8 @@ Each kernel is held against its plain PyTorch version on the same card
 and inputs (the plain versions are held against JAX on the CPU by the
 other ``test_torch_*.py`` files).
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -218,21 +220,33 @@ def test_cuda_default_config_serve_path_launches_kernels():
         assert kernels.LAUNCHES[name] > 0, name
 
 
-def _codec_close(out, ref, tol, qb=None, n_ulps=1):
-    """Elementwise ``max(tol, n_ulps ulps)``, or one int8 code step under
-    QDQ (see ``chip_smoke._codec_err``)."""
-    a, b = out.double(), ref.double()
-    err = (a - b).abs()
-    ulp = torch.exp2(torch.floor(torch.log2(
-        torch.maximum(a.abs(), b.abs()) + 1e-30))) * \
-        torch.finfo(ref.dtype).eps
-    lim = torch.clamp(n_ulps * ulp, min=tol)
-    ok = err <= lim
-    if qb is not None:
-        step = (b.abs().reshape(*b.shape[:-1], -1, qb).amax(-1) / 127.0
-                ).repeat_interleave(qb, dim=-1).reshape(b.shape)
-        ok |= err <= step * 1.01 + lim
-    assert bool(ok.all()), float(err.max())
+@contextlib.contextmanager
+def _plain_precision():
+    """cuBLAS with f32 accumulation, as the plain versions define their
+    products; set only around the plain versions' outputs."""
+    m = torch.backends.cuda.matmul
+    saved = (m.allow_tf32, m.allow_bf16_reduced_precision_reduction)
+    m.allow_tf32 = m.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        m.allow_tf32, m.allow_bf16_reduced_precision_reduction = saved
+
+
+def _assert_faithful(p, a, w):
+    """The codec product ``p`` is faithfully rounded against the f64
+    product of ``a`` and ``w`` rounded to ``a``'s dtype, or within about
+    ten standard deviations of an f32 running sum's rounding error (see
+    ``chip_smoke._faithful``)."""
+    wd = w.to(a.dtype).double()
+    ad = a.double()
+    e = ad @ wd
+    err = (p.double() - e).abs()
+    ulp = torch.exp2(torch.floor(torch.log2(e.abs() + 1e-300))) * \
+        torch.finfo(a.dtype).eps
+    floor = 4 * 2.0 ** -24 * a.shape[-1] ** 0.5 * \
+        torch.sqrt((ad * ad) @ (wd * wd))
+    assert bool(((err < ulp) | (err <= floor)).all()), float(err.max())
 
 
 @pytest.mark.cuda
@@ -241,11 +255,14 @@ def _codec_close(out, ref, tol, qb=None, n_ulps=1):
     ("bottleneck", 1, False), ("bottleneck", 1, True),
     ("maxout", 2, False), ("maxout", 4, True)])
 def test_cuda_codec_kernels_match_plain(mode, k, quantize, dtype):
+    """Stage by stage on the kernels' own intermediates: LayerNorm passes
+    (with pooling and QDQ) bit-equal to the plain version, the codec
+    GEMM's product faithfully rounded; end to end against the plain
+    version (cuBLAS's product) within the flash bound in f32."""
+    from repro_torch.kernels import _lib
     from repro_torch.kernels.boundary import kernel as K
     from repro_torch.kernels.boundary import ref as R
     dev = _card()
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
-        False
     g = _gen(dev)
     d = 256
     c = 96 if mode == "bottleneck" else d // k
@@ -253,21 +270,32 @@ def test_cuda_codec_kernels_match_plain(mode, k, quantize, dtype):
     w = (torch.randn(d, c, generator=g, device=dev) / 16
          if mode == "bottleneck" else None)
     qb = R.wire_qblock(c)
+    code = _lib.DTYPE_CODES[dtype]
     before = dict(kernels.LAUNCHES)
     z = K.encode(x, w, mode, k, qb, quantize)
     assert kernels.LAUNCHES["encode"] == before["encode"] + 1
-    ref = R.encode_ref(x, w, mode, k)
-    ref = R.qdq_ref(ref, qb) if quantize else ref
-    tol = FLASH_BOUND[dtype]
-    # the bottleneck's bf16 product may round one ulp apart, carried by
-    # the second LayerNorm (see chip_smoke.check_codec)
-    _codec_close(z, ref, tol, qb if quantize else None,
-                 2 if mode == "bottleneck" else 1)
+    if mode == "bottleneck":
+        h = K._ln_rows(x.reshape(-1, d), 1, 0, code)
+        assert torch.equal(h, R._ln(x.reshape(-1, d)))
+        prod = K._gemm(h, w, code)
+        _assert_faithful(prod, h, w)
+        last = R._ln(prod).reshape(3, 70, c)
+    else:
+        last = R.encode_ref(x, None, mode, k)
+    assert torch.equal(z, R.qdq_ref(last, qb) if quantize else last)
+    if dtype == torch.float32 and not quantize:
+        with _plain_precision():
+            ref = R.encode_ref(x, w, mode, k)
+        torch.testing.assert_close(z, ref, atol=FLASH_BOUND[dtype], rtol=0)
     w_d = torch.randn(c, d, generator=g, device=dev) / 10
     y = K.decode(z, w_d, mode)
     assert kernels.LAUNCHES["decode"] == before["decode"] + 1
     assert y.dtype == dtype and y.shape == (3, 70, d)
-    _codec_close(y, R.decode_ref(z, w_d, mode), tol)
+    a = z.reshape(-1, c)
+    if mode == "maxout":
+        a = K._ln_rows(a, 1, 0, code)
+        assert torch.equal(a, R._ln(z.reshape(-1, c)))
+    _assert_faithful(y.reshape(-1, d), a, w_d)
 
 
 @pytest.mark.cuda
