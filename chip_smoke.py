@@ -13,9 +13,11 @@ JSON line; any failure raises and exits non-zero):
 2. kernels — each kernel against its plain PyTorch version on the card at
              the shapes of its paths (serving for rmsnorm and qdq,
              serving and training for flash with its ``lse``, training
-             swarm-1b-bottleneck for the codec's encode and decode, held
-             stage by stage on their own intermediates), in bf16 and
-             f32, with times (CUDA events) beside the plain version, the
+             swarm-1b-bottleneck for the codec's encode and decode and
+             its true-wire pair encode_quantize / dequantize_decode,
+             held stage by stage on their own intermediates, the int8
+             wire's shape for the quant8 pair), in bf16 and f32, with
+             times (CUDA events) beside the plain version, the
              one-call PyTorch library equivalent where there is one, and
              the card's lower bound.  cuBLAS accumulates in f32 only
              around the plain versions' comparison outputs; every timed
@@ -40,7 +42,23 @@ JSON line; any failure raises and exits non-zero):
 8. train_churn — a second stage-1 peer; one stage-1 peer dies mid-step;
              each (stage, microbatch) admitted exactly once, the ledger
              drained, losses equal to the fault-free ``train`` losses.
-9. train_profile — one training microbatch under ``torch.profiler``:
+9. train_rebalance — four peers (a second on stage 0), four trainers,
+             Alg. 2 rebalancing every 1/32 of ``train``'s virtual step:
+             at least one migration, every (stage, microbatch) admitted
+             once per round, losses equal to ``train``'s to the bit.
+10. train_rollback — checkpoints every 2 steps under ``build/``; stage
+             1's only peer dies during step 4 and its replacement finds
+             no donor: global rollback to the step-2 cut and replay; a
+             new runner cold-starts on the directory and trains step 5.
+             Losses equal to the staged reference's to the bit; bytes and
+             seconds per save and for the resume's restore.  Fails early
+             when the disk or the host memory is short of two cuts.
+11. wire_codes — the true wire format (int8 codes + f32 scales) through
+             the ops entry points of ``encode_quantize`` /
+             ``dequantize_decode`` and the quant8 pair, on swarm-1b's
+             boundary: the priced payload, and the decoded state equal
+             to the fused QDQ wire's to the bit.
+12. train_profile — one training microbatch under ``torch.profiler``:
              device time per kernel, grouped, and the device's idle
              share.
 
@@ -475,6 +493,188 @@ def check_codec(torch, gen, rows: list) -> dict:
     return main
 
 
+def check_quant8(torch, gen, rows: list) -> dict:
+    """The quant8 pair (flat blocks of 64) at the int8 wire's shape
+    ``[2, 512, 4096]``: codes, scales and dequantized values bit-equal
+    to the plain versions, exact ``.5`` ties included."""
+    from repro_torch.kernels.quant8 import kernel as K
+    from repro_torch.kernels.quant8 import ref as R
+    shape, block = (2, 512, 4096), 64
+    main = {}
+    for dt in (torch.bfloat16, torch.float32):
+        x = (torch.randn(*shape, generator=gen, device="cuda") * 5).to(dt)
+        x.view(-1)[:64] = torch.arange(64, device="cuda").to(dt) - 32.5
+        x.view(-1)[63] = 127.0
+        flat = x.reshape(-1)
+        n, nb, es = flat.numel(), flat.numel() // block, x.element_size()
+        q, sc = _counted(torch, lambda: K.quantize(flat, block))
+        y = _counted(torch, lambda: K.dequantize(q, sc, dt))
+        torch.cuda.synchronize()
+        rq, rs = R.quantize_ref(flat, block)
+        if not torch.equal(q, rq):
+            raise AssertionError(f"quant8.quantize {dt}: "
+                                 f"{int((q != rq).sum())} codes differ")
+        if not torch.equal(sc, rs):
+            raise AssertionError(f"quant8.quantize {dt}: scales differ")
+        ry = R.dequantize_ref(rq, rs, dt)
+        if not torch.equal(y, ry):
+            raise AssertionError(f"quant8.dequantize {dt}: "
+                                 f"{int((y != ry).sum())} values differ")
+        for name, fn, plain, nbytes, ops in (
+                ("quant8_quantize", lambda: K.quantize(flat, block),
+                 lambda: R.quantize_ref(flat, block), n * es + n + nb * 4,
+                 5.0 * n),
+                ("quant8_dequantize", lambda: K.dequantize(q, sc, dt),
+                 lambda: R.dequantize_ref(q, sc, dt), n + nb * 4 + n * es,
+                 2.0 * n)):
+            ms = _counted(torch, lambda: time_ms(torch, fn))
+            b_ms, b_by = bound_ms(nbytes, ops, H100_F32_FLOPS)
+            row = {"kernel": name, "shape": str(list(shape)),
+                   "dtype": str(dt), "max_abs_err": 0.0,
+                   "bound": "codes, scales and values bit-equal",
+                   "ms": ms, "plain_ms": time_ms(torch, plain),
+                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+            emit(row)
+            rows.append(row)
+            if dt == torch.bfloat16:
+                main[name] = row
+    return main
+
+
+def check_wire_codes(torch, gen, rows: list) -> dict:
+    """encode_quantize ``[1024, 4096] -> [1024, c]`` codes + scales and
+    dequantize_decode back to ``[1024, 4096]`` (bottleneck c 1024, maxout
+    k 2 c 2048), bf16 and f32, held stage by stage as ``check_codec``
+    holds encode: the LN pass bit-equal, the product faithfully rounded,
+    the codes and scales of the last pass bit-equal to the plain
+    version's on the kernel's own product.  Against the plain version end
+    to end (cuBLAS's product), a code may differ by one step, and a scale
+    at all, only in rows whose two products round apart; their counts are
+    reported.  dequantize_decode's product is faithfully rounded against
+    the f64 product of the plain dequantized (maxout: LayerNorm'd) rows
+    and, in f32, within 1e-4 of the plain version."""
+    from repro_torch.kernels import _lib
+    from repro_torch.compression.quant8 import div127
+    from repro_torch.kernels.boundary import kernel as K
+    from repro_torch.kernels.boundary import ref as R
+    N, d = 1024, 4096
+    main = {}
+    for dt, peak in ((torch.bfloat16, H100_BF16_FLOPS),
+                     (torch.float32, H100_F32_FLOPS)):
+        es = torch.finfo(dt).bits // 8
+        code = _lib.DTYPE_CODES[dt]
+        x = (torch.randn(N, d, generator=gen, device="cuda") * 3
+             + 1).to(dt)
+        w_c = torch.randn(d, 1024, generator=gen, device="cuda") / 64
+        for mode, w, k, c in (("bottleneck", w_c, 1, 1024),
+                              ("maxout", None, 2, 2048)):
+            qb = R.wire_qblock(c)
+            q, sc = _counted(torch, lambda: K.encode_quantize(x, w, mode, k,
+                                                              qb))
+            torch.cuda.synchronize()
+            rows_apart = None
+            if mode == "bottleneck":
+                h = _counted(torch, lambda: K._ln_rows(x, 1, 0, code))
+                if not torch.equal(h, R._ln(x)):
+                    raise AssertionError(f"encode_quantize LN pass {dt}")
+                prod = _counted(torch, lambda: K._gemm(h, w, code))
+                _faithful(torch, f"encode_quantize {dt}", prod, h, w)
+                last_q, last_s = R.quantize_rows(R._ln(prod), qb)
+                with plain_precision(torch):
+                    prod_lib = h @ w.to(dt)
+                rows_apart = (prod != prod_lib).any(-1)
+            else:
+                last_q, last_s = R.encode_quantize_ref(x, None, mode, k, qb)
+            if not (torch.equal(q, last_q) and torch.equal(sc, last_s)):
+                raise AssertionError(
+                    f"encode_quantize {mode} {dt}: last pass: "
+                    f"{int((q != last_q).sum())} codes, "
+                    f"{int((sc != last_s).sum())} scales differ")
+            with plain_precision(torch):
+                pq, ps = R.encode_quantize_ref(x, w, mode, k, qb)
+            dq = (q.int() - pq.int()).abs()
+            bad_rows = (dq > 0).any(-1) | (sc != ps).any(-1)
+            if bool((dq > 1).any()) or (
+                    rows_apart is None and bool(bad_rows.any())) or (
+                    rows_apart is not None
+                    and bool((bad_rows & ~rows_apart).any())):
+                raise AssertionError(f"encode_quantize {mode} {dt}: codes "
+                                     f"off by up to {int(dq.max())} in "
+                                     f"{int(bad_rows.sum())} rows")
+            ms = _counted(torch, lambda: time_ms(
+                torch, lambda: K.encode_quantize(x, w, mode, k, qb)))
+            plain = time_ms(torch, lambda: R.encode_quantize_ref(
+                x, w, mode, k, qb))
+            nbytes = N * d * es + N * c + N * (c // qb) * 4 + (
+                0 if w is None else w.numel() * 4)
+            ops = 8.0 * N * d + 5.0 * N * c + (
+                2.0 * N * d * c + 8.0 * N * c if mode == "bottleneck"
+                else 0.0)
+            b_ms, b_by = bound_ms(nbytes, ops, peak if mode ==
+                                  "bottleneck" else H100_F32_FLOPS)
+            row = {"kernel": "encode_quantize", "mode": mode,
+                   "shape": f"[{N}, {d}] -> [{N}, {c}] int8 + "
+                   f"[{N}, {c // qb}] f32", "dtype": str(dt),
+                   "max_abs_err": float(dq.max()),
+                   "codes_differing_from_plain": int((dq > 0).sum()),
+                   "scales_differing_from_plain": int((sc != ps).sum()),
+                   "rows_differing_from_plain": int(bad_rows.sum()),
+                   "bound": "LN pass bit-equal; product faithfully "
+                   "rounded; codes and scales of the last pass bit-equal; "
+                   "end to end one code step, only in rows whose products "
+                   "round apart" if mode == "bottleneck" else "bit-equal",
+                   "ms": ms, "plain_ms": plain, "library_ms": None,
+                   "bound_ms": b_ms, "bound_by": b_by}
+            if rows_apart is not None:
+                row["rows_whose_products_round_apart"] = \
+                    int(rows_apart.sum())
+            emit(row)
+            rows.append(row)
+            if (dt, mode) == (torch.bfloat16, "bottleneck"):
+                main["encode_quantize"] = row
+            # ... and back, in x's dtype
+            w_d = torch.randn(c, d, generator=gen, device="cuda") / c ** 0.5
+            y = _counted(torch, lambda: K.dequantize_decode(q, sc, w_d, mode,
+                                                            qb, dt))
+            torch.cuda.synchronize()
+            blocks = q.float().reshape(N, c // qb, qb)
+            a = div127(blocks * sc[..., None]).reshape(N, c).to(dt)
+            if mode == "maxout":
+                a = R._ln(a)
+            not_cr, floor_only = _faithful(torch, f"dequantize_decode {mode}"
+                                           f" {dt}", y, a, w_d)
+            with plain_precision(torch):
+                ref = R.dequantize_decode_ref(q, sc, w_d, mode, qb, dt)
+            err = (y.double() - ref.double()).abs()
+            if dt == torch.float32 and bool((err > 1e-4).any()):
+                raise AssertionError(f"dequantize_decode {mode} f32: max "
+                                     f"error {float(err.max())}")
+            ms = _counted(torch, lambda: time_ms(
+                torch, lambda: K.dequantize_decode(q, sc, w_d, mode, qb, dt)))
+            plain = time_ms(torch, lambda: R.dequantize_decode_ref(
+                q, sc, w_d, mode, qb, dt))
+            nbytes = N * c + N * (c // qb) * 4 + w_d.numel() * 4 + N * d * es
+            ops = 2.0 * N * c * d + 3.0 * N * c + (
+                8.0 * N * c if mode == "maxout" else 0.0)
+            b_ms, b_by = bound_ms(nbytes, ops, peak)
+            row = {"kernel": "dequantize_decode", "mode": mode,
+                   "shape": f"[{N}, {c}] int8 + [{N}, {c // qb}] f32 -> "
+                   f"[{N}, {d}]", "dtype": str(dt),
+                   "max_abs_err": float(err.max()),
+                   "bound": "product faithfully rounded against the plain "
+                   "dequantized rows" + ("; 1e-4 end to end"
+                                         if dt == torch.float32 else ""),
+                   "product": {"not_correctly_rounded": not_cr,
+                               "only_f32_floor": floor_only},
+                   "ms": ms, "plain_ms": plain, "library_ms": None,
+                   "bound_ms": b_ms, "bound_by": b_by}
+            emit(row)
+            rows.append(row)
+            if (dt, mode) == (torch.bfloat16, "bottleneck"):
+                main["dequantize_decode"] = row
+    return main
+
+
 def phase_kernels(torch) -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -482,7 +682,9 @@ def phase_kernels(torch) -> dict:
     return {"flash_attention_fwd": check_flash(torch, gen, rows),
             "rmsnorm": check_rmsnorm(torch, gen, rows),
             "qdq_flat": check_qdq(torch, gen, rows),
-            **check_codec(torch, gen, rows)}
+            **check_codec(torch, gen, rows),
+            **check_wire_codes(torch, gen, rows),
+            **check_quant8(torch, gen, rows)}
 
 
 # ------------------------------------------------------------ phases 3-5
@@ -792,23 +994,46 @@ def _exactly_once(runner) -> int:
     return barriers
 
 
-def run_swarm(torch, cfg, steps: int, peers, kill: bool = False,
-              device="cuda"):
-    """Train ``steps`` steps of ``SwarmRunner`` (counters zeroed just
-    before); returns (metrics, runner, launches, wall seconds, peak
-    GB)."""
-    from repro_torch import kernels
+def _strand_stage_1(runner, at_step: int):
+    """Sim process: once stage 1's only peer holds gradients of the round
+    after ``at_step``, preempt it and warm-join a replacement, which
+    finds no donor (the stranded-stage path: restore or rollback)."""
+    from repro_torch.core.sim import Sleep
+    while not runner.stopped:
+        if runner.step == at_step and runner.ledger.stage_counts()[1] > 0:
+            runner._fail_peer(runner._covering(1)[0])
+            yield from runner._join_new_peer(span=range(1, 2))
+            return
+        yield Sleep(0.01)
+
+
+def make_swarm(torch, cfg, steps: int, peers, **scfg):
+    """A ``SwarmRunner`` of the training phases, built; ``scfg`` overrides
+    its ``SwarmConfig`` fields."""
     from repro_torch.core.swarm import SwarmConfig, SwarmRunner
+    kw = dict(n_stages=3, microbatch_size=TRAIN_MB, seq_len=TRAIN_SEQ,
+              global_batch=TRAIN_GB, n_trainers=2, rebalance_period=0.0,
+              codec="bottleneck", max_steps=steps)
+    kw.update(scfg)
+    runner = SwarmRunner(cfg, SwarmConfig(**kw), train_opt(), seed=0,
+                         record_accumulation=True, device="cuda")
+    runner.build(peers)
+    return runner
+
+
+def run_swarm(torch, cfg, steps: int, peers, kill: bool = False,
+              setup=None, **scfg):
+    """Train ``steps`` steps of ``SwarmRunner`` (counters zeroed just
+    before; ``setup(runner)`` runs first); returns (metrics, runner,
+    launches, wall seconds, peak GB)."""
+    from repro_torch import kernels
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    runner = SwarmRunner(cfg, SwarmConfig(
-        n_stages=3, microbatch_size=TRAIN_MB, seq_len=TRAIN_SEQ,
-        global_batch=TRAIN_GB, n_trainers=2, rebalance_period=0.0,
-        codec="bottleneck", max_steps=steps), train_opt(), seed=0,
-        record_accumulation=True, device=device)
-    runner.build(peers)
+    runner = make_swarm(torch, cfg, steps, peers, **scfg)
     if kill:
         runner.sim.spawn(_kill_holder(runner, 1))
+    if setup is not None:
+        setup(runner)
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.time()
@@ -832,11 +1057,15 @@ def _check_losses(name: str, got: list, want: list) -> float:
 
 
 def phase_train(torch, name: str, cfg, steps: int, want: list,
-                peers=1, kill: bool = False, device="cuda") -> dict:
+                peers=1, kill: bool = False, exact: bool = False,
+                **scfg) -> dict:
+    """``exact``: the losses must equal ``want`` to the bit."""
     m, runner, launches, wall, peak = run_swarm(torch, cfg, steps, peers,
-                                                kill, device)
+                                                kill, **scfg)
     got = m["loss"]
     diff = _check_losses(name, got, want)
+    if exact and got != want:
+        raise AssertionError(f"{name}: losses {got} differ from {want}")
     if not all(math.isfinite(v) for v in got):
         raise AssertionError(f"{name}: non-finite losses {got}")
     must = ["flash_attention_fwd", "encode", "decode"]
@@ -860,12 +1089,200 @@ def phase_train(torch, name: str, cfg, steps: int, want: list,
            "tokens_per_s": tokens / wall, "max_memory_allocated_gb": peak,
            "failures": m["failures"],
            "recomputed_microbatches": m["recomputed_microbatches"],
-           "barriers_exactly_once": barriers}
+           "migrations": m["migrations"],
+           "barriers_exactly_once": barriers,
+           "virtual_s": runner._t_stopped,
+           "peers_per_stage": [len(runner._covering(s))
+                               for s in range(runner.n_stages)]}
     if kill and not (m["failures"] == 1
                      and m["recomputed_microbatches"] >= 1):
         raise AssertionError(f"{name}: no peer died mid-step: {row}")
+    if scfg.get("rebalance_period", 0.0) > 0:
+        row["rebalance_period"] = scfg["rebalance_period"]
+        if m["migrations"] < 1:
+            raise AssertionError(f"{name}: Alg. 2 never migrated: {row}")
     emit(row)
     del runner, m
+    free(torch)
+    return row
+
+
+def _cut_bytes(root: str, step: int) -> int:
+    """Bytes on disk of checkpoint ``step`` over every stage dir."""
+    total = 0
+    for stage in sorted(os.listdir(root)):
+        d = os.path.join(root, stage, f"step_{step:08d}")
+        if os.path.isdir(d):
+            total += sum(os.path.getsize(os.path.join(d, f))
+                         for f in os.listdir(d))
+    return total
+
+
+def _mem_available() -> int:
+    with open("/proc/meminfo") as f:
+        for ln in f:
+            if ln.startswith("MemAvailable:"):
+                return int(ln.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def phase_train_rollback(torch, ref: list) -> dict:
+    """Checkpoints every 2 steps, 4 steps: during step 4 stage 1's only
+    peer dies and its replacement finds no donor, so the whole pipeline
+    rolls back to the step-2 cut and replays steps 3 and 4; then a new
+    runner cold-starts on the same directory (step 4) and trains step 5.
+    Losses equal the staged reference's, bit for bit.  The directory is
+    a fresh one under ``build/`` (gitignored), removed at the end."""
+    import shutil
+    import tempfile
+    from repro_torch.models import flops as F
+    cfg = swarm1b()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build")
+    os.makedirs(root, exist_ok=True)
+    # a cut: f32 params and AdamW's two f32 moments of the whole model
+    cut = 12.0 * F.total_params(cfg)
+    disk, host = shutil.disk_usage(root).free, _mem_available()
+    emit({"phase": "train_rollback_resources", "cut_gb": cut / 1e9,
+          "free_disk_gb": disk / 1e9, "mem_available_gb": host / 1e9})
+    if disk < 2.2 * cut:          # keep=2 cuts on disk during a save
+        raise RuntimeError(f"train_rollback: {disk / 1e9:.1f} GB free "
+                           f"under {root}, need {2.2 * cut / 1e9:.1f}")
+    if host < 0.8 * cut:          # one stage's snapshot and its copies
+        raise RuntimeError(f"train_rollback: {host / 1e9:.1f} GB of host "
+                           f"memory available, need {0.8 * cut / 1e9:.1f}")
+    ckpt = tempfile.mkdtemp(prefix="ckpt_", dir=root)
+    try:
+        saves: list = []
+
+        def setup(runner):
+            save = runner._maybe_checkpoint
+
+            def timed():
+                t0 = time.time()
+                save()
+                if runner._common_ckpt_step() == runner.step:
+                    saves.append({"step": runner.step,
+                                  "seconds": time.time() - t0,
+                                  "bytes": _cut_bytes(ckpt, runner.step)})
+            runner._maybe_checkpoint = timed
+            runner.sim.spawn(_strand_stage_1(runner, 3))
+
+        m, runner, launches, wall, peak = run_swarm(
+            torch, cfg, 4, 1, setup=setup, ckpt_dir=ckpt, ckpt_period=2)
+        got = m["loss"]
+        if m["rollbacks"] != [(3, 2)] or m["failures"] != 1 or \
+                (1, 2) not in m["ckpt_restores"]:
+            raise AssertionError(f"train_rollback: rollbacks "
+                                 f"{m['rollbacks']}, restores "
+                                 f"{m['ckpt_restores']}")
+        if got != ref[:4]:
+            raise AssertionError(f"train_rollback: losses {got} vs the "
+                                 f"reference {ref[:4]}")
+        if [sv["step"] for sv in saves] != [2, 4]:
+            raise AssertionError(f"train_rollback: cuts saved {saves}")
+        restores = m["ckpt_restores"]
+        del runner, m
+        free(torch)
+        # cold start on the same directory: resumes at the step-4 cut
+        from repro_torch.core.swarm import SwarmConfig, SwarmRunner
+        torch.cuda.reset_peak_memory_stats()
+        resumed = SwarmRunner(cfg, SwarmConfig(
+            n_stages=3, microbatch_size=TRAIN_MB, seq_len=TRAIN_SEQ,
+            global_batch=TRAIN_GB, n_trainers=2, rebalance_period=0.0,
+            codec="bottleneck", max_steps=5, ckpt_dir=ckpt, ckpt_period=2),
+            train_opt(), seed=0, device="cuda")
+        if resumed.step != 4:
+            raise AssertionError(f"cold start at step {resumed.step}")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        resumed.build(1)
+        torch.cuda.synchronize()
+        restore_s = time.time() - t0
+        resumed_loss = resumed.run(until=1e9)["loss"]
+        if resumed_loss != ref[4:5]:
+            raise AssertionError(f"cold resume: loss {resumed_loss} vs the "
+                                 f"reference {ref[4:5]}")
+        row = {"phase": "train_rollback", "arch": cfg.name, "steps": 4,
+               "ckpt_period": 2, "losses": got, "reference_losses": ref[:4],
+               "rollbacks": [(3, 2)], "ckpt_restores": restores,
+               "cold_resume": {"step": 4, "loss": resumed_loss,
+                               "reference_loss": ref[4],
+                               "restore_s": restore_s,
+                               "restore_bytes": _cut_bytes(ckpt, 4),
+                               "ckpt_restores":
+                                   resumed.metrics["ckpt_restores"]},
+               "saves": saves, "wall_s": wall, "launches": launches,
+               "max_memory_allocated_gb": peak,
+               "resume_max_memory_allocated_gb":
+                   torch.cuda.max_memory_allocated() / 1e9}
+        emit(row)
+        del resumed
+        free(torch)
+        return row
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def phase_wire_codes(torch) -> dict:
+    """The true wire format through the ops entry points a transport
+    calls (no model path of either package calls them): a [2, 512, 4096]
+    bf16 boundary state of swarm-1b-bottleneck is encoded to int8 codes
+    + f32 scales with stage 0's step-0 ``w_c`` and decoded with stage
+    1's ``w_d``, and the same state round-trips through the quant8 pair.
+    Counters are zeroed just before.  Checks: the payload is the bytes
+    the stage plan prices for ``wire_quant``, and the decoded state
+    equals the fused QDQ wire's (encode with QDQ, then decode) bit for
+    bit, as the quant8 round trip equals ``qdq_flat``."""
+    from repro_torch import kernels
+    from repro_torch.kernels.boundary import kernel as K
+    from repro_torch.kernels.boundary import ops as bops
+    from repro_torch.kernels.boundary import ref as R
+    from repro_torch.kernels.quant8 import ops as q8
+    from repro_torch.models.stage_plan import get_stage_plan
+    from repro_torch.runtime import build_stage_programs, init_stage_params
+    cfg = swarm1b()
+    progs = build_stage_programs(cfg, 3, TRAIN_SEQ)
+    params = init_stage_params(progs[:2], 0)
+    w_c, w_d = params[0]["boundary"]["w_c"], params[1]["boundary"]["w_d"]
+    qb = R.wire_qblock(w_c.shape[1])
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = (torch.randn(TRAIN_MB, TRAIN_SEQ, cfg.d_model, generator=gen,
+                     device="cuda") * 3 + 1).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    q, sc = bops.encode_quantize(x, w_c, "bottleneck", 1, qb)
+    y = bops.dequantize_decode(q, sc, w_d, "bottleneck", qb,
+                               torch.bfloat16)
+    xq = q8.roundtrip(x, 64)
+    torch.cuda.synchronize()
+    launches = {k: kernels.LAUNCHES[k] for k in (
+        "encode_quantize", "dequantize_decode", "quant8_quantize",
+        "quant8_dequantize")}
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"wire_codes: kernel {k} never launched")
+    payload = q.numel() + sc.numel() * 4
+    priced = get_stage_plan(swarm1b(wire_quant=True), 3).boundary_bytes(
+        0, TRAIN_MB, TRAIN_SEQ, "bottleneck")
+    if payload != priced:
+        raise AssertionError(f"wire_codes: payload {payload} B, priced "
+                             f"{priced}")
+    fused = _counted(torch, lambda: K.decode(
+        K.encode(x, w_c, "bottleneck", 1, qb, True), w_d, "bottleneck"))
+    if not torch.equal(y, fused):
+        raise AssertionError(f"wire_codes: {int((y != fused).sum())} decoded"
+                             " values differ from the fused QDQ wire's")
+    if not torch.equal(xq, _counted(torch, lambda: K.qdq_flat(x, 64))):
+        raise AssertionError("wire_codes: quant8 round trip != qdq_flat")
+    if not bool(torch.isfinite(y).all()):
+        raise AssertionError("wire_codes: non-finite decoded state")
+    row = {"phase": "wire_codes", "arch": cfg.name,
+           "shape": [TRAIN_MB, TRAIN_SEQ, cfg.d_model],
+           "payload_bytes": payload, "bf16_bytes": x.numel() // 4 * 2,
+           "launches": launches, "equal_to_fused_qdq_wire": True}
+    emit(row)
+    del progs, params
     free(torch)
     return row
 
@@ -965,8 +1382,11 @@ def main() -> None:
     phase_churn(torch, cfg, params, prompts, ref)
     del params, ref
     free(torch)
-    ref_losses = train_reference(torch, swarm1b(), TRAIN_STEPS)
-    train = phase_train(torch, "train", swarm1b(), TRAIN_STEPS, ref_losses)
+    # five reference steps: train holds the first three, train_rollback
+    # four and its cold resume the fifth
+    ref_losses = train_reference(torch, swarm1b(), 5)
+    train = phase_train(torch, "train", swarm1b(), TRAIN_STEPS,
+                        ref_losses[:TRAIN_STEPS])
     for k in ("encode", "decode"):
         launches[k] = train["launches"][k]
     ref_q = train_reference(torch, swarm1b(wire_quant=True), 2)
@@ -974,6 +1394,16 @@ def main() -> None:
     # the churn run is held to the fault-free train run's losses
     phase_train(torch, "train_churn", swarm1b(), TRAIN_STEPS,
                 train["losses"], peers=[1, 2, 1], kill=True)
+    # Alg. 2 samples the load 32 times per virtual step of `train`: with
+    # a second stage-0 peer and four trainers it drains stage 0 into
+    # stage 1 within the 3 steps (a timing-only replay of the same
+    # schedule migrates for any period from 1/64 to 1/16 of the step)
+    period = train["virtual_s"] / TRAIN_STEPS / 32
+    phase_train(torch, "train_rebalance", swarm1b(), TRAIN_STEPS,
+                train["losses"], peers=[2, 1, 1], exact=True,
+                n_trainers=4, rebalance_period=period)
+    phase_train_rollback(torch, ref_losses)
+    launches.update(phase_wire_codes(torch)["launches"])
     phase_train_profile(torch)
     replaces = {
         "flash_attention_fwd":
@@ -987,6 +1417,14 @@ def main() -> None:
                    "src/repro/kernels/boundary/kernel.py:183"),
         "decode": ("src/repro_torch/csrc/codec.cu",
                    "src/repro/kernels/boundary/kernel.py:222"),
+        "encode_quantize": ("src/repro_torch/csrc/codec.cu",
+                            "src/repro/kernels/boundary/kernel.py:202"),
+        "dequantize_decode": ("src/repro_torch/csrc/codec.cu",
+                              "src/repro/kernels/boundary/kernel.py:233"),
+        "quant8_quantize": ("src/repro_torch/csrc/quant8.cu",
+                            "src/repro/kernels/quant8/kernel.py:38"),
+        "quant8_dequantize": ("src/repro_torch/csrc/quant8.cu",
+                              "src/repro/kernels/quant8/kernel.py:59"),
     }
     summary = []
     for name, (source, rep) in replaces.items():

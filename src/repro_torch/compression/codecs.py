@@ -14,9 +14,10 @@ The crossings always go through the ops of
 :mod:`repro_torch.kernels.boundary.ops`: their wrappers launch the CUDA
 kernels on a CUDA tensor and run the plain versions on a CPU tensor,
 whatever ``cfg.kernels`` says (it is kept for parity with the JAX
-configs).  The GSPMD pipeline's stage-stacked codec specs
-(``pipeline_boundary_specs``) come with the multi-GPU slice (ROADMAP
-queue 1 item 5).
+configs).  ``pipeline_boundary_specs`` gives the GSPMD pipeline's
+stage-stacked codec specs, which the parameter counts of
+``models.flops`` read; the pipeline that trains them comes with the
+multi-GPU slice (ROADMAP queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -89,6 +90,23 @@ def receiver_specs(cfg: ArchConfig, compress: Optional[str] = None) -> Tree:
                                  cfg.param_jdtype,
                                  axes=("bottleneck", "embed"))}
     return {}
+
+
+def pipeline_boundary_specs(cfg: ArchConfig) -> Optional[Tree]:
+    """Stage-stacked codec specs of the GSPMD pipeline: leading dim is
+    the boundary index ``b`` in ``0..pipeline_stages-2``.  ``None``
+    unless the config declares a learned codec AND a pipeline depth."""
+    mode = cfg.boundary_compression
+    if mode not in LEARNED or cfg.pipeline_stages <= 1:
+        return None
+    nb = cfg.pipeline_stages - 1
+    d, c = cfg.d_model, wire_dim(cfg, mode)
+    specs: Tree = {"w_d": ParamSpec((nb, c, d), cfg.param_jdtype,
+                                    axes=("stage", "bottleneck", "embed"))}
+    if mode == "bottleneck":
+        specs["w_c"] = ParamSpec((nb, d, c), cfg.param_jdtype,
+                                 axes=("stage", "embed", "bottleneck"))
+    return specs
 
 
 # ------------------------------------------------------------ apply

@@ -1,18 +1,99 @@
-"""Span assignment for serving pools (port of the serving part of
-``repro.core.rebalance``, copied verbatim: plain arithmetic).
+"""Adaptive swarm rebalancing and span assignment (port of
+``repro.core.rebalance``, copied: plain arithmetic).
+
+Alg. 2 of the paper (§3.2, App. D): every ``T`` seconds each peer writes
+its local queue size under ``DHT[load/<stage>]``; the peer with the
+smallest queue in the minimum-load stage migrates to the maximum-load
+stage.  :func:`plan_migration` is the pure decision function; one
+planning round reads the DHT once, through a :class:`ControlSnapshot`,
+and ``SwarmRunner._rebalance_loop`` executes the plan.
 
 :func:`serve_assignment` lays out the disaggregated prefill and decode
 span pools; it prices spans with :func:`optimal_assignment` (``spans=True``
 for decode, the counts form for the prefill chunks) over contiguous
 partitions, exactly as the JAX package does, so both packages make the
-same decisions on the same inputs.  The DHT-driven migration planners
-come with the training slice.
+same decisions on the same inputs.  Span resizes (``SpanChange``,
+``plan_span_change``) come with the spans slice (ROADMAP queue 1
+item 4).
 """
 from __future__ import annotations
 
+import dataclasses
 import heapq
 import math
-from typing import Iterable, Optional, Sequence
+from typing import Hashable, Iterable, Optional, Sequence
+
+
+@dataclasses.dataclass(frozen=True)
+class Migration:
+    peer: Hashable
+    src_stage: int
+    dst_stage: int
+
+
+@dataclasses.dataclass(frozen=True)
+class ControlSnapshot:
+    """One planning round's frozen view of the control-plane DHT: one
+    ``DHT.get`` per load key, shared by every decision of the round."""
+    n_stages: int
+    #: per stage: {peer id -> announced queue size}
+    queues: tuple[dict, ...]
+    #: per stage: sum of announced queue sizes (Alg. 2 lines 7-18)
+    loads: tuple[float, ...]
+
+    @classmethod
+    def capture(cls, dht, n_stages: int) -> "ControlSnapshot":
+        queues = tuple(dht.get_values(dht.load_key(s))
+                       for s in range(n_stages))
+        return cls(n_stages, queues,
+                   tuple(float(sum(q.values())) for q in queues))
+
+    def queue_of(self, pid: Hashable, stage: int,
+                 default: float = 0.0) -> float:
+        return float(self.queues[stage].get(pid, default))
+
+
+def _as_snapshot(dht, n_stages: int) -> ControlSnapshot:
+    """Planner entry points take a DHT (one capture per call) or a
+    pre-captured :class:`ControlSnapshot` (one capture per round)."""
+    if isinstance(dht, ControlSnapshot):
+        if dht.n_stages != n_stages:
+            raise ValueError(f"snapshot captured for {dht.n_stages} "
+                             f"stages, planner asked about {n_stages}")
+        return dht
+    return ControlSnapshot.capture(dht, n_stages)
+
+
+def stage_loads(dht, n_stages: int) -> list[float]:
+    """Sum the per-peer queue sizes announced for every stage (lines
+    7-18).  ``dht`` may be a live DHT or a :class:`ControlSnapshot`."""
+    return list(_as_snapshot(dht, n_stages).loads)
+
+
+def plan_migration(dht, n_stages: int,
+                   peers_per_stage: dict[int, list[Hashable]]
+                   ) -> Optional[Migration]:
+    """Algorithm 2, lines 5-31, computed from the DHT snapshot.  Never
+    empties a stage (SWARM requires >= 1 peer per stage, App. A).
+    Returns None when the swarm is balanced or the min stage has a
+    single peer."""
+    snap = _as_snapshot(dht, n_stages)
+    loads = snap.loads
+    s_min = min(range(n_stages), key=lambda s: loads[s])
+    s_max = max(range(n_stages), key=lambda s: loads[s])
+    if s_min == s_max or loads[s_max] <= loads[s_min]:
+        return None
+    donors = peers_per_stage.get(s_min, [])
+    if len(donors) <= 1:
+        return None
+    q_min, peer_min = math.inf, None
+    for peer in donors:
+        qv = snap.queue_of(peer, s_min, default=math.inf)
+        if qv < q_min:
+            q_min, peer_min = qv, peer
+    if peer_min is None:
+        return None
+    return Migration(peer_min, s_min, s_max)
 
 
 def spans_route(n_stages: int,

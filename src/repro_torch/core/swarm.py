@@ -1,26 +1,36 @@
 """SwarmRunner — elastic SWARM training on the virtual clock (port of
-``repro.core.swarm``, synchronous tick, numeric mode).
+``repro.core.swarm``, synchronous tick).
 
 Composition (paper Fig. 2): consecutive swarms of peers serve pipeline
 stages; trainer processes route microbatches via stochastic wiring; a
-DHT carries liveness; once the microbatch ledger shows the global batch
+DHT carries liveness and load; adaptive rebalancing (Alg. 2) migrates
+peers between stages; once the microbatch ledger shows the global batch
 accumulated exactly once at every stage, each stage All-Reduces its
 gradients (token-weighted) and applies the optimizer step.  Gradients
-lost to dead peers are recomputed by survivors under the same
-microbatch indices, so an optimizer step under churn averages the
-identical sample set as fault-free training (App. A).
+lost to dead or migrating peers are recomputed by survivors under the
+same microbatch indices, so an optimizer step under churn averages the
+identical sample set as fault-free training (App. A).  With a
+``ckpt_dir`` every ``ckpt_period`` steps persist a pipeline-consistent
+cut; a stage that loses every peer resumes from it, rewinding the whole
+pipeline to it first (Varuna-style global rollback) when it is older
+than the current step, and a runner built over a non-empty ``ckpt_dir``
+resumes that run.
 
-Every stage runs real PyTorch math on the runner's device (``numeric``
-must be True).  What this slice leaves to later ones, each raising
-``NotImplementedError`` where it is asked for: timing-only runs
-(``numeric=False``) and rebalancing migration (``rebalance_period >
-0``; ROADMAP queue 1 item 2's control plane), span peers, ``overlap``
-and ``staleness``/``dpu`` (queue 1 item 4), checkpoints and global
-rollback (``ckpt_dir``, the stranded-stage fallback past step 0), and
-region-priced links (``link_table``).
+Two modes:
+  numeric=True   — real PyTorch math per stage on the runner's device;
+  numeric=False  — timing only: no executors and no tensors (so no
+                   device), analytic per-stage FLOPs priced by the stage
+                   plan (the paper's throughput and preemption
+                   experiments).
+
+What later slices bring, each raising ``NotImplementedError`` where it
+is asked for: span peers and span resizes, ``overlap`` and
+``staleness``/``dpu`` (ROADMAP queue 1 item 4), and region-priced links
+(``link_table``, with the spans slice).
 """
 from __future__ import annotations
 
+import bisect
 import dataclasses
 from typing import Any, Callable, Optional
 
@@ -35,6 +45,7 @@ from repro_torch.core import rebalance as rb
 from repro_torch.core.sim import Sim, Sleep
 from repro_torch.core.trainer import Microbatch, Trainer
 from repro_torch.core.wiring import StochasticWiring
+from repro_torch.models import flops as F
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.stage_plan import get_stage_plan
 from repro_torch.optim.adamw import Optimizer
@@ -45,8 +56,6 @@ from repro_torch.tree import tree_map
 Tree = Any
 
 _ASYNC = "ROADMAP queue 1 item 4 (spans and async overlap)"
-_CONTROL = "ROADMAP queue 1 item 2 (rebalancing migration)"
-_CKPT = "ROADMAP queue 1 item 2 (checkpoints and rollback)"
 
 
 def _stub(what: str, item: str):
@@ -58,7 +67,13 @@ def _stub(what: str, item: str):
 class SwarmConfig:
     """Swarm-level knobs (the architecture lives in ``ArchConfig``); the
     JAX package's fields and defaults, minus the deprecated ``compress``
-    spelling.  Fields of later slices must keep their defaults."""
+    spelling.  Fields of later slices must keep their defaults.
+
+    ``ckpt_dir``: persist a pipeline-consistent cut of every stage's
+    state each ``ckpt_period`` completed steps; a stage that loses all
+    its peers resumes from the latest cut instead of the step-0
+    reference, and a runner built over a non-empty ``ckpt_dir`` resumes
+    that run (step counter and data cursor adopt the latest cut)."""
     n_stages: int = 3
     microbatch_size: int = 1
     seq_len: int = 128
@@ -94,8 +109,7 @@ class SwarmConfig:
                              f"{self.staleness}")
         for name, later in (("dpu", _ASYNC), ("overlap", _ASYNC),
                             ("staleness", _ASYNC), ("spans", _ASYNC),
-                            ("ckpt_dir", _CKPT),
-                            ("link_table", "ROADMAP queue 1 item 2")):
+                            ("link_table", _ASYNC)):
             if getattr(self, name):
                 _stub(f"SwarmConfig.{name}", later)
 
@@ -111,11 +125,12 @@ class SwarmRunner:
                  profile_fn: Optional[Callable[[int], DeviceProfile]] = None,
                  data_fn: Optional[Callable[[int], dict]] = None,
                  programs: Optional[list[StageProgram]] = None,
-                 record_accumulation: bool = False, device="cuda"):
-        if not numeric:
-            _stub("a timing-only run (numeric=False)", _CONTROL)
-        if scfg.rebalance_period > 0:
-            _stub("rebalancing (rebalance_period > 0; pass 0)", _CONTROL)
+                 record_accumulation: bool = False,
+                 region_fn: Optional[Callable[[int], str]] = None,
+                 device="cuda"):
+        """``device`` is where a numeric run's stages compute (the card
+        unless the caller names the CPU); a timing-only run builds no
+        tensors and reads no device."""
         self.cfg = cfg
         self.scfg = scfg
         self.optimizer = optimizer
@@ -129,19 +144,31 @@ class SwarmRunner:
         self.quant_block = scfg.quant_block
         self.rng = np.random.default_rng(seed)
         self.profile_fn = profile_fn or (lambda i: T4)
+        # zone placement, keyed by join index like profile_fn
+        self.region_fn = region_fn or (lambda i: "local")
         self.data_fn = data_fn
 
-        # one executor per stage, shared by all that stage's peers
-        if programs is not None:
-            assert len(programs) == scfg.n_stages
-        self.executors: list[StageExecutor] = build_numeric_executors(
-            cfg, scfg.n_stages, scfg.seq_len, compress=self.compress_mode,
-            quant_block=scfg.quant_block, device=device, programs=programs)
-        self.device = self.executors[0].device
-        self.programs: list[StageProgram] = [e.prog for e in self.executors]
-        self._ref_params = init_stage_params(self.programs, seed,
-                                             self.device)
-        self._ref_opt = [optimizer.init(p) for p in self._ref_params]
+        # one executor per stage, shared by all that stage's peers; the
+        # step-0 reference state restores a stage that lost every peer
+        # when no checkpoint is newer
+        self.executors: list[Optional[StageExecutor]] = \
+            [None] * scfg.n_stages
+        self.programs: list[Optional[StageProgram]] = \
+            [None] * scfg.n_stages
+        self.device = None
+        self._ref_params: Optional[list[Tree]] = None
+        if numeric:
+            if programs is not None:
+                assert len(programs) == scfg.n_stages
+            self.executors = build_numeric_executors(
+                cfg, scfg.n_stages, scfg.seq_len,
+                compress=self.compress_mode, quant_block=scfg.quant_block,
+                device=device, programs=programs)
+            self.device = self.executors[0].device
+            self.programs = [e.prog for e in self.executors]
+            self._ref_params = init_stage_params(self.programs, seed,
+                                                 self.device)
+            self._ref_opt = [optimizer.init(p) for p in self._ref_params]
 
         self.peers: dict[str, Peer] = {}
         self.wirings: list[StochasticWiring] = []
@@ -149,6 +176,7 @@ class SwarmRunner:
 
         # training progress
         self.stopped = False
+        self._t_stopped: Optional[float] = None   # virtual stop instant
         self._mb_counter = 0
         self._inflight = 0
         self._dispatch_paused = False
@@ -165,13 +193,24 @@ class SwarmRunner:
             "throughput_t": [], "throughput_v": [], "migrations": 0,
             "failures": 0, "joins": 0, "recomputed_microbatches": 0,
             "wire_bytes": 0.0,
+            "ckpt_restores": [],     # (stage, restored-from step)
+            "rollbacks": [],         # (step rolled back from, to)
         }
         self._samples_done_total = 0
         self._default_ds = None
+        # cold-start resume: a non-empty ckpt_dir means this runner
+        # continues that run — the latest consistent cut's step and data
+        # cursor, so peers restore step-k state and training replays the
+        # sample indices fault-free training would use from step k
+        self._resume_step = self._common_ckpt_step() if numeric else 0
+        if self._resume_step:
+            self.step = self._resume_step
+            self._mb_counter = self._resume_step * self._round_size()
         self._open_round()
 
     # ================================================== setup
-    def _span_executor(self, span: range) -> StageExecutor:
+    def _span_executor(self, span: range) -> Optional[StageExecutor]:
+        """The stage's shared executor (None in timing mode)."""
         if len(span) != 1:
             _stub("a span peer", _ASYNC)
         return self.executors[span.start]
@@ -190,10 +229,11 @@ class SwarmRunner:
     def add_peer(self, stage: "int | range",
                  profile: Optional[DeviceProfile] = None,
                  executor: Optional[StageExecutor] = None) -> Peer:
-        """Cold-start a peer (initial ``build``): at step 0 the reference
-        params ARE current, so announcing immediately is safe.  Mid-run
-        joins go through ``_join_new_peer``, which downloads the stage
-        state *before* announcing (warm join)."""
+        """Cold-start a peer (initial ``build``): it installs the state
+        of the step the runner starts at (the step-0 reference, or the
+        resumed cut), so announcing immediately is safe.  Mid-run joins
+        go through ``_join_new_peer``, which downloads the stage state
+        *before* announcing (warm join)."""
         span = _as_span(stage)
         if executor is not None:
             assert (executor.stages.start, executor.stages.stop) == \
@@ -201,12 +241,14 @@ class SwarmRunner:
         else:
             executor = self._span_executor(span)
         peer = Peer(self.sim, profile or self.profile_fn(len(self.peers)),
-                    span, executor=executor)
+                    span, executor=executor,
+                    region=self.region_fn(len(self.peers)))
         self.peers[peer.id] = peer
-        if self.step:
-            _stub("a cold start past step 0 (use a warm join)", _CKPT)
+        # _resume_step 0 pins the step-0 reference: a torn or leftover
+        # ckpt_dir with no common step must not leak differing per-stage
+        # "latest" states into a fresh run
         for s in peer.stages:
-            self._restore_from_checkpoint(peer, s)
+            self._restore_from_checkpoint(peer, s, step=self._resume_step)
         self._announce(peer)
         for w in self.wirings:
             w.add_server(peer.id, [peer.stages.start])
@@ -232,6 +274,8 @@ class SwarmRunner:
             self.trainers.append(t)
             self.sim.spawn(t.run())
         self.sim.spawn(self._sync_loop())
+        if self.scfg.rebalance_period > 0:
+            self.sim.spawn(self._rebalance_loop())
 
     # ================================================== DHT liveness
     def _announce(self, peer: Peer):
@@ -271,11 +315,15 @@ class SwarmRunner:
                 and p is not but]
 
     # ================================================== data / dispatch
+    def _round_size(self) -> int:
+        """Microbatches per optimizer step."""
+        return self.scfg.global_batch // max(self.scfg.microbatch_size, 1)
+
     def _open_round(self):
         """Fix the next round's sample set: exactly ``global_batch``
         samples (App. E synchronous semantics).  Lost samples re-issue
         under the *same* index."""
-        K = self.scfg.global_batch // max(self.scfg.microbatch_size, 1)
+        K = self._round_size()
         self.ledger.open_round(
             range(self._mb_counter, self._mb_counter + K))
         self._mb_counter += K
@@ -295,9 +343,10 @@ class SwarmRunner:
         self._inflight += 1
         b, S = self.scfg.microbatch_size, self.scfg.seq_len
         mb = Microbatch(index=idx, size=b, n_tokens=b * S, attempt=attempt)
-        batch = (self.data_fn(idx) if self.data_fn else
-                 self._default_data(idx))
-        mb.tokens, mb.labels = batch["tokens"], batch["labels"]
+        if self.numeric:
+            batch = (self.data_fn(idx) if self.data_fn else
+                     self._default_data(idx))
+            mb.tokens, mb.labels = batch["tokens"], batch["labels"]
         return mb
 
     def _default_data(self, idx: int) -> dict:
@@ -321,10 +370,20 @@ class SwarmRunner:
     def compute_time(self, peer: Peer, kind: str, stage: int,
                      mb: Microbatch) -> float:
         ex = peer.executor
-        fpt = (ex.fwd_flops_per_token if kind == "fwd"
-               else ex.bwd_flops_per_token)
-        speedup = max(1, ex.dp_shards(mb.size))
-        return peer.profile.compute_time(fpt * mb.n_tokens) / speedup
+        if ex is not None:
+            fpt = (ex.fwd_flops_per_token if kind == "fwd"
+                   else ex.bwd_flops_per_token)
+            speedup = max(1, ex.dp_shards(mb.size))
+            return peer.profile.compute_time(fpt * mb.n_tokens) / speedup
+        # timing-only: analytic per-stage flops summed over the hop's
+        # covered stages, priced per kind by the stage plan
+        stages = peer.stages if stage in peer.stages \
+            else range(stage, stage + 1)
+        fpt = sum(self.plan.stage_flops(s, self.scfg.seq_len)
+                  for s in stages)
+        if kind == "bwd":
+            fpt *= 3.0
+        return peer.profile.compute_time(fpt * mb.n_tokens)
 
     def boundary_nbytes(self, mb: Microbatch,
                         boundary: Optional[int] = None) -> float:
@@ -333,7 +392,6 @@ class SwarmRunner:
         if boundary is not None and 0 <= boundary < self.n_stages - 1:
             return self.plan.boundary_bytes(
                 boundary, mb.size, self.scfg.seq_len, self.compress_mode)
-        from repro_torch.models import flops as F
         return F.boundary_bytes(
             self.cfg, mb.size, self.scfg.seq_len, self.compress_mode)
 
@@ -359,9 +417,15 @@ class SwarmRunner:
             if self.record_accumulation:
                 self.ledger_log.append(
                     ("acc", self.step, s, mb.index, mb.attempt, peer.id))
-            peer.executor.accumulate(peer.state, gp,
-                                     loss if s == last else None,
-                                     mb.n_tokens, stage=s)
+            loss_s = loss if s == last else None
+            if peer.executor is not None:
+                peer.executor.accumulate(peer.state, gp, loss_s,
+                                         mb.n_tokens, stage=s)
+            else:                               # timing-only simulation
+                view = peer.state.stage_view(s)
+                view.token_count += mb.n_tokens
+                if loss_s is not None:
+                    view.loss_sum += loss_s
             any_folded = True
         return any_folded
 
@@ -384,6 +448,7 @@ class SwarmRunner:
             if (self.scfg.max_steps is not None
                     and self.step >= self.scfg.max_steps):
                 self.stopped = True
+                self._t_stopped = self.sim.now
 
     def _log_releases(self, lost: list[tuple[int, int]], peer_id: str):
         if self.record_accumulation:
@@ -400,12 +465,17 @@ class SwarmRunner:
             yield Sleep(ar_time)
             self._ar_install(s, group, new_params, new_opt)
         self.step += 1
+        self._maybe_checkpoint()
 
     def _ar_install(self, s: int, group: list, new_params, new_opt):
         for p in group:
             if not p.alive:      # died inside the ring: state is dead
                 continue
-            p.executor.adopt_step(p.state, new_params, new_opt, stage=s)
+            if self.numeric:
+                p.executor.adopt_step(p.state, new_params, new_opt,
+                                      stage=s)
+            else:
+                p.state.stage_view(s).zero_grads()
 
     def _ar_plan(self):
         """Gradient averaging + optimizer step per stage: the group's
@@ -416,13 +486,20 @@ class SwarmRunner:
             self.ledger_log.append(("step", self.step, -1, -1, 0, ""))
         plan = []
         for s in range(self.n_stages):
+            # non-serving peers are mid-download: stale params, drained
+            # grads — they adopt the stepped state when the download ends
             group = self._covering(s)
             if not group:
                 continue
             k = len(group)
             nbytes = group[0].state_nbytes(stage=s) / 3.0   # grads only
+            if nbytes == 0.0:                        # throughput mode
+                nbytes = 2.0 * F.total_params(self.cfg) / self.n_stages
             ar_time = (2 * (k - 1) / max(k, 1)) * nbytes \
                 / self.scfg.allreduce_bw + 0.01 * k
+            if not self.numeric:
+                plan.append((s, group, ar_time, None, None))
+                continue
             total_tokens = sum(p.state.stage_view(s).token_count
                                for p in group)
             gsum = group[0].executor.export_grads(group[0].state, stage=s)
@@ -444,34 +521,170 @@ class SwarmRunner:
             plan.append((s, group, ar_time, new_params, new_opt))
         return plan
 
+    # ================================================== rebalancing
+    def _rebalance_loop(self):
+        """Alg. 2 every ``rebalance_period`` seconds: peers report queue
+        sizes under the DHT load keys, one frozen ``ControlSnapshot`` per
+        round, and the planned migration executes."""
+        T = self.scfg.rebalance_period
+        while not self.stopped:
+            yield Sleep(T)
+            # mid-download peers neither report nor qualify as donors
+            for p in self.peers.values():
+                if p.alive and p.serving:
+                    for s in p.stages:
+                        self.dht.store(self.dht.load_key(s), p.id,
+                                       p.queue_size() + 1e-3, T * 1.5)
+            pps = {s: [p.id for p in self.peers.values()
+                       if p.alive and p.serving and p.stages ==
+                       range(s, s + 1)]
+                   for s in range(self.n_stages)}
+            snap = rb.ControlSnapshot.capture(self.dht, self.n_stages)
+            mig = rb.plan_migration(snap, self.n_stages, pps)
+            if mig is not None:
+                yield from self._migrate(self.peers[mig.peer],
+                                         mig.dst_stage)
+                continue
+            if not self.scfg.spans:
+                continue
+            _stub("span resizes (plan_span_change)", _ASYNC)
+
+    # ================================================== checkpoints
+    def _maybe_checkpoint(self):
+        """Persist every stage's state (executor ``snapshot`` ->
+        ``repro_torch.ckpt``) after a completed optimizer step.  A
+        checkpoint is a pipeline-consistent cut: every stage is saved at
+        this step or none is (a stranded stage skips the whole save), so
+        the stage directories hold the same step numbers."""
+        if (not self.numeric or not self.scfg.ckpt_dir
+                or self.step % max(self.scfg.ckpt_period, 1)):
+            return
+        holders = []
+        for s in range(self.n_stages):
+            holder = next(
+                (p for p in self._covering(s)
+                 if p.state.stage_view(s).params is not None), None)
+            if holder is None:
+                return                 # no consistent cut exists right now
+            holders.append(holder)
+        from repro_torch.ckpt import prune_checkpoints, save_checkpoint, \
+            stage_dir
+        for s, holder in enumerate(holders):
+            d = stage_dir(self.scfg.ckpt_dir, s)
+            save_checkpoint(d, self.step,
+                            holder.executor.snapshot(holder.state, stage=s))
+            # keep 2 cuts: a cut torn by a process dying between per-stage
+            # saves is excluded by _common_ckpt_step's intersection, and
+            # resume falls back to the previous one
+            prune_checkpoints(d, keep=2)
+
+    def _common_ckpt_step(self) -> int:
+        """Newest checkpointed step EVERY stage can serve (0 if none): a
+        torn cut is excluded by the intersection, never resumed at mixed
+        versions."""
+        if not self.scfg.ckpt_dir:
+            return 0
+        from repro_torch.ckpt import available_steps, stage_dir
+        common = None
+        for s in range(self.n_stages):
+            steps = set(available_steps(stage_dir(self.scfg.ckpt_dir, s)))
+            common = steps if common is None else common & steps
+        return max(common) if common else 0
+
+    def _rollback_to(self, step_k: int):
+        """Rewind EVERY stage to checkpoint step ``step_k`` < the current
+        step (Varuna-style global rollback), so the pipeline trains one
+        consistent version: the step counter, the data cursor and the
+        loss list rewind with it, and the replayed steps consume the
+        sample indices fault-free training used after ``step_k``."""
+        self._dispatch_paused = True
+        # drain in-flight microbatches: their accumulations belong to the
+        # aborted round (attempts against the stranded stage fail once
+        # trainer retries exhaust)
+        while self._inflight > 0 and not self.stopped:
+            yield Sleep(0.1)
+        if self.stopped:
+            return
+        for s in range(self.n_stages):
+            group = self._covering(s)
+            if not group:
+                continue
+            # one disk read per stage, explicitly the target step (not
+            # "latest"), so every stage rewinds to the same cut
+            snap = self._ckpt_snapshot(s, step=step_k)
+            for p in group:
+                p.executor.restore(p.state, snap, stage=s)
+            del snap          # one stage's host copy at a time
+        self.metrics["rollbacks"].append((self.step, step_k))
+        self.step = step_k
+        self._mb_counter = step_k * self._round_size()
+        # the loss list is relative to the step this runner started at
+        del self.metrics["loss"][max(step_k - self._resume_step, 0):]
+        self._open_round()
+        self._dispatch_paused = False
+
     # ================================================== state transfer
-    def _restore_from_checkpoint(self, peer: Peer, stage: int):
-        """A cold start: install the step-0 reference state."""
-        peer.executor.restore(peer.state, self._ckpt_snapshot(stage),
+    def _restore_from_checkpoint(self, peer: Peer, stage: int,
+                                 step: Optional[int] = None):
+        """Install a persisted state through the peer's executor (see
+        :meth:`_ckpt_snapshot` for ``step``); nothing in timing mode."""
+        if self._ref_params is None:
+            return
+        peer.executor.restore(peer.state,
+                              self._ckpt_snapshot(stage, step=step),
                               stage=stage)
 
-    def _ckpt_snapshot(self, stage: int):
-        return {"params": self._ref_params[stage],
+    def _ckpt_snapshot(self, stage: int, step: Optional[int] = None):
+        """Snapshot tree for ``stage``: checkpoint ``step`` from
+        ``ckpt_dir`` (None = the latest; 0 = the step-0 reference,
+        bypassing the directory), the step-0 reference when the stage's
+        directory is empty.  A directory that has steps but not the one
+        asked for is inconsistent with its siblings: RuntimeError."""
+        snap = {"params": self._ref_params[stage],
                 "opt": self._ref_opt[stage], "version": 0}
+        if self.scfg.ckpt_dir and step != 0:
+            from repro_torch.ckpt import available_steps, \
+                restore_checkpoint, stage_dir
+            d = stage_dir(self.scfg.ckpt_dir, stage)
+            try:
+                snap, got = restore_checkpoint(d, like=snap, step=step)
+                self.metrics["ckpt_restores"].append((stage, got))
+            except FileNotFoundError:
+                if step is not None and available_steps(d):
+                    raise RuntimeError(
+                        f"checkpoint dir {d} has steps "
+                        f"{available_steps(d)} but not the requested "
+                        f"step {step} — stage dirs are inconsistent")
+        return snap
 
     def _download_stage_state(self, peer: Peer, s: int):
         """Warm-state download of ONE stage from a live covering
-        neighbour (retrying if the donor dies mid-transfer); a stage
-        with no survivors resumes from the step-0 reference at step 0
-        and needs the checkpoint slice past it."""
+        neighbour (retrying if the donor dies mid-transfer), falling back
+        to the checkpoint when the stage has no survivors.  Returns with
+        the stage installed, or early if the peer itself dies."""
+        if not self.numeric:           # timing-only state transfer
+            yield Sleep(1.0)
+            return
         while True:
             donors = self._covering(s, but=peer)
             if not donors:
                 yield Sleep(1.0)
+                # never adopt inside an All-Reduce window
                 while self._dispatch_paused and not self.stopped:
                     yield Sleep(0.05)
                 if not peer.alive or self.stopped:
                     return
                 if self._covering(s, but=peer):
                     continue           # a peer recovered during the wait
-                if self.step > 0:
-                    _stub("global rollback of a stranded stage", _CKPT)
-                self._restore_from_checkpoint(peer, s)
+                # truly stranded: resume from the latest persisted cut,
+                # first rewinding the WHOLE pipeline to it when it is
+                # older than the current step — a lone stage never
+                # serves params older than its neighbours'
+                k = self._common_ckpt_step()
+                if k < self.step:
+                    yield from self._rollback_to(k)
+                if peer.alive:
+                    self._restore_from_checkpoint(peer, s, step=k)
                 return
             donor = donors[0]
             yield Sleep(peer.profile.recv_time(donor.state_nbytes(stage=s)))
@@ -492,9 +705,10 @@ class SwarmRunner:
                 return
 
     def _complete_warm_join(self, peer: Peer, span: range):
-        """The state download completes BEFORE the peer is announced or
-        entered into any wiring — a joining peer must never serve stale
-        params.  Returns False if the peer died mid-download."""
+        """Warm-join tail shared by migrations and joins: the state
+        download completes BEFORE the peer is announced or entered into
+        any wiring — a (re)joining peer must never serve stale params.
+        Returns False if the peer died mid-download."""
         peer.serving = False
         for s in span:
             yield from self._download_stage_state(peer, s)
@@ -507,6 +721,50 @@ class SwarmRunner:
         for w in self.wirings:
             w.move_server(peer.id, [span.start])
         return True
+
+    def _retire_assignment(self, peer: Peer):
+        """Stop serving the current stage, in exactly-once order: drain
+        queued thunks (they must never run against newly adopted state),
+        release the ledger entries the peer's gradients backed
+        (survivors recompute those indices), zero its gradients, leave
+        the DHT slots and wirings."""
+        peer.serving = False
+        peer.drain()
+        lost = []
+        for s in peer.stages:
+            lost += [(s, i) for i in self.ledger.release_peer(s, peer.id)]
+        self._log_releases(lost, peer.id)
+        peer.state.zero_grads()                # grads die with the move
+        self._dht_forget(peer)
+        for w in self.wirings:
+            w.ban_server(peer.id)
+
+    def _migrate(self, peer: Peer, dst: "int | range"):
+        """Stage switch (Alg. 2), in exactly-once order: stop serving,
+        drain, release the ledger rows, zero the grads, drop the old
+        stage's state, download the destination's — and only then
+        announce again and re-enter the wirings."""
+        dst_span = _as_span(dst)
+        # never yank accumulated grads out of an in-progress All-Reduce
+        while self._dispatch_paused and not self.stopped:
+            yield Sleep(0.05)
+        if self.stopped or not peer.alive or not peer.serving:
+            return
+        # the plan came from an older snapshot: leaving must neither
+        # strand a source stage nor break the layout's routability
+        if not all(self._covering(s, but=peer) for s in peer.stages) \
+                or not self._routes_without(peer, dst_span):
+            return
+        self._retire_assignment(peer)
+        peer.executor = self._span_executor(dst_span)
+        peer.set_span(dst_span)
+        # the old stage's device state (its gradient slots; params and
+        # moments alias the stage's other peers) is dropped here, before
+        # the destination's is installed
+        peer.state = peer._fresh_state()
+        ok = yield from self._complete_warm_join(peer, dst_span)
+        if ok:
+            self.metrics["migrations"] += 1
 
     # ================================================== fault injection
     def apply_trace(self, trace: list[TraceEvent]):
@@ -575,7 +833,8 @@ class SwarmRunner:
         else:
             peer = Peer(self.sim, self.profile_fn(len(self.peers)), span,
                         executor=self._span_executor(span),
-                        region=region or "local")
+                        region=(region if region is not None
+                                else self.region_fn(len(self.peers))))
             self.peers[peer.id] = peer
         self.metrics["joins"] += 1
         ok = yield from self._complete_warm_join(peer, span)
@@ -589,4 +848,27 @@ class SwarmRunner:
             self.scfg = dataclasses.replace(self.scfg, max_steps=max_steps)
         self.sim.run(until=until)
         self.stopped = True
+        # per-peer executor idle time, closed at the instant training
+        # stopped (a max_steps run drains the clock to the horizon
+        # afterwards, and that is not executor idleness)
+        t_end = min(self.sim.now, self._t_stopped
+                    if self._t_stopped is not None else self.sim.now)
+        m = self.metrics
+        m["peer_idle_s"] = {pid: p.total_idle(t_end)
+                            for pid, p in self.peers.items()}
+        # the synchronous tick hides no wire time behind compute (the
+        # async slice's in-flight transfers do)
+        m["overlap_fraction"] = 0.0
         return self.metrics
+
+    def throughput(self, window: Optional[float] = None) -> float:
+        """Samples/s over the run (optionally a trailing window)."""
+        ts, vs = (self.metrics["throughput_t"],
+                  self.metrics["throughput_v"])
+        if len(ts) < 2:
+            return 0.0
+        if window:
+            lo = bisect.bisect_left(ts, ts[-1] - window)
+            lo = min(lo, len(ts) - 2)
+            return (vs[-1] - vs[lo]) / max(ts[-1] - ts[lo], 1e-9)
+        return vs[-1] / max(ts[-1], 1e-9)

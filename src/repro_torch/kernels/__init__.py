@@ -10,7 +10,9 @@ moves only where a kernel is launched.
 from __future__ import annotations
 
 LAUNCHES: dict[str, int] = {"flash_attention_fwd": 0, "rmsnorm": 0,
-                            "qdq_flat": 0, "encode": 0, "decode": 0}
+                            "qdq_flat": 0, "encode": 0, "decode": 0,
+                            "encode_quantize": 0, "dequantize_decode": 0,
+                            "quant8_quantize": 0, "quant8_dequantize": 0}
 
 
 def reset_launches() -> None:

@@ -120,6 +120,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_codec_ln_rows.restype = I
     lib.repro_codec_gemm.argtypes = [P, P, P, I64, I, I, I, P]
     lib.repro_codec_gemm.restype = I
+    lib.repro_codec_ln_rows_codes.argtypes = [P, P, P, I64, I, I, I, I, P]
+    lib.repro_codec_ln_rows_codes.restype = I
+    lib.repro_codec_dequant_rows.argtypes = [P, P, P, I64, I, I, I, I, P]
+    lib.repro_codec_dequant_rows.restype = I
+    lib.repro_quant8_quantize.argtypes = [P, P, P, I64, I, I, P]
+    lib.repro_quant8_quantize.restype = I
+    lib.repro_quant8_dequantize.argtypes = [P, P, P, I64, I, I, P]
+    lib.repro_quant8_dequantize.restype = I
 
 
 def lib() -> ctypes.CDLL:

@@ -3,13 +3,17 @@ of ``repro.kernels.boundary.kernel``:
 
 * ``qdq_flat`` / ``qdq`` — the blockwise int8 round trip (``csrc/qdq.cu``);
 * ``encode`` / ``decode`` — the learned codecs' two sides, with the wire
-  QDQ fused into ``encode`` (``csrc/codec.cu``).
+  QDQ fused into ``encode`` (``csrc/codec.cu``);
+* ``encode_quantize`` / ``dequantize_decode`` — the same two sides with
+  the true wire format between them, int8 codes + f32 row-block scales
+  (``csrc/codec.cu``).
 
 On a CUDA tensor each launches its kernel or raises; on a CPU tensor it
 runs the plain version (``repro_torch.compression.quant8._roundtrip``,
 :mod:`.ref`).  ``repro_torch.kernels.LAUNCHES`` counts one per call that
 launches the kernels (``encode`` and ``decode`` are each up to three
-CUDA launches, see ``csrc/codec.cu``).
+CUDA launches, see ``csrc/codec.cu``; so are ``encode_quantize`` and
+``dequantize_decode``).
 """
 from __future__ import annotations
 
@@ -157,3 +161,76 @@ def decode(z: torch.Tensor, w: torch.Tensor, mode: str) -> torch.Tensor:
     out = _gemm(z2, w, code)
     kernels.LAUNCHES["decode"] += 1
     return out.reshape(*z.shape[:-1], w.shape[1])
+
+
+# ----------------------------------------------- true wire (codes) format
+def encode_quantize(x: torch.Tensor, w: Optional[torch.Tensor], mode: str,
+                    k: int, qb: int):
+    """Encode [..., d] straight to the wire payload: (int8 codes [..., c],
+    f32 scales [..., c // qb]), the codes of the encode output rounded to
+    x's dtype.  ``w`` is ``w_c`` [d, c] (f32) for the bottleneck, None for
+    maxout (pool width ``k``)."""
+    if mode not in ("bottleneck", "maxout"):
+        raise ValueError(f"not a learned codec: {mode!r}")
+    if x.device.type == "cpu":
+        return R.encode_quantize_ref(x, w, mode, k, qb)
+    from repro_torch.kernels import _lib
+    d = x.shape[-1]
+    c = w.shape[1] if mode == "bottleneck" else d // k
+    if mode == "maxout" and d % k:
+        raise ValueError(f"encode_quantize: maxout k={k} does not divide "
+                         f"d={d}")
+    if qb <= 0 or c % qb:
+        raise ValueError(f"encode_quantize: qb={qb} does not divide c={c}")
+    code = _codec_args(x, w if mode == "bottleneck" else None,
+                       "encode_quantize")
+    x2 = x.reshape(-1, d).contiguous()
+    if mode == "bottleneck":
+        src, kk = _gemm(_ln_rows(x2, 1, 0, code), w, code), 1
+    else:
+        src, kk = x2, k
+    rows = x2.shape[0]
+    q = torch.empty((rows, c), dtype=torch.int8, device=x.device)
+    s = torch.empty((rows, c // qb), dtype=torch.float32, device=x.device)
+    rc = _lib.lib().repro_codec_ln_rows_codes(
+        src.data_ptr(), q.data_ptr(), s.data_ptr(), rows, src.shape[1], kk,
+        qb, code, _lib.stream_ptr(x.device))
+    _lib.check(rc, "codec ln_rows_codes")
+    kernels.LAUNCHES["encode_quantize"] += 1
+    return (q.reshape(*x.shape[:-1], c),
+            s.reshape(*x.shape[:-1], c // qb))
+
+
+def dequantize_decode(q: torch.Tensor, s: torch.Tensor, w: torch.Tensor,
+                      mode: str, qb: int,
+                      dtype=torch.float32) -> torch.Tensor:
+    """Mirror of :func:`encode_quantize`: codes [..., c] + scales
+    [..., c // qb] -> the decoded [..., d] in ``dtype`` (dequantized and
+    rounded to ``dtype``, maxout's LayerNorm, the product in ``dtype``).
+    ``w`` is ``w_d`` [c, d] (f32)."""
+    if mode not in ("bottleneck", "maxout"):
+        raise ValueError(f"not a learned codec: {mode!r}")
+    c = q.shape[-1]
+    if q.dtype != torch.int8 or s.dtype != torch.float32 or qb <= 0 or \
+            c % qb or tuple(s.shape) != (*q.shape[:-1], c // qb):
+        raise ValueError(f"dequantize_decode: want int8 codes [..., c] and "
+                         f"f32 scales [..., c // {qb}], got {q.dtype} "
+                         f"{tuple(q.shape)} and {s.dtype} {tuple(s.shape)}")
+    if q.device.type == "cpu":
+        return R.dequantize_decode_ref(q, s, w, mode, qb, dtype)
+    from repro_torch.kernels import _lib
+    if s.device != q.device:
+        raise ValueError(f"dequantize_decode: codes on {q.device}, scales "
+                         f"on {s.device}")
+    z = torch.empty((*q.shape[:-1], c), dtype=dtype, device=q.device)
+    code = _codec_args(z, w, "dequantize_decode")
+    q2 = q.reshape(-1, c).contiguous()
+    s2 = s.reshape(-1, c // qb).contiguous()
+    z2 = z.reshape(-1, c)
+    rc = _lib.lib().repro_codec_dequant_rows(
+        q2.data_ptr(), s2.data_ptr(), z2.data_ptr(), q2.shape[0], c, qb,
+        int(mode == "maxout"), code, _lib.stream_ptr(q.device))
+    _lib.check(rc, "codec dequant_rows")
+    out = _gemm(z2, w, code)
+    kernels.LAUNCHES["dequantize_decode"] += 1
+    return out.reshape(*q.shape[:-1], w.shape[1])

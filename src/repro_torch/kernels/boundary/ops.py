@@ -13,6 +13,10 @@ QDQ is straight-through (rounding contributes no gradient), and under
 the wire in SWARM both directions (§4.3).  The backward QDQ lives on the
 sending side's :func:`encode_wire` only, so a crossing split across two
 peers quantizes each direction exactly once.
+
+:func:`encode_quantize` and :func:`dequantize_decode` put the true wire
+format (int8 codes + f32 scales) between the two sides, forward only, as
+the JAX package's ops of the same names do.
 """
 from __future__ import annotations
 
@@ -105,3 +109,19 @@ def decode_wire(z: torch.Tensor, w: torch.Tensor,
     backward-direction wire quantization happens exactly once, at the
     sender's :func:`encode_wire` backward."""
     return _DecodeWire.apply(z, w, mode)
+
+
+# ----------------------------------------------- true wire (codes) format
+def encode_quantize(x: torch.Tensor, w: Optional[torch.Tensor], mode: str,
+                    k: int, qb: int):
+    """Fused encode + quantize to the actual payload (int8 codes + f32
+    scales): what a real transport would put on the wire."""
+    return K.encode_quantize(x, w, mode, k, qb)
+
+
+def dequantize_decode(q: torch.Tensor, s: torch.Tensor, w: torch.Tensor,
+                      mode: str, qb: int, dtype=None) -> torch.Tensor:
+    """Mirror dequantize + decode from wire codes + scales (``dtype``
+    defaults to f32, as in the JAX package)."""
+    return K.dequantize_decode(q, s, w, mode, qb,
+                               torch.float32 if dtype is None else dtype)

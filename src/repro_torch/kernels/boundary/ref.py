@@ -1,6 +1,8 @@
 """Plain PyTorch versions of the boundary crossing (port of
-``repro.kernels.boundary.ref``): the row-blocked int8 round trip and the
-learned codecs' two sides, ``encode_ref`` and ``decode_ref``.
+``repro.kernels.boundary.ref``): the row-blocked int8 round trip, the
+learned codecs' two sides, ``encode_ref`` and ``decode_ref``, and their
+true-wire-format pair ``encode_quantize_ref`` / ``dequantize_decode_ref``
+(int8 codes + f32 scales on the wire).
 
 They define what the CUDA kernels of ``csrc/codec.cu`` compute and are
 the recompute target of the autograd ops in :mod:`.ops`: the backward of
@@ -65,3 +67,34 @@ def decode_ref(z: torch.Tensor, w: torch.Tensor, mode: str) -> torch.Tensor:
     if mode == "maxout":
         return _ln(z) @ w.to(z.dtype)
     raise ValueError(f"not a learned codec: {mode!r}")
+
+
+# ----------------------------------------------- true wire (codes) format
+def encode_quantize_ref(x: torch.Tensor, w: Optional[torch.Tensor],
+                        mode: str, k: int, qb: int):
+    """Encode + quantize to the actual wire payload: (int8 codes
+    [..., c], f32 scales [..., c // qb]) of the encode output rounded to
+    x's dtype."""
+    return quantize_rows(encode_ref(x, w, mode, k), qb)
+
+
+def quantize_rows(z: torch.Tensor, qb: int):
+    """Row-blocked int8 codes [..., c] and f32 scales [..., c // qb] of
+    ``z`` upcast to f32 (``qdq_ref`` without the dequantize)."""
+    z = z.to(torch.float32)
+    blocks = z.reshape(*z.shape[:-1], z.shape[-1] // qb, qb)
+    scale = blocks.abs().amax(dim=-1, keepdim=True)
+    q = torch.clamp(torch.round(blocks / torch.clamp(scale, min=1e-12)
+                                * 127.0), -127, 127).to(torch.int8)
+    return q.reshape(z.shape), scale[..., 0]
+
+
+def dequantize_decode_ref(q: torch.Tensor, s: torch.Tensor,
+                          w: torch.Tensor, mode: str, qb: int,
+                          dtype=torch.float32) -> torch.Tensor:
+    """Mirror of :func:`encode_quantize_ref`: ``q * s / 127`` in f32,
+    cast to ``dtype``, then decoded to [..., d] in ``dtype``."""
+    blocks = q.to(torch.float32).reshape(*q.shape[:-1], q.shape[-1] // qb,
+                                         qb)
+    z = div127(blocks * s[..., None]).reshape(q.shape).to(dtype)
+    return decode_ref(z, w, mode)

@@ -50,15 +50,31 @@ def stack_specs(tree: Tree, n: int) -> Tree:
     return tree_map(s, tree, is_leaf=lambda x: isinstance(x, ParamSpec))
 
 
+def _shared_kind(cfg: ArchConfig) -> str:
+    """The single block kind of an ALBERT-shared stack."""
+    kinds = set(cfg.block_kinds)
+    if len(kinds) > 1:
+        raise ValueError(
+            f"{cfg.name}: share_groups={cfg.share_groups} requires "
+            f"a homogeneous stack, got block kinds {sorted(kinds)}")
+    return cfg.block_kinds[0]
+
+
 def lm_specs(cfg: ArchConfig) -> Tree:
-    _no_sharing(cfg)
+    """The full model's parameter specs (an ALBERT-shared stack holds
+    ``share_groups`` stacked layers; serving such a stack raises
+    elsewhere)."""
     d, V, pd = cfg.d_model, cfg.vocab_size, cfg.param_jdtype
     specs: Tree = {
         "embed": ParamSpec((V, d), pd, "embed", ("vocab", "embed")),
         "final_norm": L.norm_specs(cfg),
-        "blocks": [stack_specs(REGISTRY[k][0](cfg), n)
-                   for k, n in segments(cfg.block_kinds)],
     }
+    if cfg.share_groups:
+        specs["blocks"] = [stack_specs(REGISTRY[_shared_kind(cfg)][0](cfg),
+                                       cfg.share_groups)]
+    else:
+        specs["blocks"] = [stack_specs(REGISTRY[k][0](cfg), n)
+                           for k, n in segments(cfg.block_kinds)]
     if not cfg.tie_embeddings:
         specs["head"] = ParamSpec((d, V), pd, "normal", ("embed", "vocab"))
     return specs

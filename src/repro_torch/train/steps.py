@@ -1,6 +1,7 @@
-"""Serving step builders (port of ``make_prefill_step`` and
-``make_serve_step`` of ``repro.train.steps``; the training step comes
-with the training slice)."""
+"""Serving step builders and the model's parameter specs (port of
+``make_prefill_step``, ``make_serve_step`` and ``model_specs`` of
+``repro.train.steps``; the single-process training step comes with
+ROADMAP queue 1 item 8)."""
 from __future__ import annotations
 
 from typing import Any, Optional
@@ -11,6 +12,18 @@ from repro_torch.models import model as model_lib
 from repro_torch.models.config import ArchConfig
 
 Tree = Any
+
+
+def model_specs(cfg: ArchConfig) -> Tree:
+    """The whole model's parameter specs: ``lm_specs`` plus, for a
+    config that declares a pipeline depth and a learned codec, the
+    stage-stacked codec pairs (``boundary``)."""
+    specs = model_lib.lm_specs(cfg)
+    from repro_torch.compression import codecs  # lazy: codecs imports params
+    boundary = codecs.pipeline_boundary_specs(cfg)
+    if boundary is not None:
+        specs["boundary"] = boundary
+    return specs
 
 
 def make_prefill_step(cfg: ArchConfig, remat: bool = True,

@@ -2,9 +2,10 @@
 numpy inputs: ``encode`` / ``decode`` (bottleneck and maxout, with and
 without the fused wire QDQ, f32 and bf16) against JAX's ``encode_ref`` /
 ``decode_ref`` and its Pallas ``encode`` / ``decode`` in interpret mode;
-the gradients of the autograd ops against JAX's custom VJPs; the
-straight-through int8 round trip; and the device routing of every
-kernel wrapper.
+the true-wire-format pair ``encode_quantize`` / ``dequantize_decode``
+against JAX's oracles and Pallas kernels; the gradients of the autograd
+ops against JAX's custom VJPs; the straight-through int8 round trip; and
+the device routing of every kernel wrapper.
 
 On the CPU the wrappers run their plain versions; the CUDA kernels are
 held against those on the card (``chip_smoke.py``,
@@ -122,6 +123,70 @@ def test_encode_decode_match_jax(mode, k, quantize, dtype):
     for want in (y_ref, y_pal):
         _assert_close_or_code_step(_np(y), np.asarray(
             want.astype(jnp.float32)), dtol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode,k", [("bottleneck", 1), ("maxout", 2),
+                                    ("maxout", 4)])
+def test_wire_codes_pair_matches_jax(mode, k, dtype):
+    """``encode_quantize`` (codes + scales of the encode output rounded to
+    x's dtype) and ``dequantize_decode`` against JAX's ``ops`` oracles
+    and its Pallas kernels (interpret mode), on ragged rows.  Tolerances:
+    a scale is the absmax of its block of encode outputs, so it agrees
+    as those do (f32: F32_TOL; bf16: one bf16 ulp, where the two
+    sides' f32 values straddle a rounding boundary); a code may differ
+    by one step only where the values straddle a code boundary (f32: at
+    most 2 such flips).  The decode of the SAME codes and scales agrees
+    to f32 summation order (1e-5) or one ulp of the output dtype."""
+    x, w_c, _ = _inputs(4, rows=(3, 7))
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = getattr(torch, dtype)
+    jx = jnp.asarray(x).astype(jdt)
+    tx = _t(np.asarray(jx.astype(jnp.float32)), tdt)
+    w = w_c if mode == "bottleneck" else None
+    jw = None if w is None else jnp.asarray(w)
+    c = C if mode == "bottleneck" else D // k
+    qb = tref.wire_qblock(c)
+    q, s = tops.encode_quantize(tx, None if w is None else _t(w), mode, k,
+                                qb)
+    assert q.dtype == torch.int8 and tuple(q.shape) == (3, 7, c)
+    assert s.dtype == torch.float32 and tuple(s.shape) == (3, 7, c // qb)
+    stol = F32_TOL if dtype == "float32" else 2.0 ** -8
+    for jq, js in (jops.encode_quantize(jx, jw, mode, k, qb,
+                                        use_kernel=False),
+                   jbk.encode_quantize(jx, jw, mode, k, qb,
+                                       interpret=True)):
+        _assert_close_or_code_step(s.numpy(), np.asarray(js), stol)
+        dq = np.abs(q.numpy().astype(int) - np.asarray(jq).astype(int))
+        assert dq.max() <= 1
+        assert dtype == "bfloat16" or int((dq > 0).sum()) <= 2
+    wd = (np.random.default_rng(9).standard_normal((c, D)) * 0.2).astype(
+        np.float32)
+    jq, js = jops.encode_quantize(jx, jw, mode, k, qb, use_kernel=False)
+    tq = torch.from_numpy(np.array(jq))
+    ts = torch.from_numpy(np.array(js))
+    for out_dt, jout in ((None, jnp.float32), (tdt, jdt)):
+        y = tops.dequantize_decode(tq, ts, _t(wd), mode, qb, out_dt)
+        want_dt = torch.float32 if out_dt is None else out_dt
+        assert y.dtype == want_dt and tuple(y.shape) == (3, 7, D)
+        dtol = 1e-5 if want_dt == torch.float32 else 2.0 ** -8
+        for want in (jops.dequantize_decode(jq, js, jnp.asarray(wd), mode,
+                                            qb, jout, use_kernel=False),
+                     jbk.dequantize_decode(jq, js, jnp.asarray(wd), mode,
+                                           qb, jout, interpret=True)):
+            _assert_close_or_code_step(
+                _np(y), np.asarray(want.astype(jnp.float32)), dtol)
+
+
+def test_wire_codes_pair_checks_its_inputs():
+    x, w_c, w_d = _inputs(5)
+    q, s = tbk.encode_quantize(_t(x), _t(w_c), "bottleneck", 1, 16)
+    with pytest.raises(ValueError, match="int8"):
+        tbk.dequantize_decode(q.float(), s, _t(w_d), "bottleneck", 16)
+    with pytest.raises(ValueError, match="scales"):
+        tbk.dequantize_decode(q, s[..., :0], _t(w_d), "bottleneck", 16)
+    with pytest.raises(ValueError, match="learned"):
+        tbk.encode_quantize(_t(x), _t(w_c), "int8", 1, 16)
 
 
 def _grad_close(got, want):
@@ -267,4 +332,6 @@ def test_cpu_codec_wrappers_launch_nothing():
     z = tbk.encode(_t(x), _t(w_c), "bottleneck", 1, 16, True)
     tbk.decode(z, _t(w_d), "bottleneck")
     tbk.encode(_t(x), None, "maxout", 2, 32, False)
+    q, s = tbk.encode_quantize(_t(x), _t(w_c), "bottleneck", 1, 16)
+    tbk.dequantize_decode(q, s, _t(w_d), "bottleneck", 16)
     assert kernels.LAUNCHES == before

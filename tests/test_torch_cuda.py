@@ -325,3 +325,119 @@ def test_cuda_swarm_training_matches_staged_reference():
     # one trainer, one peer per stage: the reference's order of
     # accumulation, so the same f32 arithmetic on the same kernels
     np.testing.assert_allclose(losses, ref, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_quant8_pair_matches_plain(dtype):
+    """The quant8 pair through its ops (a ragged length, zero-padded):
+    codes, scales and dequantized values bit-equal to the plain
+    versions, one launch of each kernel per call."""
+    from repro_torch.kernels.quant8 import ops, ref
+    dev = _card()
+    g = _gen(dev)
+    x = (torch.randn(3, 1000, generator=g, device=dev) * 5).to(dtype)
+    x.view(-1)[:64] = torch.arange(64, device=dev).to(dtype) - 32.5
+    x.view(-1)[63] = 127.0                   # exact .5 ties on the grid
+    before = dict(kernels.LAUNCHES)
+    q, s, meta = ops.quantize(x, 64)
+    y = ops.dequantize(q, s, meta)
+    assert kernels.LAUNCHES["quant8_quantize"] == \
+        before["quant8_quantize"] + 1
+    assert kernels.LAUNCHES["quant8_dequantize"] == \
+        before["quant8_dequantize"] + 1
+    flat = torch.nn.functional.pad(x.reshape(-1), (0, meta[2]))
+    rq, rs = ref.quantize_ref(flat, 64)
+    assert torch.equal(q, rq) and torch.equal(s, rs)
+    assert torch.equal(y, ref.dequantize_ref(
+        rq, rs, dtype).reshape(-1)[:x.numel()].reshape(x.shape))
+    assert torch.equal(y, quant8._roundtrip(x, 64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode,k", [("bottleneck", 1), ("maxout", 2),
+                                    ("maxout", 4)])
+def test_cuda_wire_codes_pair_matches_plain(mode, k, dtype):
+    """encode_quantize held on its own intermediate (codes and scales of
+    the LN of the kernel's product bit-equal to the plain version's);
+    dequantize_decode's product faithfully rounded against the f64
+    product of the plain dequantized (maxout: LayerNorm'd) rows."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.boundary import kernel as K
+    from repro_torch.kernels.boundary import ref as R
+    dev = _card()
+    g = _gen(dev)
+    d = 256
+    c = 128 if mode == "bottleneck" else d // k
+    x = (torch.randn(3, 70, d, generator=g, device=dev) * 2 + 1).to(dtype)
+    w = (torch.randn(d, c, generator=g, device=dev) / 16
+         if mode == "bottleneck" else None)
+    qb = R.wire_qblock(c)
+    code = _lib.DTYPE_CODES[dtype]
+    q, s = K.encode_quantize(x, w, mode, k, qb)
+    assert q.shape == (3, 70, c) and s.shape == (3, 70, c // qb)
+    if mode == "bottleneck":
+        prod = K._gemm(K._ln_rows(x.reshape(-1, d), 1, 0, code), w, code)
+        rq, rs = R.quantize_rows(R._ln(prod).reshape(3, 70, c), qb)
+    else:
+        rq, rs = R.encode_quantize_ref(x, None, mode, k, qb)
+    assert torch.equal(q, rq) and torch.equal(s, rs)
+    w_d = torch.randn(c, d, generator=g, device=dev) / 10
+    for out_dt in (torch.float32, dtype):
+        y = K.dequantize_decode(q, s, w_d, mode, qb, out_dt)
+        assert y.dtype == out_dt and y.shape == (3, 70, d)
+        blocks = q.float().reshape(3, 70, c // qb, qb)
+        a = quant8.div127(blocks * s[..., None]).reshape(-1, c).to(out_dt)
+        if mode == "maxout":
+            a = R._ln(a)
+        _assert_faithful(y.reshape(-1, d), a, w_d)
+
+
+@pytest.mark.cuda
+def test_cuda_swarm_migration_and_rollback_equal_fault_free(tmp_path):
+    """On the card, a run whose stage-1 peer migrates (Alg. 2) and a run
+    whose only stage-1 peer dies past the step-2 checkpoint (global
+    rollback, then a cold resume) give the fault-free losses bit for
+    bit."""
+    from repro_torch.core.peer import MBPS, DeviceProfile
+    from repro_torch.core.sim import Sleep
+    from repro_torch.core.swarm import SwarmConfig, SwarmRunner
+    from repro_torch.optim import adamw
+    dev = _card()
+    cfg = _cuda_cfg(n_layers=6, share_groups=3, norm="layernorm",
+                    act="geglu", boundary_compression="bottleneck",
+                    bottleneck_dim=64, pipeline_stages=3)
+    slow = DeviceProfile("slow", 1e8, 400 * MBPS, 400 * MBPS, 0.005)
+
+    def run(peers, gb, steps, trainers, period=0.0, kill=False, **kw):
+        r = SwarmRunner(cfg, SwarmConfig(
+            n_stages=3, microbatch_size=2, seq_len=32, global_batch=gb,
+            n_trainers=trainers, rebalance_period=period,
+            codec="bottleneck", max_steps=steps, **kw), adamw(lr=1e-3),
+            seed=0, device=dev, profile_fn=lambda i: slow)
+        r.build(peers)
+
+        def strand():
+            while not r.stopped:
+                if r.step == 3 and r.ledger.stage_counts()[1] > 0:
+                    r._fail_peer(r._covering(1)[0])
+                    yield from r._join_new_peer(span=range(1, 2))
+                    return
+                yield Sleep(0.01)
+        if kill:
+            r.sim.spawn(strand())
+        return r, r.run(until=1e6)
+    _, base = run([1, 2, 1], 16, 3, 4)
+    _, mig = run([1, 2, 1], 16, 3, 4, period=0.31)
+    assert mig["migrations"] >= 1
+    assert mig["loss"] == base["loss"]
+    _, base = run([1, 1, 1], 8, 5, 2)
+    ckpt = str(tmp_path / "ckpt")
+    r, rb = run([1, 1, 1], 8, 4, 2, kill=True, ckpt_dir=ckpt,
+                ckpt_period=2)
+    assert rb["rollbacks"] == [(3, 2)]
+    assert rb["loss"] == base["loss"][:4]
+    del r
+    _, resumed = run([1, 1, 1], 8, 5, 2, ckpt_dir=ckpt, ckpt_period=2)
+    assert resumed["loss"] == base["loss"][4:]

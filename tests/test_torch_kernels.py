@@ -14,6 +14,8 @@ import torch
 
 from repro.compression import quant8 as jq8
 from repro.kernels.boundary import kernel as jbk
+from repro.kernels.quant8 import kernel as jq8k
+from repro.kernels.quant8 import ops as jq8ops
 from repro.kernels.flash_attention.kernel import \
     flash_attention_fwd as j_flash
 from repro.kernels.flash_attention.ref import attention_ref as j_attn_ref
@@ -27,6 +29,8 @@ from repro_torch import kernels
 from repro_torch.compression import quant8 as tq8
 from repro_torch.kernels.boundary import kernel as tbk
 from repro_torch.kernels.boundary.ref import qdq_ref
+from repro_torch.kernels.quant8 import kernel as tq8k
+from repro_torch.kernels.quant8 import ops as tq8ops
 from repro_torch.kernels.flash_attention.kernel import \
     flash_attention_fwd as t_flash
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
@@ -202,11 +206,68 @@ def test_qdq_row_blocked_matches_jax():
                                rtol=np.finfo(np.float32).eps, atol=0)
 
 
+@pytest.mark.parametrize("shape", [(5, 64), (3, 77), (2, 4, 96)],
+                         ids=["whole", "padded", "3d"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quant8_pair_matches_jax(shape, dtype):
+    """The quant8 pair's plain versions against JAX's ops (jnp oracle)
+    and its Pallas kernels in interpret mode: codes and scales bit-equal,
+    the zero padding of a ragged length dropped on the way back.  The
+    dequantized values are bit-equal to the oracle; the Pallas f32
+    dequantize may round ``q * s / 127`` one f32 ulp apart (XLA turns
+    the division by 127 into a reciprocal multiply; ROADMAP queue 3), so
+    it is held to one ulp; in bf16 the ulp vanishes in the cast."""
+    rng = np.random.default_rng(3)
+    x = (rng.standard_normal(shape) * 5).astype(np.float32)
+    x.reshape(-1)[:7] = [0.5, -1.5, 2.5, 127.0, 0.0, -127.0, 63.5]
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    jx = jnp.asarray(x).astype(jdt)
+    tx = _t(np.asarray(jx.astype(jnp.float32))).to(getattr(torch, dtype))
+    q, s, meta = tq8ops.quantize(tx, 64)
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    assert meta == (shape, tx.dtype, (-x.size) % 64)
+    y = tq8ops.dequantize(q, s, meta)
+    assert y.dtype == tx.dtype and tuple(y.shape) == shape
+    assert torch.equal(tq8ops.roundtrip(tx, 64), y)
+    for use_kernel in (False, True):
+        jq, js, jmeta = jq8ops.quantize(jx, 64, use_kernel=use_kernel,
+                                        interpret=True)
+        np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+        np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+        jy = np.asarray(jq8ops.dequantize(jq, js, jmeta,
+                                          use_kernel=use_kernel,
+                                          interpret=True).astype(
+                                              jnp.float32))
+        if use_kernel and dtype == "float32":
+            np.testing.assert_allclose(y.numpy(), jy, atol=0,
+                                       rtol=np.finfo(np.float32).eps)
+        else:
+            np.testing.assert_array_equal(y.float().numpy(), jy)
+    # the flat kernel entry points, as the Pallas kernels take them
+    flat = tx.reshape(-1)[:64 * (tx.numel() // 64)]
+    kq, ks = tq8k.quantize(flat, 64)
+    pq, ps = jq8k.quantize(jnp.asarray(np.asarray(
+        jx.reshape(-1)[:flat.numel()])), 64, True)
+    np.testing.assert_array_equal(kq.numpy(), np.asarray(pq))
+    np.testing.assert_array_equal(ks.numpy(), np.asarray(ps))
+    assert tq8k.dequantize(kq, ks, torch.bfloat16).dtype == torch.bfloat16
+
+
+def test_quant8_kernel_checks_its_inputs():
+    with pytest.raises(ValueError, match="flat"):
+        tq8k.quantize(torch.zeros(2, 64), 64)
+    with pytest.raises(ValueError, match="flat"):
+        tq8k.quantize(torch.zeros(65), 64)
+    with pytest.raises(ValueError, match="int8"):
+        tq8k.dequantize(torch.zeros(2, 64), torch.zeros(2, 1))
+
+
 def test_cpu_wrappers_launch_nothing():
     before = dict(kernels.LAUNCHES)
     x = torch.randn(4, 64)
     t_rmsnorm(x, torch.ones(64))
     tbk.qdq_flat(x, 64)
+    tq8ops.roundtrip(x, 64)
     t_flash(torch.randn(1, 8, 2, 16), torch.randn(1, 8, 1, 16),
             torch.randn(1, 8, 1, 16))
     assert kernels.LAUNCHES == before
