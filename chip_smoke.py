@@ -926,6 +926,7 @@ def phase_churn(torch, cfg, params, prompts, ref) -> dict:
 # ------------------------------------------------------------ phases 6-8
 TRAIN_SEQ, TRAIN_MB, TRAIN_GB, TRAIN_STEPS = 512, 2, 8, 3
 STEP1_RTOL, LATER_ATOL = 1e-5, 1e-3
+REBALANCE_PERIOD = 5.0           # virtual seconds, train_rebalance's Alg. 2
 
 
 def swarm1b(wire_quant: bool = False):
@@ -1007,29 +1008,42 @@ def _strand_stage_1(runner, at_step: int):
         yield Sleep(0.01)
 
 
-def make_swarm(torch, cfg, steps: int, peers, **scfg):
+def slow_front(i: int):
+    """Device profile of peer ``i`` (build order): the first two peers
+    (stages 0 and 1) are T4s at 1/16 of the compute, the rest T4s."""
+    import dataclasses
+    from repro_torch.core.peer import T4
+    if i < 2:
+        return dataclasses.replace(T4, name="T4/16",
+                                   flops_per_s=T4.flops_per_s / 16)
+    return T4
+
+
+def make_swarm(torch, cfg, steps: int, peers, profile_fn=None, **scfg):
     """A ``SwarmRunner`` of the training phases, built; ``scfg`` overrides
-    its ``SwarmConfig`` fields."""
+    its ``SwarmConfig`` fields and ``profile_fn`` its peers' device
+    profiles (the virtual clock's compute and link speeds)."""
     from repro_torch.core.swarm import SwarmConfig, SwarmRunner
     kw = dict(n_stages=3, microbatch_size=TRAIN_MB, seq_len=TRAIN_SEQ,
               global_batch=TRAIN_GB, n_trainers=2, rebalance_period=0.0,
               codec="bottleneck", max_steps=steps)
     kw.update(scfg)
+    extra = {} if profile_fn is None else {"profile_fn": profile_fn}
     runner = SwarmRunner(cfg, SwarmConfig(**kw), train_opt(), seed=0,
-                         record_accumulation=True, device="cuda")
+                         record_accumulation=True, device="cuda", **extra)
     runner.build(peers)
     return runner
 
 
 def run_swarm(torch, cfg, steps: int, peers, kill: bool = False,
-              setup=None, **scfg):
+              setup=None, profile_fn=None, **scfg):
     """Train ``steps`` steps of ``SwarmRunner`` (counters zeroed just
     before; ``setup(runner)`` runs first); returns (metrics, runner,
     launches, wall seconds, peak GB)."""
     from repro_torch import kernels
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    runner = make_swarm(torch, cfg, steps, peers, **scfg)
+    runner = make_swarm(torch, cfg, steps, peers, profile_fn, **scfg)
     if kill:
         runner.sim.spawn(_kill_holder(runner, 1))
     if setup is not None:
@@ -1058,10 +1072,10 @@ def _check_losses(name: str, got: list, want: list) -> float:
 
 def phase_train(torch, name: str, cfg, steps: int, want: list,
                 peers=1, kill: bool = False, exact: bool = False,
-                **scfg) -> dict:
+                profile_fn=None, **scfg) -> dict:
     """``exact``: the losses must equal ``want`` to the bit."""
-    m, runner, launches, wall, peak = run_swarm(torch, cfg, steps, peers,
-                                                kill, **scfg)
+    m, runner, launches, wall, peak = run_swarm(
+        torch, cfg, steps, peers, kill, profile_fn=profile_fn, **scfg)
     got = m["loss"]
     diff = _check_losses(name, got, want)
     if exact and got != want:
@@ -1090,6 +1104,8 @@ def phase_train(torch, name: str, cfg, steps: int, want: list,
            "failures": m["failures"],
            "recomputed_microbatches": m["recomputed_microbatches"],
            "migrations": m["migrations"],
+           "released_rows": sum(1 for e in runner.ledger_log
+                                if e[0] == "rel"),
            "barriers_exactly_once": barriers,
            "virtual_s": runner._t_stopped,
            "peers_per_stage": [len(runner._covering(s))
@@ -1099,8 +1115,12 @@ def phase_train(torch, name: str, cfg, steps: int, want: list,
         raise AssertionError(f"{name}: no peer died mid-step: {row}")
     if scfg.get("rebalance_period", 0.0) > 0:
         row["rebalance_period"] = scfg["rebalance_period"]
-        if m["migrations"] < 1:
-            raise AssertionError(f"{name}: Alg. 2 never migrated: {row}")
+        # a migration must land mid-round on a peer holding gradients:
+        # its ledger rows are released and survivors recompute them
+        if m["migrations"] < 1 or row["released_rows"] < 1 \
+                or m["recomputed_microbatches"] < 1:
+            raise AssertionError(f"{name}: no migration released held "
+                                 f"gradients: {row}")
     emit(row)
     del runner, m
     free(torch)
@@ -1394,14 +1414,16 @@ def main() -> None:
     # the churn run is held to the fault-free train run's losses
     phase_train(torch, "train_churn", swarm1b(), TRAIN_STEPS,
                 train["losses"], peers=[1, 2, 1], kill=True)
-    # Alg. 2 samples the load 32 times per virtual step of `train`: with
-    # a second stage-0 peer and four trainers it drains stage 0 into
-    # stage 1 within the 3 steps (a timing-only replay of the same
-    # schedule migrates for any period from 1/64 to 1/16 of the step)
-    period = train["virtual_s"] / TRAIN_STEPS / 32
+    # Alg. 2 on a heterogeneous swarm: stages 0 and 1 run on slower
+    # devices (the T4 profile at 1/16 of its compute), stage 2 on two
+    # T4s.  While stages 0 and 1 work through the backward passes,
+    # stage 2 idles with gradients held, so the planner (every 5 virtual
+    # seconds) moves one of its peers mid-round: the ledger releases
+    # that peer's rows and a survivor recomputes them
     phase_train(torch, "train_rebalance", swarm1b(), TRAIN_STEPS,
-                train["losses"], peers=[2, 1, 1], exact=True,
-                n_trainers=4, rebalance_period=period)
+                train["losses"], peers=[1, 1, 2], exact=True,
+                profile_fn=slow_front, n_trainers=4,
+                rebalance_period=REBALANCE_PERIOD)
     phase_train_rollback(torch, ref_losses)
     launches.update(phase_wire_codes(torch)["launches"])
     phase_train_profile(torch)

@@ -856,9 +856,6 @@ class SwarmRunner:
         m = self.metrics
         m["peer_idle_s"] = {pid: p.total_idle(t_end)
                             for pid, p in self.peers.items()}
-        # the synchronous tick hides no wire time behind compute (the
-        # async slice's in-flight transfers do)
-        m["overlap_fraction"] = 0.0
         return self.metrics
 
     def throughput(self, window: Optional[float] = None) -> float:

@@ -188,21 +188,6 @@ def wire_nbytes(n_elements: float, compression: str = "none") -> float:
     return 2.0 * n_elements
 
 
-
-def active_params(cfg: ArchConfig) -> float:
-    """Per-token activated parameter count (MoE counts top_k + shared)."""
-    from repro_torch.train.steps import model_specs
-    from repro_torch.models import params as P
-    total = P.n_params(model_specs(cfg))
-    if cfg.moe is None:
-        return float(total)
-    m = cfg.moe
-    per_expert = 3 * cfg.d_model * m.d_ff_expert
-    n_moe_layers = sum(1 for k in cfg.block_kinds if k in ("moe", "mla_moe"))
-    inactive = n_moe_layers * (m.num_experts - m.top_k) * per_expert
-    return float(total - inactive)
-
-
 def total_params(cfg: ArchConfig) -> float:
     from repro_torch.train.steps import model_specs
     from repro_torch.models import params as P

