@@ -9,19 +9,28 @@ It imports nothing of JAX or of the JAX package.  Phases (each prints a
 JSON line; any failure raises and exits non-zero):
 
 1. build   — compile the CUDA kernels of ``src/repro_torch/csrc`` with
-             nvcc; print the card's name and power limit.
+             nvcc; count the tensor-core instructions of the bf16 flash
+             forward (HMMA) and codec GEMM (HGMMA) where ``cuobjdump``
+             exists; print the card's name and power limit.
 2. kernels — each kernel against its plain PyTorch version on the card at
              the shapes of its paths (serving for rmsnorm and qdq,
              serving and training for flash with its ``lse``, training
              swarm-1b-bottleneck for the codec's encode and decode and
              its true-wire pair encode_quantize / dequantize_decode,
              held stage by stage on their own intermediates, the int8
-             wire's shape for the quant8 pair), in bf16 and f32, with
-             times (CUDA events) beside the plain version, the
-             one-call PyTorch library equivalent where there is one, and
-             the card's lower bound.  cuBLAS accumulates in f32 only
-             around the plain versions' comparison outputs; every timed
-             call and phase runs under PyTorch's defaults.
+             wire's shape for the quant8 pair), in bf16 and f32; the
+             flash forward and the codec GEMM also run twice (bit-equal)
+             and on a subset of their rows (bit-equal to the same rows
+             of the full call).  Times: device time per call (the
+             kernels' CUPTI durations under ``torch.profiler``) beside
+             the plain version's, the one-call PyTorch library
+             equivalent's where there is one, and the card's lower
+             bound; each kernel's row also keeps ``eager_ms``, CUDA
+             events around back-to-back calls, which includes the
+             Python wrapper's host time when that is the longer.  cuBLAS
+             accumulates in f32 only around the plain versions'
+             comparison outputs; every timed call and phase runs under
+             PyTorch's defaults.
 3. serve   — ``ServeRunner`` serving yi-6b at full width and depth
              (random weights from a seed) through one decode chain
              (0,2)->(2,4), tokens identical to the port's single-process
@@ -42,10 +51,12 @@ JSON line; any failure raises and exits non-zero):
 8. train_churn — a second stage-1 peer; one stage-1 peer dies mid-step;
              each (stage, microbatch) admitted exactly once, the ledger
              drained, losses equal to the fault-free ``train`` losses.
-9. train_rebalance — four peers (a second on stage 0), four trainers,
-             Alg. 2 rebalancing every 1/32 of ``train``'s virtual step:
-             at least one migration, every (stage, microbatch) admitted
-             once per round, losses equal to ``train``'s to the bit.
+9. train_rebalance — peers [1, 1, 2], stages 0 and 1 on a T4 profile
+             at 1/16 of its compute (``slow_front``), four trainers,
+             Alg. 2 every 5.0 virtual seconds: a stage-2 peer migrates
+             while it holds gradients, its ledger rows are released and
+             recomputed; every (stage, microbatch) admitted once per
+             round, losses equal to ``train``'s to the bit.
 10. train_rollback — checkpoints every 2 steps under ``build/``; stage
              1's only peer dies during step 4 and its replacement finds
              no donor: global rollback to the step-2 cut and replay; a
@@ -118,8 +129,39 @@ def plain_precision(torch):
 
 
 # ------------------------------------------------------------------ timing
+def _device_us(ev) -> float:
+    """Device time of one ``key_averages()`` entry (0 for host events)."""
+    if getattr(ev, "device_type", None) is not None and \
+            "CUDA" not in str(ev.device_type):
+        return 0.0
+    return getattr(ev, "self_device_time_total",
+                   getattr(ev, "self_cuda_time_total", 0.0))
+
+
 def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    """Device time of one call of ``fn``: the durations of the kernels
+    (and memsets) it launches, as CUPTI reports them under
+    ``torch.profiler``, summed over ``iters`` calls and divided by
+    ``iters``.  Host time between launches does not count, so a fast
+    kernel behind a Python wrapper is timed, not its wrapper."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_device_us(ev) for ev in prof.key_averages())
+    if us <= 0:
+        raise RuntimeError("the profiler saw no device time")
+    return us / 1e3 / iters
+
+
+def eager_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+    """CUDA events around ``iters`` back-to-back calls of ``fn``, over
+    ``iters``: the device time when the device is the bottleneck, the
+    host's enqueue time (the Python wrapper) when the host is."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -151,6 +193,37 @@ def _counted(torch, fn):
 
 
 # ------------------------------------------------------------------ phase 1
+TENSOR_CORE_KERNELS = ("flash_fwd_mma_kernel", "codec_gemm_wgmma_kernel")
+
+
+def tensor_core_counts(path):
+    """HMMA / HGMMA instructions in the SASS of each bf16 instantiation of
+    the tensor-core kernels (``cuobjdump -sass``), or None without
+    ``cuobjdump``."""
+    import shutil
+    exe = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(exe):
+        return None
+    sass = subprocess.run([exe, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, cur = {}, None
+    for ln in sass.splitlines():
+        if "Function : " in ln:
+            name = ln.split("Function : ", 1)[1].strip()
+            cur = next((k for k in TENSOR_CORE_KERNELS if k in name), None)
+            if cur == "flash_fwd_mma_kernel":
+                cur += "<64>" if "ILi64E" in name else "<128>"
+            if cur is not None:
+                counts[cur] = {"HMMA": 0, "HGMMA": 0}
+        elif cur is not None:
+            if "HGMMA" in ln:
+                counts[cur]["HGMMA"] += 1
+            elif "HMMA" in ln:
+                counts[cur]["HMMA"] += 1
+    return counts
+
+
 def phase_build(torch) -> None:
     from repro_torch.kernels import _lib
     emit({"phase": "env", "python": sys.version.split()[0],
@@ -160,8 +233,17 @@ def phase_build(torch) -> None:
     secs = time.time() - t0
     ptxas = [ln.strip() for ln in _lib.BUILD_LOG.splitlines()
              if "registers" in ln or "spill" in ln]
+    tc = tensor_core_counts(path)
     emit({"phase": "build", "library": os.path.relpath(path),
-          "seconds": secs, "ptxas": ptxas[:24]})
+          "seconds": secs, "ptxas": ptxas[:24],
+          "tensor_core_instructions": tc})
+    if tc is not None:
+        want = {"flash_fwd_mma_kernel<64>", "flash_fwd_mma_kernel<128>",
+                "codec_gemm_wgmma_kernel"}
+        idle = sorted(k for k in want
+                      if sum(tc.get(k, {}).values()) == 0)
+        if idle:
+            raise AssertionError(f"no tensor-core instructions in {idle}")
     _lib.lib()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -185,7 +267,10 @@ def check_flash(torch, gen, rows: list) -> dict:
     version at the serving path's GQA shapes (yi-6b: 32 heads on 4 KV
     heads, prompt 512 and a ragged 200) and the training path's MHA
     shape (swarm-1b: 32 heads, microbatch 2, seq 512), where the
-    backward reuses ``lse``."""
+    backward reuses ``lse``.  Each call also runs again (output and
+    ``lse`` bit-equal: deterministic) and on each batch row alone (equal
+    to that row of the batch-2 call: a row's result does not depend on
+    the rest of the grid)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_fwd
@@ -210,8 +295,21 @@ def check_flash(torch, gen, rows: list) -> dict:
                 raise AssertionError(f"flash {path} S={S} KV={KV} {dt}: max "
                                      f"err {err} (bound {bound}), lse "
                                      f"{lse_err} (bound 1e-4)")
-            ms = _counted(torch, lambda: time_ms(
-                torch, lambda: flash_attention_fwd(q, k, v, True)))
+            again = _counted(torch, lambda: flash_attention_fwd(
+                q, k, v, True, with_lse=True))
+            if not (torch.equal(again[0], out) and torch.equal(again[1], lse)):
+                raise AssertionError(f"flash {path} S={S} KV={KV} {dt}: two "
+                                     f"calls differ")
+            for b in range(B):
+                one = _counted(torch, lambda: flash_attention_fwd(
+                    q[b:b + 1], k[b:b + 1], v[b:b + 1], True, with_lse=True))
+                if not (torch.equal(one[0], out[b:b + 1])
+                        and torch.equal(one[1], lse[b:b + 1])):
+                    raise AssertionError(f"flash {path} S={S} KV={KV} {dt}: "
+                                         f"batch row {b} alone differs")
+            fwd = lambda: flash_attention_fwd(q, k, v, True)
+            ms = _counted(torch, lambda: time_ms(torch, fwd))
+            eager = _counted(torch, lambda: eager_ms(torch, fwd))
             plain = time_ms(torch, lambda: flash_fwd_ref(
                 q, k, v, True, 0, 0, 512, 1024), iters=5)
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -224,9 +322,10 @@ def check_flash(torch, gen, rows: list) -> dict:
             row = {"kernel": "flash_attention_fwd", "path": path, "shape":
                    f"B={B} S={S} H={H} KV={KV} D={D}", "dtype": str(dt),
                    "max_abs_err": err, "lse_max_abs_err": lse_err,
-                   "bound": bound, "lse_bound": 1e-4, "ms": ms,
-                   "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
-                   "bound_by": b_by}
+                   "bound": bound, "lse_bound": 1e-4,
+                   "deterministic": True, "row_independent": True,
+                   "ms": ms, "eager_ms": eager, "plain_ms": plain,
+                   "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by}
             emit(row)
             rows.append(row)
             if (path, S, dt) == ("serve", 512, torch.bfloat16):
@@ -251,6 +350,8 @@ def check_rmsnorm(torch, gen, rows: list) -> dict:
         if ulps > 1.0:
             raise AssertionError(f"rmsnorm {dt}: {ulps} ulps (bound 1)")
         ms = _counted(torch, lambda: time_ms(torch, lambda: rmsnorm(x, scale)))
+        eager = _counted(torch, lambda: eager_ms(
+            torch, lambda: rmsnorm(x, scale)))
         plain = time_ms(torch, lambda: rmsnorm_ref(x, scale))
         w = scale.to(dt)
         lib = time_ms(torch, lambda: F.rms_norm(x, (d,), w, 1e-6))
@@ -258,7 +359,8 @@ def check_rmsnorm(torch, gen, rows: list) -> dict:
         b_ms, b_by = bound_ms(nbytes, 4.0 * x.numel(), H100_F32_FLOPS)
         row = {"kernel": "rmsnorm", "shape": f"[{R}, {d}]", "dtype": str(dt),
                "max_abs_err": err, "max_ulps": ulps, "bound": "1 ulp",
-               "ms": ms, "plain_ms": plain, "library_ms": lib,
+               "ms": ms, "eager_ms": eager, "plain_ms": plain,
+               "library_ms": lib,
                "bound_ms": b_ms, "bound_by": b_by}
         emit(row)
         rows.append(row)
@@ -296,12 +398,15 @@ def check_qdq(torch, gen, rows: list) -> dict:
             raise AssertionError(f"qdq {dt}: outputs differ by {err}")
         ms = _counted(torch, lambda: time_ms(
             torch, lambda: qdq_flat(x, block)))
+        eager = _counted(torch, lambda: eager_ms(
+            torch, lambda: qdq_flat(x, block)))
         plain = time_ms(torch, lambda: quant8._roundtrip(x, block))
         nbytes = 2 * n * x.element_size()
         b_ms, b_by = bound_ms(nbytes, 5.0 * n, H100_F32_FLOPS)
         row = {"kernel": "qdq_flat", "shape": str(list(shape)),
                "dtype": str(dt), "max_abs_err": err, "codes_identical": True,
-               "bound": "codes identical", "ms": ms, "plain_ms": plain,
+               "bound": "codes identical", "ms": ms, "eager_ms": eager,
+               "plain_ms": plain,
                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
         emit(row)
         rows.append(row)
@@ -351,7 +456,10 @@ def check_codec(torch, gen, rows: list) -> dict:
     The end-to-end error against the plain version (whose product is
     cuBLAS's) is reported beside them: where cuBLAS and the kernel sum a
     product in another order, each may round it to the other bf16
-    neighbour, which the second LayerNorm carries into the output."""
+    neighbour, which the second LayerNorm carries into the output.  The
+    GEMM at both shapes (encode's product, decode) also runs again
+    (bit-equal) and on rows 300-499 alone (bit-equal to those rows of
+    the 1024-row call), and encode's GEMM stage is timed alone."""
     from repro_torch.kernels import _lib
     from repro_torch.kernels.boundary import kernel as K
     from repro_torch.kernels.boundary import ref as R
@@ -363,6 +471,16 @@ def check_codec(torch, gen, rows: list) -> dict:
             raise AssertionError(f"{name}: {int((got != want).sum())} "
                                  f"elements differ from the plain version")
 
+    def stable(name, fn, a, out):
+        """``fn(a)`` again equals ``out``, and ``fn`` of rows 300-499 of
+        ``a`` equals those rows of ``out``, to the bit."""
+        again = _counted(torch, lambda: fn(a))
+        part = _counted(torch, lambda: fn(a[300:500]))
+        if not torch.equal(again, out):
+            raise AssertionError(f"{name}: two calls differ")
+        if not torch.equal(part, out[300:500]):
+            raise AssertionError(f"{name}: rows 300-499 alone differ")
+
     for dt, tol, peak in ((torch.bfloat16, 2e-2, H100_BF16_FLOPS),
                           (torch.float32, 1e-4, H100_F32_FLOPS)):
         es = torch.finfo(dt).bits // 8
@@ -373,6 +491,10 @@ def check_codec(torch, gen, rows: list) -> dict:
         h = _counted(torch, lambda: K._ln_rows(x, 1, 0, code))
         equal(f"encode LN pass {dt}", h, R._ln(x))
         prod = _counted(torch, lambda: K._gemm(h, w_c, code))
+        stable(f"encode's GEMM {dt}", lambda a: K._gemm(a, w_c, code), h,
+               prod)
+        gemm_ms = _counted(torch, lambda: time_ms(
+            torch, lambda: K._gemm(h, w_c, code)))
         with plain_precision(torch):
             prod_lib = h @ w_c.to(dt)
         not_cr, floor_only = _faithful(torch, f"encode {dt}", prod, h, w_c)
@@ -405,8 +527,10 @@ def check_codec(torch, gen, rows: list) -> dict:
                         and bool(past.any())):
                     raise AssertionError(f"encode {mode} {dt}: max error "
                                          f"{float(err.max())} (bound {tol})")
-                ms = _counted(torch, lambda: time_ms(
-                    torch, lambda: K.encode(x, w, mode, k, qb, quantize)))
+                enc = lambda: K.encode(x, w, mode, k, qb,
+                                       quantize)
+                ms = _counted(torch, lambda: time_ms(torch, enc))
+                eager = _counted(torch, lambda: eager_ms(torch, enc))
                 plain = time_ms(torch, lambda: R.encode_ref(x, w, mode, k))
                 nbytes = (N * d + N * c) * es + (0 if w is None else
                                                  w.numel() * 4)
@@ -425,10 +549,11 @@ def check_codec(torch, gen, rows: list) -> dict:
                        f"{tol} end to end" + (
                            ", except in rows whose products round apart"
                            if dt == torch.bfloat16 or quantize else ""),
-                       "ms": ms,
+                       "ms": ms, "eager_ms": eager,
                        "plain_ms": plain, "library_ms": None,
                        "bound_ms": b_ms, "bound_by": b_by}
                 if mode == "bottleneck":
+                    row["gemm_ms"] = gemm_ms
                     row["product"] = {
                         "not_correctly_rounded": not_cr,
                         "cublas_not_correctly_rounded": lib_not_cr,
@@ -447,6 +572,8 @@ def check_codec(torch, gen, rows: list) -> dict:
             w_d = torch.randn(c, d, generator=gen, device="cuda") / c ** 0.5
             out = _counted(torch, lambda: K.decode(z, w_d, mode))
             torch.cuda.synchronize()
+            stable(f"decode {mode} {dt}", lambda a: K.decode(a, w_d, mode),
+                   z, out)
             a = z
             if mode == "maxout":
                 a = _counted(torch, lambda: K._ln_rows(z, 1, 0, code))
@@ -461,8 +588,9 @@ def check_codec(torch, gen, rows: list) -> dict:
             if dt == torch.float32 and bool((err > tol).any()):
                 raise AssertionError(f"decode {mode} f32: max error "
                                      f"{float(err.max())} (bound {tol})")
-            ms = _counted(torch, lambda: time_ms(
-                torch, lambda: K.decode(z, w_d, mode)))
+            dec = lambda: K.decode(z, w_d, mode)
+            ms = _counted(torch, lambda: time_ms(torch, dec))
+            eager = _counted(torch, lambda: eager_ms(torch, dec))
             plain = time_ms(torch, lambda: R.decode_ref(z, w_d, mode))
             # bottleneck decode is one product: its library yardstick is
             # torch.matmul on the weight already in the activation dtype
@@ -484,7 +612,9 @@ def check_codec(torch, gen, rows: list) -> dict:
                    "product": {"not_correctly_rounded": not_cr,
                                "cublas_not_correctly_rounded": lib_not_cr,
                                "only_f32_floor": floor_only},
-                   "ms": ms, "plain_ms": plain, "library_ms": lib,
+                   "deterministic": True, "row_independent": True,
+                   "ms": ms, "eager_ms": eager, "plain_ms": plain,
+                   "library_ms": lib,
                    "bound_ms": b_ms, "bound_by": b_by}
             emit(row)
             rows.append(row)
@@ -528,11 +658,13 @@ def check_quant8(torch, gen, rows: list) -> dict:
                  lambda: R.dequantize_ref(q, sc, dt), n + nb * 4 + n * es,
                  2.0 * n)):
             ms = _counted(torch, lambda: time_ms(torch, fn))
+            eager = _counted(torch, lambda: eager_ms(torch, fn))
             b_ms, b_by = bound_ms(nbytes, ops, H100_F32_FLOPS)
             row = {"kernel": name, "shape": str(list(shape)),
                    "dtype": str(dt), "max_abs_err": 0.0,
                    "bound": "codes, scales and values bit-equal",
-                   "ms": ms, "plain_ms": time_ms(torch, plain),
+                   "ms": ms, "eager_ms": eager,
+                   "plain_ms": time_ms(torch, plain),
                    "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
             emit(row)
             rows.append(row)
@@ -601,8 +733,9 @@ def check_wire_codes(torch, gen, rows: list) -> dict:
                 raise AssertionError(f"encode_quantize {mode} {dt}: codes "
                                      f"off by up to {int(dq.max())} in "
                                      f"{int(bad_rows.sum())} rows")
-            ms = _counted(torch, lambda: time_ms(
-                torch, lambda: K.encode_quantize(x, w, mode, k, qb)))
+            enq = lambda: K.encode_quantize(x, w, mode, k, qb)
+            ms = _counted(torch, lambda: time_ms(torch, enq))
+            eager = _counted(torch, lambda: eager_ms(torch, enq))
             plain = time_ms(torch, lambda: R.encode_quantize_ref(
                 x, w, mode, k, qb))
             nbytes = N * d * es + N * c + N * (c // qb) * 4 + (
@@ -623,7 +756,8 @@ def check_wire_codes(torch, gen, rows: list) -> dict:
                    "rounded; codes and scales of the last pass bit-equal; "
                    "end to end one code step, only in rows whose products "
                    "round apart" if mode == "bottleneck" else "bit-equal",
-                   "ms": ms, "plain_ms": plain, "library_ms": None,
+                   "ms": ms, "eager_ms": eager, "plain_ms": plain,
+                   "library_ms": None,
                    "bound_ms": b_ms, "bound_by": b_by}
             if rows_apart is not None:
                 row["rows_whose_products_round_apart"] = \
@@ -649,8 +783,10 @@ def check_wire_codes(torch, gen, rows: list) -> dict:
             if dt == torch.float32 and bool((err > 1e-4).any()):
                 raise AssertionError(f"dequantize_decode {mode} f32: max "
                                      f"error {float(err.max())}")
-            ms = _counted(torch, lambda: time_ms(
-                torch, lambda: K.dequantize_decode(q, sc, w_d, mode, qb, dt)))
+            dqd = lambda: K.dequantize_decode(
+                q, sc, w_d, mode, qb, dt)
+            ms = _counted(torch, lambda: time_ms(torch, dqd))
+            eager = _counted(torch, lambda: eager_ms(torch, dqd))
             plain = time_ms(torch, lambda: R.dequantize_decode_ref(
                 q, sc, w_d, mode, qb, dt))
             nbytes = N * c + N * (c // qb) * 4 + w_d.numel() * 4 + N * d * es
@@ -666,7 +802,8 @@ def check_wire_codes(torch, gen, rows: list) -> dict:
                                          if dt == torch.float32 else ""),
                    "product": {"not_correctly_rounded": not_cr,
                                "only_f32_floor": floor_only},
-                   "ms": ms, "plain_ms": plain, "library_ms": None,
+                   "ms": ms, "eager_ms": eager, "plain_ms": plain,
+                   "library_ms": None,
                    "bound_ms": b_ms, "bound_by": b_by}
             emit(row)
             rows.append(row)
@@ -1349,8 +1486,10 @@ def phase_train_profile(torch) -> dict:
                      getattr(ev, "self_cuda_time_total", 0.0))
         if us > 0:
             per_kernel[ev.key] = per_kernel.get(ev.key, 0.0) + us / 1e3
-    groups = {"flash_fwd (kernel)": "flash_fwd_kernel",
-              "codec (kernels)": ("ln_rows_kernel", "gemm_kernel<"),
+    groups = {"flash_fwd (kernel)": "flash_fwd",
+              "codec (kernels)": ("ln_rows_kernel", "gemm_kernel<",
+                                  "codec_gemm_wgmma_kernel",
+                                  "round_wt_kernel", "splitk_sum_kernel"),
               "matmul (library)": ("gemm", "nvjet", "Kernel2", "cutlass",
                                    "xmma", "sm90"),
               "elementwise and reductions": ""}

@@ -4,30 +4,55 @@
 // `flash_attention_fwd` (bodies `_flash_fwd_kernel` and, with an lse
 // output, `_flash_fwd_kernel_lse`).  q [B,Sq,H,D], k/v [B,Sk,KV,D] with GQA
 // (query head h reads kv head h / (H/KV)); masks: causal, sliding window,
-// and kpos < Sk; the query offset is fixed at Sk - Sq.  Scores q.k are f32
-// (q and k upcast), P is rounded to v's dtype for the PV product, the sum
-// is f32, the output is v's dtype, lse = m + log(max(l, 1e-30)) in f32
-// laid out [B, KV, G, Sq] (== [B, H, Sq]).  bf16 x bf16 products are exact
-// in f32, so bf16 operands with f32 accumulation compute what the TPU
-// kernel's f32 upcast computes, up to summation order.
+// and kpos < Sk; the query offset is fixed at Sk - Sq.  Scores q.k have
+// the inputs' operands and f32 accumulation, times `scale`, in f32; P is
+// rounded to v's dtype for the PV product, which accumulates in f32; the
+// row sum adds the unrounded f32 p; the output is v's dtype, lse = m +
+// log(max(l, 1e-30)) in f32 laid out [B, KV, G, Sq] (== [B, H, Sq]).
 //
 // Bound on the H100: operations at prefill shapes (4*Sq*Sk*D flops per
 // head against 2*(Sq+2*Sk)*D bytes: far above the 295 flop/byte balance
-// point at S=512), bytes for short sequences.
+// point at S=512), bytes for short sequences; at S=512 a call is small
+// enough that latency and occupancy decide.
 //
-// Design (simple first; tensor cores, TMA and wgmma are later work): one
-// 128-thread block per (query tile of 64 rows, batch*head).  The query tile
-// lives in shared memory as f32; the block walks key tiles of 64 rows,
-// staging K and V as f32 in shared memory.  Thread t owns query row t/2 and
-// one half of the key tile (scores, 32 registers) and one half of the head
-// dim (output accumulator, D/2 registers); the two threads of a row combine
-// their row max and row sum with one shuffle.  Rows are padded by one float
-// in shared memory so the 16 rows a warp touches fall in distinct banks.
-// The loop runs only over key tiles the causal/window masks leave open for
-// some row of the tile (the TPU kernel runs every tile; a skipped tile adds
-// exactly zero there, so the output is the same).  Tensors are addressed
-// through their batch/seq/head strides, so [B,S,H,D] views need no
-// transpose copies; the last dim must be contiguous.
+// bf16 (every model path): `flash_fwd_mma_kernel`, on the tensor cores.
+// One 128-thread block per (query tile of 64 rows, batch*head); each of
+// its 4 warps owns 16 query rows.  Q, K and V stay bf16 in shared memory,
+// rows padded by 16 bytes so that `ldmatrix` reads 8 rows in 8 distinct
+// bank groups.  Q is copied once with 16-byte `cp.async` and kept in
+// registers as mma A fragments; K/V tiles of 64 keys sit in a ring of 2
+// stages, the copy of tile t+1 in flight while tile t is in the tensor
+// cores.  Q borrows the ring's second stage until it is in registers:
+// 70 KB of shared memory a block at D=128, three blocks an SM.  S = Q K^T
+// is `mma.sync.m16n8k16` (bf16 operands, f32 accumulation; K fragments
+// by `ldmatrix`); the online softmax runs in
+// registers (row max and row sum across the 4 threads of a quad by
+// shuffles, exp2 of log2(e)-prescaled scores); P is rounded to bf16 in
+// registers and fed back as the A operand of PV (the m16n8k16 accumulator
+// layout is the A fragment layout), V fragments by `ldmatrix.trans`.
+// Masks apply only on key tiles that straddle the causal or window edge
+// or Sk.  Fixed key-tile order, no atomics, no split over keys: a row's
+// result depends only on its own q row, k, v and the masks.  The output
+// goes through shared memory to 16-byte stores.  The bf16 path needs
+// 16-byte-aligned tensors with batch/seq/head strides that are multiples
+// of 8 elements (the wrapper checks).  Query tiles run heaviest first
+// (causal), which shortens the tail of the grid.
+//
+// f32: `flash_fwd_kernel`, the first SIMT design, kept because TF32 would
+// break the f32 path's 1e-4 bound and no model path runs attention in
+// f32: the query tile lives in shared memory as f32; the block walks key
+// tiles of 64 rows, staging K and V as f32 in shared memory.  Thread t
+// owns query row t/2 and one half of the key tile (scores, 32 registers)
+// and one half of the head dim (output accumulator, D/2 registers); the
+// two threads of a row combine their row max and row sum with one
+// shuffle.  Rows are padded by one float in shared memory so the 16 rows
+// a warp touches fall in distinct banks.
+//
+// Both loop only over key tiles the causal/window masks leave open for
+// some row of the tile (the TPU kernel runs every tile; a skipped tile
+// adds exactly zero there, so the output is the same), and address the
+// tensors through their batch/seq/head strides, so [B,S,H,D] views need
+// no transpose copies; the last dim must be contiguous.
 #include "common.cuh"
 
 namespace {
@@ -186,10 +211,268 @@ int launch(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------ bf16: tensor cores
+namespace tc {
+
+constexpr int BQ = 64;               // query rows per block (16 per warp)
+constexpr int BK = 64;               // keys per tile
+constexpr int kThreads = 128;
+
+template <int D>
+__host__ __device__ constexpr int ld() { return D + 8; }  // row, +16 bytes
+
+template <int D>
+constexpr size_t smem_bytes() {      // a ring of 2 stages of K and V
+  return sizeof(__nv_bfloat16) * (size_t)(4 * BK) * ld<D>();
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                     int H, int KV, int Sq, int Sk, int64_t qsb, int64_t qss,
+                     int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh,
+                     int64_t vsb, int64_t vss, int64_t vsh, float scale_log2,
+                     int causal, int window) {
+  constexpr int LD = ld<D>();
+  constexpr int CPR = D / 8;         // 16-byte chunks per row
+  static_assert(BQ <= 2 * BK, "Q fits the second stage");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // stage s holds K rows [2s BK, 2s BK + BK) and V rows after them
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sV = sK + BK * LD;
+  // Q is read into registers before the second stage is first filled, so
+  // it borrows that stage (70 KB a block at D=128).
+  __nv_bfloat16* sQ = sK + 2 * BK * LD;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int kvh = h / (H / KV);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest tiles first
+  const int off = Sk - Sq;
+  const int wr0 = warp * 16;         // the warp's first row in the tile
+
+  const __nv_bfloat16* qb = q + b * qsb + h * qsh;
+  const __nv_bfloat16* kb = k + b * ksb + kvh * ksh;
+  const __nv_bfloat16* vb = v + b * vsb + kvh * vsh;
+
+  const int q_last = min(q0 + BQ, Sq) - 1;
+  int k_end = Sk;
+  if (causal) k_end = min(Sk, off + q_last + 1);
+  int k_begin = 0;
+  if (window > 0) k_begin = max(0, off + q0 - window + 1);
+  const int t_begin = k_begin / BK;
+  const int t_end = (k_end + BK - 1) / BK;
+
+  for (int c = tid; c < BQ * CPR; c += kThreads) {
+    const int r = c / CPR, cc = c % CPR;
+    const int qi = q0 + r;
+    const bool in = qi < Sq;
+    cp_async16(sQ + r * LD + cc * 8, qb + (in ? qi : 0) * qss + cc * 8, in);
+  }
+  // K/V copy roles: chunk j of this thread is key row tid/CPR + j*RSTEP
+  // of the tile, dim chunk tid%CPR; keys past Sk are zero-filled (p * 0,
+  // never NaN) from a valid address.
+  constexpr int KV_CH = BK * CPR / kThreads, RSTEP = kThreads / CPR;
+  const int kv_r = tid / CPR, kv_c = (tid % CPR) * 8;
+  auto load_kv = [&](int t, int st) {
+    const int k0 = t * BK + kv_r;
+    __nv_bfloat16* dk = sK + (2 * st * BK + kv_r) * LD + kv_c;
+    __nv_bfloat16* dv = sV + (2 * st * BK + kv_r) * LD + kv_c;
+#pragma unroll
+    for (int j = 0; j < KV_CH; ++j) {
+      const int ki = k0 + j * RSTEP;
+      const bool in = ki < Sk;
+      const int kr = in ? ki : 0;
+      cp_async16(dk + j * RSTEP * LD, kb + kr * kss + kv_c, in);
+      cp_async16(dv + j * RSTEP * LD, vb + kr * vss + kv_c, in);
+    }
+  };
+  if (t_begin < t_end) load_kv(t_begin, 0);
+  cp_async_commit();
+
+  uint32_t qf[D / 16][4];            // Q as A fragments, loaded once
+  float o[D / 8][4];                 // O: 16 rows x D per warp
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m_r[2] = {NEG_INF, NEG_INF}; // rows g and g+8, log2 units
+  float l_r[2] = {0.f, 0.f};         // this thread's share of the row sums
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int st = (t - t_begin) & 1;
+    cp_async_wait<0>();
+    __syncthreads();                 // tile t landed; tile t-1 consumed
+    if (t == t_begin) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        ldmatrix_x4(qf[kk], sQ + (wr0 + (lane & 15)) * LD + kk * 16 +
+                                (lane >> 4) * 8);
+      __syncthreads();               // every warp holds Q: stage 1 is free
+    }
+    if (t + 1 < t_end) load_kv(t + 1, st ^ 1);
+    cp_async_commit();
+    const __nv_bfloat16* Ks = sK + 2 * st * BK * LD;
+    const __nv_bfloat16* Vs = sV + 2 * st * BK * LD;
+
+    float s[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int np = 0; np < BK / 16; ++np) {
+        uint32_t bf[4];              // n-tiles 2np (bf 0,1) and 2np+1 (2,3)
+        ldmatrix_x4(bf, Ks + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD
+                            + kk * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16_16816(s[2 * np], qf[kk], bf[0], bf[1]);
+        mma_bf16_16816(s[2 * np + 1], qf[kk], bf[2], bf[3]);
+      }
+    }
+
+    const int k0 = t * BK;
+    const bool edge = k0 + BK > Sk ||
+                      (causal && k0 + BK - 1 > off + q0) ||
+                      (window > 0 && off + q0 + BQ - 1 - k0 >= window);
+    float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (edge) {
+          const int kpos = k0 + j * 8 + tig * 2 + (e & 1);
+          const int qpos = off + q0 + wr0 + g + (e >> 1) * 8;
+          bool ok = kpos < Sk;
+          if (causal) ok = ok && (qpos >= kpos);
+          if (window > 0) ok = ok && (qpos - kpos < window);
+          x = ok ? x : NEG_INF;
+        }
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      corr[r] = exp2f(m_r[r] - mx[r]);
+      m_r[r] = mx[r];
+      l_r[r] *= corr[r];
+    }
+    uint32_t pf[BK / 16][4];         // P as A fragments of PV
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const float p0 = exp2f(s[j][0] - mx[0]), p1 = exp2f(s[j][1] - mx[0]);
+      const float p2 = exp2f(s[j][2] - mx[1]), p3 = exp2f(s[j][3] - mx[1]);
+      l_r[0] += p0 + p1;
+      l_r[1] += p2 + p3;
+      pf[j >> 1][(j & 1) * 2] = pack_bf16x2(p0, p1);
+      pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16x2(p2, p3);
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      o[n][0] *= corr[0];
+      o[n][1] *= corr[0];
+      o[n][2] *= corr[1];
+      o[n][3] *= corr[1];
+    }
+#pragma unroll
+    for (int c = 0; c < BK / 16; ++c) {
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t bf[4];              // dim n-tiles 2dp (bf 0,1), 2dp+1 (2,3)
+        ldmatrix_x4_trans(bf, Vs + (c * 16 + (lane & 7) +
+                                    ((lane >> 3) & 1) * 8) * LD +
+                                  dp * 16 + (lane >> 4) * 8);
+        mma_bf16_16816(o[2 * dp], pf[c], bf[0], bf[1]);
+        mma_bf16_16816(o[2 * dp + 1], pf[c], bf[2], bf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();                // no copy may land in sQ below
+  __syncthreads();                   // and no warp still reads its tile
+
+  float den[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_r[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    den[r] = fmaxf(l, 1e-30f);
+  }
+  // the warp's own 16 rows of sQ stage O
+  __nv_bfloat16* sO = sQ + wr0 * LD;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    *reinterpret_cast<uint32_t*>(sO + g * LD + n * 8 + tig * 2) =
+        pack_bf16x2(o[n][0] / den[0], o[n][1] / den[0]);
+    *reinterpret_cast<uint32_t*>(sO + (g + 8) * LD + n * 8 + tig * 2) =
+        pack_bf16x2(o[n][2] / den[1], o[n][3] / den[1]);
+  }
+  __syncwarp();
+  for (int c = lane; c < 16 * CPR; c += 32) {
+    const int r = c / CPR, cc = c % CPR;
+    const int qi = q0 + wr0 + r;
+    if (qi < Sq)
+      *reinterpret_cast<uint4*>(out + (((int64_t)b * Sq + qi) * H + h) * D +
+                                cc * 8) =
+          *reinterpret_cast<const uint4*>(sO + r * LD + cc * 8);
+  }
+  if (lse != nullptr && tig == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = q0 + wr0 + g + r * 8;
+      if (qi < Sq)
+        lse[((int64_t)b * H + h) * Sq + qi] =
+            m_r[r] * 0.69314718055994531f + logf(den[r]);
+    }
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int H, int KV, int Sq, int Sk,
+           const int64_t* st, float scale, int causal, int window,
+           cudaStream_t s) {
+  const size_t smem = smem_bytes<D>();
+  static bool attrs_set = false;     // once per process
+  if (!attrs_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(flash_fwd_mma_kernel<D>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return (int)e;
+    attrs_set = true;
+  }
+  dim3 grid((Sq + BQ - 1) / BQ, B * H);
+  flash_fwd_mma_kernel<D><<<grid, kThreads, smem, s>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, lse, H, KV, Sq, Sk,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      scale * 1.4426950408889634f, causal, window);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // strides: q (batch, seq, head), k (batch, seq, head), v (batch, seq, head)
-// in elements; the head dim is contiguous.  out is a contiguous
+// in elements; the head dim is contiguous.  f32 runs the SIMT kernel, bf16
+// the tensor-core kernel, which also needs 16-byte-aligned q, k, v and
+// strides that are multiples of 8.  out is a contiguous
 // [B, Sq, H, D] tensor of q's dtype; lse (nullable) a contiguous f32
 // [B, H, Sq].  head_dim must be 64 or 128.
 extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
@@ -209,10 +492,10 @@ extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
     return launch<float, 64>(q, k, v, out, l, B, H, KV, Sq, Sk, strides,
                              scale, causal, window, s);
   if (dtype == DTYPE_BF16 && head_dim == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, out, l, B, H, KV, Sq, Sk,
-                                      strides, scale, causal, window, s);
+    return tc::launch<128>(q, k, v, out, l, B, H, KV, Sq, Sk, strides, scale,
+                           causal, window, s);
   if (dtype == DTYPE_BF16 && head_dim == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, out, l, B, H, KV, Sq, Sk,
-                                     strides, scale, causal, window, s);
+    return tc::launch<64>(q, k, v, out, l, B, H, KV, Sq, Sk, strides, scale,
+                          causal, window, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -118,8 +118,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_flash_fwd.restype = I
     lib.repro_codec_ln_rows.argtypes = [P, P, I64, I, I, I, I, P]
     lib.repro_codec_ln_rows.restype = I
-    lib.repro_codec_gemm.argtypes = [P, P, P, I64, I, I, I, P]
+    lib.repro_codec_gemm.argtypes = [P, P, P, P, I64, I, I, I, P]
     lib.repro_codec_gemm.restype = I
+    lib.repro_codec_gemm_scratch.argtypes = [I64, I, I, I]
+    lib.repro_codec_gemm_scratch.restype = I64
     lib.repro_codec_ln_rows_codes.argtypes = [P, P, P, I64, I, I, I, I, P]
     lib.repro_codec_ln_rows_codes.restype = I
     lib.repro_codec_dequant_rows.argtypes = [P, P, P, I64, I, I, I, I, P]

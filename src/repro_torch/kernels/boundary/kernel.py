@@ -105,16 +105,33 @@ def _ln_rows(x2: torch.Tensor, k: int, qb: int, code: int) -> torch.Tensor:
 
 
 def _gemm(a2: torch.Tensor, w: torch.Tensor, code: int) -> torch.Tensor:
+    """``a2 @ round(w)`` by the codec GEMM: bf16 on the tensor cores (k and
+    m multiples of 8, 16-byte-aligned operands; a scratch tensor takes the
+    weight rounded to bf16 and any split-K partials), f32 on the SIMT
+    kernel."""
     from repro_torch.kernels import _lib
     n, kdim = a2.shape
     if w.shape[0] != kdim:
         raise ValueError(f"codec gemm: w {tuple(w.shape)} does not fit "
                          f"rows of width {kdim}")
     w = w.contiguous()           # held until the launch is queued
-    out = torch.empty((n, w.shape[1]), dtype=a2.dtype, device=a2.device)
-    rc = _lib.lib().repro_codec_gemm(
-        a2.data_ptr(), w.data_ptr(), out.data_ptr(), n, kdim, w.shape[1],
-        code, _lib.stream_ptr(a2.device))
+    m = w.shape[1]
+    lib = _lib.lib()
+    scratch = None
+    if a2.dtype == torch.bfloat16:
+        if kdim % 8 or m % 8:
+            raise ValueError(f"codec gemm: bf16 needs k and m multiples of "
+                             f"8, got k={kdim} m={m}")
+        if a2.data_ptr() % 16 or w.data_ptr() % 16:
+            raise ValueError("codec gemm: bf16 needs 16-byte-aligned a and "
+                             "w")
+        scratch = torch.empty(lib.repro_codec_gemm_scratch(n, kdim, m, code),
+                              dtype=torch.uint8, device=a2.device)
+    out = torch.empty((n, m), dtype=a2.dtype, device=a2.device)
+    rc = lib.repro_codec_gemm(
+        a2.data_ptr(), w.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), n, kdim, m, code,
+        _lib.stream_ptr(a2.device))
     _lib.check(rc, "codec gemm")
     return out
 

@@ -7,7 +7,9 @@ On a CUDA tensor it launches the kernel or raises; on a CPU tensor it
 runs :func:`~repro_torch.kernels.flash_attention.ref.flash_fwd_ref` at
 the kernel's fixed query offset ``Sk - Sq``.  The kernel tiles queries
 and keys by 64 itself; ``block_q``/``block_k`` set the chunks of the
-plain version only.
+plain version only.  bf16 runs on the tensor cores with 16-byte copies,
+so its q, k and v must meet :func:`bf16_layout_problem`'s rule; f32 runs
+the SIMT kernel, which takes any strides.
 """
 from __future__ import annotations
 
@@ -21,6 +23,23 @@ from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
 DEFAULT_BQ = 256
 DEFAULT_BK = 512
 HEAD_DIMS = (64, 128)
+
+
+def bf16_layout_problem(t: torch.Tensor):
+    """Why the bf16 kernel cannot read ``t`` [B, S, heads, D] with 16-byte
+    copies, or None: it needs a 16-byte-aligned start (a storage offset
+    that is a multiple of 8 elements) and batch, seq and head strides that
+    are multiples of 8 elements (a dim of size 1 is never stepped over)."""
+    if t.storage_offset() % 8 or t.data_ptr() % 16:
+        return (f"starts at element offset {t.storage_offset()}, not "
+                f"16-byte aligned")
+    bad = [(i, s) for i, (n, s) in enumerate(zip(t.shape[:3],
+                                                  t.stride()[:3]))
+           if n > 1 and s % 8]
+    if bad:
+        return (f"has strides {tuple(t.stride()[:3])} (batch, seq, head); "
+                f"they must be multiples of 8 elements")
+    return None
 
 
 def flash_attention_fwd(q, k, v, causal=True, window=0, scale=None,
@@ -55,6 +74,12 @@ def flash_attention_fwd(q, k, v, causal=True, window=0, scale=None,
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("flash_attention_fwd: head dim must be contiguous")
     code = _lib.dtype_code(q, "flash_attention_fwd")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            problem = bf16_layout_problem(t)
+            if problem:
+                raise ValueError(f"flash_attention_fwd: bf16 {name} "
+                                 f"{problem}")
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if with_lse else None)

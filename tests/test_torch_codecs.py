@@ -126,6 +126,28 @@ def test_encode_decode_match_jax(mode, k, quantize, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["bottleneck", "maxout"])
+@pytest.mark.parametrize("rows", [1, 7, 200])
+def test_decode_ref_ragged_rows_match_jax(rows, mode, dtype):
+    """The plain decode the CUDA codec GEMM is held to on the card, at row
+    counts that do not fill the kernel's 128-row tiles, against JAX's
+    ``decode_ref`` and its Pallas ``decode`` in interpret mode."""
+    rng = np.random.default_rng(rows)
+    z = (rng.standard_normal((rows, C)) * 2).astype(np.float32)
+    wd = (rng.standard_normal((C, D)) * 0.2).astype(np.float32)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = getattr(torch, dtype)
+    jz = jnp.asarray(z).astype(jdt)
+    y = tbk.decode(_t(np.asarray(jz.astype(jnp.float32)), tdt), _t(wd), mode)
+    assert y.dtype == tdt and tuple(y.shape) == (rows, D)
+    dtol = 1e-5 if dtype == "float32" else 2.0 ** -8
+    for want in (jref.decode_ref(jz, jnp.asarray(wd), mode),
+                 jbk.decode(jz, jnp.asarray(wd), mode, interpret=True)):
+        _assert_close_or_code_step(_np(y), np.asarray(
+            want.astype(jnp.float32)), dtol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("mode,k", [("bottleneck", 1), ("maxout", 2),
                                     ("maxout", 4)])
 def test_wire_codes_pair_matches_jax(mode, k, dtype):

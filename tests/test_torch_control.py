@@ -27,6 +27,7 @@ from repro.core import SwarmRunner as JSwarmRunner
 from repro.core import faults as jfaults
 from repro.core import rebalance as jrb
 from repro.core.dht import DHT as JDHT
+from repro.core.peer import Peer as JPeer
 from repro.data.synthetic import SyntheticLM as JSyntheticLM
 from repro.optim import adamw as j_adamw
 
@@ -34,6 +35,7 @@ from repro_torch.core import faults as tfaults
 from repro_torch.core import rebalance as trb
 from repro_torch.core.dht import DHT as TDHT
 from repro_torch.core.peer import MBPS, DeviceProfile
+from repro_torch.core.peer import Peer as TPeer
 from repro_torch.core.sim import Sleep
 from repro_torch.core.swarm import SwarmConfig, SwarmRunner
 from repro_torch.models.config import ArchConfig
@@ -153,21 +155,24 @@ ZONES = ("us-east", "eu-west", "ap-south")
     pytest.param(0.0, None, id="0.0"),
     pytest.param(60.0, None, id="60.0"),
     pytest.param(60.0, ZONES, id="60.0-zones")])
-def test_timing_replay_matches_jax(period, regions):
+def test_timing_replay_matches_jax(period, regions, monkeypatch):
     """``tests/test_system.py``'s preemption replay, numeric=False: the
     same migrations, failures, joins, steps and throughput, exactly.
     With ``regions`` the trace is zone-tagged and ``region_fn`` places
     the initial peers round-robin over the zones, so every preemption
     may only take a peer of its own zone: the same peers die, and the
-    survivors sit in the same zones, in both packages."""
+    survivors sit in the same zones, in both packages.  Peer names come
+    from a per-process counter in each package, so both start at peer1
+    whatever other tests of the process built."""
     jcfg, tcfg = _configs(n_layers=4, d_model=1024, d_ff=4096,
                           vocab_size=5000)
     kw = {} if regions is None else {
         "region_fn": lambda i: regions[i % len(regions)]}
     out = []
-    for Runner, Config, cfg, opt, faults in (
-            (JSwarmRunner, JSwarmConfig, jcfg, j_adamw(), jfaults),
-            (SwarmRunner, SwarmConfig, tcfg, adamw(), tfaults)):
+    for Runner, Config, cfg, opt, faults, peer_cls in (
+            (JSwarmRunner, JSwarmConfig, jcfg, j_adamw(), jfaults, JPeer),
+            (SwarmRunner, SwarmConfig, tcfg, adamw(), tfaults, TPeer)):
+        monkeypatch.setattr(peer_cls, "_ids", 0)
         trace = faults.synth_preemptible_trace(
             horizon_s=1200.0, target_peers=16, mean_lifetime_s=900.0,
             seed=3, regions=regions)

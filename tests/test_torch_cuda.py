@@ -65,6 +65,16 @@ FLASH_CASES = [
     (1, 200, 200, 8, 1, 64, True, 48),      # MQA + sliding window
     (1, 24, 150, 4, 2, 128, True, 0),       # query offset Sk - Sq
     (2, 70, 90, 2, 2, 64, False, 0),        # bidirectional
+    # edges of the bf16 kernel's 64-row query and key tiles
+    (1, 1, 1, 4, 2, 64, True, 0),           # one query, one key
+    (2, 63, 63, 4, 2, 128, True, 0),        # one row short of a tile
+    (2, 65, 65, 4, 2, 64, True, 0),         # one row past a tile
+    (1, 129, 129, 4, 4, 128, True, 0),      # two tiles and a row
+    (1, 40, 100, 4, 2, 128, True, 0),       # offset 60: causal edge on key tile 0|1
+    (1, 130, 130, 4, 4, 64, True, 70),      # window straddling two key tiles
+    (2, 100, 100, 16, 2, 64, True, 0),      # G = 8, D = 64
+    (2, 100, 100, 16, 2, 128, True, 0),     # G = 8, D = 128
+    (1, 1, 150, 8, 1, 128, True, 0),        # one query at offset 149, G = 8
 ]
 
 
@@ -88,6 +98,27 @@ def test_cuda_flash_cases_and_lse(case, dtype):
     assert float((out.float() - ref.float()).abs().max()) <= \
         FLASH_BOUND[dtype]
     assert float((lse - ref_lse).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_deterministic_and_row_independent(dtype):
+    """Two calls agree to the bit, and each batch row alone equals that
+    row of the batch-2 call (output and lse): a row's result depends only
+    on its own q row, k, v and the masks."""
+    dev = _card()
+    g = _gen(dev)
+    q = torch.randn(2, 300, 16, 128, generator=g, device=dev).to(dtype)
+    k = torch.randn(2, 300, 2, 128, generator=g, device=dev).to(dtype)
+    v = torch.randn(2, 300, 2, 128, generator=g, device=dev).to(dtype)
+    out, lse = flash_attention_fwd(q, k, v, True, 100, with_lse=True)
+    again = flash_attention_fwd(q, k, v, True, 100, with_lse=True)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    for b in range(2):
+        one = flash_attention_fwd(q[b:b + 1], k[b:b + 1], v[b:b + 1], True,
+                                  100, with_lse=True)
+        assert torch.equal(one[0], out[b:b + 1])
+        assert torch.equal(one[1], lse[b:b + 1])
 
 
 @pytest.mark.cuda
@@ -140,6 +171,23 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
         rmsnorm(x, torch.ones(64, device=dev))
     with pytest.raises(ValueError, match="block"):
         qdq_flat(torch.randn(100, device=dev), 48)
+    # the bf16 flash kernel copies 16 bytes at a time: a seq stride of
+    # 196 elements, or a start 2 bytes into the storage, is refused
+    fused = torch.randn(1, 8, 196, device=dev, dtype=torch.bfloat16)
+    qs = fused[:, :, :128].unflatten(-1, (2, 64))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        flash_attention_fwd(qs, qs, qs)
+    flat = torch.randn(1 + 8 * 2 * 64, device=dev, dtype=torch.bfloat16)
+    qo = flat[1:].view(1, 8, 2, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_fwd(qo, qo, qo)
+    # the bf16 codec GEMM needs k and m multiples of 8
+    from repro_torch.kernels.boundary import kernel as K
+    a = torch.randn(4, 12, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        K._gemm(a, torch.randn(12, 16, device=dev), 1)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        K._gemm(a[:, :8], torch.randn(8, 20, device=dev), 1)
 
 
 def _cuda_cfg(**kw) -> ArchConfig:
@@ -247,6 +295,45 @@ def _assert_faithful(p, a, w):
     floor = 4 * 2.0 ** -24 * a.shape[-1] ** 0.5 * \
         torch.sqrt((ad * ad) @ (wd * wd))
     assert bool(((err < ulp) | (err <= floor)).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,kdim,m", [
+    (1, 1024, 4096), (200, 1024, 4096), (1023, 1024, 4096),  # ragged rows
+    (1024, 1024, 4096), (1024, 2048, 4096),      # decode, maxout decode
+    (1024, 4096, 1024),                          # encode: split k
+    (70, 96, 256)])                              # k not a multiple of 32
+def test_cuda_codec_gemm_shapes(n, kdim, m):
+    """The bf16 codec GEMM (tensor cores) at ragged row counts and at
+    swarm-1b's shapes: the product faithfully rounded against the f64
+    product of the rounded operands (see ``_assert_faithful``)."""
+    from repro_torch.kernels.boundary import kernel as K
+    dev = _card()
+    g = _gen(dev)
+    a = torch.randn(n, kdim, generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn(kdim, m, generator=g, device=dev) / kdim ** 0.5
+    c = K._gemm(a, w, 1)
+    assert c.dtype == torch.bfloat16 and c.shape == (n, m)
+    _assert_faithful(c, a, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kdim,m", [(1024, 4096), (4096, 1024)])
+def test_cuda_codec_gemm_deterministic_and_row_independent(kdim, m, dtype):
+    """Two calls agree to the bit, and the rows of a 200-row call (at
+    row 300, across the 128-row tiles) equal the same rows of the
+    1024-row call: tiles and the split of k follow (k, m), never n."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.boundary import kernel as K
+    dev = _card()
+    g = _gen(dev)
+    code = _lib.DTYPE_CODES[dtype]
+    a = torch.randn(1024, kdim, generator=g, device=dev).to(dtype)
+    w = torch.randn(kdim, m, generator=g, device=dev) / kdim ** 0.5
+    c = K._gemm(a, w, code)
+    assert torch.equal(K._gemm(a, w, code), c)
+    assert torch.equal(K._gemm(a[300:500], w, code), c[300:500])
 
 
 @pytest.mark.cuda

@@ -87,6 +87,102 @@ def test_flash_plain_matches_pallas_and_oracle(case):
         atol=FLASH_TOL, rtol=0)
 
 
+FLASH_EDGE_CASES = [
+    # B, Sq, Sk, H, KV, D, causal, window: edges of the CUDA kernel's
+    # 64-row query and key tiles, which the plain version is chunked by
+    (1, 1, 1, 2, 1, 16, True, 0),           # one query, one key
+    (1, 63, 63, 2, 2, 16, True, 0),         # one row short of a tile
+    (1, 65, 65, 2, 2, 16, True, 0),         # one row past a tile
+    (1, 129, 129, 2, 1, 16, True, 0),       # two tiles and a row
+    (1, 40, 100, 2, 1, 16, True, 0),        # offset 60: causal edge on key tile 0|1
+    (1, 130, 130, 2, 2, 16, True, 70),      # window straddling two key tiles
+    (1, 65, 65, 8, 1, 16, True, 0),         # G = 8 query heads per KV head
+    (1, 1, 150, 8, 1, 32, True, 0),         # one query at offset 149, G = 8
+]
+
+
+@pytest.mark.parametrize("case", FLASH_EDGE_CASES)
+def test_flash_plain_lse_at_tile_edges_matches_pallas(case):
+    """The plain version the CUDA kernel is held to on the card, with its
+    ``lse``, at the kernel's tile edges, chunked by its 64-row tiles,
+    against the Pallas kernel in interpret mode and the oracle."""
+    B, Sq, Sk, H, KV, D, causal, win = case
+    rng = np.random.default_rng(2)
+    q = rng.standard_normal((B, Sq, H, D), np.float32)
+    k = rng.standard_normal((B, Sk, KV, D), np.float32)
+    v = rng.standard_normal((B, Sk, KV, D), np.float32)
+    jo, jlse = j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                       causal, win, None, 64, 64, True, True)
+    jref = j_attn_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                      causal=causal, window=win)
+    to, tlse = flash_fwd_ref(_t(q), _t(k), _t(v), causal, win, Sk - Sq,
+                             64, 64)
+    assert tlse.shape == (B, KV, H // KV, Sq)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=FLASH_TOL,
+                               rtol=0)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jref),
+                               atol=FLASH_TOL, rtol=0)
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse),
+                               atol=FLASH_TOL, rtol=0)
+
+
+def _tiny_serving_cfg(**kw):
+    from repro_torch.models.config import ArchConfig
+    base = dict(name="tiny-layout", family="dense", n_layers=4, d_model=128,
+                n_heads=4, n_kv_heads=2, head_dim=32, d_ff=256,
+                vocab_size=128, compute_dtype="bfloat16",
+                param_dtype="float32")
+    base.update(kw)
+    return ArchConfig(**base)
+
+
+def test_model_attention_calls_meet_the_bf16_kernel_layout(monkeypatch):
+    """Every flash call of the serving path (a ServeRunner's prefills) and
+    of the training path (a stage program's forward and its recompute
+    with ``lse``) passes q, k, v whose storage offsets and batch, seq and
+    head strides the bf16 tensor-core kernel takes (16-byte copies); on
+    the card the wrapper raises otherwise.  The layout is checked on CPU
+    tensors made by the same code."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.runtime import build_stage_programs, init_stage_params
+    from repro_torch.serve import ServeConfig, ServeRunner
+    seen = []
+    orig = fk.flash_attention_fwd
+
+    def recording(q, k, v, *args, **kw):
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            assert fk.bf16_layout_problem(t) is None, (
+                name, tuple(t.shape), t.stride(), t.storage_offset())
+        seen.append(bool(kw.get("with_lse", False)))
+        return orig(q, k, v, *args, **kw)
+
+    monkeypatch.setattr(fk, "flash_attention_fwd", recording)
+    r = ServeRunner(_tiny_serving_cfg(), ServeConfig(n_stages=4, max_batch=2,
+                                                     max_sessions=2),
+                    seed=0, device="cpu")
+    r.build_pools(n_prefill=2, n_decode=2)
+    for p in np.random.default_rng(0).integers(0, 128, size=(2, 24)):
+        r.submit(p, 2)
+    assert r.run()["completed"] == 2
+    assert seen and not any(seen)                 # prefills, no lse
+    n_serve = len(seen)
+    cfg = _tiny_serving_cfg(n_layers=6, n_kv_heads=4, share_groups=3,
+                            norm="layernorm", act="geglu",
+                            boundary_compression="bottleneck",
+                            bottleneck_dim=64, pipeline_stages=3)
+    progs = build_stage_programs(cfg, 3, 64)
+    params = init_stage_params(progs, 0, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    tok = torch.randint(0, 128, (2, 64), generator=g)
+    x1 = progs[0].fwd(params[0], tok)
+    x2 = progs[1].fwd(params[1], x1)
+    _, gx, _ = progs[2].bwd(params[2], x2, tok)
+    gx, _ = progs[1].bwd(params[1], x1, gx)
+    progs[0].bwd(params[0], tok, gx)
+    train = seen[n_serve:]
+    assert any(train) and not all(train)          # forwards and recomputes
+
+
 @pytest.mark.parametrize("impl", ["jnp", "pallas"])
 @pytest.mark.parametrize("q_offset", [None, 3])
 def test_flash_router_matches_jax(impl, q_offset):
