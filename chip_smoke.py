@@ -9,9 +9,11 @@ It imports nothing of JAX or of the JAX package.  Phases (each prints a
 JSON line; any failure raises and exits non-zero):
 
 1. build   — compile the CUDA kernels of ``src/repro_torch/csrc`` with
-             nvcc; count the tensor-core instructions of the bf16 flash
-             forward (HMMA) and codec GEMM (HGMMA) where ``cuobjdump``
-             exists; print the card's name and power limit.
+             nvcc; where ``cuobjdump`` exists, count the tensor-core
+             instructions of the bf16 flash forward (HMMA) and codec
+             GEMM (HGMMA), and the 16-byte global loads (LDG.E.128) of
+             every instantiation of the codec's row passes and qdq;
+             print the card's name and power limit.
 2. kernels — each kernel against its plain PyTorch version on the card at
              the shapes of its paths (serving for rmsnorm and qdq,
              serving and training for flash with its ``lse``, training
@@ -19,10 +21,13 @@ JSON line; any failure raises and exits non-zero):
              its true-wire pair encode_quantize / dequantize_decode,
              held stage by stage on their own intermediates, the int8
              wire's shape for the quant8 pair), in bf16 and f32; the
-             flash forward and the codec GEMM also run twice (bit-equal)
-             and on a subset of their rows (bit-equal to the same rows
-             of the full call).  Times: device time per call (the
-             kernels' CUPTI durations under ``torch.profiler``) beside
+             flash forward, the codec GEMM and row passes and qdq also
+             run twice (bit-equal) and on a subset of their rows
+             (bit-equal to the same rows of the full call); the codec's
+             row pass also runs and is timed alone (``ln_rows``).
+             Times: device time per call (the kernels' CUPTI durations
+             under ``torch.profiler``; for the codec and qdq also
+             ``cold_ms``, the L2 evicted before each call) beside
              the plain version's, the one-call PyTorch library
              equivalent's where there is one, and the card's lower
              bound; each kernel's row also keeps ``eager_ms``, CUDA
@@ -74,7 +79,8 @@ JSON line; any failure raises and exits non-zero):
              share.
 
 The next-to-last line is the ``{"kernels": [...]}`` summary, the last
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``.  ``--kernels-only`` runs phases 1 and
+2 alone and prints neither.
 """
 from __future__ import annotations
 
@@ -138,24 +144,60 @@ def _device_us(ev) -> float:
                    getattr(ev, "self_cuda_time_total", 0.0))
 
 
-def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+FLUSH_BYTES = 256 * 2 ** 20      # five times the H100's 50 MB L2
+_FLUSH: dict = {}
+
+
+def _profiled(torch, fn, iters: int) -> dict:
+    """Per kernel name, (calls, device ms) of ``iters`` calls of ``fn``
+    under ``torch.profiler`` (CUPTI).  A session now and then loses some
+    or all of its events, so a result stands only when two sessions in a
+    row agree on the calls of every name."""
+    from torch.profiler import ProfilerActivity, profile
+    last = None
+    for _ in range(6):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        got = {ev.key: (ev.count, _device_us(ev) / 1e3)
+               for ev in prof.key_averages() if _device_us(ev) > 0}
+        if got and last is not None and {k: c for k, (c, _) in got.items()} \
+                == {k: c for k, (c, _) in last.items()}:
+            return got
+        last = got
+    raise RuntimeError("the profiler's sessions disagree on the kernels "
+                       "launched")
+
+
+def time_ms(torch, fn, iters: int = 20, warmup: int = 3,
+            cold: bool = False) -> float:
     """Device time of one call of ``fn``: the durations of the kernels
     (and memsets) it launches, as CUPTI reports them under
     ``torch.profiler``, summed over ``iters`` calls and divided by
     ``iters``.  Host time between launches does not count, so a fast
-    kernel behind a Python wrapper is timed, not its wrapper."""
-    from torch.profiler import ProfilerActivity, profile
+    kernel behind a Python wrapper is timed, not its wrapper.  Warm
+    (default), back-to-back calls find their inputs in the 50 MB L2 where
+    they fit; ``cold`` evicts the L2 before each call with a read of a
+    256 MiB buffer (a reduction: no kernel of a timed call is one) and
+    leaves the read's kernels out of the sum."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
+    skip = set()
+    call = fn
+    if cold:
+        if not _FLUSH:
+            buf = torch.ones(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+            _FLUSH["fn"] = lambda: buf.amax()
+            _FLUSH["keys"] = set(_profiled(torch, _FLUSH["fn"], 1))
+        skip = _FLUSH["keys"]
+
+        def call():
+            _FLUSH["fn"]()
             fn()
-        torch.cuda.synchronize()
-    us = sum(_device_us(ev) for ev in prof.key_averages())
-    if us <= 0:
-        raise RuntimeError("the profiler saw no device time")
-    return us / 1e3 / iters
+    got = _profiled(torch, call, iters)
+    return sum(ms for k, (_, ms) in got.items() if k not in skip) / iters
 
 
 def eager_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -194,12 +236,27 @@ def _counted(torch, fn):
 
 # ------------------------------------------------------------------ phase 1
 TENSOR_CORE_KERNELS = ("flash_fwd_mma_kernel", "codec_gemm_wgmma_kernel")
+VECTOR_KERNELS = ("ln_rows_kernel", "dequant_rows_kernel", "qdq_vec_kernel")
 
 
-def tensor_core_counts(path):
-    """HMMA / HGMMA instructions in the SASS of each bf16 instantiation of
-    the tensor-core kernels (``cuobjdump -sass``), or None without
-    ``cuobjdump``."""
+def _instantiation(name: str, kernel: str) -> str:
+    """``kernel<dtype,ints>`` from a mangled name such as
+    ``..._7rowpass14ln_rows_kernelI13__nv_bfloat16Li4ELb1EEEv...``
+    (a bool argument as 0 or 1)."""
+    import re
+    m = re.search(kernel + r"I(13__nv_bfloat16|f)((?:L[ib]\d+E)*)E", name)
+    if m is None:
+        return kernel
+    args = ["bf16" if m.group(1) != "f" else "f32"]
+    args += re.findall(r"L[ib](\d+)E", m.group(2))
+    return f"{kernel}<{','.join(args)}>"
+
+
+def sass_counts(path):
+    """Per kernel instantiation, from ``cuobjdump -sass``: the HMMA /
+    HGMMA instructions of the tensor-core kernels, and the 128- and
+    64-bit global loads (``LDG.E.128`` / ``LDG.E.64``) of the vector
+    kernels (the codec's row passes, qdq).  None without ``cuobjdump``."""
     import shutil
     exe = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
@@ -207,20 +264,24 @@ def tensor_core_counts(path):
         return None
     sass = subprocess.run([exe, "-sass", str(path)], capture_output=True,
                           text=True, check=True).stdout
-    counts, cur = {}, None
+    counts, cur, ops = {}, None, ()
     for ln in sass.splitlines():
         if "Function : " in ln:
             name = ln.split("Function : ", 1)[1].strip()
-            cur = next((k for k in TENSOR_CORE_KERNELS if k in name), None)
-            if cur == "flash_fwd_mma_kernel":
-                cur += "<64>" if "ILi64E" in name else "<128>"
-            if cur is not None:
-                counts[cur] = {"HMMA": 0, "HGMMA": 0}
+            cur = None
+            for k in TENSOR_CORE_KERNELS + VECTOR_KERNELS:
+                if k in name:
+                    cur, ops = _instantiation(name, k), (
+                        ("HGMMA", "HMMA") if k in TENSOR_CORE_KERNELS
+                        else ("LDG.E.128", "LDG.E.64"))
+                    if k == "flash_fwd_mma_kernel":
+                        cur = k + ("<64>" if "ILi64E" in name else "<128>")
+                    counts[cur] = dict.fromkeys(ops, 0)
+                    break
         elif cur is not None:
-            if "HGMMA" in ln:
-                counts[cur]["HGMMA"] += 1
-            elif "HMMA" in ln:
-                counts[cur]["HMMA"] += 1
+            op = next((o for o in ops if o in ln), None)
+            if op is not None:
+                counts[cur][op] += 1
     return counts
 
 
@@ -233,17 +294,27 @@ def phase_build(torch) -> None:
     secs = time.time() - t0
     ptxas = [ln.strip() for ln in _lib.BUILD_LOG.splitlines()
              if "registers" in ln or "spill" in ln]
-    tc = tensor_core_counts(path)
+    sass = sass_counts(path)
     emit({"phase": "build", "library": os.path.relpath(path),
-          "seconds": secs, "ptxas": ptxas[:24],
-          "tensor_core_instructions": tc})
-    if tc is not None:
+          "seconds": secs, "ptxas": ptxas[:24], "sass": sass})
+    if sass is not None:
         want = {"flash_fwd_mma_kernel<64>", "flash_fwd_mma_kernel<128>",
                 "codec_gemm_wgmma_kernel"}
         idle = sorted(k for k in want
-                      if sum(tc.get(k, {}).values()) == 0)
+                      if sum(sass.get(k, {}).values()) == 0)
         if idle:
             raise AssertionError(f"no tensor-core instructions in {idle}")
+        # every vector kernel loads 16 bytes a lane, except dequant_rows
+        # on widths that are not a multiple of 16 (units of 8 codes: 8
+        # bytes a lane)
+        vec = {k: v for k, v in sass.items() if k.split("<")[0] in
+               VECTOR_KERNELS}
+        narrow = [k for k, v in vec.items() if v[
+            "LDG.E.64" if k.startswith("dequant_rows_kernel")
+            and k.endswith(",8>") else "LDG.E.128"] == 0]
+        if len(vec) < 2 * (4 * 5 + 7 + 8) or narrow:
+            raise AssertionError(f"vector loads missing: {len(vec)} "
+                                 f"instantiations, none in {narrow}")
     _lib.lib()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -369,10 +440,39 @@ def check_rmsnorm(torch, gen, rows: list) -> dict:
     return main
 
 
+def _equal(torch, name, got, want) -> None:
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: {int((got != want).sum())} "
+                             f"elements differ from the plain version")
+
+
+def _stable(torch, name, fn, a, out) -> None:
+    """``fn(a)`` again equals ``out``, and ``fn`` of rows 300-499 of ``a``
+    equals those rows of ``out``, to the bit (``a`` may be a tuple of
+    arguments, and ``out`` and ``fn``'s result tuples, of tensors with
+    rows first)."""
+    args = a if isinstance(a, tuple) else (a,)
+    again = _counted(torch, lambda: fn(*args))
+    part = _counted(torch, lambda: fn(*(t[300:500] for t in args)))
+    outs = out if isinstance(out, tuple) else (out,)
+    agains = again if isinstance(again, tuple) else (again,)
+    parts = part if isinstance(part, tuple) else (part,)
+    if not all(torch.equal(x, y) for x, y in zip(agains, outs)):
+        raise AssertionError(f"{name}: two calls differ")
+    if not all(torch.equal(x, y[300:500]) for x, y in zip(parts, outs)):
+        raise AssertionError(f"{name}: rows 300-499 alone differ")
+
+
 def check_qdq(torch, gen, rows: list) -> dict:
+    """qdq_flat at the int8 wire's shape ``[2, 512, 4096]``, blocks of 64
+    (the wire's; timed) and of 32, 96 (the warp-per-block kernel) and 128,
+    a tail 37 elements past a whole block, with exact ``.5`` ties: codes,
+    scales and outputs bit-equal to the plain version; at 64 also two
+    calls bit-equal, and rows 300-499 of the tensor seen as [1024, 4096]
+    alone equal to those rows of the whole call."""
     from repro_torch.compression import quant8
     from repro_torch.kernels.boundary.kernel import qdq_flat
-    shape, block = (2, 512, 4096), 64
+    shape = (2, 512, 4096)
     main = None
     for dt in (torch.bfloat16, torch.float32):
         x = (torch.randn(*shape, generator=gen, device="cuda") * 5).to(dt)
@@ -380,33 +480,47 @@ def check_qdq(torch, gen, rows: list) -> dict:
         # x/s*127 == x, so x = k + 0.5 rounds half to even
         x.view(-1)[:64] = torch.arange(64, device="cuda").to(dt) - 32.5
         x.view(-1)[63] = 127.0
+        for block, t in ((64, x), (32, x), (96, x), (128, x),
+                         (64, x.reshape(-1)[:-27]), (96, x.reshape(-1)[:-27])):
+            n = t.numel()
+            codes = torch.empty(n, dtype=torch.int8, device="cuda")
+            scales = torch.empty(-(-n // block), dtype=torch.float32,
+                                 device="cuda")
+            out = _counted(torch, lambda: qdq_flat(t, block, codes, scales))
+            torch.cuda.synchronize()
+            q_ref, s_ref, meta = quant8.blockwise_quantize(t, block)
+            ref = quant8.blockwise_dequantize(q_ref, s_ref, meta)
+            if not torch.equal(codes, q_ref.reshape(-1)[:n]):
+                bad = int((codes != q_ref.reshape(-1)[:n]).sum())
+                raise AssertionError(f"qdq {dt} block {block} n {n}: {bad} "
+                                     f"int8 codes differ")
+            if not torch.equal(scales, s_ref.reshape(-1)):
+                raise AssertionError(f"qdq {dt} block {block} n {n}: block "
+                                     f"scales differ")
+            err = float((out.float() - ref.float()).abs().max())
+            if err != 0.0:
+                raise AssertionError(f"qdq {dt} block {block} n {n}: "
+                                     f"outputs differ by {err}")
+        block = 64
+        out = _counted(torch, lambda: qdq_flat(x, block))
+        _stable(torch, f"qdq_flat {dt}", lambda a: qdq_flat(a, block),
+                x.reshape(1024, 4096), out.reshape(1024, 4096))
         n = x.numel()
-        codes = torch.empty(n, dtype=torch.int8, device="cuda")
-        scales = torch.empty(-(-n // block), dtype=torch.float32,
-                             device="cuda")
-        out = _counted(torch, lambda: qdq_flat(x, block, codes, scales))
-        torch.cuda.synchronize()
-        q_ref, s_ref, meta = quant8.blockwise_quantize(x, block)
-        ref = quant8.blockwise_dequantize(q_ref, s_ref, meta)
-        if not torch.equal(codes, q_ref.reshape(-1)):
-            bad = int((codes != q_ref.reshape(-1)).sum())
-            raise AssertionError(f"qdq {dt}: {bad} int8 codes differ")
-        if not torch.equal(scales, s_ref.reshape(-1)):
-            raise AssertionError(f"qdq {dt}: block scales differ")
-        err = float((out.float() - ref.float()).abs().max())
-        if err != 0.0:
-            raise AssertionError(f"qdq {dt}: outputs differ by {err}")
         ms = _counted(torch, lambda: time_ms(
             torch, lambda: qdq_flat(x, block)))
+        cold = _counted(torch, lambda: time_ms(
+            torch, lambda: qdq_flat(x, block), cold=True))
         eager = _counted(torch, lambda: eager_ms(
             torch, lambda: qdq_flat(x, block)))
         plain = time_ms(torch, lambda: quant8._roundtrip(x, block))
         nbytes = 2 * n * x.element_size()
         b_ms, b_by = bound_ms(nbytes, 5.0 * n, H100_F32_FLOPS)
         row = {"kernel": "qdq_flat", "shape": str(list(shape)),
-               "dtype": str(dt), "max_abs_err": err, "codes_identical": True,
-               "bound": "codes identical", "ms": ms, "eager_ms": eager,
-               "plain_ms": plain,
+               "dtype": str(dt), "max_abs_err": 0.0, "codes_identical": True,
+               "blocks_checked": [32, 64, 96, 128],
+               "deterministic": True, "row_independent": True,
+               "bound": "codes, scales and outputs bit-equal", "ms": ms,
+               "cold_ms": cold, "eager_ms": eager, "plain_ms": plain,
                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
         emit(row)
         rows.append(row)
@@ -459,27 +573,15 @@ def check_codec(torch, gen, rows: list) -> dict:
     neighbour, which the second LayerNorm carries into the output.  The
     GEMM at both shapes (encode's product, decode) also runs again
     (bit-equal) and on rows 300-499 alone (bit-equal to those rows of
-    the 1024-row call), and encode's GEMM stage is timed alone."""
+    the 1024-row call), and so do the row passes (``ln_rows``); encode's
+    GEMM stage and its two row passes are timed alone (``gemm_ms``,
+    ``rows_ms``, each with its own bound), and every call also cold
+    (``cold_ms``: the L2 flushed before each call)."""
     from repro_torch.kernels import _lib
     from repro_torch.kernels.boundary import kernel as K
     from repro_torch.kernels.boundary import ref as R
     N, d = 1024, 4096
     main = {}
-
-    def equal(name, got, want):
-        if not torch.equal(got, want):
-            raise AssertionError(f"{name}: {int((got != want).sum())} "
-                                 f"elements differ from the plain version")
-
-    def stable(name, fn, a, out):
-        """``fn(a)`` again equals ``out``, and ``fn`` of rows 300-499 of
-        ``a`` equals those rows of ``out``, to the bit."""
-        again = _counted(torch, lambda: fn(a))
-        part = _counted(torch, lambda: fn(a[300:500]))
-        if not torch.equal(again, out):
-            raise AssertionError(f"{name}: two calls differ")
-        if not torch.equal(part, out[300:500]):
-            raise AssertionError(f"{name}: rows 300-499 alone differ")
 
     for dt, tol, peak in ((torch.bfloat16, 2e-2, H100_BF16_FLOPS),
                           (torch.float32, 1e-4, H100_F32_FLOPS)):
@@ -489,12 +591,16 @@ def check_codec(torch, gen, rows: list) -> dict:
              + 1).to(dt)
         w_c = torch.randn(d, 1024, generator=gen, device="cuda") / 64
         h = _counted(torch, lambda: K._ln_rows(x, 1, 0, code))
-        equal(f"encode LN pass {dt}", h, R._ln(x))
+        _equal(torch, f"encode LN pass {dt}", h, R._ln(x))
+        _stable(torch, f"encode LN pass {dt}",
+                lambda a: K._ln_rows(a, 1, 0, code), x, h)
         prod = _counted(torch, lambda: K._gemm(h, w_c, code))
-        stable(f"encode's GEMM {dt}", lambda a: K._gemm(a, w_c, code), h,
-               prod)
+        _stable(torch, f"encode's GEMM {dt}",
+                lambda a: K._gemm(a, w_c, code), h, prod)
         gemm_ms = _counted(torch, lambda: time_ms(
             torch, lambda: K._gemm(h, w_c, code)))
+        gemm_bound = bound_ms((N * d + N * 1024) * es + w_c.numel() * 4,
+                              2.0 * N * d * 1024, peak)
         with plain_precision(torch):
             prod_lib = h @ w_c.to(dt)
         not_cr, floor_only = _faithful(torch, f"encode {dt}", prod, h, w_c)
@@ -511,8 +617,12 @@ def check_codec(torch, gen, rows: list) -> dict:
                 # the kernel's last pass on its own intermediate
                 last = R._ln(prod) if mode == "bottleneck" else \
                     R.encode_ref(x, None, mode, k)
-                equal(f"encode {mode} last pass {dt}", out,
-                      R.qdq_ref(last, qb) if quantize else last)
+                _equal(torch, f"encode {mode} last pass {dt}", out,
+                       R.qdq_ref(last, qb) if quantize else last)
+                q = qb if quantize else 0
+                src = prod if mode == "bottleneck" else x
+                _stable(torch, f"encode {mode} last pass {dt}",
+                        lambda a: K._ln_rows(a, k, q, code), src, out)
                 with plain_precision(torch):
                     z = R.encode_ref(x, w, mode, k)
                 ref = R.qdq_ref(z, qb) if quantize else z
@@ -530,6 +640,8 @@ def check_codec(torch, gen, rows: list) -> dict:
                 enc = lambda: K.encode(x, w, mode, k, qb,
                                        quantize)
                 ms = _counted(torch, lambda: time_ms(torch, enc))
+                cold = _counted(torch, lambda: time_ms(torch, enc,
+                                                       cold=True))
                 eager = _counted(torch, lambda: eager_ms(torch, enc))
                 plain = time_ms(torch, lambda: R.encode_ref(x, w, mode, k))
                 nbytes = (N * d + N * c) * es + (0 if w is None else
@@ -549,11 +661,21 @@ def check_codec(torch, gen, rows: list) -> dict:
                        f"{tol} end to end" + (
                            ", except in rows whose products round apart"
                            if dt == torch.bfloat16 or quantize else ""),
-                       "ms": ms, "eager_ms": eager,
+                       "ms": ms, "cold_ms": cold, "eager_ms": eager,
                        "plain_ms": plain, "library_ms": None,
                        "bound_ms": b_ms, "bound_by": b_by}
                 if mode == "bottleneck":
+                    passes = lambda: (K._ln_rows(x, 1, 0, code),
+                                      K._ln_rows(prod, 1, q, code))
                     row["gemm_ms"] = gemm_ms
+                    row["gemm_bound_ms"], row["gemm_bound_by"] = gemm_bound
+                    row["rows_ms"] = time_ms(torch, passes)
+                    row["rows_cold_ms"] = time_ms(torch, passes, cold=True)
+                    row["rows_bound_ms"], row["rows_bound_by"] = bound_ms(
+                        2 * (N * d + N * c) * es,
+                        8.0 * N * d + 8.0 * N * c
+                        + (5.0 * N * c if quantize else 0.0),
+                        H100_F32_FLOPS)
                     row["product"] = {
                         "not_correctly_rounded": not_cr,
                         "cublas_not_correctly_rounded": lib_not_cr,
@@ -572,12 +694,14 @@ def check_codec(torch, gen, rows: list) -> dict:
             w_d = torch.randn(c, d, generator=gen, device="cuda") / c ** 0.5
             out = _counted(torch, lambda: K.decode(z, w_d, mode))
             torch.cuda.synchronize()
-            stable(f"decode {mode} {dt}", lambda a: K.decode(a, w_d, mode),
-                   z, out)
+            _stable(torch, f"decode {mode} {dt}",
+                    lambda a: K.decode(a, w_d, mode), z, out)
             a = z
             if mode == "maxout":
                 a = _counted(torch, lambda: K._ln_rows(z, 1, 0, code))
-                equal(f"decode maxout LN pass {dt}", a, R._ln(z))
+                _equal(torch, f"decode maxout LN pass {dt}", a, R._ln(z))
+                _stable(torch, f"decode maxout LN pass {dt}",
+                        lambda t: K._ln_rows(t, 1, 0, code), z, a)
             not_cr, floor_only = _faithful(torch, f"decode {mode} {dt}", out,
                                            a, w_d)
             with plain_precision(torch):
@@ -590,6 +714,7 @@ def check_codec(torch, gen, rows: list) -> dict:
                                      f"{float(err.max())} (bound {tol})")
             dec = lambda: K.decode(z, w_d, mode)
             ms = _counted(torch, lambda: time_ms(torch, dec))
+            cold = _counted(torch, lambda: time_ms(torch, dec, cold=True))
             eager = _counted(torch, lambda: eager_ms(torch, dec))
             plain = time_ms(torch, lambda: R.decode_ref(z, w_d, mode))
             # bottleneck decode is one product: its library yardstick is
@@ -613,14 +738,70 @@ def check_codec(torch, gen, rows: list) -> dict:
                                "cublas_not_correctly_rounded": lib_not_cr,
                                "only_f32_floor": floor_only},
                    "deterministic": True, "row_independent": True,
-                   "ms": ms, "eager_ms": eager, "plain_ms": plain,
-                   "library_ms": lib,
+                   "ms": ms, "cold_ms": cold, "eager_ms": eager,
+                   "plain_ms": plain, "library_ms": lib,
                    "bound_ms": b_ms, "bound_by": b_by}
             emit(row)
             rows.append(row)
             if (dt, mode) == (torch.bfloat16, "bottleneck"):
                 main["decode"] = row
     return main
+
+
+def check_ln_rows(torch, gen, rows: list) -> None:
+    """The codec's row pass on its own (``K._ln_rows``) at the training
+    path's shapes: encode's first pass ``[1024, 4096]``, its second
+    ``[1024, 1024]``, and maxout's ``[1024, 4096] -> [1024, 2048]`` with
+    QDQ in blocks of 64, bf16 and f32: bit-equal to the plain version
+    (``ref._ln``, the pool, ``qdq_ref``), two calls bit-equal, rows
+    300-499 alone equal to those rows of the whole call.  Timed warm and
+    cold beside the plain version and ``F.layer_norm`` (no affine, eps
+    1e-6; for the maxout pass it computes the LayerNorm only); the bound
+    is the bytes (each input read once, each output written once)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.boundary import kernel as K
+    from repro_torch.kernels.boundary import ref as R
+    N = 1024
+    for dt in (torch.bfloat16, torch.float32):
+        es = torch.finfo(dt).bits // 8
+        code = _lib.DTYPE_CODES[dt]
+        for width, k, qb in ((4096, 1, 0), (1024, 1, 0), (4096, 2, 64)):
+            x = (torch.randn(N, width, generator=gen, device="cuda") * 3
+                 + 1).to(dt)
+            run = lambda a: K._ln_rows(a, k, qb, code)
+
+            def plain(a):
+                z = R.encode_ref(a, None, "maxout", k) if k > 1 else R._ln(a)
+                return R.qdq_ref(z, qb) if qb else z
+
+            out = run(x)
+            torch.cuda.synchronize()
+            name = f"ln_rows [{N}, {width}] k {k} qb {qb} {dt}"
+            _equal(torch, name, out, plain(x))
+            _stable(torch, name, run, x, out)
+            layer_norm = lambda: F.layer_norm(x, (width,), eps=1e-6)
+            nbytes = N * width * es + N * (width // k) * es
+            b_ms, b_by = bound_ms(nbytes, 8.0 * N * width + (
+                5.0 * N * width / k if qb else 0.0), H100_F32_FLOPS)
+            cold = time_ms(torch, lambda: run(x), cold=True)
+            row = {"kernel": "ln_rows", "shape": f"[{N}, {width}] -> "
+                   f"[{N}, {width // k}]", "pool": k, "qb": qb,
+                   "dtype": str(dt), "max_abs_err": 0.0,
+                   "bound": "bit-equal", "deterministic": True,
+                   "row_independent": True,
+                   "ms": time_ms(torch, lambda: run(x)), "cold_ms": cold,
+                   "eager_ms": eager_ms(torch, lambda: run(x)),
+                   "plain_ms": time_ms(torch, lambda: plain(x)),
+                   "library": "F.layer_norm" + (
+                       " (the LayerNorm only)" if k > 1 or qb else ""),
+                   "library_ms": time_ms(torch, layer_norm),
+                   "library_cold_ms": time_ms(torch, layer_norm,
+                                              cold=True),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "cold_share_of_bound": b_ms / cold}
+            emit(row)
+            rows.append(row)
 
 
 def check_quant8(torch, gen, rows: list) -> dict:
@@ -722,6 +903,10 @@ def check_wire_codes(torch, gen, rows: list) -> dict:
                     f"encode_quantize {mode} {dt}: last pass: "
                     f"{int((q != last_q).sum())} codes, "
                     f"{int((sc != last_s).sum())} scales differ")
+            kk = 1 if mode == "bottleneck" else k
+            _stable(torch, f"encode_quantize {mode} codes pass {dt}",
+                    lambda a: K._ln_rows_codes(a, kk, qb, code),
+                    prod if mode == "bottleneck" else x, (q, sc))
             with plain_precision(torch):
                 pq, ps = R.encode_quantize_ref(x, w, mode, k, qb)
             dq = (q.int() - pq.int()).abs()
@@ -735,6 +920,7 @@ def check_wire_codes(torch, gen, rows: list) -> dict:
                                      f"{int(bad_rows.sum())} rows")
             enq = lambda: K.encode_quantize(x, w, mode, k, qb)
             ms = _counted(torch, lambda: time_ms(torch, enq))
+            cold = _counted(torch, lambda: time_ms(torch, enq, cold=True))
             eager = _counted(torch, lambda: eager_ms(torch, enq))
             plain = time_ms(torch, lambda: R.encode_quantize_ref(
                 x, w, mode, k, qb))
@@ -756,8 +942,8 @@ def check_wire_codes(torch, gen, rows: list) -> dict:
                    "rounded; codes and scales of the last pass bit-equal; "
                    "end to end one code step, only in rows whose products "
                    "round apart" if mode == "bottleneck" else "bit-equal",
-                   "ms": ms, "eager_ms": eager, "plain_ms": plain,
-                   "library_ms": None,
+                   "ms": ms, "cold_ms": cold, "eager_ms": eager,
+                   "plain_ms": plain, "library_ms": None,
                    "bound_ms": b_ms, "bound_by": b_by}
             if rows_apart is not None:
                 row["rows_whose_products_round_apart"] = \
@@ -775,6 +961,13 @@ def check_wire_codes(torch, gen, rows: list) -> dict:
             a = div127(blocks * sc[..., None]).reshape(N, c).to(dt)
             if mode == "maxout":
                 a = R._ln(a)
+            ln = mode == "maxout"
+            deq = _counted(torch, lambda: K._dequant_rows(q, sc, qb, ln, dt))
+            _equal(torch, f"dequantize_decode {mode} dequant pass {dt}", deq,
+                   a)
+            _stable(torch, f"dequantize_decode {mode} dequant pass {dt}",
+                    lambda t, s_: K._dequant_rows(t, s_, qb, ln, dt),
+                    (q, sc), deq)
             not_cr, floor_only = _faithful(torch, f"dequantize_decode {mode}"
                                            f" {dt}", y, a, w_d)
             with plain_precision(torch):
@@ -786,6 +979,7 @@ def check_wire_codes(torch, gen, rows: list) -> dict:
             dqd = lambda: K.dequantize_decode(
                 q, sc, w_d, mode, qb, dt)
             ms = _counted(torch, lambda: time_ms(torch, dqd))
+            cold = _counted(torch, lambda: time_ms(torch, dqd, cold=True))
             eager = _counted(torch, lambda: eager_ms(torch, dqd))
             plain = time_ms(torch, lambda: R.dequantize_decode_ref(
                 q, sc, w_d, mode, qb, dt))
@@ -802,8 +996,8 @@ def check_wire_codes(torch, gen, rows: list) -> dict:
                                          if dt == torch.float32 else ""),
                    "product": {"not_correctly_rounded": not_cr,
                                "only_f32_floor": floor_only},
-                   "ms": ms, "eager_ms": eager, "plain_ms": plain,
-                   "library_ms": None,
+                   "ms": ms, "cold_ms": cold, "eager_ms": eager,
+                   "plain_ms": plain, "library_ms": None,
                    "bound_ms": b_ms, "bound_by": b_by}
             emit(row)
             rows.append(row)
@@ -816,12 +1010,14 @@ def phase_kernels(torch) -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows: list = []
-    return {"flash_attention_fwd": check_flash(torch, gen, rows),
+    main = {"flash_attention_fwd": check_flash(torch, gen, rows),
             "rmsnorm": check_rmsnorm(torch, gen, rows),
             "qdq_flat": check_qdq(torch, gen, rows),
             **check_codec(torch, gen, rows),
             **check_wire_codes(torch, gen, rows),
             **check_quant8(torch, gen, rows)}
+    check_ln_rows(torch, gen, rows)      # encode's row pass on its own
+    return main
 
 
 # ------------------------------------------------------------ phases 3-5
@@ -1517,11 +1713,16 @@ def phase_train_profile(torch) -> dict:
 # -------------------------------------------------------------------- main
 def main() -> None:
     import numpy as np
+    if sys.argv[1:] not in ([], ["--kernels-only"]):
+        sys.exit(f"usage: {sys.argv[0]} [--kernels-only]")
     torch = setup()
     from repro_torch import kernels
     t_start = time.time()
     phase_build(torch)
     main_rows = phase_kernels(torch)
+    if sys.argv[1:]:
+        emit({"phase": "done", "seconds": time.time() - t_start})
+        return
     cfg, params = yi6b(torch)
     prompts = prompts_for(cfg)
     from repro_torch.serve import reference_generate

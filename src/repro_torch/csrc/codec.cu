@@ -18,7 +18,8 @@
 //   the second LN; output T.
 //   maxout: max over k adjacent features of the T-rounded LN output.
 //   QDQ (optional, row-blocked, block qb): rintf, x / max(s,1e-12) * 127,
-//   q * s / 127 with IEEE divisions, as qdq.cu (no --use_fast_math).
+//   q * s / 127, equal to IEEE divisions (no --use_fast_math), by one
+//   division a block (`block_codes`, `block_dequant`), as qdq.cu.
 //   Codes (encode_quantize): the same per-block absmax s and code q of the
 //   T-rounded encode output (as `_quant32` of `_encode32(..)` upcast),
 //   stored as int8 q and f32 s instead of q * s / 127.
@@ -34,9 +35,19 @@
 // Design.  The second LN needs whole c-wide rows, which a GEMM tile does
 // not hold (64 rows x 1024 f32 accumulators are 256 KB), so a call is a
 // chain of launches:
-//   ln_rows  — one 256-thread block per row: the row is staged in shared
-//              memory as f32, LN, round to T, optional maxout pool,
-//              optional row-blocked QDQ, write T.
+//   ln_rows  — the row in registers (namespace `rowpass`): `tpr` threads a
+//              row, each holding units of 8 adjacent elements as f32,
+//              read and written once with 16-byte accesses; LN from the
+//              registers (f64 partial sums, shuffles, one shared-memory
+//              exchange across the row's warps), round to T, optional
+//              maxout pool, optional row-blocked QDQ or codes by lane
+//              groups: a block of qb values on an aligned group of
+//              lanes, its absmax a shuffle reduction, every lane
+//              encoding its own values.  Rows of up to 1024 elements
+//              take one warp (32 elements a thread) and share a
+//              128-thread CTA, except with QDQ or codes (128 threads a
+//              row); the thread count of a row follows from its width
+//              and pass alone.
 //   gemm, bf16 (tensor cores) — C[n,m] = A[n,k] x round_bf16(W[k,m]),
 //              two launches (three with a split-K sum):
 //              `round_wt_kernel` rounds the f32 master weight to a bf16,
@@ -61,8 +72,14 @@
 //   gemm, f32 (`gemm_kernel`, SIMT) — 64x64 output tiles, k-steps of 16
 //              staged in shared memory, 4x4 outputs per thread in f32 FMA
 //              registers: TF32 would break the f32 path's 1e-4 bound.
-//   dequant_rows — one 256-thread block per row: codes * scale / 127,
-//              round to T, optional LN, write T.
+//   dequant_rows — the same layout, units of 16 codes (8 where the
+//              width is not a multiple of 16): codes * scale / 127, round
+//              to T, optional LN in registers, write T.
+// The row passes move each byte once; what held the first version (one
+// block per row staged in shared memory, 2-byte accesses, three sweeps,
+// one thread per QDQ block) was memory in flight and serial chains.
+// They need 16-byte-aligned rows, widths a multiple of 8 (at most
+// 32768), k in {1, 2, 4, 8} and qb a multiple of 8 (the wrappers check).
 // encode bottleneck = ln_rows(x) -> gemm(w_c) -> ln_rows(+QDQ);
 // encode maxout     = ln_rows(x, pool k, +QDQ);
 // decode bottleneck = gemm(w_d); decode maxout = ln_rows(z) -> gemm(w_d);
@@ -72,143 +89,276 @@
 
 namespace {
 
-constexpr int kRowThreads = 256;
-
-// Sum over the block of one f64 value per thread (kRowThreads threads).
-__device__ __forceinline__ double block_sum_f64(double v, double* part) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  v = warp_sum_f64(v);
-  __syncthreads();  // `part` may still be read from the previous call
-  if (lane == 0) part[warp] = v;
-  __syncthreads();
-  double t = lane < kRowThreads / 32 ? part[lane] : 0.0;
-  return warp_sum_f64(t);  // every warp holds the total
-}
-
 template <typename T>
 __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
 }
 
-// In place over a row staged in shared memory (every thread of the block
-// calls it): row = round_T(LN(row)), the LN core in f32 with its two
-// means summed in f64 and rounded once.
-template <typename T>
-__device__ void ln_row(float* row, int width, double* part) {
+// ------------------------------------------------ row passes (registers)
+// A row of `width` elements is cut into units of U consecutive elements
+// (8 for ln_rows; 16 codes, or 8 where the width is not a multiple of
+// 16, for dequant_rows).  Each row has `tpr` threads (a multiple of 32);
+// thread t holds units u = i * tpr + t, i < NU, as f32 registers for the
+// whole pass, so a warp's i-th loads cover 32 adjacent units (16-byte
+// loads and stores, coalesced) and no element goes through shared
+// memory.  Rows of few threads share a CTA.
+namespace rowpass {
+
+constexpr int kMaxThreads = 512;     // threads per row (and per CTA)
+constexpr int kCtaThreads = 128;     // CTA size for rows of fewer threads
+
+struct Plan {
+  int tpr, nu;                       // threads per row, units per thread
+};
+
+// Rows of up to 32 elements a thread take one warp; wider rows hold 32
+// elements a thread (64 past 16384), at most 512 threads: up to 32768
+// elements.  With QDQ or codes (`blocks`), rows of up to 512 units take
+// 128 threads (fewer for narrower rows), at most 4 units each: their
+// per-unit work is longer, and on the H100 one warp a 1024-wide row took
+// 1.3 times as long as 128 threads (PERF.md).  A function of the width
+// and the pass alone, so the summation order of a row never depends on
+// the row count.
+inline bool plan_for(int units, int U, bool blocks, Plan* p) {
+  if (blocks && units <= 512) {
+    const int tpr = units <= 128 ? (units + 31) / 32 * 32 : 128;
+    int n = 1;
+    while (tpr * n < units) n *= 2;
+    *p = {tpr, n};
+    return true;
+  }
+  const int base = 32 / U;           // units of 32 elements
+  if (units <= 32 * base) {
+    int n = 1;
+    while (32 * n < units) n *= 2;
+    *p = {32, n};
+    return true;
+  }
+  for (int nu = base; nu <= 2 * base; nu *= 2) {
+    const int tpr = ((units + nu - 1) / nu + 31) / 32 * 32;
+    if (tpr <= kMaxThreads) {
+      *p = {tpr, nu};
+      return true;
+    }
+  }
+  return false;
+}
+
+// Sum over the tpr threads of each row of the CTA of one f64 value per
+// thread, in a fixed order; every thread gets its row's total.  `part`
+// holds a value per warp and is used once per kernel.
+__device__ __forceinline__ double row_sum(double v, int tpr, double* part) {
+  v = warp_sum_f64(v);
+  if (tpr == 32) return v;
+  const int warp = threadIdx.x >> 5, wpr = tpr >> 5;
+  if ((threadIdx.x & 31) == 0) part[warp] = v;
+  __syncthreads();
+  const int w0 = warp / wpr * wpr;   // first warp of this row
   double s = 0.0;
-  for (int j = threadIdx.x; j < width; j += kRowThreads) s += (double)row[j];
-  s = block_sum_f64(s, part);
+  for (int i = 0; i < wpr; ++i) s += part[w0 + i];
+  return s;
+}
+
+template <int U>
+__device__ __forceinline__ double sum_f64(const float* v) {
+  double s[U];
+#pragma unroll
+  for (int e = 0; e < U; ++e) s[e] = (double)v[e];
+#pragma unroll
+  for (int h = 1; h < U; h <<= 1)
+#pragma unroll
+    for (int e = 0; e < U; e += 2 * h) s[e] += s[e + h];
+  return s[0];
+}
+
+// In place over the units of a row held in registers (unit i valid when
+// bit i of `valid` is set; every thread of the CTA calls it):
+// v = round_T(LN(v)), the LN core in f32, `(x - mu) * rsqrt(var +
+// 1e-6)`, its two means summed in f64 and rounded once to f32, the
+// variance summing the f32 squares of (x - mu).
+template <typename T, int NU, int U>
+__device__ __forceinline__ void ln_regs(float (&v)[NU][U], unsigned valid,
+                                        int width, int tpr,
+                                        double (&part)[2][kMaxThreads / 32]) {
+  double s = 0.0;
+#pragma unroll
+  for (int i = 0; i < NU; ++i)
+    if (valid >> i & 1u) s += sum_f64<U>(v[i]);
+  s = row_sum(s, tpr, part[0]);
   const float mu = (float)(s / (double)width);
   double ss = 0.0;
-  for (int j = threadIdx.x; j < width; j += kRowThreads) {
-    const float d = row[j] - mu;
-    const float sq = d * d;          // f32 square, as (x - mu) ** 2
-    ss += (double)sq;
+#pragma unroll
+  for (int i = 0; i < NU; ++i) {
+    if (!(valid >> i & 1u)) continue;
+    float sq[U];
+#pragma unroll
+    for (int e = 0; e < U; ++e) {
+      const float d = v[i][e] - mu;
+      sq[e] = d * d;                 // f32 square, as (x - mu) ** 2
+    }
+    ss += sum_f64<U>(sq);
   }
-  ss = block_sum_f64(ss, part);
+  ss = row_sum(ss, tpr, part[1]);
   const float var = (float)(ss / (double)width);
   const float rstd = rsqrtf(var + 1e-6f);
-  for (int j = threadIdx.x; j < width; j += kRowThreads) {
-    row[j] = round_to<T>((row[j] - mu) * rstd);
+#pragma unroll
+  for (int i = 0; i < NU; ++i)
+#pragma unroll
+    for (int e = 0; e < U; ++e) v[i][e] = round_to<T>((v[i][e] - mu) * rstd);
+}
+
+// Max over windows of K adjacent values of a unit of 8, in place: the
+// first 8 / K values become the windows' maxima.
+template <int K>
+__device__ __forceinline__ void pool_unit(float (&v)[8]) {
+#pragma unroll
+  for (int e = 0; e < 8 / K; ++e) {
+    float m = v[e * K];
+#pragma unroll
+    for (int j = 1; j < K; ++j) m = fmaxf(m, v[e * K + j]);
+    v[e] = m;
   }
-  __syncthreads();
 }
 
-// Per-block absmax quantization of src[0, qb): code q = clip(rint(
-// x / max(s, 1e-12) * 127), -127, 127) with an IEEE division.
-__device__ __forceinline__ float block_absmax(const float* blk, int qb) {
-  float amax = 0.f;
-  for (int i = 0; i < qb; ++i) amax = fmaxf(amax, fabsf(blk[i]));
-  return amax;
-}
-
-__device__ __forceinline__ float code_of(float v, float amax) {
-  const float q = rintf(__fdiv_rn(v, fmaxf(amax, 1e-12f)) * 127.0f);
-  return fminf(fmaxf(q, -127.0f), 127.0f);
-}
-
-// Row pass of the encode: LN -> round to T -> optional maxout pool of k ->
-// either T output (optionally QDQ'd in blocks of qb) or, with `codes`
-// non-null, int8 codes and f32 block scales of blocks of qb.
-template <typename T>
-__global__ void __launch_bounds__(kRowThreads)
+// Row pass of the encode: LN -> round to T -> optional maxout pool of K
+// -> either T output (optionally QDQ'd in blocks of qb) or, with `codes`
+// non-null, int8 codes and f32 block scales of blocks of qb.  K = 0 is the
+// LN alone (no pool, no blocks).  A block of qb pooled values is held by
+// L = qb K / 8 adjacent units: where L is a power of two up to 32 they
+// sit on an aligned group of L lanes and the block's absmax is a shuffle
+// reduction in the group; otherwise each unit's max goes through shared
+// memory (`cmax`, cta * NU floats) and every thread reads its block's L
+// maxima.  Every lane encodes its own values; the block's first unit
+// writes its scale.
+template <typename T, int NU, int K>
+__global__ void __launch_bounds__(kMaxThreads)
 ln_rows_kernel(const T* __restrict__ x, T* __restrict__ out,
                int8_t* __restrict__ codes, float* __restrict__ scales,
-               int width, int k, int qb) {
-  extern __shared__ float smem[];
-  float* row = smem;                 // [width]
-  float* pooled = smem + width;      // [width / k], only when k > 1
-  __shared__ double part[kRowThreads / 32];
-  const int64_t r = blockIdx.x;
-  const T* xr = x + r * width;
-  const int wout = width / k;
-
-  for (int j = threadIdx.x; j < width; j += kRowThreads)
-    row[j] = to_f32(xr[j]);
-  __syncthreads();
-  ln_row<T>(row, width, part);
-  const float* src = row;
-  if (k > 1) {
-    for (int j = threadIdx.x; j < wout; j += kRowThreads) {
-      float m = row[j * k];
-      for (int i = 1; i < k; ++i) m = fmaxf(m, row[j * k + i]);
-      pooled[j] = m;
+               int64_t rows, int width, int qb, int tpr) {
+  __shared__ double part[2][kMaxThreads / 32];
+  extern __shared__ float cmax[];
+  const int t = threadIdx.x % tpr;
+  const int64_t r = (int64_t)blockIdx.x * (blockDim.x / tpr) +
+                    threadIdx.x / tpr;
+  const int units = width >> 3;
+  unsigned valid = 0;
+  float v[NU][8];
+#pragma unroll
+  for (int i = 0; i < NU; ++i) {
+    const int u = i * tpr + t;
+    if (r < rows && u < units) {
+      valid |= 1u << i;
+      load_vec<8>(x + r * width + 8 * u, v[i]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[i][e] = 0.f;
     }
-    __syncthreads();
-    src = pooled;
   }
-  if (codes != nullptr) {
-    // true wire format: one thread per block of qb elements
-    const int nblk = wout / qb;
-    int8_t* crow = codes + r * (int64_t)wout;
-    for (int b = threadIdx.x; b < nblk; b += kRowThreads) {
-      const float* blk = src + b * qb;
-      const float amax = block_absmax(blk, qb);
-      for (int i = 0; i < qb; ++i)
-        crow[b * qb + i] = (int8_t)code_of(blk[i], amax);
-      scales[r * nblk + b] = amax;
+  ln_regs<T, NU, 8>(v, valid, width, tpr, part);
+  if constexpr (K == 0) {
+#pragma unroll
+    for (int i = 0; i < NU; ++i)
+      if (valid >> i & 1u)
+        store_vec<8>(out + r * width + 8 * (i * tpr + t), v[i]);
+    return;
+  } else {
+    constexpr int P = 8 / K;         // pooled values of a unit
+    const int64_t wout = width / K;
+#pragma unroll
+    for (int i = 0; i < NU; ++i) pool_unit<K>(v[i]);
+    if (qb <= 0) {
+#pragma unroll
+      for (int i = 0; i < NU; ++i)
+        if (valid >> i & 1u)
+          store_vec<P>(out + r * wout + (int64_t)(i * tpr + t) * P, v[i]);
+      return;
     }
-    return;
-  }
-  T* orow = out + r * (int64_t)wout;
-  if (qb <= 0) {
-    for (int j = threadIdx.x; j < wout; j += kRowThreads)
-      orow[j] = from_f32<T>(src[j]);
-    return;
-  }
-  // row-blocked QDQ: one thread per block of qb elements
-  const int nblk = wout / qb;
-  for (int b = threadIdx.x; b < nblk; b += kRowThreads) {
-    const float* blk = src + b * qb;
-    const float amax = block_absmax(blk, qb);
-    for (int i = 0; i < qb; ++i)
-      orow[b * qb + i] =
-          from_f32<T>(__fdiv_rn(code_of(blk[i], amax) * amax, 127.0f));
+    const int L = qb * K / 8;        // units of a block
+    float amax[NU];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {
+      float a = 0.f;
+#pragma unroll
+      for (int e = 0; e < P; ++e) a = fmaxf(a, fabsf(v[i][e]));
+      amax[i] = a;
+    }
+    if (L <= 32 && (L & (L - 1)) == 0) {
+#pragma unroll
+      for (int i = 0; i < NU; ++i) amax[i] = group_max(amax[i], L);
+    } else {
+      float* cm = cmax + (threadIdx.x - t) * NU;   // this row's units
+#pragma unroll
+      for (int i = 0; i < NU; ++i) cm[i * tpr + t] = amax[i];
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < NU; ++i) {
+        if (!(valid >> i & 1u)) continue;
+        const int b0 = (i * tpr + t) / L * L;
+        float a = 0.f;
+        for (int j = 0; j < L; ++j) a = fmaxf(a, cm[b0 + j]);
+        amax[i] = a;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {
+      if (!(valid >> i & 1u)) continue;
+      const int u = i * tpr + t;
+      float q[P];
+      block_codes<P>(v[i], amax[i], q);
+      if (codes != nullptr) {
+        store_codes<P>(codes + r * wout + (int64_t)u * P, q);
+        if (u % L == 0) scales[r * (wout / qb) + u / L] = amax[i];
+      } else {
+        block_dequant<P>(q, amax[i], q);
+        store_vec<P>(out + r * wout + (int64_t)u * P, q);
+      }
+    }
   }
 }
 
-// Row pass of dequantize_decode: z = round_T(q * s / 127) (f32, IEEE
-// division), then round_T(LN(z)) when `ln`, written as T.
-template <typename T>
-__global__ void __launch_bounds__(kRowThreads)
+// Row pass of dequantize_decode: z = round_T(q * s / 127) (f32, equal to
+// the IEEE division, `block_dequant`; qb a multiple of 8, so each 8 codes
+// share a scale), then round_T(LN(z)) when `ln`, written as T.  Units of
+// U codes (one 8- or 16-byte load).
+template <typename T, int NU, int U>
+__global__ void __launch_bounds__(kMaxThreads)
 dequant_rows_kernel(const int8_t* __restrict__ codes,
                     const float* __restrict__ scales, T* __restrict__ out,
-                    int width, int qb, int ln) {
-  extern __shared__ float smem[];
-  float* row = smem;                 // [width]
-  __shared__ double part[kRowThreads / 32];
-  const int64_t r = blockIdx.x;
-  const int8_t* crow = codes + r * width;
-  const float* srow = scales + r * (int64_t)(width / qb);
-  for (int j = threadIdx.x; j < width; j += kRowThreads)
-    row[j] = round_to<T>(
-        __fdiv_rn((float)crow[j] * srow[j / qb], 127.0f));
-  __syncthreads();
-  if (ln) ln_row<T>(row, width, part);
-  T* orow = out + r * (int64_t)width;
-  for (int j = threadIdx.x; j < width; j += kRowThreads)
-    orow[j] = from_f32<T>(row[j]);
+                    int64_t rows, int width, int qb, int ln, int tpr) {
+  __shared__ double part[2][kMaxThreads / 32];
+  const int t = threadIdx.x % tpr;
+  const int64_t r = (int64_t)blockIdx.x * (blockDim.x / tpr) +
+                    threadIdx.x / tpr;
+  const int units = width / U;
+  const float* srow = scales + r * (width / qb);
+  unsigned valid = 0;
+  float v[NU][U];
+#pragma unroll
+  for (int i = 0; i < NU; ++i) {
+    const int u = i * tpr + t;
+    if (r < rows && u < units) {
+      valid |= 1u << i;
+      load_codes<U>(codes + r * width + (int64_t)U * u, v[i]);
+#pragma unroll
+      for (int h = 0; h < U / 8; ++h) {
+        float* z = v[i] + 8 * h;     // 8 codes of one block
+        block_dequant<8>(z, __ldg(srow + (U * u + 8 * h) / qb), z);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) z[e] = round_to<T>(z[e]);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < U; ++e) v[i][e] = 0.f;
+    }
+  }
+  if (ln) ln_regs<T, NU, U>(v, valid, width, tpr, part);
+#pragma unroll
+  for (int i = 0; i < NU; ++i)
+    if (valid >> i & 1u)
+      store_vec<U>(out + r * width + (int64_t)U * (i * tpr + t), v[i]);
 }
+
+}  // namespace rowpass
 
 constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4;
 constexpr int kGemmThreads = (BM / TM) * (BN / TN);  // 256
@@ -503,103 +653,167 @@ int launch(const void* a, const float* w, void* c, void* scratch, int64_t n,
 
 }  // namespace tc
 
-template <typename K>
-int allow_smem(K kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+namespace rowpass {
+
+// The vector layout the row kernels take (the wrappers check the same
+// rule and raise first): widths a multiple of 8 elements and at most
+// 32768, a pool of k in {1, 2, 4, 8}, qb a multiple of 8 dividing the
+// pooled width when blocks are asked for.
+bool bad_shape(int width, int k, int qb) {
+  return width <= 0 || width % 8 != 0 || width > 32768 ||
+         !(k == 1 || k == 2 || k == 4 || k == 8) ||
+         (qb > 0 && (qb % 8 != 0 || (width / k) % qb != 0));
+}
+
+bool misaligned(const void* p) { return (uintptr_t)p % 16 != 0; }
+
+// CTA of a plan: one row, or several rows of one warp each.
+int cta_threads(const Plan& p) {
+  const int rpc = p.tpr >= kCtaThreads ? 1 : kCtaThreads / p.tpr;
+  return rpc * p.tpr;
 }
 
 template <typename T>
-int launch_ln_rows(const void* x, void* out, int8_t* codes, float* scales,
-                   int64_t rows, int width, int k, int qb, cudaStream_t s) {
-  const size_t smem =
-      sizeof(float) * (size_t)(width + (k > 1 ? width / k : 0));
-  int e = allow_smem(ln_rows_kernel<T>, smem);
-  if (e != 0) return e;
-  ln_rows_kernel<T><<<(unsigned)rows, kRowThreads, smem, s>>>(
-      (const T*)x, (T*)out, codes, scales, width, k, qb);
+int launch_ln(const void* x, void* out, int8_t* codes, float* scales,
+              int64_t rows, int width, int k, int qb, cudaStream_t s) {
+  Plan p;
+  if (!plan_for(width / 8, 8, qb > 0, &p)) return (int)cudaErrorInvalidValue;
+  const int cta = cta_threads(p);
+  const int64_t grid = (rows + cta / p.tpr - 1) / (cta / p.tpr);
+  const int L = qb > 0 ? qb * k / 8 : 1;
+  const bool by_lanes = L <= 32 && (L & (L - 1)) == 0;
+  const size_t smem = by_lanes ? 0 : sizeof(float) * cta * p.nu;
+  if (grid > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const T* xt = (const T*)x;
+  T* ot = (T*)out;
+#define REPRO_LN_ROWS(NU, K)                                               \
+  ln_rows_kernel<T, NU, K><<<(unsigned)grid, cta, smem, s>>>(              \
+      xt, ot, codes, scales, rows, width, qb, p.tpr)
+#define REPRO_LN_ROWS_K(NU)                                                \
+  switch (k_tpl) {                                                         \
+    case 0: REPRO_LN_ROWS(NU, 0); break;                                   \
+    case 1: REPRO_LN_ROWS(NU, 1); break;                                   \
+    case 2: REPRO_LN_ROWS(NU, 2); break;                                   \
+    case 4: REPRO_LN_ROWS(NU, 4); break;                                   \
+    default: REPRO_LN_ROWS(NU, 8);                                         \
+  }
+  const int k_tpl = k == 1 && qb <= 0 ? 0 : k;   // 0: the LN alone
+  switch (p.nu) {
+    case 1: REPRO_LN_ROWS_K(1); break;
+    case 2: REPRO_LN_ROWS_K(2); break;
+    case 4: REPRO_LN_ROWS_K(4); break;
+    case 8: REPRO_LN_ROWS_K(8); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef REPRO_LN_ROWS_K
+#undef REPRO_LN_ROWS
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_dequant_rows(const int8_t* codes, const float* scales, void* out,
-                        int64_t rows, int width, int qb, int ln,
-                        cudaStream_t s) {
-  const size_t smem = sizeof(float) * (size_t)width;
-  int e = allow_smem(dequant_rows_kernel<T>, smem);
-  if (e != 0) return e;
-  dequant_rows_kernel<T><<<(unsigned)rows, kRowThreads, smem, s>>>(
-      codes, scales, (T*)out, width, qb, ln);
+int launch_dequant(const int8_t* codes, const float* scales, void* out,
+                   int64_t rows, int width, int qb, int ln,
+                   cudaStream_t s) {
+  const int U = width % 16 == 0 ? 16 : 8;
+  Plan p;
+  if (!plan_for(width / U, U, false, &p))
+    return (int)cudaErrorInvalidValue;
+  const int cta = cta_threads(p);
+  const int64_t grid = (rows + cta / p.tpr - 1) / (cta / p.tpr);
+  if (grid > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  T* ot = (T*)out;
+#define REPRO_DEQUANT_ROWS(NU, U)                                          \
+  dequant_rows_kernel<T, NU, U><<<(unsigned)grid, cta, 0, s>>>(            \
+      codes, scales, ot, rows, width, qb, ln, p.tpr)
+  if (U == 16) {
+    switch (p.nu) {
+      case 1: REPRO_DEQUANT_ROWS(1, 16); break;
+      case 2: REPRO_DEQUANT_ROWS(2, 16); break;
+      case 4: REPRO_DEQUANT_ROWS(4, 16); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+  } else {
+    switch (p.nu) {
+      case 1: REPRO_DEQUANT_ROWS(1, 8); break;
+      case 2: REPRO_DEQUANT_ROWS(2, 8); break;
+      case 4: REPRO_DEQUANT_ROWS(4, 8); break;
+      case 8: REPRO_DEQUANT_ROWS(8, 8); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+#undef REPRO_DEQUANT_ROWS
   return (int)cudaGetLastError();
 }
 
-bool bad_row_shape(int width, int k, int qb) {
-  return width <= 0 || k <= 0 || width % k != 0 ||
-         (qb > 0 && (width / k) % qb != 0);
-}
+}  // namespace rowpass
 
 }  // namespace
 
 // Row pass: out[r] = QDQ_qb(pool_k(round_T(LN(x[r])))) for every row;
-// k = 1 skips the pool, qb = 0 skips the QDQ.  width % k == 0 and
-// (width / k) % qb == 0; the row and its pooled copy must fit in shared
-// memory (width * (1 + 1/k) * 4 bytes, at most 227 KB).
+// k = 1 skips the pool, qb = 0 skips the QDQ.  x and out 16-byte
+// aligned, row-major and contiguous; the shape rule of rowpass::bad_shape.
 extern "C" int repro_codec_ln_rows(const void* x, void* out, int64_t rows,
                                    int width, int k, int qb, int dtype,
                                    void* stream) {
-  if (bad_row_shape(width, k, qb)) return (int)cudaErrorInvalidValue;
+  if (rowpass::bad_shape(width, k, qb) || rowpass::misaligned(x) ||
+      rowpass::misaligned(out))
+    return (int)cudaErrorInvalidValue;
   if (rows == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == DTYPE_F32)
-    return launch_ln_rows<float>(x, out, nullptr, nullptr, rows, width, k,
-                                 qb, s);
+    return rowpass::launch_ln<float>(x, out, nullptr, nullptr, rows, width,
+                                     k, qb, s);
   if (dtype == DTYPE_BF16)
-    return launch_ln_rows<__nv_bfloat16>(x, out, nullptr, nullptr, rows,
-                                         width, k, qb, s);
+    return rowpass::launch_ln<__nv_bfloat16>(x, out, nullptr, nullptr,
+                                             rows, width, k, qb, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // Last row pass of encode_quantize: for every row, codes[r] (int8,
 // width / k) and scales[r] (f32, width / k / qb) of the blocks of qb of
-// pool_k(round_T(LN(x[r]))).  qb > 0, (width / k) % qb == 0.
+// pool_k(round_T(LN(x[r]))).  qb > 0; x and codes 16-byte aligned.
 extern "C" int repro_codec_ln_rows_codes(const void* x, void* codes,
                                          void* scales, int64_t rows,
                                          int width, int k, int qb,
                                          int dtype, void* stream) {
-  if (qb <= 0 || bad_row_shape(width, k, qb))
+  if (qb <= 0 || rowpass::bad_shape(width, k, qb) ||
+      rowpass::misaligned(x) || rowpass::misaligned(codes) ||
+      (uintptr_t)scales % 4 != 0)
     return (int)cudaErrorInvalidValue;
   if (rows == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == DTYPE_F32)
-    return launch_ln_rows<float>(x, nullptr, (int8_t*)codes, (float*)scales,
-                                 rows, width, k, qb, s);
+    return rowpass::launch_ln<float>(x, nullptr, (int8_t*)codes,
+                                     (float*)scales, rows, width, k, qb, s);
   if (dtype == DTYPE_BF16)
-    return launch_ln_rows<__nv_bfloat16>(x, nullptr, (int8_t*)codes,
-                                         (float*)scales, rows, width, k, qb,
-                                         s);
+    return rowpass::launch_ln<__nv_bfloat16>(x, nullptr, (int8_t*)codes,
+                                             (float*)scales, rows, width, k,
+                                             qb, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // First pass of dequantize_decode: out[r] = round_T(codes[r] * scales[r]
 // / 127) (scales per block of qb), then round_T(LN(.)) when ln != 0; out
-// is T [rows, width].  width % qb == 0.
+// is T [rows, width].  codes and out 16-byte aligned, qb > 0, the shape
+// rule of rowpass::bad_shape (k = 1).
 extern "C" int repro_codec_dequant_rows(const void* codes, const void* scales,
                                         void* out, int64_t rows, int width,
                                         int qb, int ln, int dtype,
                                         void* stream) {
-  if (qb <= 0 || bad_row_shape(width, 1, qb))
+  if (qb <= 0 || rowpass::bad_shape(width, 1, qb) ||
+      rowpass::misaligned(codes) || rowpass::misaligned(out) ||
+      (uintptr_t)scales % 4 != 0)
     return (int)cudaErrorInvalidValue;
   if (rows == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == DTYPE_F32)
-    return launch_dequant_rows<float>((const int8_t*)codes,
-                                      (const float*)scales, out, rows, width,
-                                      qb, ln, s);
+    return rowpass::launch_dequant<float>((const int8_t*)codes,
+                                          (const float*)scales, out, rows,
+                                          width, qb, ln, s);
   if (dtype == DTYPE_BF16)
-    return launch_dequant_rows<__nv_bfloat16>((const int8_t*)codes,
-                                              (const float*)scales, out,
-                                              rows, width, qb, ln, s);
+    return rowpass::launch_dequant<__nv_bfloat16>((const int8_t*)codes,
+                                                  (const float*)scales, out,
+                                                  rows, width, qb, ln, s);
   return (int)cudaErrorInvalidValue;
 }
 

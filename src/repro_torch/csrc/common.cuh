@@ -185,3 +185,197 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* smem) {
   return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
+
+// ---- 16-byte vector access (the codec's row passes, qdq) ---------------
+// Element loads go through the read-only path (LDG.E.128); pointers are
+// 16-byte aligned where a 16-byte access is made, which the wrappers
+// check.  bf16 <-> f32 is exact one way and RNE the other
+// (`pack_bf16x2`, as `__float2bfloat16_rn`).
+__device__ __forceinline__ void unpack_bf16x2(uint32_t w, float& lo,
+                                              float& hi) {
+  lo = __uint_as_float(w << 16);
+  hi = __uint_as_float(w & 0xffff0000u);
+}
+
+// v[0, N) = the N elements at p, in 16-byte loads (N a multiple of 8).
+template <int N>
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* v) {
+  static_assert(N % 8 == 0, "16-byte loads of bf16");
+#pragma unroll
+  for (int c = 0; c < N / 8; ++c) {
+    const uint4 w = __ldg(reinterpret_cast<const uint4*>(p) + c);
+    unpack_bf16x2(w.x, v[8 * c + 0], v[8 * c + 1]);
+    unpack_bf16x2(w.y, v[8 * c + 2], v[8 * c + 3]);
+    unpack_bf16x2(w.z, v[8 * c + 4], v[8 * c + 5]);
+    unpack_bf16x2(w.w, v[8 * c + 6], v[8 * c + 7]);
+  }
+}
+
+// f32 version: 16-byte loads of 4 (N a multiple of 4).
+template <int N>
+__device__ __forceinline__ void load_vec(const float* p, float* v) {
+  static_assert(N % 4 == 0, "16-byte loads of f32");
+#pragma unroll
+  for (int c = 0; c < N / 4; ++c) {
+    const float4 w = __ldg(reinterpret_cast<const float4*>(p) + c);
+    v[4 * c + 0] = w.x;
+    v[4 * c + 1] = w.y;
+    v[4 * c + 2] = w.z;
+    v[4 * c + 3] = w.w;
+  }
+}
+
+// The N elements at p = v[0, N) rounded to bf16, in one store of 2 N bytes
+// (N <= 8) or 16-byte stores; p aligned to the store's size.
+template <int N>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* v) {
+  if constexpr (N == 1) {
+    *p = __float2bfloat16_rn(v[0]);
+  } else if constexpr (N == 2) {
+    *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(v[0], v[1]);
+  } else if constexpr (N == 4) {
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]));
+  } else {
+    static_assert(N % 8 == 0, "16-byte stores of bf16");
+#pragma unroll
+    for (int c = 0; c < N / 8; ++c)
+      reinterpret_cast<uint4*>(p)[c] = make_uint4(
+          pack_bf16x2(v[8 * c + 0], v[8 * c + 1]),
+          pack_bf16x2(v[8 * c + 2], v[8 * c + 3]),
+          pack_bf16x2(v[8 * c + 4], v[8 * c + 5]),
+          pack_bf16x2(v[8 * c + 6], v[8 * c + 7]));
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_vec(float* p, const float* v) {
+  if constexpr (N == 1) {
+    *p = v[0];
+  } else if constexpr (N == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    static_assert(N % 4 == 0, "16-byte stores of f32");
+#pragma unroll
+    for (int c = 0; c < N / 4; ++c)
+      reinterpret_cast<float4*>(p)[c] =
+          make_float4(v[4 * c], v[4 * c + 1], v[4 * c + 2], v[4 * c + 3]);
+  }
+}
+
+// v[0, N) = the N int8 codes at p as f32, in one 8- or 16-byte load.
+template <int N>
+__device__ __forceinline__ void load_codes(const int8_t* p, float* v) {
+  static_assert(N == 8 || N == 16, "8- or 16-byte loads of codes");
+  uint32_t w[N / 4];
+  if constexpr (N == 8) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    w[0] = u.x;
+    w[1] = u.y;
+  } else {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+    w[0] = u.x;
+    w[1] = u.y;
+    w[2] = u.z;
+    w[3] = u.w;
+  }
+#pragma unroll
+  for (int e = 0; e < N; ++e)
+    v[e] = (float)((int32_t)(w[e / 4] << (24 - 8 * (e % 4))) >> 24);
+}
+
+// The N int8 codes at p = q[0, N) (integral values in [-127, 127]), in
+// one store of N bytes; p aligned to N bytes.
+template <int N>
+__device__ __forceinline__ void store_codes(int8_t* p, const float* q) {
+  static_assert(N == 1 || N == 2 || N == 4 || N == 8, "1 to 8 codes");
+  if constexpr (N == 1) {
+    *p = (int8_t)q[0];
+  } else {
+    uint32_t w[(N + 3) / 4] = {};
+#pragma unroll
+    for (int e = 0; e < N; ++e)
+      w[e / 4] |= ((uint32_t)(int32_t)q[e] & 0xffu) << (8 * (e % 4));
+    if constexpr (N == 2)
+      *reinterpret_cast<uint16_t*>(p) = (uint16_t)w[0];
+    else if constexpr (N == 4)
+      *reinterpret_cast<uint32_t*>(p) = w[0];
+    else
+      *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  }
+}
+
+// Per-block int8 code of v in a block of absmax s: clip(rint(v /
+// max(s, 1e-12) * 127), -127, 127), the division IEEE (no fast math).
+__device__ __forceinline__ float int8_code(float v, float s) {
+  const float q = rintf(__fdiv_rn(v, fmaxf(s, 1e-12f)) * 127.0f);
+  return fminf(fmaxf(q, -127.0f), 127.0f);
+}
+
+// The IEEE fallbacks of the two helpers below, out of line: they are
+// rare, and inlined they made the kernels' code several times larger
+// (which a cold call fetches from device memory).
+static __device__ __noinline__ float int8_code_ieee(float v, float s) {
+  return int8_code(v, s);
+}
+
+static __device__ __noinline__ float div127_ieee(float p) {
+  return __fdiv_rn(p, 127.0f);
+}
+
+// q[e] = int8_code(v[e], s) for N values of one block of absmax s, with
+// one IEEE division for the block: c = 127 / max(s, 1e-12), and v c lies
+// within 4 u 127 < 3.1e-5 (u = 2^-24) of RN(RN(v / max(s, 1e-12)) 127),
+// as |v| <= s, so its rint is the same code unless v c is within 2^-12
+// of a half-integer; where one is, the IEEE division decides the codes.
+template <int N>
+__device__ __forceinline__ void block_codes(const float* v, float s,
+                                            float* q) {
+  const float c = __fdiv_rn(127.0f, fmaxf(s, 1e-12f));
+  bool near_tie = false;
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    const float t = __fmul_rn(v[e], c);
+    q[e] = rintf(t);
+    near_tie |= fabsf(t - q[e]) > 0.5f - 0x1p-12f;
+    q[e] = fminf(fmaxf(q[e], -127.0f), 127.0f);
+  }
+  if (near_tie) {
+#pragma unroll
+    for (int e = 0; e < N; ++e) q[e] = int8_code_ieee(v[e], s);
+  }
+}
+
+// y[e] = RN(RN(q[e] s) / 127), bit-equal to __fdiv_rn(q s, 127.0f), for N
+// codes of one block: y0 = RN(p R) with R = RN(1/127) (relative error
+// 2^-28, so y0 is within one ulp), then one Markstein correction with the
+// exact remainder p - 127 y0.  Equal to the IEEE quotient over whole
+// binades (tests/test_torch_kernels.py) wherever p, y0 and the remainder
+// are normal, which holds for every code when s is 0 or in [2^-93, 2^93]
+// (|q s| is 0 or in [2^-93, 2^100]); zeros keep their sign.  Other
+// scales take the IEEE division.
+template <int N>
+__device__ __forceinline__ void block_dequant(const float* q, float s,
+                                              float* y) {
+  if (s == 0.f || (s >= 0x1p-93f && s <= 0x1p93f)) {
+    constexpr float R = 0x1.020408p-7f;
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      const float p = __fmul_rn(q[e], s);
+      const float y0 = __fmul_rn(p, R);
+      y[e] = copysignf(fmaf(fmaf(-y0, 127.0f, p), R, y0), p);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < N; ++e) y[e] = div127_ieee(__fmul_rn(q[e], s));
+  }
+}
+
+// Max over aligned groups of `lanes` lanes (a power of two <= 32; every
+// lane of the warp calls it); every lane of a group gets its max.
+__device__ __forceinline__ float group_max(float v, int lanes) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1)
+    if (o < lanes) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}

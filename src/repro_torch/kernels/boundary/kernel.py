@@ -8,6 +8,9 @@ of ``repro.kernels.boundary.kernel``:
   the true wire format between them, int8 codes + f32 row-block scales
   (``csrc/codec.cu``).
 
+The kernels read and write 16-byte vectors: on the card each wrapper
+refuses, with a ``ValueError`` naming the value, what
+:func:`vector_layout_problem` rules out (it never takes another path).
 On a CUDA tensor each launches its kernel or raises; on a CPU tensor it
 runs the plain version (``repro_torch.compression.quant8._roundtrip``,
 :mod:`.ref`).  ``repro_torch.kernels.LAUNCHES`` counts one per call that
@@ -23,6 +26,42 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.kernels.boundary import ref as R
+
+ROW_WIDTH_MAX = 32768        # elements of a row the row passes hold
+POOLS = (1, 2, 4, 8)         # maxout widths whose windows tile a unit of 8
+
+
+def vector_layout_problem(t: torch.Tensor, width: Optional[int] = None,
+                          k: int = 1, qb: int = 0) -> Optional[str]:
+    """Why the 16-byte vector kernels cannot take ``t``, or None.
+
+    ``qdq_flat`` and the codec's row passes need ``t`` to start 16-byte
+    aligned.  The row passes (``width`` given: rows of ``width``
+    elements, a maxout pool of ``k``, blocks of ``qb`` when ``qb > 0``)
+    hold a row as units of 8 elements, so they also need a width that is
+    a multiple of 8 and at most :data:`ROW_WIDTH_MAX`, ``k`` in
+    :data:`POOLS` (a unit pools into whole windows), and ``qb`` a
+    multiple of 8 (a block is whole units)."""
+    if t.data_ptr() % 16:
+        return (f"starts {t.data_ptr() % 16} bytes past a 16-byte "
+                f"boundary")
+    if width is None:
+        return None
+    if width % 8 or not 0 < width <= ROW_WIDTH_MAX:
+        return (f"has rows of width {width}; the row passes take "
+                f"multiples of 8 up to {ROW_WIDTH_MAX}")
+    if k not in POOLS:
+        return f"has maxout k={k}; the row passes pool k in {POOLS}"
+    if qb and qb % 8:
+        return f"has qb={qb}, not a multiple of 8"
+    return None
+
+
+def _require_layout(name: str, t: torch.Tensor, width: Optional[int] = None,
+                    k: int = 1, qb: int = 0) -> None:
+    problem = vector_layout_problem(t, width, k, qb)
+    if problem:
+        raise ValueError(f"{name}: {t.dtype} input {problem}")
 
 
 def qdq_flat(x: torch.Tensor, block: int,
@@ -47,6 +86,7 @@ def qdq_flat(x: torch.Tensor, block: int,
                          "128")
     if not x.is_contiguous():
         raise ValueError("qdq_flat: x must be contiguous")
+    _require_layout("qdq_flat", x)
     code = _lib.dtype_code(x, "qdq_flat")
     n = x.numel()
     n_blocks = -(-n // block)
@@ -58,6 +98,10 @@ def qdq_flat(x: torch.Tensor, block: int,
             raise ValueError(f"qdq_flat: {name} must be a contiguous "
                              f"{dt} tensor of {size} elements on "
                              f"{x.device}")
+    if (codes is None) != (scales is None):
+        raise ValueError("qdq_flat: codes and scales come together")
+    if codes is not None:
+        _require_layout("qdq_flat codes", codes)
     out = torch.empty_like(x)
     rc = _lib.lib().repro_qdq_flat(
         x.data_ptr(), out.data_ptr(),
@@ -79,12 +123,18 @@ def qdq(x: torch.Tensor, qb: int) -> torch.Tensor:
 
 
 # ----------------------------------------------------------- learned codecs
-def _codec_args(t: torch.Tensor, w: Optional[torch.Tensor], name: str):
-    """Validate a codec call on the card; returns the dtype code."""
+def _codec_args(t: torch.Tensor, w: Optional[torch.Tensor], name: str,
+                dtype: Optional[torch.dtype] = None):
+    """Validate a codec call on the card; returns the code of ``dtype``
+    (default: ``t``'s)."""
     from repro_torch.kernels import _lib
     if t.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {t.device}")
-    code = _lib.dtype_code(t, name)
+    dtype = t.dtype if dtype is None else dtype
+    if dtype not in _lib.DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {dtype} not supported (float32 "
+                        f"or bfloat16)")
+    code = _lib.DTYPE_CODES[dtype]
     if w is not None:
         if w.device != t.device or w.dtype != torch.float32 or w.dim() != 2:
             raise ValueError(f"{name}: w must be a 2-d float32 tensor on "
@@ -93,15 +143,51 @@ def _codec_args(t: torch.Tensor, w: Optional[torch.Tensor], name: str):
     return code
 
 
-def _ln_rows(x2: torch.Tensor, k: int, qb: int, code: int) -> torch.Tensor:
+def _ln_rows(x2: torch.Tensor, k: int, qb: int, code: int,
+            name: str = "codec ln_rows") -> torch.Tensor:
     from repro_torch.kernels import _lib
     rows, width = x2.shape
+    _require_layout(name, x2, width, k, qb)
     out = torch.empty((rows, width // k), dtype=x2.dtype, device=x2.device)
     rc = _lib.lib().repro_codec_ln_rows(
         x2.data_ptr(), out.data_ptr(), rows, width, k, qb, code,
         _lib.stream_ptr(x2.device))
     _lib.check(rc, "codec ln_rows")
     return out
+
+
+def _ln_rows_codes(x2: torch.Tensor, k: int, qb: int, code: int,
+                  name: str = "codec ln_rows_codes"):
+    """The codes pass: int8 codes [rows, width // k] and f32 scales
+    [rows, width // k // qb] of pool_k(round(LN(x2)))."""
+    from repro_torch.kernels import _lib
+    rows, width = x2.shape
+    if qb <= 0:
+        raise ValueError(f"{name}: qb={qb}; the codes pass needs blocks")
+    _require_layout(name, x2, width, k, qb)
+    c = width // k
+    q = torch.empty((rows, c), dtype=torch.int8, device=x2.device)
+    s = torch.empty((rows, c // qb), dtype=torch.float32, device=x2.device)
+    rc = _lib.lib().repro_codec_ln_rows_codes(
+        x2.data_ptr(), q.data_ptr(), s.data_ptr(), rows, width, k, qb, code,
+        _lib.stream_ptr(x2.device))
+    _lib.check(rc, "codec ln_rows_codes")
+    return q, s
+
+
+def _dequant_rows(q2: torch.Tensor, s2: torch.Tensor, qb: int, ln: bool,
+                  dtype: torch.dtype, name: str = "codec dequant_rows"):
+    """The dequant pass: round(q2 * s2 / 127) to ``dtype`` [rows, c],
+    then round(LN(.)) when ``ln``."""
+    from repro_torch.kernels import _lib
+    rows, c = q2.shape
+    _require_layout(name, q2, c, 1, qb)
+    z = torch.empty((rows, c), dtype=dtype, device=q2.device)
+    rc = _lib.lib().repro_codec_dequant_rows(
+        q2.data_ptr(), s2.data_ptr(), z.data_ptr(), rows, c, qb, int(ln),
+        _lib.DTYPE_CODES[dtype], _lib.stream_ptr(q2.device))
+    _lib.check(rc, "codec dequant_rows")
+    return z
 
 
 def _gemm(a2: torch.Tensor, w: torch.Tensor, code: int) -> torch.Tensor:
@@ -156,9 +242,11 @@ def encode(x: torch.Tensor, w: Optional[torch.Tensor], mode: str, k: int,
     x2 = x.reshape(-1, d).contiguous()
     q = qb if quantize else 0
     if mode == "bottleneck":
-        out = _ln_rows(_gemm(_ln_rows(x2, 1, 0, code), w, code), 1, q, code)
+        _require_layout("encode", x2, c, 1, q)    # the second pass's width
+        out = _ln_rows(_gemm(_ln_rows(x2, 1, 0, code, "encode"), w, code),
+                       1, q, code, "encode")
     else:
-        out = _ln_rows(x2, k, q, code)
+        out = _ln_rows(x2, k, q, code, "encode")
     kernels.LAUNCHES["encode"] += 1
     return out.reshape(*x.shape[:-1], c)
 
@@ -174,7 +262,7 @@ def decode(z: torch.Tensor, w: torch.Tensor, mode: str) -> torch.Tensor:
     c = z.shape[-1]
     z2 = z.reshape(-1, c).contiguous()
     if mode == "maxout":
-        z2 = _ln_rows(z2, 1, 0, code)
+        z2 = _ln_rows(z2, 1, 0, code, "decode")
     out = _gemm(z2, w, code)
     kernels.LAUNCHES["decode"] += 1
     return out.reshape(*z.shape[:-1], w.shape[1])
@@ -191,7 +279,6 @@ def encode_quantize(x: torch.Tensor, w: Optional[torch.Tensor], mode: str,
         raise ValueError(f"not a learned codec: {mode!r}")
     if x.device.type == "cpu":
         return R.encode_quantize_ref(x, w, mode, k, qb)
-    from repro_torch.kernels import _lib
     d = x.shape[-1]
     c = w.shape[1] if mode == "bottleneck" else d // k
     if mode == "maxout" and d % k:
@@ -203,16 +290,12 @@ def encode_quantize(x: torch.Tensor, w: Optional[torch.Tensor], mode: str,
                        "encode_quantize")
     x2 = x.reshape(-1, d).contiguous()
     if mode == "bottleneck":
-        src, kk = _gemm(_ln_rows(x2, 1, 0, code), w, code), 1
+        _require_layout("encode_quantize", x2, c, 1, qb)
+        src, kk = _gemm(_ln_rows(x2, 1, 0, code, "encode_quantize"), w,
+                        code), 1
     else:
         src, kk = x2, k
-    rows = x2.shape[0]
-    q = torch.empty((rows, c), dtype=torch.int8, device=x.device)
-    s = torch.empty((rows, c // qb), dtype=torch.float32, device=x.device)
-    rc = _lib.lib().repro_codec_ln_rows_codes(
-        src.data_ptr(), q.data_ptr(), s.data_ptr(), rows, src.shape[1], kk,
-        qb, code, _lib.stream_ptr(x.device))
-    _lib.check(rc, "codec ln_rows_codes")
+    q, s = _ln_rows_codes(src, kk, qb, code, "encode_quantize")
     kernels.LAUNCHES["encode_quantize"] += 1
     return (q.reshape(*x.shape[:-1], c),
             s.reshape(*x.shape[:-1], c // qb))
@@ -235,19 +318,13 @@ def dequantize_decode(q: torch.Tensor, s: torch.Tensor, w: torch.Tensor,
                          f"{tuple(q.shape)} and {s.dtype} {tuple(s.shape)}")
     if q.device.type == "cpu":
         return R.dequantize_decode_ref(q, s, w, mode, qb, dtype)
-    from repro_torch.kernels import _lib
     if s.device != q.device:
         raise ValueError(f"dequantize_decode: codes on {q.device}, scales "
                          f"on {s.device}")
-    z = torch.empty((*q.shape[:-1], c), dtype=dtype, device=q.device)
-    code = _codec_args(z, w, "dequantize_decode")
-    q2 = q.reshape(-1, c).contiguous()
-    s2 = s.reshape(-1, c // qb).contiguous()
-    z2 = z.reshape(-1, c)
-    rc = _lib.lib().repro_codec_dequant_rows(
-        q2.data_ptr(), s2.data_ptr(), z2.data_ptr(), q2.shape[0], c, qb,
-        int(mode == "maxout"), code, _lib.stream_ptr(q.device))
-    _lib.check(rc, "codec dequant_rows")
+    code = _codec_args(q, w, "dequantize_decode", dtype)
+    z2 = _dequant_rows(q.reshape(-1, c).contiguous(),
+                       s.reshape(-1, c // qb).contiguous(), qb,
+                       mode == "maxout", dtype, "dequantize_decode")
     out = _gemm(z2, w, code)
     kernels.LAUNCHES["dequantize_decode"] += 1
     return out.reshape(*q.shape[:-1], w.shape[1])

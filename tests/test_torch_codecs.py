@@ -200,6 +200,62 @@ def test_wire_codes_pair_matches_jax(mode, k, dtype):
                 _np(y), np.asarray(want.astype(jnp.float32)), dtol)
 
 
+ROW_PASS_CASES = [(8, 8), (1024, 8), (1024, 64), (2048, 8), (2048, 64)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("width,qb", ROW_PASS_CASES)
+def test_row_passes_at_kernel_widths_match_jax(width, qb, dtype):
+    """The plain row passes the CUDA row kernels are held to on the card,
+    at row widths 8, 1024 and 2048 with blocks of 8 and 64: LayerNorm +
+    QDQ (maxout with k = 1 is the LayerNorm alone), LayerNorm + codes,
+    and codes -> dequantize -> LayerNorm -> product, against JAX's plain
+    references and its Pallas kernels in interpret mode.  Row 2 is
+    constant, so its LayerNorm is all zeros: blocks of absmax 0, scaled
+    by 1e-12, give codes 0 and outputs 0 on both sides.  Tolerances as
+    in :func:`test_wire_codes_pair_matches_jax`."""
+    rng = np.random.default_rng(width + qb)
+    x = (rng.standard_normal((5, width)) * 3 + 0.5).astype(np.float32)
+    x[2] = 1.25
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = getattr(torch, dtype)
+    jx = jnp.asarray(x).astype(jdt)
+    tx = _t(np.asarray(jx.astype(jnp.float32)), tdt)
+    tol = F32_TOL if dtype == "float32" else 2.0 ** -8
+    z = tbk.encode(tx, None, "maxout", 1, qb, True)
+    assert z.dtype == tdt and tuple(z.shape) == (5, width)
+    assert not z[2].any()
+    for want in (jref.qdq_ref(jref.encode_ref(jx, None, "maxout", 1), qb),
+                 jbk.encode(jx, None, "maxout", 1, qb, True,
+                            interpret=True)):
+        flips = _assert_close_or_code_step(
+            _np(z), np.asarray(want.astype(jnp.float32)), tol, qb)
+        assert dtype == "bfloat16" or flips <= 2
+    q, s = tbk.encode_quantize(tx, None, "maxout", 1, qb)
+    assert not q[2].any() and not s[2].any()
+    for jq, js in (jref.encode_quantize_ref(jx, None, "maxout", 1, qb),
+                   jbk.encode_quantize(jx, None, "maxout", 1, qb,
+                                       interpret=True)):
+        _assert_close_or_code_step(s.numpy(), np.asarray(js), tol)
+        dq = np.abs(q.numpy().astype(int) - np.asarray(jq).astype(int))
+        assert dq.max() <= 1
+        assert dtype == "bfloat16" or int((dq > 0).sum()) <= 2
+    jq, js = jref.encode_quantize_ref(jx, None, "maxout", 1, qb)
+    wd = (rng.standard_normal((width, D)) * 0.2 / np.sqrt(width / 64)
+          ).astype(np.float32)
+    y = tbk.dequantize_decode(torch.from_numpy(np.array(jq)),
+                              torch.from_numpy(np.array(js)), _t(wd),
+                              "maxout", qb, tdt)
+    assert y.dtype == tdt and tuple(y.shape) == (5, D)
+    dtol = 1e-5 if dtype == "float32" else 2.0 ** -8
+    for want in (jref.dequantize_decode_ref(jq, js, jnp.asarray(wd),
+                                            "maxout", qb, jdt),
+                 jbk.dequantize_decode(jq, js, jnp.asarray(wd), "maxout",
+                                       qb, jdt, interpret=True)):
+        _assert_close_or_code_step(_np(y), np.asarray(
+            want.astype(jnp.float32)), dtol)
+
+
 def test_wire_codes_pair_checks_its_inputs():
     x, w_c, w_d = _inputs(5)
     q, s = tbk.encode_quantize(_t(x), _t(w_c), "bottleneck", 1, 16)

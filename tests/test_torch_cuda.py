@@ -157,6 +157,99 @@ def test_cuda_qdq_ties_and_padded_tail(dtype):
     assert torch.equal(out, quant8.blockwise_dequantize(q_ref, s_ref, meta))
 
 
+QDQ_BLOCKS = [32, 64, 96, 128]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block", QDQ_BLOCKS)
+def test_cuda_qdq_blocks_and_ragged_tails(block, dtype):
+    """qdq_flat at every block it takes (the vector kernel at 32, 64 and
+    128, the warp-per-block kernel at 96), with n ragged against the
+    block and against the 8-element vector, and exact .5 ties: codes,
+    scales and outputs bit-equal to the plain version."""
+    dev = _card()
+    for n in (block * 41, block * 40 + 3, block * 40 + 8, 5, 4099 * 3):
+        x = torch.randn(n, generator=_gen(dev), device=dev) * 4
+        m = min(block, n) - 1
+        x[:m] = (torch.arange(m, device=dev, dtype=torch.float32)
+                 - m // 2 + 0.5)
+        x[m] = 127.0
+        x = x.to(dtype)
+        codes = torch.empty(n, dtype=torch.int8, device=dev)
+        scales = torch.empty(-(-n // block), dtype=torch.float32,
+                             device=dev)
+        out = qdq_flat(x, block, codes, scales)
+        q_ref, s_ref, meta = quant8.blockwise_quantize(x, block)
+        assert torch.equal(codes, q_ref.reshape(-1)[:n]), n
+        assert torch.equal(scales, s_ref.reshape(-1)), n
+        assert torch.equal(out, quant8.blockwise_dequantize(q_ref, s_ref,
+                                                            meta)), n
+        assert torch.equal(qdq_flat(x, block), out), n      # deterministic
+    # a part of a longer tensor equals that part of its round trip
+    x = torch.randn(2, 512, 4096, generator=_gen(dev), device=dev).to(dtype)
+    full = qdq_flat(x, block)
+    part = x.reshape(-1)[300 * block:500 * block]
+    assert torch.equal(qdq_flat(part, block),
+                       full.reshape(-1)[300 * block:500 * block])
+
+
+# (width, pool k, qb): the training path's passes, the lane-group and
+# shared-memory block reductions, and row layouts of 1 to 512 threads
+ROW_CASES = [(1024, 1, 0), (1024, 1, 64), (2048, 1, 0), (2048, 2, 64),
+             (4096, 1, 0), (4096, 2, 64), (16384, 1, 64), (16384, 2, 64),
+             (8, 1, 8), (96, 1, 32), (96, 1, 24), (4104, 1, 8),
+             (4096, 1, 512), (256, 4, 16), (256, 8, 8), (32768, 1, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width,k,qb", ROW_CASES)
+def test_cuda_row_passes_match_plain(width, k, qb, dtype):
+    """The codec's row passes (``ln_rows``, its codes pass, and
+    ``dequant_rows`` with and without the LayerNorm) bit-equal to the
+    plain versions (``ref._ln``, ``qdq_ref``, ``quantize_rows``); two
+    calls bit-equal; rows 300-499 alone equal to those rows of the
+    700-row call."""
+    from repro_torch.compression.quant8 import div127
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.boundary import kernel as K
+    from repro_torch.kernels.boundary import ref as R
+    dev = _card()
+    g = _gen(dev)
+    code = _lib.DTYPE_CODES[dtype]
+    x = (torch.randn(700, width, generator=g, device=dev) * 3 + 1).to(dtype)
+    h = R._ln(x)
+    if k > 1:
+        h = h.reshape(700, width // k, k).amax(-1)
+
+    def same(fn, want):
+        got = fn(x)
+        assert all(torch.equal(a, b) for a, b in zip(
+            got if isinstance(got, tuple) else (got,),
+            want if isinstance(want, tuple) else (want,)))
+        again, part = fn(x), fn(x[300:500])
+        for a, b, p in zip(*(t if isinstance(t, tuple) else (t,)
+                             for t in (got, again, part))):
+            assert torch.equal(a, b) and torch.equal(p, a[300:500])
+
+    same(lambda a: K._ln_rows(a, k, qb, code),
+         R.qdq_ref(h, qb) if qb else h)
+    if not qb:
+        return
+    same(lambda a: K._ln_rows_codes(a, k, qb, code), R.quantize_rows(h, qb))
+    q, s = R.quantize_rows(h, qb)
+    c = width // k
+    z = div127(q.float().reshape(700, c // qb, qb) * s[..., None]).reshape(
+        700, c).to(dtype)
+    for ln in (False, True):
+        got = K._dequant_rows(q, s, qb, ln, dtype)
+        assert torch.equal(got, R._ln(z) if ln else z)
+        assert torch.equal(K._dequant_rows(q, s, qb, ln, dtype), got)
+        assert torch.equal(K._dequant_rows(q[300:500], s[300:500], qb, ln,
+                                           dtype), got[300:500])
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
     dev = _card()
@@ -188,6 +281,43 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
         K._gemm(a, torch.randn(12, 16, device=dev), 1)
     with pytest.raises(ValueError, match="multiples of 8"):
         K._gemm(a[:, :8], torch.randn(8, 20, device=dev), 1)
+    # qdq_flat and the codec's row passes move 16-byte vectors: a base
+    # 2 bytes off, a row width, pool or qb off the rule are refused
+    flat = torch.randn(1 + 4096, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="2 bytes past a 16-byte"):
+        qdq_flat(flat[1:], 64)
+    with pytest.raises(ValueError, match="4 bytes past a 16-byte"):
+        qdq_flat(torch.randn(1 + 4096, device=dev)[1:], 96)
+    codes = torch.empty(8 + 4096, dtype=torch.int8, device=dev)
+    scales = torch.empty(64, device=dev)
+    with pytest.raises(ValueError, match="8 bytes past a 16-byte"):
+        qdq_flat(flat[:4096], 64, codes[8:], scales)
+    with pytest.raises(ValueError, match="come together"):
+        qdq_flat(flat[:4096], 64, codes[:4096])
+    rows = torch.randn(4, 1 + 1024, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bytes past a 16-byte"):
+        K.encode(rows.reshape(-1)[1:4097].view(4, 1024), None, "maxout",
+                 2, 64, True)
+    with pytest.raises(ValueError, match="width 12"):
+        K.encode(torch.randn(4, 12, device=dev), None, "maxout", 2, 6,
+                 False)
+    with pytest.raises(ValueError, match="qb=4"):
+        K.encode(torch.randn(4, 24, device=dev), None, "maxout", 2, 4, True)
+    with pytest.raises(ValueError, match="qb=12"):
+        K.encode(torch.randn(4, 96, device=dev), None, "maxout", 2, 12, True)
+    with pytest.raises(ValueError, match="k=3"):
+        K.encode(torch.randn(4, 96, device=dev), None, "maxout", 3, 8, True)
+    with pytest.raises(ValueError, match="width 32776"):
+        K.decode(torch.randn(2, 32776, device=dev),
+                 torch.randn(32776, 8, device=dev), "maxout")
+    with pytest.raises(ValueError, match="qb=4"):
+        K.encode_quantize(torch.randn(4, 64, device=dev),
+                          torch.randn(64, 16, device=dev), "bottleneck", 1,
+                          4)
+    q8 = torch.zeros(8 + 4 * 64, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="8 bytes past a 16-byte"):
+        K.dequantize_decode(q8[8:].view(4, 64), torch.ones(4, 1, device=dev),
+                            torch.randn(64, 32, device=dev), "bottleneck", 64)
 
 
 def _cuda_cfg(**kw) -> ArchConfig:

@@ -183,6 +183,135 @@ def test_model_attention_calls_meet_the_bf16_kernel_layout(monkeypatch):
     assert any(train) and not all(train)          # forwards and recomputes
 
 
+def test_vector_layout_rule_on_cpu_tensors():
+    """The rule the 16-byte vector kernels (qdq_flat, the codec's row
+    passes) are refused by on the card, as a pure predicate of the
+    tensor and the pass: a 16-byte-aligned start; rows of a width that is
+    a multiple of 8 elements, at most 32768; a maxout pool of 1, 2, 4 or
+    8; qb a multiple of 8 where blocks are asked for."""
+    rule = tbk.vector_layout_problem
+    flat = torch.zeros(8 + 4096, dtype=torch.bfloat16)
+    assert flat.data_ptr() % 16 == 0
+    assert rule(flat) is None and rule(flat[8:]) is None
+    assert "2 bytes past a 16-byte" in rule(flat[1:])
+    assert "8 bytes past a 16-byte" in rule(flat[4:])
+    assert "4 bytes past a 16-byte" in rule(torch.zeros(9)[1:])
+    assert rule(torch.zeros(9)[4:]) is None           # f32: 4 elements
+    codes = torch.zeros(24, dtype=torch.int8)
+    assert rule(codes[16:]) is None and "8 bytes" in rule(codes[8:])
+    x = torch.zeros(3, 4096, dtype=torch.bfloat16)
+    assert rule(x, 4096) is None
+    assert rule(x, 4096, 2, 64) is None and rule(x, 4096, 8, 8) is None
+    assert rule(x, 4096, 1, 0) is None                # no blocks: any qb
+    assert "width 12" in rule(torch.zeros(2, 12), 12)
+    assert "width 32776" in rule(torch.zeros(1, 32776), 32776)
+    assert rule(torch.zeros(1, 32768), 32768) is None
+    assert "width 0" in rule(torch.zeros(1, 0), 0)
+    assert "k=3" in rule(torch.zeros(2, 96), 96, 3)
+    assert "k=16" in rule(torch.zeros(2, 96), 96, 16)
+    assert "qb=12" in rule(torch.zeros(2, 96), 96, 1, 12)
+    assert "qb=4" in rule(torch.zeros(2, 96), 96, 2, 4)
+    assert rule(torch.zeros(2, 96), 96, 1, 24) is None  # multiple of 8
+    # the alignment of a view comes first
+    assert "bytes past" in rule(flat[1:4097].view(4, 1024), 1024)
+
+
+@pytest.mark.parametrize("mode", ["bottleneck", "maxout"])
+def test_model_codec_calls_meet_the_vector_layout(monkeypatch, mode):
+    """Every qdq_flat / encode / decode / encode_quantize call of the
+    serving path with the int8 wire (a ServeRunner's prefills and decode
+    steps) and of the training path with ``wire_quant`` (a stage
+    program's forward and its recompute backward, the cotangent QDQ
+    included) passes tensors and a pass that the vector kernels take, as
+    the wrappers would hand them to the card: no model path makes an
+    ``encode_quantize`` call, so it is called through the ops entry point
+    a transport would use, on the boundary state of stage 0.  The rule
+    is checked on CPU tensors made by the same code."""
+    from repro_torch.kernels.boundary import ops as tops
+    from repro_torch.kernels.boundary import ref as tref
+    from repro_torch.runtime import build_stage_programs, init_stage_params
+    from repro_torch.serve import ServeConfig, ServeRunner
+    seen = {"qdq_flat": 0, "encode": 0, "decode": 0, "encode_quantize": 0}
+    orig = {k: getattr(tbk, k) for k in seen}
+
+    def rows(t):
+        return t.reshape(-1, t.shape[-1]).contiguous()
+
+    def check(name, t, width=None, k=1, qb=0):
+        problem = tbk.vector_layout_problem(t, width, k, qb)
+        assert problem is None, (name, tuple(t.shape), t.stride(),
+                                 t.storage_offset(), problem)
+
+    def qdq_flat(x, block, *args, **kw):
+        check("qdq_flat", x)
+        seen["qdq_flat"] += 1
+        return orig["qdq_flat"](x, block, *args, **kw)
+
+    def encode(x, w, mode_, k, qb, quantize):
+        d, q = x.shape[-1], qb if quantize else 0
+        check("encode", rows(x), d, k if mode_ == "maxout" else 1, 0
+              if mode_ == "bottleneck" else q)
+        if mode_ == "bottleneck":
+            check("encode's second pass", rows(x), w.shape[1], 1, q)
+        seen["encode"] += 1
+        return orig["encode"](x, w, mode_, k, qb, quantize)
+
+    def decode(z, w, mode_):
+        check("decode", rows(z), z.shape[-1] if mode_ == "maxout" else None)
+        seen["decode"] += 1
+        return orig["decode"](z, w, mode_)
+
+    def encode_quantize(x, w, mode_, k, qb):
+        check("encode_quantize", rows(x), x.shape[-1],
+              k if mode_ == "maxout" else 1, 0 if mode_ == "bottleneck"
+              else qb)
+        if mode_ == "bottleneck":
+            check("encode_quantize's codes pass", rows(x), w.shape[1], 1,
+                  qb)
+        seen["encode_quantize"] += 1
+        return orig["encode_quantize"](x, w, mode_, k, qb)
+
+    for name, fn in (("qdq_flat", qdq_flat), ("encode", encode),
+                     ("decode", decode),
+                     ("encode_quantize", encode_quantize)):
+        monkeypatch.setattr(tbk, name, fn)
+    r = ServeRunner(_tiny_serving_cfg(), ServeConfig(
+        n_stages=4, max_batch=2, max_sessions=2, codec="int8"),
+        seed=0, device="cpu")
+    r.build_pools(n_prefill=2, n_decode=2)
+    for p in np.random.default_rng(0).integers(0, 128, size=(2, 24)):
+        r.submit(p, 3)
+    assert r.run()["completed"] == 2
+    assert seen["qdq_flat"] > 0                   # the int8 wire
+    n_serve = seen["qdq_flat"]
+    cfg = _tiny_serving_cfg(n_layers=6, n_kv_heads=4, share_groups=3,
+                            norm="layernorm", act="geglu",
+                            boundary_compression=mode, bottleneck_dim=64,
+                            maxout_k=2, pipeline_stages=3, wire_quant=True)
+    progs = build_stage_programs(cfg, 3, 64)
+    params = init_stage_params(progs, 0, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    tok = torch.randint(0, 128, (2, 64), generator=g)
+    x1 = progs[0].fwd(params[0], tok)
+    x2 = progs[1].fwd(params[1], x1)
+    _, gx, _ = progs[2].bwd(params[2], x2, tok)
+    gx, _ = progs[1].bwd(params[1], x1, gx)
+    progs[0].bwd(params[0], tok, gx)
+    # stages 0 and 1 encode in the forward and again in the recompute of
+    # their backward; stages 1 and 2 decode in theirs, stage 1 once more
+    # in the forward; each sender's backward QDQs its cotangent
+    assert seen["encode"] == 4 and seen["decode"] == 3
+    assert seen["qdq_flat"] - n_serve == 2
+    assert seen["encode_quantize"] == 0
+    h = progs[0].fwd(params[0], tok)              # stage 0's wire state
+    w_c = params[0]["boundary"].get("w_c") if mode == "bottleneck" else None
+    k = 1 if mode == "bottleneck" else 2
+    c = h.shape[-1]
+    tops.encode_quantize(torch.randn(2, 64, 128), w_c, mode, k,
+                         tref.wire_qblock(c))
+    assert seen["encode_quantize"] == 1
+
+
 @pytest.mark.parametrize("impl", ["jnp", "pallas"])
 @pytest.mark.parametrize("q_offset", [None, 3])
 def test_flash_router_matches_jax(impl, q_offset):
@@ -269,6 +398,112 @@ def test_qdq_flat_codes_identical(n, dtype):
     np.testing.assert_allclose(tp.float().numpy(),
                                np.asarray(jp.astype(jnp.float32)),
                                rtol=np.finfo(np.float32).eps, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("block", [32, 64, 96, 128])
+def test_qdq_flat_zero_block_ties_and_ragged_tail_match_jax(block, dtype):
+    """The edge cases of the blocks the CUDA qdq splits by shape (lane
+    groups at 32, 64 and 128, a warp a block at 96): exact .5 ties in
+    block 0 (its absmax 127), an all-zero block (scale 0, divided by
+    1e-12), and a zero-padded tail whose length is not a multiple of the
+    8-element vector.  The plain version equals JAX's round trip, its
+    codes and scales JAX's quantize, and it is within one f32 ulp of the
+    Pallas kernel in interpret mode."""
+    n = block * 5 + 3
+    x = (np.random.default_rng(block).standard_normal(n) * 4).astype(
+        np.float32)
+    x[:block - 1] = np.arange(block - 1, dtype=np.float32) - block // 2 \
+        + np.float32(0.5)
+    x[block - 1] = 127.0
+    x[block:2 * block] = 0.0
+    assert n % 8 and n % block
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    jx = jnp.asarray(x).astype(jdt)
+    tx = _t(np.asarray(jx.astype(jnp.float32))).to(getattr(torch, dtype))
+    blk = np.asarray(jx.astype(jnp.float32))[:block]
+    assert np.sum(np.abs(blk / np.float32(127) * np.float32(127) % 1)
+                  == 0.5) >= block - 2                  # real ties
+    jq, js, _ = jq8.blockwise_quantize(jx, block)
+    tq, ts, _ = tq8.blockwise_quantize(tx, block)
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    assert float(ts[1, 0]) == 0.0 and not tq[1].any()   # the zero block
+    tp = tbk.qdq_flat(tx, block)
+    np.testing.assert_array_equal(
+        tp.float().numpy(),
+        np.asarray(jq8._roundtrip(jx, block).astype(jnp.float32)))
+    np.testing.assert_allclose(
+        tp.float().numpy(),
+        np.asarray(jbk.qdq_flat(jx, block, interpret=True).astype(
+            jnp.float32)), rtol=np.finfo(np.float32).eps, atol=0)
+
+
+def _fma32_rem_corrected(p, r, y0):
+    """f32 ``fma(fma(-y0, 127, p), r, y0)`` as the card computes it: the
+    remainder ``p - 127 y0`` is exact in f64 (checked), and the second
+    fma is rounded from f64 except where that could round twice, which
+    exact rationals decide."""
+    from fractions import Fraction
+    rem64 = p.astype(np.float64) - 127.0 * y0.astype(np.float64)
+    rem = rem64.astype(np.float32)
+    assert np.array_equal(rem.astype(np.float64), rem64)
+    s64 = rem.astype(np.float64) * np.float64(r) + y0.astype(np.float64)
+    y = s64.astype(np.float32)
+    lo = np.nextafter(y, np.float32(-np.inf))
+    hi = np.nextafter(y, np.float32(np.inf))
+    eps = np.abs(s64) * 2.0 ** -50
+    near = (np.abs(s64 - (y.astype(np.float64) + lo) / 2) <= eps) | \
+        (np.abs(s64 - (y.astype(np.float64) + hi) / 2) <= eps)
+    for i in np.nonzero(near)[0]:
+        exact = Fraction(float(rem[i])) * Fraction(float(r)) + \
+            Fraction(float(y0[i]))
+        cands = sorted((abs(Fraction(float(c)) - exact),
+                        int(c.view(np.uint32)) & 1, c)
+                       for c in (lo[i], y[i], hi[i]))
+        y[i] = cands[0][2]
+    return y
+
+
+@pytest.mark.parametrize("binade", [-93, 0, 99])
+def test_block_dequant_division_by_127_is_ieee_over_a_binade(binade):
+    """The CUDA kernels' ``q s / 127`` (``block_dequant`` in
+    ``csrc/common.cuh``): ``y0 = RN(p R)`` with ``R = RN(1/127)``, then
+    one Markstein correction, equals the IEEE quotient for every f32 of
+    a binade; scaling by powers of two maps the binades of [2^-93,
+    2^100) onto each other exactly, so the ends and the middle stand for
+    all of them."""
+    r = np.float32(1) / np.float32(127)
+    assert float(r).hex() == "0x1.0204080000000p-7"
+    p = ((np.uint32(binade + 127) << np.uint32(23))
+         | np.arange(2 ** 23, dtype=np.uint32)).view(np.float32)
+    y0 = (p.astype(np.float64) * np.float64(r)).astype(np.float32)
+    y = _fma32_rem_corrected(p, r, y0)
+    np.testing.assert_array_equal(y, p / np.float32(127))
+    np.testing.assert_array_equal(
+        _fma32_rem_corrected(-p, r, -y0), -p / np.float32(127))
+
+
+def test_block_codes_multiply_stays_inside_its_guard():
+    """The CUDA kernels' codes (``block_codes``): with ``c = 127 / max(s,
+    1e-12)``, ``v c`` lies within 3.1e-5 of ``RN(RN(v / max(s, 1e-12))
+    127)`` for |v| <= s, so wherever ``v c`` is farther than 2^-12 from
+    a half-integer (where the kernel keeps it) both round to the same
+    code; nearer, the kernel takes the IEEE division."""
+    rng = np.random.default_rng(0)
+    n = 1 << 20
+    s = np.exp2(rng.uniform(-60, 60, n)).astype(np.float32)
+    s[:16] = 0.0
+    v = (rng.uniform(-1, 1, n) * s).astype(np.float32)
+    v[16:32] = s[16:32]                      # v = +-s: codes +-127
+    v[32:48] = -s[32:48]
+    d = np.maximum(s, np.float32(1e-12))
+    t = v * (np.float32(127) / d)
+    f = (v / d) * np.float32(127)
+    assert float(np.abs(t.astype(np.float64) - f).max()) < 3.1e-5
+    kept = np.abs(t - np.rint(t)) <= np.float32(0.5) - np.float32(2 ** -12)
+    assert kept.mean() > 0.99
+    np.testing.assert_array_equal(np.rint(t[kept]), np.rint(f[kept]))
 
 
 @pytest.mark.parametrize("impl", ["jnp", "pallas"])
