@@ -20,14 +20,16 @@ JSON line; any failure raises and exits non-zero):
              swarm-1b-bottleneck for the codec's encode and decode and
              its true-wire pair encode_quantize / dequantize_decode,
              held stage by stage on their own intermediates, the int8
-             wire's shape for the quant8 pair), in bf16 and f32; the
-             flash forward, the codec GEMM and row passes and qdq also
-             run twice (bit-equal) and on a subset of their rows
-             (bit-equal to the same rows of the full call); the codec's
-             row pass also runs and is timed alone (``ln_rows``).
+             wire's shape for the quant8 pair, qdq and the pair also at
+             every kind of block and on unaligned views), in bf16 and
+             f32; the flash forward, the codec GEMM and row passes, qdq
+             and the quant8 pair also run twice (bit-equal) and on a
+             subset of their rows (bit-equal to the same rows of the
+             full call); the codec's row pass also runs and is timed
+             alone (``ln_rows``).
              Times: device time per call (the kernels' CUPTI durations
-             under ``torch.profiler``; for the codec and qdq also
-             ``cold_ms``, the L2 evicted before each call) beside
+             under ``torch.profiler``, and ``cold_ms``, the L2 evicted
+             before each call) beside
              the plain version's, the one-call PyTorch library
              equivalent's where there is one, and the card's lower
              bound; each kernel's row also keeps ``eager_ms``, CUDA
@@ -41,7 +43,8 @@ JSON line; any failure raises and exits non-zero):
              (0,2)->(2,4), tokens identical to the port's single-process
              reference, every kernel's launch counter above zero.
 4. int8    — the same with the int8 boundary wire: one QDQ launch per
-             span-edge crossing.
+             span-edge crossing; then again with blocks of 256
+             (``ServeConfig.quant_block``).
 5. churn   — a spare (2,4) peer; the chain's (2,4) peer dies mid-decode;
              exactly-once KV recovery.
 6. train   — ``SwarmRunner`` training swarm-1b-bottleneck at full width
@@ -151,23 +154,23 @@ _FLUSH: dict = {}
 def _profiled(torch, fn, iters: int) -> dict:
     """Per kernel name, (calls, device ms) of ``iters`` calls of ``fn``
     under ``torch.profiler`` (CUPTI).  A session now and then loses some
-    or all of its events, so a result stands only when two sessions in a
-    row agree on the calls of every name."""
+    or all of its events, so a result stands only when two of up to ten
+    sessions agree on the calls of every name."""
     from torch.profiler import ProfilerActivity, profile
-    last = None
-    for _ in range(6):
+    seen = []
+    for _ in range(10):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
         got = {ev.key: (ev.count, _device_us(ev) / 1e3)
                for ev in prof.key_averages() if _device_us(ev) > 0}
-        if got and last is not None and {k: c for k, (c, _) in got.items()} \
-                == {k: c for k, (c, _) in last.items()}:
+        calls = {k: c for k, (c, _) in got.items()}
+        if got and calls in seen:
             return got
-        last = got
-    raise RuntimeError("the profiler's sessions disagree on the kernels "
-                       "launched")
+        seen.append(calls)
+    raise RuntimeError(f"the profiler's sessions disagree on the kernels "
+                       f"launched: {seen}")
 
 
 def time_ms(torch, fn, iters: int = 20, warmup: int = 3,
@@ -236,7 +239,27 @@ def _counted(torch, fn):
 
 # ------------------------------------------------------------------ phase 1
 TENSOR_CORE_KERNELS = ("flash_fwd_mma_kernel", "codec_gemm_wgmma_kernel")
-VECTOR_KERNELS = ("ln_rows_kernel", "dequant_rows_kernel", "qdq_vec_kernel")
+VECTOR_KERNELS = ("ln_rows_kernel", "dequant_rows_kernel", "blockq_vec_kernel",
+                  "blockdq_vec_kernel")
+# instantiations of the vector kernels: ln_rows 2 dtypes x 4 x 5, its
+# dequant pass 2 x 7; blockq.cuh's lane-group quantize 2 x 6 lane counts
+# x 3 (qdq with and without codes, quant8's codes alone) and its
+# dequantize, one a dtype
+VECTOR_INSTANTIATIONS = 2 * (4 * 5 + 7) + 2 * 6 * 3 + 2
+LOADS = ("LDG.E.128", "LDG.E.64", "LDG.E")     # first match counts
+
+
+def vector_load(inst: str) -> str:
+    """The global load a vector kernel instantiation must have: 16 bytes
+    a lane, except where a lane reads the codes of one 16-byte output
+    vector or unit: 8 bytes (dequant_rows on widths that are not a
+    multiple of 16, quant8's bf16 dequantize) or 4 (its f32 one)."""
+    if inst.startswith("dequant_rows_kernel") and inst.endswith(",8>") \
+            or inst == "blockdq_vec_kernel<bf16>":
+        return "LDG.E.64"
+    if inst == "blockdq_vec_kernel<f32>":
+        return "LDG.E"
+    return "LDG.E.128"
 
 
 def _instantiation(name: str, kernel: str) -> str:
@@ -254,9 +277,10 @@ def _instantiation(name: str, kernel: str) -> str:
 
 def sass_counts(path):
     """Per kernel instantiation, from ``cuobjdump -sass``: the HMMA /
-    HGMMA instructions of the tensor-core kernels, and the 128- and
-    64-bit global loads (``LDG.E.128`` / ``LDG.E.64``) of the vector
-    kernels (the codec's row passes, qdq).  None without ``cuobjdump``."""
+    HGMMA instructions of the tensor-core kernels, and the 128-, 64- and
+    32-bit global loads (``LDG.E.128`` / ``LDG.E.64`` / other ``LDG.E``)
+    of the vector kernels (the codec's row passes, the lane-group
+    kernels of qdq and the quant8 pair).  None without ``cuobjdump``."""
     import shutil
     exe = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
@@ -273,7 +297,7 @@ def sass_counts(path):
                 if k in name:
                     cur, ops = _instantiation(name, k), (
                         ("HGMMA", "HMMA") if k in TENSOR_CORE_KERNELS
-                        else ("LDG.E.128", "LDG.E.64"))
+                        else LOADS)
                     if k == "flash_fwd_mma_kernel":
                         cur = k + ("<64>" if "ILi64E" in name else "<128>")
                     counts[cur] = dict.fromkeys(ops, 0)
@@ -304,15 +328,10 @@ def phase_build(torch) -> None:
                       if sum(sass.get(k, {}).values()) == 0)
         if idle:
             raise AssertionError(f"no tensor-core instructions in {idle}")
-        # every vector kernel loads 16 bytes a lane, except dequant_rows
-        # on widths that are not a multiple of 16 (units of 8 codes: 8
-        # bytes a lane)
         vec = {k: v for k, v in sass.items() if k.split("<")[0] in
                VECTOR_KERNELS}
-        narrow = [k for k, v in vec.items() if v[
-            "LDG.E.64" if k.startswith("dequant_rows_kernel")
-            and k.endswith(",8>") else "LDG.E.128"] == 0]
-        if len(vec) < 2 * (4 * 5 + 7 + 8) or narrow:
+        narrow = [k for k, v in vec.items() if v[vector_load(k)] == 0]
+        if len(vec) < VECTOR_INSTANTIATIONS or narrow:
             raise AssertionError(f"vector loads missing: {len(vec)} "
                                  f"instantiations, none in {narrow}")
     _lib.lib()
@@ -380,6 +399,7 @@ def check_flash(torch, gen, rows: list) -> dict:
                                          f"batch row {b} alone differs")
             fwd = lambda: flash_attention_fwd(q, k, v, True)
             ms = _counted(torch, lambda: time_ms(torch, fwd))
+            cold = _counted(torch, lambda: time_ms(torch, fwd, cold=True))
             eager = _counted(torch, lambda: eager_ms(torch, fwd))
             plain = time_ms(torch, lambda: flash_fwd_ref(
                 q, k, v, True, 0, 0, 512, 1024), iters=5)
@@ -395,8 +415,9 @@ def check_flash(torch, gen, rows: list) -> dict:
                    "max_abs_err": err, "lse_max_abs_err": lse_err,
                    "bound": bound, "lse_bound": 1e-4,
                    "deterministic": True, "row_independent": True,
-                   "ms": ms, "eager_ms": eager, "plain_ms": plain,
-                   "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by}
+                   "ms": ms, "cold_ms": cold, "eager_ms": eager,
+                   "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+                   "bound_by": b_by, "cold_share_of_bound": b_ms / cold}
             emit(row)
             rows.append(row)
             if (path, S, dt) == ("serve", 512, torch.bfloat16):
@@ -421,6 +442,8 @@ def check_rmsnorm(torch, gen, rows: list) -> dict:
         if ulps > 1.0:
             raise AssertionError(f"rmsnorm {dt}: {ulps} ulps (bound 1)")
         ms = _counted(torch, lambda: time_ms(torch, lambda: rmsnorm(x, scale)))
+        cold = _counted(torch, lambda: time_ms(
+            torch, lambda: rmsnorm(x, scale), cold=True))
         eager = _counted(torch, lambda: eager_ms(
             torch, lambda: rmsnorm(x, scale)))
         plain = time_ms(torch, lambda: rmsnorm_ref(x, scale))
@@ -430,9 +453,10 @@ def check_rmsnorm(torch, gen, rows: list) -> dict:
         b_ms, b_by = bound_ms(nbytes, 4.0 * x.numel(), H100_F32_FLOPS)
         row = {"kernel": "rmsnorm", "shape": f"[{R}, {d}]", "dtype": str(dt),
                "max_abs_err": err, "max_ulps": ulps, "bound": "1 ulp",
-               "ms": ms, "eager_ms": eager, "plain_ms": plain,
-               "library_ms": lib,
-               "bound_ms": b_ms, "bound_by": b_by}
+               "ms": ms, "cold_ms": cold, "eager_ms": eager,
+               "plain_ms": plain, "library_ms": lib,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "cold_share_of_bound": b_ms / cold}
         emit(row)
         rows.append(row)
         if dt == torch.bfloat16:
@@ -444,6 +468,15 @@ def _equal(torch, name, got, want) -> None:
     if not torch.equal(got, want):
         raise AssertionError(f"{name}: {int((got != want).sum())} "
                              f"elements differ from the plain version")
+
+
+def _bits_equal(torch, name, got, want) -> None:
+    """``got`` and ``want`` equal bit for bit: floats as their integer
+    words, so +0 and -0 differ."""
+    words = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    if got.dtype in words and got.dtype == want.dtype:
+        got, want = got.view(words[got.dtype]), want.view(words[want.dtype])
+    _equal(torch, name, got, want)
 
 
 def _stable(torch, name, fn, a, out) -> None:
@@ -463,69 +496,99 @@ def _stable(torch, name, fn, a, out) -> None:
         raise AssertionError(f"{name}: rows 300-499 alone differ")
 
 
+# every path of csrc/blockq.cuh (``flat_block_path``): lane groups (bf16
+# 8 ... 256, f32 4 ... 128), thread groups looping in vectors (48, 96,
+# 4096, and 256 in f32) and in scalars (1, 3, 100)
+FLAT_BLOCKS = (1, 3, 8, 16, 32, 48, 64, 96, 100, 128, 256, 4096)
+GENERAL_TIMED = (96, 256, 4096)      # timed beside the wire's 64
+
+
+def _tied(torch, gen, shape, dt):
+    """randn * 5 with exact ``.5`` ties on the code grid in the first 64
+    elements (their block's absmax 127 makes x / s * 127 == x, so k + 0.5
+    rounds half to even) and an all-zero run of 4096 at element 8192."""
+    x = torch.randn(*shape, generator=gen, device="cuda") * 5
+    x.view(-1)[:64] = torch.arange(64, device="cuda") - 32.5
+    x.view(-1)[63] = 127.0
+    x.view(-1)[8192:12288] = 0.0
+    return x.to(dt)
+
+
+def _timed_flat(torch, row, fn, nbytes, ops):
+    """Warm, cold and eager device times of ``fn`` into ``row`` beside
+    the bytes bound (f32 operations)."""
+    b_ms, b_by = bound_ms(nbytes, ops, H100_F32_FLOPS)
+    ms = _counted(torch, lambda: time_ms(torch, fn))
+    cold = _counted(torch, lambda: time_ms(torch, fn, cold=True))
+    row.update({"ms": ms, "cold_ms": cold,
+                "eager_ms": _counted(torch, lambda: eager_ms(torch, fn)),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "cold_share_of_bound": b_ms / cold})
+    return row
+
+
 def check_qdq(torch, gen, rows: list) -> dict:
-    """qdq_flat at the int8 wire's shape ``[2, 512, 4096]``, blocks of 64
-    (the wire's; timed) and of 32, 96 (the warp-per-block kernel) and 128,
-    a tail 37 elements past a whole block, with exact ``.5`` ties: codes,
-    scales and outputs bit-equal to the plain version; at 64 also two
-    calls bit-equal, and rows 300-499 of the tensor seen as [1024, 4096]
-    alone equal to those rows of the whole call."""
+    """qdq_flat at the int8 wire's shape ``[2, 512, 4096]`` and every
+    block of ``FLAT_BLOCKS``, whole and with a tail 27 elements short of
+    a block, and on a view one element off a 16-byte boundary, with
+    exact ``.5`` ties and an all-zero block: codes, scales and outputs
+    bit-equal to the plain version (signed zeros included); at 64 (the
+    wire's block) also two calls bit-equal, and rows 300-499 of the
+    tensor seen as [1024, 4096] alone equal to those rows of the whole
+    call.  Timed at 64 and at ``GENERAL_TIMED``."""
     from repro_torch.compression import quant8
-    from repro_torch.kernels.boundary.kernel import qdq_flat
+    from repro_torch.kernels.boundary.kernel import flat_block_path, qdq_flat
     shape = (2, 512, 4096)
     main = None
     for dt in (torch.bfloat16, torch.float32):
-        x = (torch.randn(*shape, generator=gen, device="cuda") * 5).to(dt)
-        # exact .5 ties on the code grid: a block whose absmax is 127 makes
-        # x/s*127 == x, so x = k + 0.5 rounds half to even
-        x.view(-1)[:64] = torch.arange(64, device="cuda").to(dt) - 32.5
-        x.view(-1)[63] = 127.0
-        for block, t in ((64, x), (32, x), (96, x), (128, x),
-                         (64, x.reshape(-1)[:-27]), (96, x.reshape(-1)[:-27])):
-            n = t.numel()
-            codes = torch.empty(n, dtype=torch.int8, device="cuda")
-            scales = torch.empty(-(-n // block), dtype=torch.float32,
-                                 device="cuda")
-            out = _counted(torch, lambda: qdq_flat(t, block, codes, scales))
-            torch.cuda.synchronize()
-            q_ref, s_ref, meta = quant8.blockwise_quantize(t, block)
-            ref = quant8.blockwise_dequantize(q_ref, s_ref, meta)
-            if not torch.equal(codes, q_ref.reshape(-1)[:n]):
-                bad = int((codes != q_ref.reshape(-1)[:n]).sum())
-                raise AssertionError(f"qdq {dt} block {block} n {n}: {bad} "
-                                     f"int8 codes differ")
-            if not torch.equal(scales, s_ref.reshape(-1)):
-                raise AssertionError(f"qdq {dt} block {block} n {n}: block "
-                                     f"scales differ")
-            err = float((out.float() - ref.float()).abs().max())
-            if err != 0.0:
-                raise AssertionError(f"qdq {dt} block {block} n {n}: "
-                                     f"outputs differ by {err}")
+        x = _tied(torch, gen, shape, dt)
+        flat = x.reshape(-1)
+        off = torch.empty(flat.numel() + 1, dtype=dt, device="cuda")
+        off[1:] = flat
+        paths = {}
+        for block in FLAT_BLOCKS:
+            for name, t in (("whole", flat), ("tail", flat[:-27]),
+                            ("unaligned", off[1:])):
+                n = t.numel()
+                codes = torch.empty(n, dtype=torch.int8, device="cuda")
+                scales = torch.empty(-(-n // block), dtype=torch.float32,
+                                     device="cuda")
+                out = _counted(torch, lambda: qdq_flat(t, block, codes,
+                                                       scales))
+                torch.cuda.synchronize()
+                q_ref, s_ref, meta = quant8.blockwise_quantize(t, block)
+                ref = quant8.blockwise_dequantize(q_ref, s_ref, meta)
+                what = f"qdq {dt} block {block} {name} n {n}"
+                _bits_equal(torch, f"{what}: codes", codes,
+                            q_ref.reshape(-1)[:n])
+                _bits_equal(torch, f"{what}: scales", scales,
+                            s_ref.reshape(-1))
+                _bits_equal(torch, f"{what}: outputs", out, ref)
+            paths[block] = flat_block_path(block, dt, flat)
         block = 64
         out = _counted(torch, lambda: qdq_flat(x, block))
         _stable(torch, f"qdq_flat {dt}", lambda a: qdq_flat(a, block),
                 x.reshape(1024, 4096), out.reshape(1024, 4096))
         n = x.numel()
-        ms = _counted(torch, lambda: time_ms(
-            torch, lambda: qdq_flat(x, block)))
-        cold = _counted(torch, lambda: time_ms(
-            torch, lambda: qdq_flat(x, block), cold=True))
-        eager = _counted(torch, lambda: eager_ms(
-            torch, lambda: qdq_flat(x, block)))
-        plain = time_ms(torch, lambda: quant8._roundtrip(x, block))
-        nbytes = 2 * n * x.element_size()
-        b_ms, b_by = bound_ms(nbytes, 5.0 * n, H100_F32_FLOPS)
-        row = {"kernel": "qdq_flat", "shape": str(list(shape)),
-               "dtype": str(dt), "max_abs_err": 0.0, "codes_identical": True,
-               "blocks_checked": [32, 64, 96, 128],
-               "deterministic": True, "row_independent": True,
-               "bound": "codes, scales and outputs bit-equal", "ms": ms,
-               "cold_ms": cold, "eager_ms": eager, "plain_ms": plain,
-               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
-        emit(row)
-        rows.append(row)
-        if dt == torch.bfloat16:
-            main = row
+        for block in (64,) + GENERAL_TIMED:
+            row = {"kernel": "qdq_flat", "shape": str(list(shape)),
+                   "dtype": str(dt), "block": block, "path": paths[block],
+                   "max_abs_err": 0.0, "codes_identical": True,
+                   "blocks_checked": list(FLAT_BLOCKS),
+                   "views_checked": ["whole", "tail", "unaligned"],
+                   "bound": "codes, scales and outputs bit-equal"}
+            if block == 64:
+                row.update({"deterministic": True, "row_independent": True})
+            _timed_flat(torch, row, lambda: qdq_flat(x, block),
+                        2 * n * x.element_size(), 5.0 * n)
+            if block == 64:
+                row.update({"plain_ms": time_ms(
+                    torch, lambda: quant8._roundtrip(x, block)),
+                    "library_ms": None})
+            emit(row)
+            rows.append(row)
+            if (dt, block) == (torch.bfloat16, 64):
+                main = row
     return main
 
 
@@ -805,52 +868,87 @@ def check_ln_rows(torch, gen, rows: list) -> None:
 
 
 def check_quant8(torch, gen, rows: list) -> dict:
-    """The quant8 pair (flat blocks of 64) at the int8 wire's shape
-    ``[2, 512, 4096]``: codes, scales and dequantized values bit-equal
-    to the plain versions, exact ``.5`` ties included."""
+    """The quant8 pair at the int8 wire's shape ``[2, 512, 4096]`` and
+    every block of ``FLAT_BLOCKS``, on the flat tensor and on a view one
+    element off a 16-byte boundary (codes dequantized from a view one
+    byte off too), with exact ``.5`` ties and an all-zero block: codes,
+    scales and dequantized values (bf16 and f32) bit-equal to the plain
+    versions (signed zeros included).  At 64 also two calls bit-equal,
+    and blocks 300-499 alone equal to those blocks of the whole call.
+    Timed at 64 and at ``GENERAL_TIMED``."""
+    from repro_torch.kernels.boundary.kernel import flat_block_path
     from repro_torch.kernels.quant8 import kernel as K
     from repro_torch.kernels.quant8 import ref as R
-    shape, block = (2, 512, 4096), 64
+    shape = (2, 512, 4096)
     main = {}
     for dt in (torch.bfloat16, torch.float32):
-        x = (torch.randn(*shape, generator=gen, device="cuda") * 5).to(dt)
-        x.view(-1)[:64] = torch.arange(64, device="cuda").to(dt) - 32.5
-        x.view(-1)[63] = 127.0
-        flat = x.reshape(-1)
-        n, nb, es = flat.numel(), flat.numel() // block, x.element_size()
+        flat = _tied(torch, gen, shape, dt).reshape(-1)
+        n, es = flat.numel(), flat.element_size()
+        off = torch.empty(n + 1, dtype=dt, device="cuda")
+        off[1:] = flat
+        qoff = torch.empty(n + 1, dtype=torch.int8, device="cuda")
+        paths = {}
+        for block in FLAT_BLOCKS:
+            nb = n // block
+            t = flat[:nb * block]
+            q, sc = _counted(torch, lambda: K.quantize(t, block))
+            torch.cuda.synchronize()
+            rq, rs = R.quantize_ref(t, block)
+            what = f"quant8 {dt} block {block}"
+            _bits_equal(torch, f"{what}: codes", q, rq)
+            _bits_equal(torch, f"{what}: scales", sc, rs)
+            uq, us = _counted(torch, lambda: K.quantize(off[1:nb * block + 1],
+                                                        block))
+            _bits_equal(torch, f"{what} unaligned: codes", uq, rq)
+            _bits_equal(torch, f"{what} unaligned: scales", us, rs)
+            qoff[1:nb * block + 1] = q.reshape(-1)
+            qv = qoff[1:nb * block + 1].view(nb, block)
+            for out_dt in (torch.bfloat16, torch.float32):
+                ry = R.dequantize_ref(rq, rs, out_dt)
+                y = _counted(torch, lambda: K.dequantize(q, sc, out_dt))
+                _bits_equal(torch, f"{what} -> {out_dt}: values", y, ry)
+                y = _counted(torch, lambda: K.dequantize(qv, sc, out_dt))
+                _bits_equal(torch, f"{what} -> {out_dt} unaligned: values",
+                            y, ry)
+            paths[block] = flat_block_path(block, dt, t)
+        block = 64
+        nb = n // block
         q, sc = _counted(torch, lambda: K.quantize(flat, block))
+        _stable(torch, f"quant8.quantize {dt}",
+                lambda a: K.quantize(a.reshape(-1), block),
+                flat.reshape(nb, block), (q, sc))
         y = _counted(torch, lambda: K.dequantize(q, sc, dt))
-        torch.cuda.synchronize()
-        rq, rs = R.quantize_ref(flat, block)
-        if not torch.equal(q, rq):
-            raise AssertionError(f"quant8.quantize {dt}: "
-                                 f"{int((q != rq).sum())} codes differ")
-        if not torch.equal(sc, rs):
-            raise AssertionError(f"quant8.quantize {dt}: scales differ")
-        ry = R.dequantize_ref(rq, rs, dt)
-        if not torch.equal(y, ry):
-            raise AssertionError(f"quant8.dequantize {dt}: "
-                                 f"{int((y != ry).sum())} values differ")
-        for name, fn, plain, nbytes, ops in (
-                ("quant8_quantize", lambda: K.quantize(flat, block),
-                 lambda: R.quantize_ref(flat, block), n * es + n + nb * 4,
-                 5.0 * n),
-                ("quant8_dequantize", lambda: K.dequantize(q, sc, dt),
-                 lambda: R.dequantize_ref(q, sc, dt), n + nb * 4 + n * es,
-                 2.0 * n)):
-            ms = _counted(torch, lambda: time_ms(torch, fn))
-            eager = _counted(torch, lambda: eager_ms(torch, fn))
-            b_ms, b_by = bound_ms(nbytes, ops, H100_F32_FLOPS)
-            row = {"kernel": name, "shape": str(list(shape)),
-                   "dtype": str(dt), "max_abs_err": 0.0,
-                   "bound": "codes, scales and values bit-equal",
-                   "ms": ms, "eager_ms": eager,
-                   "plain_ms": time_ms(torch, plain),
-                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
-            emit(row)
-            rows.append(row)
-            if dt == torch.bfloat16:
-                main[name] = row
+        _stable(torch, f"quant8.dequantize {dt}",
+                lambda a, b: K.dequantize(a, b, dt), (q, sc), y)
+        for block in (64,) + GENERAL_TIMED:
+            nb = n // block
+            t = flat[:nb * block]
+            m = t.numel()
+            qb, sb = _counted(torch, lambda: K.quantize(t, block))
+            for name, fn, plain, nbytes, ops in (
+                    ("quant8_quantize", lambda: K.quantize(t, block),
+                     lambda: R.quantize_ref(t, block),
+                     m * es + m + nb * 4, 5.0 * m),
+                    ("quant8_dequantize", lambda: K.dequantize(qb, sb, dt),
+                     lambda: R.dequantize_ref(qb, sb, dt),
+                     m + nb * 4 + m * es, 2.0 * m)):
+                row = {"kernel": name, "shape": str(list(shape)),
+                       "elements": m, "dtype": str(dt), "block": block,
+                       "path": paths[block], "max_abs_err": 0.0,
+                       "blocks_checked": list(FLAT_BLOCKS),
+                       "views_checked": ["whole", "unaligned"],
+                       "bound": "codes, scales and values bit-equal"}
+                if block == 64:
+                    row.update({"deterministic": True,
+                                "row_independent": True})
+                _timed_flat(torch, row, fn, nbytes, ops)
+                if block == 64:
+                    row.update({"plain_ms": time_ms(torch, plain),
+                                "library_ms": None})
+                emit(row)
+                rows.append(row)
+                if (dt, block) == (torch.bfloat16, 64):
+                    main[name] = row
     return main
 
 
@@ -1046,11 +1144,12 @@ def prompts_for(cfg):
     return rng.integers(0, cfg.vocab_size, size=(N_REQ, PROMPT))
 
 
-def make_runner(torch, cfg, params, codec: str, spare: bool):
+def make_runner(torch, cfg, params, codec: str, spare: bool,
+                quant_block: int = 64):
     from repro_torch.serve import ServeConfig, ServeRunner
     r = ServeRunner(cfg, ServeConfig(n_stages=4, max_batch=MAX_BATCH,
                                      max_sessions=1 if spare else 2,
-                                     codec=codec),
+                                     codec=codec, quant_block=quant_block),
                     params=params, device="cuda")
     r.add_peer((0, 2), pool="decode", name="d0")
     r.add_peer((2, 4), pool="decode", name="d1")
@@ -1108,16 +1207,30 @@ def chain_generate(torch, r, batch, wire):
     return torch.cat(out, dim=1).cpu().numpy(), t_pre, t_dec
 
 
+RATE_RUNS = 3
+
+
 def chain_rates(torch, r, prompts) -> dict:
     """Prefill and decode rates of the chain's programs alone, for one
-    batch of max_batch prompts, wire codec as the runner's."""
+    batch of max_batch prompts, wire codec as the runner's: the median
+    of ``RATE_RUNS`` runs, each run's times kept.  Both are host-clock
+    times of host-bound work, and one run of the same work on the same
+    card varied from 39 to 60 ms of prefill between runs of this script
+    (PERF.md)."""
+    import statistics
     B = r.scfg.max_batch
-    _, t_pre, t_dec = chain_generate(torch, r, prompts[:B],
-                                     r.decode_peers[0].executor.wire_fwd)
+    runs = [chain_generate(torch, r, prompts[:B],
+                           r.decode_peers[0].executor.wire_fwd)[1:]
+            for _ in range(RATE_RUNS)]
+    t_pre = statistics.median(p for p, _ in runs)
+    t_dec = statistics.median(d for _, d in runs)
     return {"prefill_tokens_per_s": B * PROMPT / t_pre,
             "prefill_s": t_pre,
             "decode_ms_per_token": t_dec / (NEW - 1) * 1e3,
-            "decode_batch": B}
+            "decode_batch": B,
+            "prefill_s_runs": [p for p, _ in runs],
+            "decode_ms_per_token_runs": [d / (NEW - 1) * 1e3
+                                         for _, d in runs]}
 
 
 def free(torch) -> None:
@@ -1127,13 +1240,18 @@ def free(torch) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_serve(torch, cfg, params, prompts, ref, codec: str) -> dict:
+def phase_serve(torch, cfg, params, prompts, ref, codec: str,
+                quant_block: int = 64) -> dict:
+    """Serve the prompts through the chain; tokens identical to ``ref``
+    (plain wire), or with the int8 wire of blocks of ``quant_block`` to
+    the chain's programs with the plain int8 round trip at the edge."""
     import numpy as np
     from repro_torch import kernels
     from repro_torch.compression import quant8
     from repro_torch.models.stage_plan import get_stage_plan
     torch.cuda.reset_peak_memory_stats()
-    r = make_runner(torch, cfg, params, codec, spare=False)
+    r = make_runner(torch, cfg, params, codec, spare=False,
+                    quant_block=quant_block)
     kernels.reset_launches()
     toks, reqs, summary, secs = serve(torch, r, prompts)
     launches = dict(kernels.LAUNCHES)
@@ -1145,7 +1263,7 @@ def phase_serve(torch, cfg, params, prompts, ref, codec: str) -> dict:
         B = r.scfg.max_batch
         ref = np.concatenate([
             chain_generate(torch, r, prompts[i:i + B],
-                           lambda w: _roundtrip(w, quant8.BLOCK))[0]
+                           lambda w: _roundtrip(w, quant_block))[0]
             for i in range(0, N_REQ, B)])
     if not (toks == ref).all():
         raise AssertionError(
@@ -1161,8 +1279,10 @@ def phase_serve(torch, cfg, params, prompts, ref, codec: str) -> dict:
     sessions = N_REQ // r.scfg.max_batch
     crossings = sessions * NEW          # prefill + NEW-1 decode hops
     B = r.scfg.max_batch
-    row = {"phase": "serve" if codec == "none" else "int8",
-           "codec": codec, "tokens_identical": True,
+    row = {"phase": "serve" if codec == "none" else "int8" if
+           quant_block == quant8.BLOCK else f"int8_block{quant_block}",
+           "codec": codec, "quant_block": quant_block,
+           "tokens_identical": True,
            "reference": ("single-process model" if codec == "none" else
                          "chain programs with the plain int8 round trip"),
            "launches": launches, "wall_s": secs,
@@ -1182,13 +1302,15 @@ def phase_serve(torch, cfg, params, prompts, ref, codec: str) -> dict:
             raise AssertionError(f"int8: wire_bytes {summary['wire_bytes']}"
                                  f" != {runner_bytes}")
         # what the int8 wire puts on a link at boundary 1: codes + scales
+        # (the stage plan prices the default block)
         plan = get_stage_plan(cfg, 4)
-        packed = sessions * (quant8.compressed_nbytes(B * PROMPT * d)
-                             + (NEW - 1) * quant8.compressed_nbytes(B * d))
+        packed = sessions * (
+            quant8.compressed_nbytes(B * PROMPT * d, quant_block)
+            + (NEW - 1) * quant8.compressed_nbytes(B * d, quant_block))
         priced = sessions * (plan.boundary_bytes(1, B, PROMPT, "int8")
                              + (NEW - 1) * plan.boundary_bytes(1, B, 1,
                                                                "int8"))
-        if packed != priced:
+        if quant_block == quant8.BLOCK and packed != priced:
             raise AssertionError(f"int8: compressed bytes {packed} != "
                                  f"plan {priced}")
         row["int8_wire"] = {"crossings": crossings,
@@ -1739,6 +1861,9 @@ def main() -> None:
                                 "none")["launches"])
     launches["qdq_flat"] = phase_serve(torch, cfg, params, prompts, ref,
                                        "int8")["launches"]["qdq_flat"]
+    # a block a user may set (ServeConfig.quant_block): 256, which the
+    # lane-group kernel takes on 32 lanes in bf16
+    phase_serve(torch, cfg, params, prompts, ref, "int8", quant_block=256)
     phase_churn(torch, cfg, params, prompts, ref)
     del params, ref
     free(torch)

@@ -263,12 +263,15 @@ __device__ __forceinline__ void store_vec(float* p, const float* v) {
   }
 }
 
-// v[0, N) = the N int8 codes at p as f32, in one 8- or 16-byte load.
+// v[0, N) = the N int8 codes at p as f32, in one 4-, 8- or 16-byte load
+// (p aligned to N bytes).
 template <int N>
 __device__ __forceinline__ void load_codes(const int8_t* p, float* v) {
-  static_assert(N == 8 || N == 16, "8- or 16-byte loads of codes");
+  static_assert(N == 4 || N == 8 || N == 16, "4- to 16-byte loads of codes");
   uint32_t w[N / 4];
-  if constexpr (N == 8) {
+  if constexpr (N == 4) {
+    w[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
+  } else if constexpr (N == 8) {
     const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
     w[0] = u.x;
     w[1] = u.y;

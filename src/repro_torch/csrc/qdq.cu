@@ -10,172 +10,67 @@
 //
 // Bound on the H100: bytes (read x once, write y once; ~5 flops/element).
 //
-// Design.  `qdq_vec_kernel` (blocks of 32, 64 and 128): a lane holds one
-// 16-byte vector of a block (8 bf16 or 4 f32), so a block is an aligned
-// group of block / 8 (bf16) or block / 4 (f32) lanes, its absmax a
-// shuffle reduction within the group; it stores 16-byte vectors (codes 8
-// or 4 bytes a lane, the scale from the group's first lane).  One vector
-// a thread in 256-thread CTAs: a full SM then has 32 KB of loads in
-// flight, four times the first version's, and on the H100 this beat
-// holding 2, 4 or 8 vectors a thread (more CTAs, whose loads, math and
-// stores overlap across waves; PERF.md).  It takes the whole blocks; a
-// partial tail block (zeros past n count for its absmax, nothing is
-// stored past n) goes to `qdq_warp_kernel`, the first version's layout:
-// one warp per block, block / 32 elements a lane.  A block of 96 would
-// need a group of 12 or 24 lanes, so that kernel takes all of a call with
-// blocks of 96.
-//
-// Numerics: rintf (round half to even, as jnp.round) and the reference's
-// result to the bit: x / max(s, 1e-12) * 127.0f, then q * s / 127.0f,
-// with IEEE divisions (built without --use_fast_math).  Two IEEE
-// divisions an element (a MUFU reciprocal, its refinement and a range
-// check each) bound a first vector version by instruction issue, so the
-// vector kernel takes one division a lane per block (c = 127 / max(s,
-// 1e-12)), gets each code from x c (`block_codes`: the division decides
-// only within 2^-12 of a rounding boundary) and q s / 127 from two
-// multiplies and two FMAs (`block_dequant`), both equal to the IEEE
-// results (common.cuh); a rare fallback is one branch for a lane's 8 (or
-// 4) values.  The optional `codes` / `scales` outputs give the comparison
-// harness the codes themselves; the wire path passes null.
-#include "common.cuh"
+// Design: the kernels of blockq.cuh with the round trip's values as
+// output (codes and scales too where the caller asks: the comparison
+// harness reads them; the wire path passes null).  The whole blocks take
+// the path the wrapper chose (`flat_block_path`); the wire's blocks of 64
+// take the lane-group kernel, one 16-byte vector a thread, one IEEE
+// division a block.  A partial tail block (zeros past n count for its
+// absmax, nothing is stored past n) takes the scalar group kernel in a
+// second launch; on the scalar path one launch takes all blocks.
+#include "blockq.cuh"
 
 namespace {
 
-constexpr int kVecThreads = 256;
-
-// Whole blocks only: n_vec vectors of V elements, every one full; a block
-// is an aligned group of LANES lanes.
-template <typename T, int LANES, bool CODES>
-__global__ void __launch_bounds__(kVecThreads)
-qdq_vec_kernel(const T* __restrict__ x, T* __restrict__ out,
-               int8_t* __restrict__ codes, float* __restrict__ scales,
-               int64_t n_vec) {
-  constexpr int V = 16 / sizeof(T);  // elements of a vector
-  const int64_t vi = (int64_t)blockIdx.x * kVecThreads + threadIdx.x;
-  float v[V];
-  if (vi < n_vec) {
-    load_vec<V>(x + vi * V, v);
-  } else {
-#pragma unroll
-    for (int e = 0; e < V; ++e) v[e] = 0.f;
-  }
-  float s = 0.f;
-#pragma unroll
-  for (int e = 0; e < V; ++e) s = fmaxf(s, fabsf(v[e]));
-  s = group_max(s, LANES);           // every lane of the warp calls it
-  if (vi >= n_vec) return;
-  float q[V], y[V];
-  block_codes<V>(v, s, q);
-  block_dequant<V>(q, s, y);
-  store_vec<V>(out + vi * V, y);
-  if constexpr (CODES) {
-    store_codes<V>(codes + vi * V, q);
-    if (vi % LANES == 0) scales[vi / LANES] = s;
-  }
-}
-
-constexpr int kWarpsPerBlock = 8;
-
-template <typename T>
-__global__ void qdq_warp_kernel(const T* __restrict__ x, T* __restrict__ out,
-                                int8_t* __restrict__ codes,
-                                float* __restrict__ scales, int64_t n,
-                                int64_t n_blocks, int block) {
-  const int lane = threadIdx.x & 31;
-  const int64_t b =
-      (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (b >= n_blocks) return;
-  const int64_t base = b * block;
-  const int per_lane = block / 32;
-  float v[4];
-  float amax = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (i < per_lane) {
-      const int64_t idx = base + i * 32 + lane;
-      v[i] = idx < n ? to_f32(x[idx]) : 0.f;  // zero-padded tail
-      amax = fmaxf(amax, fabsf(v[i]));
-    }
-  }
-  amax = warp_max(amax);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (i < per_lane) {
-      const int64_t idx = base + i * 32 + lane;
-      const float q = int8_code(v[i], amax);
-      if (idx < n) {
-        out[idx] = from_f32<T>(__fdiv_rn(q * amax, 127.0f));
-        if (codes != nullptr) codes[idx] = (int8_t)q;
-      }
-    }
-  }
-  if (scales != nullptr && lane == 0) scales[b] = amax;
+template <typename T, bool CODES>
+int launch_as(const T* x, T* out, int8_t* codes, float* scales, int64_t n,
+              int block, int path, cudaStream_t s) {
+  const int64_t n_blocks = (n + block - 1) / block;
+  if (path == BLOCKQ_SCALAR)
+    return blockq::quantize<T, CODES, true>(x, out, codes, scales, n,
+                                            n_blocks, block, path, s);
+  const int64_t whole = n / block;
+  int rc = blockq::quantize<T, CODES, true>(x, out, codes, scales,
+                                            whole * block, whole, block,
+                                            path, s);
+  if (rc != 0 || whole == n_blocks) return rc;
+  const int64_t e0 = whole * block;
+  return blockq::quantize<T, CODES, true>(
+      x + e0, out + e0, CODES ? codes + e0 : nullptr,
+      CODES ? scales + whole : nullptr, n - e0, 1, block, BLOCKQ_SCALAR, s);
 }
 
 template <typename T>
 int launch(const T* x, T* out, int8_t* codes, float* scales, int64_t n,
-           int block, cudaStream_t s) {
-  const int64_t n_blocks = (n + block - 1) / block;
-  if (block == 96) {
-    const int64_t grid = (n_blocks + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    qdq_warp_kernel<T><<<(unsigned)grid, 32 * kWarpsPerBlock, 0, s>>>(
-        x, out, codes, scales, n, n_blocks, block);
-    return (int)cudaGetLastError();
-  }
-  const int64_t whole = n / block;   // the vector kernel's blocks
-  if (whole > 0) {
-    constexpr int V = 16 / sizeof(T);
-    const int64_t n_vec = whole * (block / V);
-    const unsigned grid = (unsigned)((n_vec + kVecThreads - 1) / kVecThreads);
-#define REPRO_QDQ_VEC(LANES)                                               \
-  if (codes != nullptr)                                                    \
-    qdq_vec_kernel<T, LANES, true><<<grid, kVecThreads, 0, s>>>(           \
-        x, out, codes, scales, n_vec);                                     \
-  else                                                                     \
-    qdq_vec_kernel<T, LANES, false><<<grid, kVecThreads, 0, s>>>(          \
-        x, out, nullptr, nullptr, n_vec)
-    switch (block / V) {
-      case 4: REPRO_QDQ_VEC(4); break;
-      case 8: REPRO_QDQ_VEC(8); break;
-      case 16: REPRO_QDQ_VEC(16); break;
-      case 32: REPRO_QDQ_VEC(32); break;
-      default: return (int)cudaErrorInvalidValue;
-    }
-#undef REPRO_QDQ_VEC
-    const int rc = (int)cudaGetLastError();
-    if (rc != 0) return rc;
-  }
-  if (whole == n_blocks) return 0;
-  // the zero-padded tail block: one warp
-  const int64_t e0 = whole * block;
-  qdq_warp_kernel<T><<<1, 32 * kWarpsPerBlock, 0, s>>>(
-      x + e0, out + e0, codes == nullptr ? nullptr : codes + e0,
-      scales == nullptr ? nullptr : scales + whole, n - e0, 1, block);
-  return (int)cudaGetLastError();
+           int block, int path, cudaStream_t s) {
+  return codes != nullptr
+             ? launch_as<T, true>(x, out, codes, scales, n, block, path, s)
+             : launch_as<T, false>(x, out, nullptr, nullptr, n, block, path,
+                                   s);
 }
 
 }  // namespace
 
-// block must be 32, 64, 96 or 128; x, out and codes 16-byte aligned;
-// codes and scales are both given or both null.
+// x, out [n] in dtype; codes int8 [n] and scales f32 [ceil(n / block)],
+// both given or both null; any block >= 1; `path` from the wrapper's
+// `flat_block_path` (the lane and unit paths need 16-byte-aligned x, out
+// and codes, which they check).
 extern "C" int repro_qdq_flat(const void* x, void* out, void* codes,
                               void* scales, int64_t n, int block, int dtype,
-                              void* stream) {
-  if (block <= 0 || block % 32 != 0 || block > 128 ||
-      ((uintptr_t)x | (uintptr_t)out | (uintptr_t)codes) % 16 != 0 ||
+                              int path, void* stream) {
+  if (block <= 0 || n < 0 || (codes == nullptr) != (scales == nullptr) ||
       (uintptr_t)scales % 4 != 0)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  if ((n + block - 1) / block > (int64_t)0x7fffffff * kWarpsPerBlock)
-    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   int8_t* c = (int8_t*)codes;
   float* sc = (float*)scales;
-  if ((c == nullptr) != (sc == nullptr)) return (int)cudaErrorInvalidValue;
   if (dtype == DTYPE_F32)
-    return launch<float>((const float*)x, (float*)out, c, sc, n, block, s);
+    return launch<float>((const float*)x, (float*)out, c, sc, n, block,
+                         path, s);
   if (dtype == DTYPE_BF16)
     return launch<__nv_bfloat16>((const __nv_bfloat16*)x,
-                                 (__nv_bfloat16*)out, c, sc, n, block, s);
+                                 (__nv_bfloat16*)out, c, sc, n, block, path,
+                                 s);
   return (int)cudaErrorInvalidValue;
 }

@@ -111,7 +111,7 @@ def _declare(lib: ctypes.CDLL) -> None:
                     ctypes.c_float)
     lib.repro_rmsnorm.argtypes = [P, P, P, I64, I, F, I, P]
     lib.repro_rmsnorm.restype = I
-    lib.repro_qdq_flat.argtypes = [P, P, P, P, I64, I, I, P]
+    lib.repro_qdq_flat.argtypes = [P, P, P, P, I64, I, I, I, P]
     lib.repro_qdq_flat.restype = I
     lib.repro_flash_fwd.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P, F,
                                     I, I, I, P]
@@ -126,9 +126,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_codec_ln_rows_codes.restype = I
     lib.repro_codec_dequant_rows.argtypes = [P, P, P, I64, I, I, I, I, P]
     lib.repro_codec_dequant_rows.restype = I
-    lib.repro_quant8_quantize.argtypes = [P, P, P, I64, I, I, P]
+    lib.repro_quant8_quantize.argtypes = [P, P, P, I64, I, I, I, P]
     lib.repro_quant8_quantize.restype = I
-    lib.repro_quant8_dequantize.argtypes = [P, P, P, I64, I, I, P]
+    lib.repro_quant8_dequantize.argtypes = [P, P, P, I64, I, I, I, P]
     lib.repro_quant8_dequantize.restype = I
 
 

@@ -8,9 +8,12 @@ of ``repro.kernels.boundary.kernel``:
   the true wire format between them, int8 codes + f32 row-block scales
   (``csrc/codec.cu``).
 
-The kernels read and write 16-byte vectors: on the card each wrapper
-refuses, with a ``ValueError`` naming the value, what
-:func:`vector_layout_problem` rules out (it never takes another path).
+``qdq_flat`` takes every block and any start: :func:`flat_block_path`
+picks its kernel (16-byte vectors on lane groups, vectors or scalars on
+thread groups).  The codec kernels read and write 16-byte vectors: on
+the card each of their wrappers refuses, with a ``ValueError`` naming
+the value, what :func:`vector_layout_problem` rules out (it never takes
+another path).
 On a CUDA tensor each launches its kernel or raises; on a CPU tensor it
 runs the plain version (``repro_torch.compression.quant8._roundtrip``,
 :mod:`.ref`).  ``repro_torch.kernels.LAUNCHES`` counts one per call that
@@ -29,19 +32,44 @@ from repro_torch.kernels.boundary import ref as R
 
 ROW_WIDTH_MAX = 32768        # elements of a row the row passes hold
 POOLS = (1, 2, 4, 8)         # maxout widths whose windows tile a unit of 8
+FLAT_PATHS = {"scalar": 0, "units": 1, "lanes": 2}   # csrc/blockq.cuh
+
+
+def flat_block_path(block: int, dtype: torch.dtype, *tensors) -> str:
+    """Which kernel of ``csrc/blockq.cuh`` takes a flat blockwise int8
+    call (``qdq_flat``, the quant8 pair) of blocks of ``block`` elements
+    whose float side is ``dtype``; ``tensors`` are the call's inputs and
+    outputs (None skipped).  Every block >= 1 has one:
+
+    * ``"lanes"``: every tensor starts 16-byte aligned and the block is a
+      power of two of 1 to 32 16-byte vectors (bf16 8 ... 256, f32
+      4 ... 128): a lane a vector, a block an aligned lane group;
+    * ``"units"``: aligned, and the block a whole number of vectors
+      otherwise (48, 96, 512, 4096): a thread group a block, looping in
+      vectors;
+    * ``"scalar"``: anything else (blocks 1, 3, 100, an unaligned view):
+      the same groups, one element at a time."""
+    if block < 1:
+        raise ValueError(f"block {block}: blocks hold at least one element")
+    vec = 16 // dtype.itemsize
+    if block % vec or any(t.data_ptr() % 16 for t in tensors
+                          if t is not None):
+        return "scalar"
+    lanes = block // vec
+    return "lanes" if lanes <= 32 and not lanes & (lanes - 1) else "units"
 
 
 def vector_layout_problem(t: torch.Tensor, width: Optional[int] = None,
                           k: int = 1, qb: int = 0) -> Optional[str]:
-    """Why the 16-byte vector kernels cannot take ``t``, or None.
+    """Why the codec's 16-byte vector kernels cannot take ``t``, or None.
 
-    ``qdq_flat`` and the codec's row passes need ``t`` to start 16-byte
-    aligned.  The row passes (``width`` given: rows of ``width``
-    elements, a maxout pool of ``k``, blocks of ``qb`` when ``qb > 0``)
-    hold a row as units of 8 elements, so they also need a width that is
-    a multiple of 8 and at most :data:`ROW_WIDTH_MAX`, ``k`` in
-    :data:`POOLS` (a unit pools into whole windows), and ``qb`` a
-    multiple of 8 (a block is whole units)."""
+    The codec's row passes need ``t`` to start 16-byte aligned.  Given
+    ``width`` (rows of ``width`` elements, a maxout pool of ``k``, blocks
+    of ``qb`` when ``qb > 0``), they hold a row as units of 8 elements,
+    so they also need a width that is a multiple of 8 and at most
+    :data:`ROW_WIDTH_MAX`, ``k`` in :data:`POOLS` (a unit pools into
+    whole windows), and ``qb`` a multiple of 8 (a block is whole
+    units)."""
     if t.data_ptr() % 16:
         return (f"starts {t.data_ptr() % 16} bytes past a 16-byte "
                 f"boundary")
@@ -68,10 +96,12 @@ def qdq_flat(x: torch.Tensor, block: int,
              codes: Optional[torch.Tensor] = None,
              scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Flat-blocked round trip of any-shaped ``x`` (tail block padded
-    with zeros, which never raises an absmax).  ``codes`` (int8, one per
-    element) and ``scales`` (f32, one per block) optionally receive the
-    quantized payload — the comparison harness reads them; the wire path
-    does not."""
+    with zeros, which never raises an absmax), any block >= 1.
+    ``codes`` (int8, one per element) and ``scales`` (f32, one per
+    block) optionally receive the quantized payload — the comparison
+    harness reads them; the wire path does not."""
+    if block < 1:
+        raise ValueError(f"qdq_flat: block {block} must be at least 1")
     if x.device.type == "cpu":
         if codes is not None or scales is not None:
             raise ValueError("qdq_flat: codes/scales are kernel outputs; "
@@ -81,12 +111,8 @@ def qdq_flat(x: torch.Tensor, block: int,
     if x.device.type != "cuda":
         raise ValueError(f"qdq_flat: unsupported device {x.device}")
     from repro_torch.kernels import _lib
-    if block % 32 or not 32 <= block <= 128:
-        raise ValueError(f"qdq_flat: block {block} must be 32, 64, 96 or "
-                         "128")
     if not x.is_contiguous():
         raise ValueError("qdq_flat: x must be contiguous")
-    _require_layout("qdq_flat", x)
     code = _lib.dtype_code(x, "qdq_flat")
     n = x.numel()
     n_blocks = -(-n // block)
@@ -100,14 +126,13 @@ def qdq_flat(x: torch.Tensor, block: int,
                              f"{x.device}")
     if (codes is None) != (scales is None):
         raise ValueError("qdq_flat: codes and scales come together")
-    if codes is not None:
-        _require_layout("qdq_flat codes", codes)
     out = torch.empty_like(x)
+    path = flat_block_path(block, x.dtype, x, out, codes)
     rc = _lib.lib().repro_qdq_flat(
         x.data_ptr(), out.data_ptr(),
         None if codes is None else codes.data_ptr(),
         None if scales is None else scales.data_ptr(),
-        n, block, code, _lib.stream_ptr(x.device))
+        n, block, code, FLAT_PATHS[path], _lib.stream_ptr(x.device))
     _lib.check(rc, "qdq_flat")
     kernels.LAUNCHES["qdq_flat"] += 1
     return out

@@ -2,21 +2,28 @@
 replacing the Pallas kernels ``quantize`` and ``dequantize`` of
 ``repro.kernels.quant8.kernel``.
 
-On a CUDA tensor each launches its kernel or raises; on a CPU tensor it
-runs the plain version of :mod:`.ref`.  ``repro_torch.kernels.LAUNCHES``
-counts one per kernel launch.
+Both take every block >= 1 and any start of their input: the rule
+``repro_torch.kernels.boundary.kernel.flat_block_path`` picks the kernel
+of ``csrc/blockq.cuh`` (16-byte vectors on lane groups, vectors or
+scalars on thread groups).  On a CUDA tensor each launches its kernel or
+raises; on a CPU tensor it runs the plain version of :mod:`.ref`.
+``repro_torch.kernels.LAUNCHES`` counts one per kernel launch.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import kernels
+from repro_torch.kernels.boundary.kernel import FLAT_PATHS, flat_block_path
 from repro_torch.kernels.quant8 import ref as R
 
 
 def quantize(x: torch.Tensor, block: int = 64):
     """Flat ``x`` [n], n % block == 0 -> (codes int8 [n // block, block],
     scales f32 [n // block, 1])."""
+    if block < 1:
+        raise ValueError(f"quant8.quantize: block {block} must be at "
+                         "least 1")
     if x.dim() != 1 or x.shape[0] % block:
         raise ValueError(f"quant8.quantize: x must be flat with a length "
                          f"divisible by {block}, got {tuple(x.shape)}")
@@ -25,17 +32,15 @@ def quantize(x: torch.Tensor, block: int = 64):
     if x.device.type != "cuda":
         raise ValueError(f"quant8.quantize: unsupported device {x.device}")
     from repro_torch.kernels import _lib
-    if block % 32 or not 32 <= block <= 128:
-        raise ValueError(f"quant8.quantize: block {block} must be 32, 64, "
-                         "96 or 128")
     code = _lib.dtype_code(x, "quant8.quantize")
     x = x.contiguous()
     nb = x.shape[0] // block
     q = torch.empty((nb, block), dtype=torch.int8, device=x.device)
     s = torch.empty((nb, 1), dtype=torch.float32, device=x.device)
+    path = flat_block_path(block, x.dtype, x, q)
     rc = _lib.lib().repro_quant8_quantize(
         x.data_ptr(), q.data_ptr(), s.data_ptr(), nb, block, code,
-        _lib.stream_ptr(x.device))
+        FLAT_PATHS[path], _lib.stream_ptr(x.device))
     _lib.check(rc, "quant8.quantize")
     kernels.LAUNCHES["quant8_quantize"] += 1
     return q, s
@@ -59,9 +64,10 @@ def dequantize(q: torch.Tensor, s: torch.Tensor,
     out = torch.empty(q.shape, dtype=dtype, device=q.device)
     code = _lib.dtype_code(out, "quant8.dequantize")
     q, s = q.contiguous(), s.contiguous()
+    path = flat_block_path(q.shape[1], dtype, q, out)
     rc = _lib.lib().repro_quant8_dequantize(
-        q.data_ptr(), s.data_ptr(), out.data_ptr(), q.numel(), q.shape[1],
-        code, _lib.stream_ptr(q.device))
+        q.data_ptr(), s.data_ptr(), out.data_ptr(), q.shape[0], q.shape[1],
+        code, FLAT_PATHS[path], _lib.stream_ptr(q.device))
     _lib.check(rc, "quant8.dequantize")
     kernels.LAUNCHES["quant8_dequantize"] += 1
     return out

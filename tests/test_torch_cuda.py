@@ -39,6 +39,14 @@ def _gen(device: str) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(0)
 
 
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit-equal: floats compared as their integer words (+0 != -0)."""
+    words = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    if a.dtype in words and a.dtype == b.dtype:
+        a, b = a.view(words[a.dtype]), b.view(words[b.dtype])
+    return torch.equal(a, b)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_kernels_match_plain(dtype):
@@ -157,17 +165,21 @@ def test_cuda_qdq_ties_and_padded_tail(dtype):
     assert torch.equal(out, quant8.blockwise_dequantize(q_ref, s_ref, meta))
 
 
-QDQ_BLOCKS = [32, 64, 96, 128]
+# every path of csrc/blockq.cuh (``flat_block_path``): lane groups (bf16
+# 8 ... 256, f32 4 ... 128), thread groups looping in vectors (48, 96,
+# 4096, and 256 in f32) and in scalars (1, 3, 100)
+QDQ_BLOCKS = [32, 64, 96, 128, 1, 3, 8, 16, 48, 100, 256, 4096]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("block", QDQ_BLOCKS)
 def test_cuda_qdq_blocks_and_ragged_tails(block, dtype):
-    """qdq_flat at every block it takes (the vector kernel at 32, 64 and
-    128, the warp-per-block kernel at 96), with n ragged against the
-    block and against the 8-element vector, and exact .5 ties: codes,
-    scales and outputs bit-equal to the plain version."""
+    """qdq_flat at every kind of block (lane groups, thread groups in
+    vectors and in scalars: ``flat_block_path``), with n ragged against
+    the block and against the 8-element vector, and exact .5 ties:
+    codes, scales and outputs bit-equal to the plain version (signed
+    zeros included)."""
     dev = _card()
     for n in (block * 41, block * 40 + 3, block * 40 + 8, 5, 4099 * 3):
         x = torch.randn(n, generator=_gen(dev), device=dev) * 4
@@ -183,8 +195,8 @@ def test_cuda_qdq_blocks_and_ragged_tails(block, dtype):
         q_ref, s_ref, meta = quant8.blockwise_quantize(x, block)
         assert torch.equal(codes, q_ref.reshape(-1)[:n]), n
         assert torch.equal(scales, s_ref.reshape(-1)), n
-        assert torch.equal(out, quant8.blockwise_dequantize(q_ref, s_ref,
-                                                            meta)), n
+        assert _same_bits(out, quant8.blockwise_dequantize(q_ref, s_ref,
+                                                           meta)), n
         assert torch.equal(qdq_flat(x, block), out), n      # deterministic
     # a part of a longer tensor equals that part of its round trip
     x = torch.randn(2, 512, 4096, generator=_gen(dev), device=dev).to(dtype)
@@ -192,6 +204,17 @@ def test_cuda_qdq_blocks_and_ragged_tails(block, dtype):
     part = x.reshape(-1)[300 * block:500 * block]
     assert torch.equal(qdq_flat(part, block),
                        full.reshape(-1)[300 * block:500 * block])
+    # an unaligned view, and unaligned codes, take the scalar path
+    n = block * 7 + 5
+    buf = torch.randn(n + 1, generator=_gen(dev), device=dev).to(dtype)
+    view = buf[1:]
+    codes = torch.empty(n + 1, dtype=torch.int8, device=dev)[1:]
+    scales = torch.empty(-(-n // block), dtype=torch.float32, device=dev)
+    out = qdq_flat(view, block, codes, scales)
+    q_ref, s_ref, meta = quant8.blockwise_quantize(view, block)
+    assert torch.equal(codes, q_ref.reshape(-1)[:n])
+    assert torch.equal(scales, s_ref.reshape(-1))
+    assert _same_bits(out, quant8.blockwise_dequantize(q_ref, s_ref, meta))
 
 
 # (width, pool k, qb): the training path's passes, the lane-group and
@@ -252,6 +275,7 @@ def test_cuda_row_passes_match_plain(width, k, qb, dtype):
 
 @pytest.mark.cuda
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
+    from repro_torch.kernels.quant8 import kernel as q8k
     dev = _card()
     q = torch.randn(1, 8, 2, 96, device=dev)
     with pytest.raises(ValueError, match="head dim"):
@@ -262,8 +286,15 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
     x = torch.randn(64, 8, device=dev).T            # not contiguous
     with pytest.raises(ValueError, match="contiguous"):
         rmsnorm(x, torch.ones(64, device=dev))
-    with pytest.raises(ValueError, match="block"):
-        qdq_flat(torch.randn(100, device=dev), 48)
+    # qdq_flat and the quant8 pair take every block >= 1 and any start
+    # (tests below); they refuse what the JAX package refuses
+    for block in (0, -64):
+        with pytest.raises(ValueError, match="block"):
+            qdq_flat(torch.randn(100, device=dev), block)
+        with pytest.raises(ValueError, match="block"):
+            q8k.quantize(torch.randn(128, device=dev), block)
+    with pytest.raises(ValueError, match="divisible by 48"):
+        q8k.quantize(torch.randn(100, device=dev), 48)
     # the bf16 flash kernel copies 16 bytes at a time: a seq stride of
     # 196 elements, or a start 2 bytes into the storage, is refused
     fused = torch.randn(1, 8, 196, device=dev, dtype=torch.bfloat16)
@@ -281,19 +312,12 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
         K._gemm(a, torch.randn(12, 16, device=dev), 1)
     with pytest.raises(ValueError, match="multiples of 8"):
         K._gemm(a[:, :8], torch.randn(8, 20, device=dev), 1)
-    # qdq_flat and the codec's row passes move 16-byte vectors: a base
-    # 2 bytes off, a row width, pool or qb off the rule are refused
     flat = torch.randn(1 + 4096, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="2 bytes past a 16-byte"):
-        qdq_flat(flat[1:], 64)
-    with pytest.raises(ValueError, match="4 bytes past a 16-byte"):
-        qdq_flat(torch.randn(1 + 4096, device=dev)[1:], 96)
     codes = torch.empty(8 + 4096, dtype=torch.int8, device=dev)
-    scales = torch.empty(64, device=dev)
-    with pytest.raises(ValueError, match="8 bytes past a 16-byte"):
-        qdq_flat(flat[:4096], 64, codes[8:], scales)
     with pytest.raises(ValueError, match="come together"):
         qdq_flat(flat[:4096], 64, codes[:4096])
+    # the codec's row passes move 16-byte vectors: a base 2 bytes off, a
+    # row width, pool or qb off the rule are refused
     rows = torch.randn(4, 1 + 1024, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="bytes past a 16-byte"):
         K.encode(rows.reshape(-1)[1:4097].view(4, 1024), None, "maxout",
@@ -569,6 +593,52 @@ def test_cuda_quant8_pair_matches_plain(dtype):
     assert torch.equal(y, ref.dequantize_ref(
         rq, rs, dtype).reshape(-1)[:x.numel()].reshape(x.shape))
     assert torch.equal(y, quant8._roundtrip(x, 64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block", QDQ_BLOCKS)
+def test_cuda_quant8_kernels_every_block(block, dtype):
+    """``quant8.kernel.quantize`` / ``dequantize`` at every kind of
+    block: codes, scales and values (in bf16 and f32) bit-equal to the
+    plain versions (signed zeros included), with exact .5 ties and an
+    all-zero block; an unaligned view of x, and unaligned codes, equal
+    to the aligned call; two calls bit-equal; blocks 10-29 alone equal
+    to the same blocks of the whole call."""
+    from repro_torch.kernels.quant8 import kernel as K
+    from repro_torch.kernels.quant8 import ref as R
+    dev = _card()
+    nb = 40
+    n = nb * block
+    x = torch.randn(n, generator=_gen(dev), device=dev) * 4
+    m = min(block, 64) - 1
+    x[:m] = torch.arange(m, device=dev, dtype=torch.float32) - m // 2 + 0.5
+    x[m] = 127.0                          # block 0's absmax: exact ties
+    x[2 * block:3 * block] = 0.0          # an all-zero block (scale 0)
+    x = x.to(dtype)
+    q, s = K.quantize(x, block)
+    rq, rs = R.quantize_ref(x, block)
+    assert torch.equal(q, rq) and torch.equal(s, rs)
+    assert float(s[2, 0]) == 0.0
+    ys = {}
+    for out_dt in (torch.bfloat16, torch.float32):
+        ys[out_dt] = K.dequantize(q, s, out_dt)
+        assert _same_bits(ys[out_dt], R.dequantize_ref(rq, rs, out_dt))
+    again = K.quantize(x, block)
+    assert torch.equal(again[0], q) and torch.equal(again[1], s)
+    assert _same_bits(K.dequantize(q, s, dtype), ys[dtype])
+    buf = torch.empty(n + 1, dtype=dtype, device=dev)
+    buf[1:] = x
+    uq, us = K.quantize(buf[1:], block)
+    assert torch.equal(uq, q) and torch.equal(us, s)
+    qbuf = torch.empty(n + 1, dtype=torch.int8, device=dev)
+    qbuf[1:] = q.reshape(-1)
+    assert _same_bits(K.dequantize(qbuf[1:].view(nb, block), s, dtype),
+                      ys[dtype])
+    pq, ps = K.quantize(x[10 * block:30 * block], block)
+    assert torch.equal(pq, q[10:30]) and torch.equal(ps, s[10:30])
+    assert _same_bits(K.dequantize(q[10:30], s[10:30], dtype),
+                      ys[dtype][10:30])
 
 
 @pytest.mark.cuda

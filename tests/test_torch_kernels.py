@@ -400,30 +400,43 @@ def test_qdq_flat_codes_identical(n, dtype):
                                rtol=np.finfo(np.float32).eps, atol=0)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("block", [32, 64, 96, 128])
-def test_qdq_flat_zero_block_ties_and_ragged_tail_match_jax(block, dtype):
-    """The edge cases of the blocks the CUDA qdq splits by shape (lane
-    groups at 32, 64 and 128, a warp a block at 96): exact .5 ties in
-    block 0 (its absmax 127), an all-zero block (scale 0, divided by
-    1e-12), and a zero-padded tail whose length is not a multiple of the
-    8-element vector.  The plain version equals JAX's round trip, its
-    codes and scales JAX's quantize, and it is within one f32 ulp of the
-    Pallas kernel in interpret mode."""
-    n = block * 5 + 3
-    x = (np.random.default_rng(block).standard_normal(n) * 4).astype(
+# every kind of block the CUDA kernels take (``flat_block_path``): lane
+# groups (bf16 8 ... 256, f32 4 ... 128), thread groups looping in
+# vectors (48, 96, 4096) and in scalars (1, 3, 100)
+FLAT_BLOCKS = [32, 64, 96, 128, 1, 3, 8, 16, 48, 100, 256, 4096]
+
+
+def _ties_zero_block(n, block, seed):
+    """randn * 4 with exact .5 ties in block 0 (the first min(block, 128)
+    - 1 elements, then the block's absmax 127) and an all-zero block 1."""
+    x = (np.random.default_rng(seed).standard_normal(n) * 4).astype(
         np.float32)
-    x[:block - 1] = np.arange(block - 1, dtype=np.float32) - block // 2 \
-        + np.float32(0.5)
-    x[block - 1] = 127.0
+    m = min(block, 128) - 1
+    x[:m] = np.arange(m, dtype=np.float32) - (m + 1) // 2 + np.float32(0.5)
+    x[m] = 127.0
     x[block:2 * block] = 0.0
-    assert n % 8 and n % block
+    return x, m
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("block", FLAT_BLOCKS)
+def test_qdq_flat_zero_block_ties_and_ragged_tail_match_jax(block, dtype):
+    """The edge cases of every kind of block the CUDA qdq takes: exact .5
+    ties in block 0 (its absmax 127), an all-zero block (scale 0,
+    divided by 1e-12), and a zero-padded tail whose length is not a
+    multiple of the 8-element vector (at block 1 every length is
+    whole).  The plain version equals JAX's round trip, its codes and
+    scales JAX's quantize, and it is within one f32 ulp of the Pallas
+    kernel in interpret mode."""
+    n = block * 5 + (3 if block > 3 else block - 1)
+    x, m = _ties_zero_block(n, block, block)
+    assert n % 8 and (n % block or block == 1)
     jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
     jx = jnp.asarray(x).astype(jdt)
     tx = _t(np.asarray(jx.astype(jnp.float32))).to(getattr(torch, dtype))
-    blk = np.asarray(jx.astype(jnp.float32))[:block]
+    blk = np.asarray(jx.astype(jnp.float32))[:m]
     assert np.sum(np.abs(blk / np.float32(127) * np.float32(127) % 1)
-                  == 0.5) >= block - 2                  # real ties
+                  == 0.5) >= m - 1                      # real ties
     jq, js, _ = jq8.blockwise_quantize(jx, block)
     tq, ts, _ = tq8.blockwise_quantize(tx, block)
     np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
@@ -584,7 +597,92 @@ def test_quant8_pair_matches_jax(shape, dtype):
     assert tq8k.dequantize(kq, ks, torch.bfloat16).dtype == torch.bfloat16
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("block", FLAT_BLOCKS)
+def test_quant8_kernel_every_block_matches_jax(block, dtype):
+    """The quant8 pair at every kind of block the CUDA kernels take, with
+    exact .5 ties in block 0 and an all-zero block 1: the plain kernel
+    entry points' codes and scales bit-equal to JAX's
+    ``blockwise_quantize`` and to the Pallas ``quantize`` in interpret
+    mode (six blocks: rows % min(128, rows) == 0), the dequantized
+    values bit-equal to JAX's ``blockwise_dequantize`` (and to the Pallas
+    ``dequantize`` within one f32 ulp, as in
+    ``test_quant8_pair_matches_jax``); through the ops, a ragged length
+    (zero-padded, 3 short of a block) quantizes and comes back as JAX's
+    round trip does."""
+    nb = 6
+    x, _ = _ties_zero_block(nb * block, block, block + 1)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    jx = jnp.asarray(x).astype(jdt)
+    tx = _t(np.asarray(jx.astype(jnp.float32))).to(getattr(torch, dtype))
+    q, s = tq8k.quantize(tx, block)
+    jq, js, jmeta = jq8.blockwise_quantize(jx, block)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    assert float(s[1, 0]) == 0.0 and not q[1].any()      # the zero block
+    pq, ps = jq8k.quantize(jx, block, True)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(pq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(ps))
+    y = tq8k.dequantize(q, s, tx.dtype)
+    np.testing.assert_array_equal(
+        y.float().numpy().reshape(-1),
+        np.asarray(jq8.blockwise_dequantize(jq, js, jmeta).astype(
+            jnp.float32)))
+    np.testing.assert_allclose(
+        tq8k.dequantize(q, s, torch.float32).numpy(),
+        np.asarray(jq8k.dequantize(pq, ps, jnp.float32, True)),
+        rtol=np.finfo(np.float32).eps, atol=0)
+    if block > 3:
+        ragged = tx[:-3]
+        rq, rs, meta = tq8ops.quantize(ragged, block)
+        jrq, jrs, _ = jq8.blockwise_quantize(jx[:-3], block)
+        np.testing.assert_array_equal(rq.numpy(), np.asarray(jrq))
+        np.testing.assert_array_equal(rs.numpy(), np.asarray(jrs))
+        np.testing.assert_array_equal(
+            tq8ops.dequantize(rq, rs, meta).float().numpy(),
+            np.asarray(jq8._roundtrip(jx[:-3], block).astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flat_block_path_takes_every_block(dtype):
+    """The one rule of which CUDA kernel takes a flat blockwise call
+    (``qdq_flat``, the quant8 pair), on CPU tensors: every block 1..4096
+    has a path, aligned or not; the lane groups take exactly the powers
+    of two of 1 to 32 16-byte vectors (bf16 8..256, f32 4..128) on
+    16-byte-aligned tensors; the thread groups in vectors the other
+    whole numbers of vectors; anything else, and any unaligned tensor
+    (input, output or codes), the scalar path.  A block below 1 is
+    refused, as in JAX."""
+    rule = tbk.flat_block_path
+    vec = 16 // dtype.itemsize
+    buf = torch.zeros(8 + 64, dtype=dtype)
+    codes = torch.zeros(32, dtype=torch.int8)
+    assert buf.data_ptr() % 16 == 0 and codes.data_ptr() % 16 == 0
+    aligned, off = buf[8:], buf[1:]
+    lanes = {vec << k for k in range(6)}
+    assert lanes == ({8, 16, 32, 64, 128, 256} if dtype == torch.bfloat16
+                     else {4, 8, 16, 32, 64, 128})
+    seen = {"lanes": 0, "units": 0, "scalar": 0}
+    for block in range(1, 4097):
+        got = rule(block, dtype, aligned, None, codes)
+        want = ("lanes" if block in lanes else
+                "units" if block % vec == 0 else "scalar")
+        assert got == want, (block, got)
+        seen[got] += 1
+        assert rule(block, dtype, off) == "scalar"
+        assert rule(block, dtype, aligned, codes[1:]) == "scalar"
+    assert seen == {"lanes": 6, "units": 4096 // vec - 6,
+                    "scalar": 4096 - 4096 // vec}
+    for block in (0, -64):
+        with pytest.raises(ValueError, match="block"):
+            rule(block, dtype, aligned)
+
+
 def test_quant8_kernel_checks_its_inputs():
+    with pytest.raises(ValueError, match="block 0"):
+        tq8k.quantize(torch.zeros(64), 0)
+    with pytest.raises(ValueError, match="block 0"):
+        tbk.qdq_flat(torch.zeros(64), 0)
     with pytest.raises(ValueError, match="flat"):
         tq8k.quantize(torch.zeros(2, 64), 64)
     with pytest.raises(ValueError, match="flat"):

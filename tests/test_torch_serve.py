@@ -211,3 +211,29 @@ def test_runner_int8_wire_matches_jax_runner(scenario):
                 "hop_failures", "wire_bytes", "elapsed_s"):
         assert results["port"][0][key] == results["jax"][0][key], key
     _check_accounting(scenario, results["port"][0], r)
+
+
+@pytest.mark.parametrize("quant_block", [16, 256])
+def test_runner_int8_wire_quant_block_matches_jax_runner(quant_block):
+    """``ServeConfig.quant_block`` other than the default 64 reaches the
+    int8 wire's blocks in both packages: tokens, wire bytes and the
+    virtual clock equal to a JAX ServeRunner's at the same block.  At
+    256 a decode hop's [2, 1, 64] wire is one zero-padded block."""
+    cfg = tiny_dense_config()
+    extra, setup = SCENARIOS["disaggregated"]
+    kw = dict(n_stages=4, max_batch=2, codec="int8", quant_block=quant_block,
+              **extra)
+    jr = JServeRunner(cfg, JServeConfig(**kw), seed=0)
+    r = _port_runner(cfg, jr.params, kw, "pallas")
+    prompts = _prompts(cfg)
+    results = {}
+    for name, runner in (("jax", jr), ("port", r)):
+        setup(runner)
+        reqs = [runner.submit(p, NEW) for p in prompts]
+        results[name] = (runner.run(), np.stack([q.tokens for q in reqs]))
+    np.testing.assert_array_equal(results["port"][1], results["jax"][1])
+    for key in ("kv_transfers", "wire_bytes", "elapsed_s"):
+        assert results["port"][0][key] == results["jax"][0][key], key
+    _check_accounting("disaggregated", results["port"][0], r)
+    assert all(p.executor.quant_block == quant_block
+               for p in r.decode_peers)
