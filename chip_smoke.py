@@ -65,19 +65,40 @@ JSON line; any failure raises and exits non-zero):
              while it holds gradients, its ledger rows are released and
              recomputed; every (stage, microbatch) admitted once per
              round, losses equal to ``train``'s to the bit.
-10. train_rollback — checkpoints every 2 steps under ``build/``; stage
+10. train_span — swarm-1b-span (swarm-1b-bottleneck's shapes and
+             weights): one span peer on stages [0, 2)
+             (``PipelineExecutor``, the two stages fused in one program)
+             and one peer on stage 2; losses equal to ``train``'s to the
+             bit, the span peer accumulating under both of its stages,
+             exactly once; host wire bytes beside ``train``'s (one
+             boundary of two is fused).
+11. train_span_resize — the same layout with every peer on the T4/16
+             profile; mid-step 1 the span splits at stage 1 (a fresh
+             peer warm-joins [1, 2), downloading stage 1 from the span
+             peer, which then shrinks to [0, 1)), mid-step 2 it merges
+             back to [0, 2), and the [1, 2) peer dies: two span
+             changes, one join, one failure, losses equal to ``train``'s
+             to the bit, exactly once.
+12. train_span_rebalance — ``spans=True``, Alg. 2 every 5.0 virtual
+             seconds, the WAN link table pricing
+             boundaries by the regions of four zones: single peers on
+             stages 0, 1, 2 (stage 1's on T4/16, the others T4s) and an
+             A100 span peer on [0, 2); Alg. 2's span branch shrinks the
+             span peer onto stage 1, the layout still routes, losses
+             equal to ``train``'s to the bit, exactly once.
+13. train_rollback — checkpoints every 2 steps under ``build/``; stage
              1's only peer dies during step 4 and its replacement finds
              no donor: global rollback to the step-2 cut and replay; a
              new runner cold-starts on the directory and trains step 5.
              Losses equal to the staged reference's to the bit; bytes and
              seconds per save and for the resume's restore.  Fails early
              when the disk or the host memory is short of two cuts.
-11. wire_codes — the true wire format (int8 codes + f32 scales) through
+14. wire_codes — the true wire format (int8 codes + f32 scales) through
              the ops entry points of ``encode_quantize`` /
              ``dequantize_decode`` and the quant8 pair, on swarm-1b's
              boundary: the priced payload, and the decoded state equal
              to the fused QDQ wire's to the bit.
-12. train_profile — one training microbatch under ``torch.profiler``:
+15. train_profile — one training microbatch under ``torch.profiler``:
              device time per kernel, grouped, and the device's idle
              share.
 
@@ -1384,10 +1405,9 @@ STEP1_RTOL, LATER_ATOL = 1e-5, 1e-3
 REBALANCE_PERIOD = 5.0           # virtual seconds, train_rebalance's Alg. 2
 
 
-def swarm1b(wire_quant: bool = False):
+def swarm1b(wire_quant: bool = False, name: str = "swarm-1b-bottleneck"):
     from repro_torch.configs import get_config
-    return get_config("swarm-1b-bottleneck").with_overrides(
-        wire_quant=wire_quant)
+    return get_config(name).with_overrides(wire_quant=wire_quant)
 
 
 def train_opt():
@@ -1474,16 +1494,36 @@ def slow_front(i: int):
     return T4
 
 
-def make_swarm(torch, cfg, steps: int, peers, profile_fn=None, **scfg):
+def span_fleet(i: int):
+    """Device profile of peer ``i`` (join order) in train_span_rebalance:
+    stage 1's single peer (the second) is a T4 at 1/16 of the compute,
+    the span peer (the fourth) an A100, the rest T4s."""
+    from repro_torch.core.peer import A100, T4
+    return slow_front(0) if i == 1 else A100 if i == 3 else T4
+
+
+def slow_all(i: int):
+    """Device profile of every peer: a T4 at 1/16 of its compute, so a
+    step lasts longer on the virtual clock than a stage download."""
+    return slow_front(0)
+
+
+ZONES = ("us-east", "eu", "ap", "us-west")
+
+
+def make_swarm(torch, cfg, steps: int, peers, profile_fn=None,
+               region_fn=None, **scfg):
     """A ``SwarmRunner`` of the training phases, built; ``scfg`` overrides
-    its ``SwarmConfig`` fields and ``profile_fn`` its peers' device
-    profiles (the virtual clock's compute and link speeds)."""
+    its ``SwarmConfig`` fields, ``profile_fn`` its peers' device profiles
+    (the virtual clock's compute and link speeds) and ``region_fn``
+    their zones."""
     from repro_torch.core.swarm import SwarmConfig, SwarmRunner
     kw = dict(n_stages=3, microbatch_size=TRAIN_MB, seq_len=TRAIN_SEQ,
               global_batch=TRAIN_GB, n_trainers=2, rebalance_period=0.0,
               codec="bottleneck", max_steps=steps)
     kw.update(scfg)
-    extra = {} if profile_fn is None else {"profile_fn": profile_fn}
+    extra = {k: v for k, v in (("profile_fn", profile_fn),
+                               ("region_fn", region_fn)) if v is not None}
     runner = SwarmRunner(cfg, SwarmConfig(**kw), train_opt(), seed=0,
                          record_accumulation=True, device="cuda", **extra)
     runner.build(peers)
@@ -1491,14 +1531,16 @@ def make_swarm(torch, cfg, steps: int, peers, profile_fn=None, **scfg):
 
 
 def run_swarm(torch, cfg, steps: int, peers, kill: bool = False,
-              setup=None, profile_fn=None, **scfg):
+              setup=None, profile_fn=None, region_fn=None, **scfg):
     """Train ``steps`` steps of ``SwarmRunner`` (counters zeroed just
     before; ``setup(runner)`` runs first); returns (metrics, runner,
     launches, wall seconds, peak GB)."""
     from repro_torch import kernels
+    free(torch)                     # the last phase's runner, if unfreed
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    runner = make_swarm(torch, cfg, steps, peers, profile_fn, **scfg)
+    runner = make_swarm(torch, cfg, steps, peers, profile_fn, region_fn,
+                        **scfg)
     if kill:
         runner.sim.spawn(_kill_holder(runner, 1))
     if setup is not None:
@@ -1527,10 +1569,15 @@ def _check_losses(name: str, got: list, want: list) -> float:
 
 def phase_train(torch, name: str, cfg, steps: int, want: list,
                 peers=1, kill: bool = False, exact: bool = False,
-                profile_fn=None, **scfg) -> dict:
-    """``exact``: the losses must equal ``want`` to the bit."""
+                profile_fn=None, region_fn=None, setup=None, check=None,
+                **scfg) -> dict:
+    """``exact``: the losses must equal ``want`` to the bit.  ``setup``
+    runs on the built runner before training; ``check(runner, metrics)``
+    after it, raising on a failed check and returning extra row
+    fields."""
     m, runner, launches, wall, peak = run_swarm(
-        torch, cfg, steps, peers, kill, profile_fn=profile_fn, **scfg)
+        torch, cfg, steps, peers, kill, setup=setup, profile_fn=profile_fn,
+        region_fn=region_fn, **scfg)
     got = m["loss"]
     diff = _check_losses(name, got, want)
     if exact and got != want:
@@ -1556,20 +1603,28 @@ def phase_train(torch, name: str, cfg, steps: int, want: list,
            "step1_rel_diff": abs(got[0] - want[0]) / abs(want[0]),
            "launches": launches, "wall_s": wall,
            "tokens_per_s": tokens / wall, "max_memory_allocated_gb": peak,
-           "failures": m["failures"],
+           "failures": m["failures"], "joins": m["joins"],
            "recomputed_microbatches": m["recomputed_microbatches"],
            "migrations": m["migrations"],
+           "span_changes": m["span_changes"],
+           "wire_bytes": m["wire_bytes"],
            "released_rows": sum(1 for e in runner.ledger_log
                                 if e[0] == "rel"),
            "barriers_exactly_once": barriers,
            "virtual_s": runner._t_stopped,
            "peers_per_stage": [len(runner._covering(s))
-                               for s in range(runner.n_stages)]}
+                               for s in range(runner.n_stages)],
+           "spans": sorted((p.stages.start, p.stages.stop)
+                           for p in runner.peers.values()
+                           if p.alive and p.serving)}
     if kill and not (m["failures"] == 1
                      and m["recomputed_microbatches"] >= 1):
         raise AssertionError(f"{name}: no peer died mid-step: {row}")
     if scfg.get("rebalance_period", 0.0) > 0:
         row["rebalance_period"] = scfg["rebalance_period"]
+    if check is not None:
+        row.update(check(runner, m))
+    elif scfg.get("rebalance_period", 0.0) > 0:
         # a migration must land mid-round on a peer holding gradients:
         # its ledger rows are released and survivors recompute them
         if m["migrations"] < 1 or row["released_rows"] < 1 \
@@ -1580,6 +1635,157 @@ def phase_train(torch, name: str, cfg, steps: int, want: list,
     del runner, m
     free(torch)
     return row
+
+
+# ------------------------------------------------------ phases 10-12
+def _span_accs(runner, peer) -> list:
+    """The stages ``peer`` accumulated gradients under."""
+    return sorted({s for kind, _t, s, _i, _a, pid in runner.ledger_log
+                   if kind == "acc" and pid == peer.id})
+
+
+def _first_peer_names():
+    """Restart the peer-name counter: Alg. 2 breaks ties between equal
+    queues by peer name, so a span phase's decisions then do not depend
+    on how many peers the phases before it built."""
+    from repro_torch.core.peer import Peer
+    Peer._ids = 0
+
+
+def _serving_spans(runner) -> list:
+    return sorted((p.stages.start, p.stages.stop)
+                  for p in runner.peers.values() if p.alive and p.serving)
+
+
+def phase_train_span(torch, train: dict) -> dict:
+    """One span peer on stages [0, 2) (the runner's shared
+    ``PipelineExecutor``: both stages in one fused program) and one peer
+    on stage 2, held to ``train``'s losses to the bit."""
+    from repro_torch.runtime import PipelineExecutor
+    peers = {}      # names only: a Peer would keep its runner alive
+
+    def setup(runner):
+        peers["span"] = runner.add_peer(range(0, 2)).id
+
+    def check(runner, m):
+        span = runner.peers[peers["span"]]
+        accs = _span_accs(runner, span)
+        if not isinstance(span.executor, PipelineExecutor) or accs != [0, 1]:
+            raise AssertionError(f"train_span: the span peer "
+                                 f"({type(span.executor).__name__}) "
+                                 f"accumulated under stages {accs}")
+        if not 0 < m["wire_bytes"] < train["wire_bytes"]:
+            raise AssertionError(f"train_span: {m['wire_bytes']} wire "
+                                 f"bytes, train {train['wire_bytes']}")
+        return {"span_peer_stages": accs,
+                "train_wire_bytes": train["wire_bytes"],
+                "wire_bytes_over_train": m["wire_bytes"]
+                / train["wire_bytes"]}
+
+    _first_peer_names()
+    return phase_train(torch, "train_span", swarm1b(name="swarm-1b-span"),
+                       TRAIN_STEPS, train["losses"], peers=[0, 0, 1],
+                       exact=True, setup=setup, check=check)
+
+
+def _split_merge_kill(runner, log: list):
+    """Sim process: mid-step 1 split the span peer at stage 1 (a fresh
+    peer warm-joins [1, 2), downloading stage 1 from it; then it shrinks
+    to [0, 1)), mid-step 2 merge it back to [0, 2) (downloading stage 1
+    from the [1, 2) peer), then kill the [1, 2) peer."""
+    from repro_torch.core.sim import Sleep
+    span = next(p for p in runner.peers.values() if len(p.stages) == 2)
+    for step, act in ((1, "split"), (2, "merge")):
+        while runner.step < step or not runner.ledger.stage_counts()[0]:
+            if runner.stopped:
+                return
+            yield Sleep(0.1)
+        if act == "split":
+            yield from runner.split_span(span, at=1)
+        else:
+            joiner = next(p for p in runner.peers.values()
+                          if p.alive and p.serving
+                          and p.stages == range(1, 2))
+            yield from runner.merge_spans(span, range(0, 2))
+        log.append((act, runner.step, (span.stages.start, span.stages.stop),
+                    _serving_spans(runner)))
+    runner._fail_peer(joiner)
+    log.append(("kill", runner.step, (joiner.stages.start,
+                                      joiner.stages.stop),
+                _serving_spans(runner)))
+
+
+def phase_train_span_resize(torch, train: dict) -> dict:
+    """Span split, merge and a peer's death on the train_span layout,
+    every peer on the T4/16 profile (a step then outlasts a stage
+    download on the virtual clock)."""
+    log: list = []
+
+    def setup(runner):
+        runner.add_peer(range(0, 2))
+        runner.sim.spawn(_split_merge_kill(runner, log))
+
+    def check(runner, m):
+        acts = [(a, span) for a, _step, span, _layout in log]
+        if acts != [("split", (0, 1)), ("merge", (0, 2)), ("kill", (1, 2))] \
+                or (m["span_changes"], m["joins"], m["failures"]) != \
+                (2, 1, 1) or _serving_spans(runner) != [(0, 2), (2, 3)]:
+            raise AssertionError(f"train_span_resize: events {log}, "
+                                 f"span changes {m['span_changes']}, joins "
+                                 f"{m['joins']}, failures {m['failures']}")
+        return {"events": log}
+
+    _first_peer_names()
+    return phase_train(torch, "train_span_resize",
+                       swarm1b(name="swarm-1b-span"), TRAIN_STEPS,
+                       train["losses"], peers=[0, 0, 1], exact=True,
+                       profile_fn=slow_all, setup=setup, check=check)
+
+
+def phase_train_span_rebalance(torch, train: dict) -> dict:
+    """Alg. 2's span branch on the card: single peers on stages 0, 1 and
+    2 (stage 1's on T4/16, the others T4s) and an A100 span peer on
+    [0, 2), four zones priced by the WAN link table; the planner shrinks
+    the span peer onto the bottleneck stage 1 mid-run."""
+    from repro_torch.core import rebalance as rb
+    from repro_torch.core.square_cube import default_wan_table
+    resizes: list = []
+    peers = {}      # names only: a Peer would keep its runner alive
+
+    def setup(runner):
+        resize = runner._resize_span
+
+        def logged(peer, new_span):
+            old = peer.stages
+            ok = yield from resize(peer, new_span)
+            resizes.append((peer.id, (old.start, old.stop),
+                            (new_span.start, new_span.stop), ok,
+                            runner.step))
+            return ok
+        runner._resize_span = logged
+        peers["span"] = runner.add_peer(range(0, 2)).id
+
+    def check(runner, m):
+        span = peers["span"]
+        shrunk = [r for r in resizes
+                  if r[0] == span and r[3] and r[2] == (1, 2)]
+        layout = _serving_spans(runner)
+        if m["span_changes"] < 1 or not shrunk or \
+                not rb.spans_route(runner.n_stages, layout):
+            raise AssertionError(f"train_span_rebalance: resizes "
+                                 f"{resizes}, layout {layout}")
+        return {"resizes": resizes,
+                "stage_regions": runner._stage_regions()}
+
+    _first_peer_names()
+    return phase_train(torch, "train_span_rebalance",
+                       swarm1b(name="swarm-1b-span"), TRAIN_STEPS,
+                       train["losses"], peers=1, exact=True,
+                       profile_fn=span_fleet,
+                       region_fn=lambda i: ZONES[i % len(ZONES)],
+                       rebalance_period=REBALANCE_PERIOD,
+                       spans=True, link_table=default_wan_table(),
+                       setup=setup, check=check)
 
 
 def _cut_bytes(root: str, step: int) -> int:
@@ -1889,6 +2095,11 @@ def main() -> None:
                 train["losses"], peers=[1, 1, 2], exact=True,
                 profile_fn=slow_front, n_trainers=4,
                 rebalance_period=REBALANCE_PERIOD)
+    # span peers, each run held to train's losses to the bit:
+    # swarm-1b-span has swarm-1b-bottleneck's shapes and stage params
+    for phase in (phase_train_span, phase_train_span_resize,
+                  phase_train_span_rebalance):
+        phase(torch, train)
     phase_train_rollback(torch, ref_losses)
     launches.update(phase_wire_codes(torch)["launches"])
     phase_train_profile(torch)

@@ -12,9 +12,9 @@ and ``SwarmRunner._rebalance_loop`` executes the plan.
 span pools; it prices spans with :func:`optimal_assignment` (``spans=True``
 for decode, the counts form for the prefill chunks) over contiguous
 partitions, exactly as the JAX package does, so both packages make the
-same decisions on the same inputs.  Span resizes (``SpanChange``,
-``plan_span_change``) come with the spans slice (ROADMAP queue 1
-item 4).
+same decisions on the same inputs.  :func:`plan_span_change` proposes
+the span splits and merges (``SpanChange``) that
+``SwarmRunner._resize_span`` executes.
 """
 from __future__ import annotations
 
@@ -29,6 +29,17 @@ class Migration:
     peer: Hashable
     src_stage: int
     dst_stage: int
+
+
+@dataclasses.dataclass(frozen=True)
+class SpanChange:
+    """Resize ``peer``'s span in place (Varuna-style re-partitioning):
+    ``new_span`` inside ``old_span`` is a split/shrink (concentrate on
+    the bottleneck stage), ``new_span`` around ``old_span`` a merge/grow
+    (absorb an adjacent well-covered stage, saving its host boundary)."""
+    peer: Hashable
+    old_span: tuple[int, int]
+    new_span: tuple[int, int]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -515,3 +526,122 @@ def pipeline_throughput(alloc, peer_speed=1.0,
         a * peer_speed / max(_span_cost((s, s + 1), costs, boundary_cost,
                                         n_stages, overlap_wire), 1e-12)
         for s, (a, c) in enumerate(zip(alloc, costs)))
+
+
+def plan_span_change(dht, n_stages: int,
+                     spans: dict[Hashable, tuple[int, int]],
+                     imbalance: float = 1.25,
+                     boundary_costs: Optional[Sequence[float]] = None
+                     ) -> Optional[SpanChange]:
+    """Span-aware Alg.-2 step, from the DHT load snapshot.
+
+    * SPLIT/shrink: the max-load stage is genuinely hotter than the
+      min-load stage (beyond the ``imbalance`` ratio — raw queue sums
+      jitter, so exact comparison would misread noise as imbalance) and
+      sits inside a multi-stage span — concentrate the most backlogged
+      such peer on the bottleneck stage alone, provided every stage it
+      drops keeps another cover (the runner hands the dropped stages'
+      state to those peers).
+    * MERGE/grow: loads are within the tolerance band — let the
+      least-loaded peer absorb an adjacent stage that is covered by >= 2
+      peers, deleting one host boundary crossing for its traffic at no
+      coverage risk.  (A hot pipe with nothing to split proposes
+      nothing: growing it would only slow the bottleneck.)
+
+    ``boundary_costs`` (per-boundary wire prices, e.g. the stage plan's
+    ``boundary_costs``) ranks merge candidates by the NET wire saving of
+    the fused boundary — absorbing the stage behind an expensive edge
+    (a routed-MoE or whisper boundary) wins over a cheap one; without it
+    the historical least-loaded-first order applies.
+
+    Never proposes a change that would strand a stage — or break span
+    *routability* (:func:`spans_route`): coverage alone is too weak,
+    a layout like ``{(0,2), (1,2), (1,3)}`` covers every stage of a
+    3-stage pipe yet no span starts at boundary 2, so every microbatch
+    would stall.
+
+    ``dht`` may be a live DHT or a per-round :class:`ControlSnapshot`;
+    the candidate scan itself is O(P·S̄ + C·(U + S)) for C candidate
+    moves over U unique spans — per-candidate work is an O(1) coverage
+    lookup (difference-array) and a span-multiset routability probe,
+    never a per-candidate DHT read or full-layout rebuild."""
+    snap = _as_snapshot(dht, n_stages)
+    loads = snap.loads
+    s_max = max(range(n_stages), key=lambda s: loads[s])
+    s_min = min(range(n_stages), key=lambda s: loads[s])
+
+    cover = [0] * (n_stages + 1)
+    span_count: dict[tuple[int, int], int] = {}
+    for lo, hi in spans.values():
+        cover[lo] += 1
+        cover[hi] -= 1
+        span_count[(lo, hi)] = span_count.get((lo, hi), 0) + 1
+    for s in range(n_stages):
+        cover[s + 1] += cover[s]
+    base_routes = spans_route(n_stages, span_count)
+
+    def covers(stage: int, but: Hashable) -> int:
+        lo, hi = spans[but]
+        return cover[stage] - (1 if lo <= stage < hi else 0)
+
+    def routes_after(pid: Hashable, new: tuple[int, int]) -> bool:
+        old = spans[pid]
+        if base_routes and span_count.get(old, 0) >= 2:
+            # another peer keeps old's routing edge, and adding an edge
+            # never breaks reachability -> superset of a routing layout
+            return True
+        span_count[old] -= 1
+        if not span_count[old]:
+            del span_count[old]
+        span_count[new] = span_count.get(new, 0) + 1
+        ok = spans_route(n_stages, span_count)
+        span_count[new] -= 1
+        if not span_count[new]:
+            del span_count[new]
+        span_count[old] = span_count.get(old, 0) + 1
+        return ok
+
+    def queue_of(pid: Hashable, stage: int) -> float:
+        return snap.queue_of(pid, stage)
+
+    hot = loads[s_max] > imbalance * loads[s_min] + 0.05
+    if hot:
+        donors = sorted(
+            (pid for pid, (lo, hi) in spans.items()
+             if hi - lo > 1 and lo <= s_max < hi),
+            key=lambda pid: (-queue_of(pid, s_max), str(pid)))
+        for pid in donors:
+            lo, hi = spans[pid]
+            new = (s_max, s_max + 1)
+            if all(covers(s, but=pid) >= 1
+                   for s in range(lo, hi) if s != s_max) \
+                    and routes_after(pid, new):
+                return SpanChange(pid, (lo, hi), new)
+        return None
+
+    # balanced: grow toward fewer host boundaries
+    def edge(b: int) -> float:
+        if boundary_costs is None or not 0 <= b < n_stages - 1:
+            return 0.0
+        return float(boundary_costs[b])
+
+    growers = sorted(spans, key=lambda pid: (queue_of(pid, spans[pid][0]),
+                                             str(pid)))
+    cands = []
+    for pid in growers:
+        lo, hi = spans[pid]
+        for t, new in ((hi, (lo, hi + 1)), (lo - 1, (lo - 1, hi))):
+            if 0 <= t < n_stages and covers(t, but=pid) >= 2 \
+                    and routes_after(pid, new):
+                # growing up fuses boundary hi-1 but exposes boundary
+                # hi; growing down fuses lo-1 but exposes lo-2
+                saved = (edge(hi - 1) - edge(hi) if t == hi
+                         else edge(lo - 1) - edge(lo - 2))
+                cands.append((saved, pid, (lo, hi), new))
+    if not cands:
+        return None
+    if boundary_costs is not None:
+        cands.sort(key=lambda c: -c[0])        # stable: ties keep the
+        # least-loaded-first order from the grower scan above
+    _, pid, old, new = cands[0]
+    return SpanChange(pid, old, new)

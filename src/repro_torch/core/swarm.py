@@ -16,6 +16,17 @@ pipeline to it first (Varuna-style global rollback) when it is older
 than the current step, and a runner built over a non-empty ``ckpt_dir``
 resumes that run.
 
+A peer's assignment is a contiguous span of stages (usually width 1).
+Span peers (:class:`repro_torch.runtime.PipelineExecutor`) occupy one DHT
+slot, one All-Reduce group and one ledger row per covered stage, but run
+the whole span in one fused program: only span-edge tensors cross the
+host (the square-cube lever, §3.1), and ``metrics["wire_bytes"]``
+charges per hop edge.  ``split_span``/``merge_spans``/``_resize_span``
+re-partition spans, Varuna-style: a shrinking span peer hands per-stage
+state to single-stage peers, a merge pulls it back.  With
+``spans=True`` Alg. 2 also proposes these resizes, and with a
+``link_table`` it prices each boundary in region-pair seconds.
+
 Two modes:
   numeric=True   — real PyTorch math per stage on the runner's device;
   numeric=False  — timing only: no executors and no tensors (so no
@@ -23,10 +34,8 @@ Two modes:
                    plan (the paper's throughput and preemption
                    experiments).
 
-What later slices bring, each raising ``NotImplementedError`` where it
-is asked for: span peers and span resizes, ``overlap`` and
-``staleness``/``dpu`` (ROADMAP queue 1 item 4), and region-priced links
-(``link_table``, with the spans slice).
+``overlap`` and ``staleness``/``dpu`` come with the async slice and
+raise ``NotImplementedError`` until then (ROADMAP queue 1 item 4(b)).
 """
 from __future__ import annotations
 
@@ -55,12 +64,7 @@ from repro_torch.tree import tree_map
 
 Tree = Any
 
-_ASYNC = "ROADMAP queue 1 item 4 (spans and async overlap)"
-
-
-def _stub(what: str, item: str):
-    raise NotImplementedError(f"SwarmRunner: {what} is not ported yet "
-                              f"({item})")
+_ASYNC = "ROADMAP queue 1 item 4(b), async overlap"
 
 
 @dataclasses.dataclass
@@ -73,7 +77,13 @@ class SwarmConfig:
     state each ``ckpt_period`` completed steps; a stage that loses all
     its peers resumes from the latest cut instead of the step-0
     reference, and a runner built over a non-empty ``ckpt_dir`` resumes
-    that run (step counter and data cursor adopt the latest cut)."""
+    that run (step counter and data cursor adopt the latest cut).
+
+    ``spans``: let the Alg. 2 loop also propose span splits and merges
+    (``rebalance.plan_span_change``).  ``link_table`` (a
+    ``repro_torch.core.square_cube.LinkTable``): price each boundary over
+    the link between the regions serving its two stages (seconds, not
+    bytes), so span merges fuse across slow links first."""
     n_stages: int = 3
     microbatch_size: int = 1
     seq_len: int = 128
@@ -107,11 +117,11 @@ class SwarmConfig:
         if self.staleness < 0:
             raise ValueError(f"staleness must be >= 0, got "
                              f"{self.staleness}")
-        for name, later in (("dpu", _ASYNC), ("overlap", _ASYNC),
-                            ("staleness", _ASYNC), ("spans", _ASYNC),
-                            ("link_table", _ASYNC)):
+        for name in ("dpu", "overlap", "staleness"):
             if getattr(self, name):
-                _stub(f"SwarmConfig.{name}", later)
+                raise NotImplementedError(
+                    f"SwarmRunner: SwarmConfig.{name} is not ported yet "
+                    f"({_ASYNC})")
 
 
 def _as_span(stage: "int | range") -> range:
@@ -173,6 +183,8 @@ class SwarmRunner:
         self.peers: dict[str, Peer] = {}
         self.wirings: list[StochasticWiring] = []
         self.trainers: list[Trainer] = []
+        # (lo, hi) -> the shared default PipelineExecutor of that span
+        self._span_execs: dict[tuple[int, int], StageExecutor] = {}
 
         # training progress
         self.stopped = False
@@ -192,7 +204,9 @@ class SwarmRunner:
             "loss": [], "step_time": [], "samples_done": [],
             "throughput_t": [], "throughput_v": [], "migrations": 0,
             "failures": 0, "joins": 0, "recomputed_microbatches": 0,
-            "wire_bytes": 0.0,
+            "span_changes": 0,       # span resizes applied
+            "wire_bytes": 0.0,       # boundary bytes that crossed the
+                                     # host (fused boundaries: none)
             "ckpt_restores": [],     # (stage, restored-from step)
             "rollbacks": [],         # (step rolled back from, to)
         }
@@ -210,10 +224,19 @@ class SwarmRunner:
 
     # ================================================== setup
     def _span_executor(self, span: range) -> Optional[StageExecutor]:
-        """The stage's shared executor (None in timing mode)."""
-        if len(span) != 1:
-            _stub("a span peer", _ASYNC)
-        return self.executors[span.start]
+        """The default executor of a span (None in timing mode): the
+        stage family's for width 1, a runner-cached
+        :class:`~repro_torch.runtime.PipelineExecutor` otherwise, so all
+        default-backed peers of one span share one executor (which keeps
+        ``adopt_state_from``'s zero-copy alias path)."""
+        if self.executors[span.start] is None or len(span) == 1:
+            return self.executors[span.start]
+        key = (span.start, span.stop)
+        ex = self._span_execs.get(key)
+        if ex is None:
+            ex = self._span_execs[key] = \
+                self.executors[span.start].for_span(span)
+        return ex
 
     def _routes_without(self, peer: Peer,
                         new_span: Optional[range]) -> bool:
@@ -314,6 +337,20 @@ class SwarmRunner:
                 if p.alive and p.serving and stage in p.stages
                 and p is not but]
 
+    def _stage_regions(self) -> list[str]:
+        """Dominant region per stage: the most common zone among the
+        live serving peers covering it (alphabetical tie-break; "local"
+        when nobody covers) — the region vector the link table prices
+        boundary edges with."""
+        regions = []
+        for s in range(self.n_stages):
+            counts: dict[str, int] = {}
+            for p in self._covering(s):
+                counts[p.region] = counts.get(p.region, 0) + 1
+            regions.append(max(sorted(counts), key=counts.get)
+                           if counts else "local")
+        return regions
+
     # ================================================== data / dispatch
     def _round_size(self) -> int:
         """Microbatches per optimizer step."""
@@ -404,11 +441,16 @@ class SwarmRunner:
                    loss: Optional[float], stage: Optional[int] = None
                    ) -> bool:
         """Fold a microbatch gradient into ``peer``'s accumulator —
-        exactly once per (stage, index) per round.  A re-issued attempt
-        falls through for the stages that already hold the gradient
-        (re-running backward with unchanged params reproduces it, so
-        skipping is exact)."""
+        exactly once per (stage, index) per round, for every stage the
+        peer's span covers.  A re-issued attempt falls through for the
+        stages that already hold the gradient (re-running backward with
+        unchanged params reproduces it, so skipping is exact), so a span
+        peer may fold a subset of its stages.  ``gp`` is the stage's tree
+        for a single-stage peer, a ``{global stage id: tree}`` dict for a
+        span peer."""
         stages = [stage] if stage is not None else list(peer.stages)
+        span_keyed = isinstance(gp, dict) and bool(gp) and \
+            all(isinstance(k, int) for k in gp)
         last = self.n_stages - 1
         any_folded = False
         for s in stages:
@@ -419,8 +461,9 @@ class SwarmRunner:
                     ("acc", self.step, s, mb.index, mb.attempt, peer.id))
             loss_s = loss if s == last else None
             if peer.executor is not None:
-                peer.executor.accumulate(peer.state, gp, loss_s,
-                                         mb.n_tokens, stage=s)
+                peer.executor.accumulate(peer.state,
+                                         gp[s] if span_keyed else gp,
+                                         loss_s, mb.n_tokens, stage=s)
             else:                               # timing-only simulation
                 view = peer.state.stage_view(s)
                 view.token_count += mb.n_tokens
@@ -524,8 +567,10 @@ class SwarmRunner:
     # ================================================== rebalancing
     def _rebalance_loop(self):
         """Alg. 2 every ``rebalance_period`` seconds: peers report queue
-        sizes under the DHT load keys, one frozen ``ControlSnapshot`` per
-        round, and the planned migration executes."""
+        sizes under the DHT load keys of every stage they cover, one
+        frozen ``ControlSnapshot`` per round, and the planned migration
+        executes — or, with ``spans=True`` and no migration, the planned
+        span resize."""
         T = self.scfg.rebalance_period
         while not self.stopped:
             yield Sleep(T)
@@ -547,7 +592,24 @@ class SwarmRunner:
                 continue
             if not self.scfg.spans:
                 continue
-            _stub("span resizes (plan_span_change)", _ASYNC)
+            spans = {p.id: (p.stages.start, p.stages.stop)
+                     for p in self.peers.values()
+                     if p.alive and p.serving}
+            # per-boundary wire prices from the stage plan: merges fuse
+            # the most expensive edge first; with a link table the bytes
+            # become region-priced seconds, so the swarm fuses across
+            # slow links first
+            bcosts = self.plan.boundary_costs(
+                self.scfg.microbatch_size, self.scfg.seq_len,
+                self.compress_mode)
+            if self.scfg.link_table is not None:
+                bcosts = self.scfg.link_table.edge_costs(
+                    list(bcosts), self._stage_regions())
+            ch = rb.plan_span_change(snap, self.n_stages, spans,
+                                     boundary_costs=bcosts)
+            if ch is not None:
+                yield from self._resize_span(self.peers[ch.peer],
+                                             range(*ch.new_span))
 
     # ================================================== checkpoints
     def _maybe_checkpoint(self):
@@ -704,18 +766,44 @@ class SwarmRunner:
                         stage=s)
                 return
 
+    def _download_state(self, peer: Peer, span: range):
+        """Download every stage of ``span``, each from whoever covers it
+        (a merging peer may pull its stages from different donors)."""
+        for s in span:
+            yield from self._download_stage_state(peer, s)
+            if not peer.alive or self.stopped:
+                return
+
+    def _catch_up(self, peer: Peer):
+        """Before ``peer`` serves again, re-adopt each stage of its span
+        that an optimizer step passed by: the All-Reduce installs a step
+        only into serving peers, so a stage it kept across a resize, or
+        downloaded before a later stage's download ended, is a version
+        behind its live covers when a step landed meanwhile.  No
+        transfer time is charged, so timing-only runs are unchanged.
+        (The JAX package serves such a stage stale.)"""
+        if peer.executor is None:
+            return
+        for s in peer.stages:
+            mine = peer.state.stage_view(s).version
+            donor = next((q for q in self._covering(s, but=peer)
+                          if q.state.stage_view(s).version > mine), None)
+            if donor is not None:
+                peer.executor.restore(
+                    peer.state, donor.executor.snapshot(donor.state,
+                                                        stage=s),
+                    stage=s)
+
     def _complete_warm_join(self, peer: Peer, span: range):
         """Warm-join tail shared by migrations and joins: the state
         download completes BEFORE the peer is announced or entered into
         any wiring — a (re)joining peer must never serve stale params.
         Returns False if the peer died mid-download."""
         peer.serving = False
-        for s in span:
-            yield from self._download_stage_state(peer, s)
-            if not peer.alive or self.stopped:
-                break
+        yield from self._download_state(peer, span)
         if not peer.alive:                     # preempted mid-download
             return False
+        self._catch_up(peer)
         peer.serving = True
         self._announce(peer)
         for w in self.wirings:
@@ -765,6 +853,71 @@ class SwarmRunner:
         ok = yield from self._complete_warm_join(peer, dst_span)
         if ok:
             self.metrics["migrations"] += 1
+
+    def _resize_span(self, peer: Peer, new_span: range):
+        """Shrink or grow a serving peer's span in place (how spans split
+        into single-stage peers and merge back).  Exactly-once order as
+        in ``_migrate``: drain and release first, then swap the executor
+        and state.  A stage kept across the resize keeps its device
+        tensors (the restore aliases them: no transfer time); a newly
+        covered stage warm-downloads from whoever covers it.  Refuses a
+        resize that would strand a dropped stage or break routing."""
+        while self._dispatch_paused and not self.stopped:
+            yield Sleep(0.05)
+        if self.stopped or not peer.alive or not peer.serving:
+            return False
+        old_span = peer.stages
+        if new_span == old_span:
+            return False
+        dropped = [s for s in old_span if s not in new_span]
+        if not all(self._covering(s, but=peer) for s in dropped):
+            return False                       # would strand a stage
+        if not self._routes_without(peer, new_span):
+            return False                       # coverage != routability
+        kept = {}
+        if peer.executor is not None:
+            for s in new_span:
+                if s in old_span:
+                    v = peer.state.stage_view(s)
+                    kept[s] = {"params": v.params, "opt": v.opt,
+                               "version": v.version}
+        self._retire_assignment(peer)
+        peer.executor = self._span_executor(new_span)
+        peer.set_span(new_span)
+        peer.state = peer._fresh_state()
+        for s, snap in kept.items():
+            peer.executor.restore(peer.state, snap, stage=s)
+        peer.serving = False
+        for s in new_span:
+            if s not in old_span:
+                yield from self._download_stage_state(peer, s)
+                if not peer.alive or self.stopped:
+                    return False
+        self._catch_up(peer)
+        peer.serving = True
+        self._announce(peer)
+        for w in self.wirings:
+            w.move_server(peer.id, [new_span.start])
+        self.metrics["span_changes"] += 1
+        return True
+
+    def split_span(self, peer: Peer, at: int):
+        """Split ``peer``'s span ``[lo, hi)`` at ``at``: a fresh (or
+        revived) peer warm-joins on ``[at, hi)``, downloading those
+        stages from the splitting peer, which still serves them; only
+        then does the donor shrink to ``[lo, at)``, so coverage never
+        gaps."""
+        lo, hi = peer.stages.start, peer.stages.stop
+        if not (lo < at < hi):
+            raise ValueError(f"split point {at} outside ({lo}, {hi})")
+        yield from self._join_new_peer(span=range(at, hi))
+        yield from self._resize_span(peer, range(lo, at))
+
+    def merge_spans(self, peer: Peer, new_span: range):
+        """Grow ``peer`` to ``new_span``, downloading the stages it
+        absorbs from their current holders — the inverse of
+        ``split_span``."""
+        yield from self._resize_span(peer, new_span)
 
     # ================================================== fault injection
     def apply_trace(self, trace: list[TraceEvent]):

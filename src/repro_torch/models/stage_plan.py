@@ -78,6 +78,12 @@ class StageSpec:
     def n_layers(self) -> int:
         return sum(n for _, n in self.runs) * self.reps
 
+    @property
+    def structural_key(self):
+        """Stages with equal keys run structurally identical programs
+        (:meth:`StagePlan.fusion_groups` groups them)."""
+        return (self.runs, self.reps, self.owns_embed, self.owns_head)
+
 
 @dataclasses.dataclass(frozen=True)
 class StagePlan:
@@ -88,6 +94,16 @@ class StagePlan:
     @property
     def is_encdec(self) -> bool:
         return self.cfg.encoder_layers > 0
+
+    @property
+    def periodic(self) -> bool:
+        """True iff every stage runs the same block structure — the
+        precondition for a shifting-buffer pipeline over stages (embed
+        and head live outside the stage functions there, so ownership is
+        excluded)."""
+        if self.is_encdec:
+            return False
+        return len({(st.runs, st.reps) for st in self.stages}) == 1
 
     # ---- pricing -----------------------------------------------------
     def stage_flops(self, s: int, seq_len: int) -> float:
@@ -142,6 +158,35 @@ class StagePlan:
                        compression: str = "none") -> tuple[float, ...]:
         return tuple(self.boundary_bytes(b, batch, seq_len, compression)
                      for b in range(self.n_stages - 1))
+
+    def link_boundary_costs(self, batch: int, seq_len: int, *,
+                            regions, links,
+                            compression: str = "none"
+                            ) -> tuple[float, ...]:
+        """Per-boundary transfer seconds under an inter-region link
+        model: boundary ``b``'s bytes priced over the link between the
+        regions homing stages ``b`` and ``b+1`` (``links`` is a
+        :class:`repro_torch.core.square_cube.LinkTable`, ``regions`` one
+        region name per stage), so the span planners fuse across slow
+        links first."""
+        return tuple(links.edge_costs(
+            [self.boundary_bytes(b, batch, seq_len, compression)
+             for b in range(self.n_stages - 1)], list(regions)))
+
+    # ---- span fusion -------------------------------------------------
+    def fusion_groups(self, span=None) -> list[tuple[int, int]]:
+        """``(start, count)`` groups of structurally identical
+        consecutive stages within ``span`` (default: the whole
+        pipeline); groups never cross a kind boundary."""
+        lo, hi = (0, self.n_stages) if span is None else (span[0], span[1])
+        groups: list[list] = []
+        for s in range(lo, hi):
+            key = self.stages[s].structural_key
+            if groups and groups[-1][2] == key:
+                groups[-1][1] += 1
+            else:
+                groups.append([s, 1, key])
+        return [(s, c) for s, c, _ in groups]
 
 
 def make_stage_plan(cfg: ArchConfig, n_stages: int) -> StagePlan:

@@ -1,5 +1,5 @@
 """The stage-runtime layer: what a SWARM peer runs (port of
-``repro.runtime.base``, serving half).
+``repro.runtime.base``).
 
 Executors are stateless with respect to progress: all mutable state
 lives in the :class:`StageState` the scheduler hands in, so N peers of
@@ -317,9 +317,3 @@ def wire_bwd_codec(ex: StageExecutor, gx: Optional[Tree]
     if gx is not None and ex.compress_mode == "int8":
         return _int8_roundtrip_tree(gx, ex.quant_block)
     return gx
-
-
-def not_in_slice(name: str, item: str):
-    """Raise for a part of the JAX package's protocol that a later slice
-    of the port brings (``item`` names its ROADMAP queue item)."""
-    raise NotImplementedError(f"{name}: not ported yet ({item})")

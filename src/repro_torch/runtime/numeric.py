@@ -3,11 +3,13 @@
 
 PyTorch runs eagerly, so there is no jit to cache; the structure of the
 JAX package stays: stage programs are built once per executor family
-(one per stage, shared by every peer of the stage), session programs
-once per ``(config, stages, span, horizon, codec)`` process-wide
+(one per stage, shared by every peer of the stage), span programs once
+per ``(config, stages, seq, codec, span)`` process-wide
+(:func:`get_span_program`), session programs once per ``(config,
+stages, span, horizon, codec)`` process-wide
 (``repro_torch.serve.programs.get_session_program``), and
-``record_trace`` / ``compile_stats`` count one "trace" per session
-program build, where the JAX package counts XLA traces.
+``record_trace`` / ``compile_stats`` count one "trace" per span or
+session program build and kind, where the JAX package counts XLA traces.
 
 Inputs are placed on the executor's device as they arrive (a trainer
 may hand host numpy batches or tensors); gradient accumulation adds in
@@ -28,11 +30,14 @@ from repro_torch.models.stage_plan import get_stage_plan
 from repro_torch.runtime.base import StageState, fold_into, place, \
     host_snapshot, install_snapshot, single_stage, slot_export, \
     slot_install, wire_bwd_codec, wire_fwd_codec
-from repro_torch.runtime.stage_model import StageProgram, \
-    build_stage_programs
+from repro_torch.runtime.stage_model import SpanProgram, StageProgram, \
+    build_span_program, build_stage_programs
 
 Tree = Any
 
+# (cfg, n_stages, seq_len, comp, (lo, hi)) -> SpanProgram: one program
+# per (span, codec), shared by every peer serving that span
+_SPANS: dict[tuple, SpanProgram] = {}
 # (span-or-stage, kind, shapes) per program key -> number of builds
 _TRACES: dict[tuple, int] = {}
 _LOCK = threading.Lock()
@@ -45,9 +50,10 @@ def record_trace(key: tuple) -> None:
 
 
 def reset_compile_stats() -> None:
-    """Clear the counters and the session-program cache."""
+    """Clear the counters and the span- and session-program caches."""
     with _LOCK:
         _TRACES.clear()
+        _SPANS.clear()
     serve_progs = sys.modules.get("repro_torch.serve.programs")
     if serve_progs is not None:
         serve_progs.reset_session_cache()
@@ -57,6 +63,31 @@ def compile_stats() -> dict:
     """``{"traces", "per_key"}`` since the last reset."""
     with _LOCK:
         return {"traces": sum(_TRACES.values()), "per_key": dict(_TRACES)}
+
+
+def get_span_program(cfg: ArchConfig, n_stages: int, seq_len: int,
+                     span: tuple[int, int],
+                     compress: Optional[str] = None) -> SpanProgram:
+    """The shared, counted fused program for a ``[lo, hi)`` span: one
+    build per (configuration, span, codec) process-wide, recorded as one
+    ``fwd`` and one ``bwd`` trace, so N span peers of one span (and a
+    second same-shape runner) share it."""
+    comp = codecs.resolve_mode(cfg, compress)
+    key = (cfg, n_stages, seq_len, comp, tuple(span))
+    with _LOCK:
+        prog = _SPANS.get(key)
+    if prog is not None:
+        return prog
+    prog = build_span_program(cfg, n_stages, seq_len, tuple(span),
+                              compress=comp)
+    with _LOCK:
+        # first build wins if two threads raced; both are equivalent
+        won = _SPANS.setdefault(key, prog)
+    if won is prog:
+        tag = (cfg.name, n_stages, seq_len, comp, tuple(span))
+        for kind in ("fwd", "bwd"):
+            record_trace(tag + (kind, ()))
+    return won
 
 
 class NumericExecutor:

@@ -1,27 +1,42 @@
 """PipelineExecutor — a SWARM peer serving a contiguous span of stages
-``[lo, hi)`` on one device (port of the serving half of
-``repro.runtime.pipeline``).
+``[lo, hi)`` on one device (port of ``repro.runtime.pipeline``).
 
-Intra-span boundaries stay on the device; the wire codec
-(``wire_fwd``) applies only at span edges.  State is per-stage-keyed
-(``StageState.per_stage``), so a span peer's snapshots, KV hand-offs
-and restores are ordinary single-stage ones.
+SWARM's square-cube argument (paper §3.1) says a well-provisioned peer
+should hold more of the model, not another replica of one slice.  This
+backend is that lever: one peer runs stages ``[lo, hi)`` through one
+fused :class:`repro_torch.runtime.stage_model.SpanProgram`, so
+
+* intra-span boundaries stay on the device — under a learned codec the
+  encode/decode pair still runs inside the span (the numbers are those
+  of single-stage peers), but no byte crosses the host;
+* the wire codec (``wire_fwd``/``wire_bwd``, the int8 quantize-on-send)
+  applies only at span edges, where the tensor really crosses;
+* one program per (span, codec) process-wide
+  (:func:`repro_torch.runtime.numeric.get_span_program`).
+
+State is per-stage-keyed (``StageState.per_stage``): every covered stage
+keeps its own params, optimizer state, accumulator and version, so a
+span peer joins one All-Reduce group per covered stage, checkpoint cuts
+write single-stage snapshots, and span split/merge hand-offs move
+single-stage snapshots between span and single-stage peers.  The async
+``dispatch_fwd``/``dispatch_bwd`` pair comes with the async slice
+(ROADMAP queue 1 item 4(b)).
 """
 from __future__ import annotations
 
 from typing import Any, Optional
 
+import torch
+
 from repro_torch.compression import codecs
 from repro_torch.models.config import ArchConfig
 from repro_torch.models import params as P
-from repro_torch.runtime.base import StageState, host_snapshot, \
-    install_snapshot, not_in_slice, slot_export, slot_install, \
+from repro_torch.runtime.base import StageState, fold_into, host_snapshot, \
+    install_snapshot, place, slot_export, slot_install, wire_bwd_codec, \
     wire_fwd_codec
-from repro_torch.runtime.stage_model import _stage_fwd_flops, _stage_specs
+from repro_torch.runtime.numeric import get_span_program
 
 Tree = Any
-
-_SPANS = "ROADMAP queue 1 item 4, training span programs"
 
 
 class PipelineExecutor:
@@ -45,12 +60,10 @@ class PipelineExecutor:
         self.compress_mode = codecs.resolve_mode(cfg, compress)
         self.quant_block = quant_block
         self.device = P.resolve_device(device)
-        learned = self.compress_mode in codecs.LEARNED and n_stages > 1
-        self.fwd_flops_per_token = sum(
-            _stage_fwd_flops(cfg, s, n_stages, seq_len or 1,
-                             self.compress_mode, learned)
-            for s in range(lo, hi))
-        self.bwd_flops_per_token = 3.0 * self.fwd_flops_per_token
+        self.prog = get_span_program(cfg, n_stages, seq_len or 1,
+                                     (lo, hi), self.compress_mode)
+        self.fwd_flops_per_token = self.prog.fwd_flops_per_token
+        self.bwd_flops_per_token = self.prog.bwd_flops_per_token
 
     @property
     def stages(self) -> range:
@@ -60,9 +73,8 @@ class PipelineExecutor:
     def init_state(self, seed: int) -> StageState:
         state = StageState(per_stage={})
         for i, s in enumerate(self.stages):
-            sub = StageState(params=P.init(
-                seed + i, _stage_specs(self.cfg, s, self.n_stages),
-                self.device))
+            sub = StageState(params=P.init(seed + i, self.prog.specs[s],
+                                           self.device))
             sub.reset_progress()
             state.per_stage[s] = sub
         return state
@@ -94,6 +106,17 @@ class PipelineExecutor:
         return get_session_program(self.cfg, self.n_stages, self.span,
                                    total_len, compress=self.compress_mode)
 
+    # ------------------------------------------------------------ helpers
+    def _params_tuple(self, state: StageState) -> tuple:
+        return tuple(state.per_stage[s].params for s in self.stages)
+
+    def _covers_last(self) -> bool:
+        return self.span[1] == self.n_stages
+
+    def _here(self, t):
+        """A batch or boundary tensor on this executor's device."""
+        return None if t is None else place(t, self.device)
+
     def _require(self, stage: Optional[int]) -> int:
         if stage is None:
             raise ValueError(
@@ -103,31 +126,58 @@ class PipelineExecutor:
             raise ValueError(f"stage {stage} outside span {self.span}")
         return stage
 
-    # ----------------------------- training (the spans slice brings it)
-    def run_fwd(self, *a, **k):
-        not_in_slice("PipelineExecutor.run_fwd", _SPANS)
+    # ---------------------------------------------------------- execution
+    def run_fwd(self, state: StageState, inp: Tree,
+                labels: Optional[torch.Tensor] = None) -> Tree:
+        ps = self._params_tuple(state)
+        if self._covers_last():
+            return self.prog.fwd(ps, self._here(inp), self._here(labels))
+        return self.prog.fwd(ps, self._here(inp))
 
-    def run_bwd(self, *a, **k):
-        not_in_slice("PipelineExecutor.run_bwd", _SPANS)
-
-    def accumulate(self, *a, **k):
-        not_in_slice("PipelineExecutor.accumulate", _SPANS)
-
-    def adopt_step(self, *a, **k):
-        not_in_slice("PipelineExecutor.adopt_step", _SPANS)
-
-    def export_grads(self, *a, **k):
-        not_in_slice("PipelineExecutor.export_grads", _SPANS)
-
-    def export_state(self, *a, **k):
-        not_in_slice("PipelineExecutor.export_state", _SPANS)
-
-    def wire_bwd(self, *a, **k):
-        not_in_slice("PipelineExecutor.wire_bwd", _SPANS)
+    def run_bwd(self, state: StageState, inp: Tree,
+                dy: Optional[Tree] = None,
+                labels: Optional[torch.Tensor] = None):
+        ps = self._params_tuple(state)
+        if self._covers_last():
+            loss, gx, gps = self.prog.bwd(ps, self._here(inp),
+                                          self._here(labels))
+        else:
+            loss = None
+            gx, gps = self.prog.bwd(ps, self._here(inp), self._here(dy))
+        # per-stage gradients keyed by GLOBAL stage id: the scheduler
+        # folds each covered stage on its own (the ledger may admit a
+        # subset of them on a re-issued attempt)
+        return loss, gx, dict(zip(self.stages, gps))
 
     # --------------------------------------------------------- wire codec
     def wire_fwd(self, y: Tree) -> Tree:
         return wire_fwd_codec(self, y)          # span-edge only
+
+    def wire_bwd(self, gx: Tree) -> Tree:
+        return wire_bwd_codec(self, gx)
+
+    # -------------------------------------------------------- accumulation
+    def accumulate(self, state: StageState, gp: Optional[Tree],
+                   loss: Optional[float], n_tokens: int,
+                   stage: Optional[int] = None) -> None:
+        fold_into(state.per_stage[self._require(stage)], gp, loss, n_tokens)
+
+    def export_grads(self, state: StageState,
+                     stage: Optional[int] = None) -> Tree:
+        return state.per_stage[self._require(stage)].grad_acc
+
+    def export_state(self, state: StageState,
+                     stage: Optional[int] = None):
+        sub = state.per_stage[self._require(stage)]
+        return sub.params, sub.opt
+
+    def adopt_step(self, state: StageState, new_params: Tree,
+                   new_opt: Tree, stage: Optional[int] = None) -> None:
+        sub = state.per_stage[self._require(stage)]
+        sub.params = place(new_params, self.device)
+        sub.opt = place(new_opt, self.device)
+        sub.version += 1
+        sub.reset_progress()
 
     # ---------------------------------------------------- state transfer
     def snapshot(self, state: StageState, stage: Optional[int] = None,

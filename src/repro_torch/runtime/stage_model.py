@@ -19,10 +19,17 @@ The per-stage layer math is :func:`make_block_core` (the stage core of
 ``repro.dist.pipeline.make_block_core``): ``reps > 1`` re-applies each
 layer (ALBERT-style sharing), with the layer's weights cast to the
 compute dtype once per stage call, outside the ``reps`` loop — under
-autograd a cast inside it would save one copy per application.  Fused
-span programs come with the spans slice (ROADMAP queue 1 item 4);
-serving runs the session programs of :mod:`repro_torch.serve.programs`
-over the per-stage trees cut by :func:`split_lm_params`.
+autograd a cast inside it would save one copy per application.
+
+:func:`build_span_program` fuses a contiguous span ``[lo, hi)`` of
+stages into one program (the
+:class:`repro_torch.runtime.pipeline.PipelineExecutor` backend): the
+covered stages' forwards chain on the device, so an intra-span boundary
+never crosses the host, while a learned codec's encode/decode pair still
+runs inside it and every covered stage computes what its single-stage
+program computes.  Serving runs the session programs of
+:mod:`repro_torch.serve.programs` over the per-stage trees cut by
+:func:`split_lm_params`.
 """
 from __future__ import annotations
 
@@ -52,6 +59,29 @@ class StageProgram:
     bwd: Callable                 # recompute + autograd backward
     fwd_flops_per_token: float
     bwd_flops_per_token: float    # includes checkpoint recompute
+
+
+@dataclasses.dataclass
+class SpanProgram:
+    """A contiguous span ``[lo, hi)`` of stages fused into one program.
+
+    ``fwd``/``bwd`` take a tuple of per-stage param trees (ordered
+    ``lo..hi-1``, each shaped like that stage's :class:`StageProgram`
+    specs), so a span peer's state stays per-stage-keyed: checkpoint
+    cuts, downloads and span split/merge hand-offs move single-stage
+    snapshots.  ``bwd`` returns the per-stage gradients as a tuple in
+    the same order."""
+    span: tuple[int, int]
+    n_stages: int
+    specs: dict[int, Tree]        # per covered stage, keyed by global id
+    fwd: Callable                 # no_grad forward
+    bwd: Callable                 # recompute + autograd backward
+    fwd_flops_per_token: float    # whole-span totals
+    bwd_flops_per_token: float
+
+    @property
+    def stages(self) -> range:
+        return range(*self.span)
 
 
 def _stage_runs(cfg: ArchConfig, s: int, n_stages: int):
@@ -287,6 +317,87 @@ def build_stage_programs(cfg: ArchConfig, n_stages: int, seq_len: int,
             fwd_flops_per_token=fwd_f,
             bwd_flops_per_token=3.0 * fwd_f))  # recompute + 2x backward
     return programs
+
+
+def build_span_program(cfg: ArchConfig, n_stages: int, seq_len: int,
+                       span: tuple[int, int],
+                       compress: Optional[str] = None) -> SpanProgram:
+    """Fuse stages ``[lo, hi)`` into one ``fwd``/``bwd``.
+
+    ``fwd`` chains the covered stages' forwards under ``torch.no_grad()``
+    (the token-sum loss when the span covers the last stage).  ``bwd``
+    recomputes the whole span from its inbound tensor under autograd,
+    then walks the stages backward: each stage's gradients come from its
+    own ``torch.autograd.grad`` over its own inputs, seeded as a
+    single-stage ``bwd`` seeds it (the next stage's input gradient, cast
+    to the stage output's dtype).  The intra-span boundaries are
+    detached leaves of that recompute, so every covered stage gets the
+    gradient the chain of single-stage programs gives it, bit for bit on
+    one device.  ``bwd`` returns ``(gx, gps)``, ``(loss, gx, gps)`` when
+    the span covers the last stage, with ``gx`` None when ``lo == 0``
+    and ``gps`` one tree per covered stage in span order."""
+    lo, hi = span
+    if not (0 <= lo < hi <= n_stages):
+        raise ValueError(f"span [{lo}, {hi}) outside [0, {n_stages})")
+    get_stage_plan(cfg, n_stages)      # validates the split (ValueError)
+    comp = codecs.resolve_mode(cfg, compress)
+    learned = comp in codecs.LEARNED and n_stages > 1
+    if cfg.encoder_layers:
+        raise NotImplementedError(
+            "encoder-decoder span programs come with the other-kinds "
+            "slice (ROADMAP queue 1 item 6)")
+    stages = range(lo, hi)
+    specs = {s: _stage_specs(cfg, s, n_stages, comp, learned)
+             for s in stages}
+    fwds = [_make_stage_fwd(cfg, s, n_stages, comp, learned)
+            for s in stages]
+    covers_last = hi == n_stages
+
+    def fwd(ps, inp, labels=None):
+        with torch.no_grad():
+            x = inp
+            for f, p in zip(fwds, ps):
+                x = f(p, x)
+            return _head_loss(cfg, ps[-1], x, labels) if covers_last else x
+
+    def bwd(ps, inp, dy_or_labels):
+        leaves = [_grad_leaves(p) for p in ps]
+        trees = [tree_unflatten_like(p, lv) for p, lv in zip(ps, leaves)]
+        ins, outs = [], []
+        loss = None
+        with torch.enable_grad():
+            x = inp
+            for s, f, p in zip(stages, fwds, trees):
+                if s > 0:          # the boundary input: a fresh leaf
+                    x = x.detach().requires_grad_()
+                ins.append(x)
+                x = f(p, x)
+                outs.append(x)
+            if covers_last:
+                loss = _head_loss(cfg, trees[-1], outs[-1], dy_or_labels)
+            gps: list = [None] * len(ps)
+            gx = None if covers_last else dy_or_labels
+            for i in reversed(range(len(ps))):
+                if covers_last and i == len(ps) - 1:
+                    out, seed = loss, None
+                else:
+                    out, seed = outs[i], gx.to(outs[i].dtype)
+                first = stages[i] == 0
+                wrt = leaves[i] if first else leaves[i] + [ins[i]]
+                grads = torch.autograd.grad(out, wrt, seed,
+                                            allow_unused=True)
+                gps[i] = _grads_like(ps[i], leaves[i],
+                                     grads[:len(leaves[i])])
+                gx = None if first else grads[-1]
+        if covers_last:
+            return loss.detach(), gx, tuple(gps)
+        return gx, tuple(gps)
+
+    fwd_f = sum(_stage_fwd_flops(cfg, s, n_stages, seq_len, comp, learned)
+                for s in stages)
+    return SpanProgram(span=(lo, hi), n_stages=n_stages, specs=specs,
+                       fwd=fwd, bwd=bwd, fwd_flops_per_token=fwd_f,
+                       bwd_flops_per_token=3.0 * fwd_f)
 
 
 def init_stage_params(programs: list[StageProgram], seed: int,

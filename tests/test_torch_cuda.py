@@ -728,3 +728,127 @@ def test_cuda_swarm_migration_and_rollback_equal_fault_free(tmp_path):
     del r
     _, resumed = run([1, 1, 1], 8, 5, 2, ckpt_dir=ckpt, ckpt_period=2)
     assert resumed["loss"] == base["loss"][4:]
+
+
+def _span_cfg(**kw) -> ArchConfig:
+    """swarm-1b's structure at small width, bf16 compute: 3 stages of one
+    ALBERT-shared LayerNorm/GeGLU layer applied twice, a bottleneck
+    codec at each stage edge."""
+    return _cuda_cfg(n_layers=6, share_groups=3, norm="layernorm",
+                     act="geglu", boundary_compression="bottleneck",
+                     bottleneck_dim=64, pipeline_stages=3,
+                     compute_dtype="bfloat16", **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire_quant", [False, True])
+def test_cuda_span_equals_chain_to_the_bit(wire_quant):
+    """Spans [0,2), [1,3) and [0,3) of a bf16 swarm: output or loss,
+    inbound cotangent and every covered stage's gradients bit-equal to
+    the chain of single-stage programs, with the launches of the
+    chain's backwards.  Under ``wire_quant`` the learned codec's QDQ is
+    part of each stage program, so it runs at fused boundaries too."""
+    from repro_torch.runtime import build_span_program, \
+        build_stage_programs, init_stage_params
+    from repro_torch.tree import tree_leaves
+    dev = _card()
+    cfg = _span_cfg(wire_quant=wire_quant)
+    progs = build_stage_programs(cfg, 3, 64)
+    params = init_stage_params(progs, 0, dev)
+    g = _gen(dev)
+    tok = torch.randint(0, 256, (2, 64), generator=g, device=dev)
+    lab = torch.randint(0, 256, (2, 64), generator=g, device=dev)
+    xs = [tok, progs[0].fwd(params[0], tok)]
+    xs.append(progs[1].fwd(params[1], xs[1]))
+    kernels.reset_launches()
+    loss, gx2, gp2 = progs[2].bwd(params[2], xs[2], lab)
+    gx1, gp1 = progs[1].bwd(params[1], xs[1], gx2)
+    _, gp0 = progs[0].bwd(params[0], tok, gx1)
+    chain = dict(kernels.LAUNCHES)
+    gxs, gps = {1: gx1, 2: gx2}, {0: gp0, 1: gp1, 2: gp2}
+    for lo, hi in ((0, 2), (1, 3), (0, 3)):
+        prog = build_span_program(cfg, 3, 64, (lo, hi))
+        ps = tuple(params[lo:hi])
+        if hi == 3:
+            assert _same_bits(prog.fwd(ps, xs[lo], lab), loss)
+            kernels.reset_launches()
+            got_loss, gx, got = prog.bwd(ps, xs[lo], lab)
+            assert _same_bits(got_loss, loss)
+        else:
+            assert _same_bits(prog.fwd(ps, xs[lo]), xs[hi])
+            kernels.reset_launches()
+            gx, got = prog.bwd(ps, xs[lo], gxs[hi])
+        launches = dict(kernels.LAUNCHES)
+        assert (gx is None) == (lo == 0)
+        if lo:
+            assert _same_bits(gx, gxs[lo])
+        for s, tree in zip(range(lo, hi), got):
+            for a, b in zip(tree_leaves(tree), tree_leaves(gps[s])):
+                assert _same_bits(a, b)
+        if (lo, hi) == (0, 3):
+            assert launches == chain
+        for name in ("flash_attention_fwd", "encode", "decode"):
+            assert launches[name] > 0, name
+        # one cotangent QDQ per covered sending stage's encode backward
+        assert launches["qdq_flat"] == (
+            len([s for s in range(lo, hi) if s < 2]) if wire_quant else 0)
+
+
+@pytest.mark.cuda
+def test_cuda_span_int8_wire_at_span_edges_only():
+    """The int8 wire codec (``codec="int8"``) on a [0, 2) span of a
+    4-stage bf16 pipeline: no QDQ at the fused boundary (the span's
+    output equals the raw two-stage chain), one ``qdq_flat`` launch per
+    edge crossing, bit-equal to the plain round trip."""
+    from repro_torch.runtime import PipelineExecutor, \
+        build_numeric_executors
+    dev = _card()
+    cfg = _cuda_cfg(compute_dtype="bfloat16")
+    num = build_numeric_executors(cfg, 4, 64, compress="int8", device=dev)
+    pex = PipelineExecutor(cfg, 4, 64, (0, 2), compress="int8", device=dev)
+    sts = [e.init_state(s) for s, e in enumerate(num)]
+    pst = pex.init_state(7)
+    for s in range(2):
+        pex.restore(pst, num[s].snapshot(sts[s]), stage=s)
+    tok = torch.randint(0, 256, (2, 64), generator=_gen(dev), device=dev)
+    kernels.reset_launches()
+    y = pex.run_fwd(pst, tok)
+    assert kernels.LAUNCHES["qdq_flat"] == 0
+    assert _same_bits(y, num[1].run_fwd(sts[1], num[0].run_fwd(sts[0],
+                                                                tok)))
+    w = pex.wire_fwd(y)
+    gw = pex.wire_bwd(torch.randn(y.shape, generator=_gen(dev),
+                                  device=dev).to(y.dtype))
+    assert kernels.LAUNCHES["qdq_flat"] == 2
+    assert _same_bits(w, quant8._roundtrip(y, 64))
+    assert gw.dtype == y.dtype and gw.shape == y.shape
+
+
+@pytest.mark.cuda
+def test_cuda_span_swarm_equals_single_stage_swarm():
+    """A swarm of one [0, 2) span peer and a stage-2 peer trains the
+    single-stage swarm's losses to the bit on the card, through the
+    flash, encode and decode kernels, with half its host wire bytes."""
+    from repro_torch.core.swarm import SwarmConfig, SwarmRunner
+    from repro_torch.optim import adamw
+    dev = _card()
+    cfg = _span_cfg()
+
+    def run(span):
+        r = SwarmRunner(cfg, SwarmConfig(
+            n_stages=3, microbatch_size=2, seq_len=64, global_batch=8,
+            n_trainers=2, rebalance_period=0.0, codec="bottleneck",
+            max_steps=3), adamw(lr=1e-3), seed=0, device=dev)
+        r.build([0, 0, 1] if span else 1)
+        if span:
+            r.add_peer(range(0, 2))
+        kernels.reset_launches()
+        m = r.run(until=1e6)
+        return m, dict(kernels.LAUNCHES)
+
+    single, _ = run(False)
+    span, launches = run(True)
+    assert span["loss"] == single["loss"]
+    assert span["wire_bytes"] * 2 == single["wire_bytes"]
+    for name in ("flash_attention_fwd", "encode", "decode"):
+        assert launches[name] > 0, name

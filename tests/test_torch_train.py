@@ -525,8 +525,7 @@ def test_synthetic_lm_is_deterministic_markov():
     assert ((d >= 0) & (d < 3)).all()          # order-2 markov, noise < 3
 
 
-@pytest.mark.parametrize("kw", [dict(spans=True),
-                                dict(overlap=True), dict(staleness=1),
+@pytest.mark.parametrize("kw", [dict(overlap=True), dict(staleness=1),
                                 dict(dpu=True)])
 def test_later_slices_raise(kw):
     _, tcfg = _configs()
