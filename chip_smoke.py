@@ -86,19 +86,47 @@ JSON line; any failure raises and exits non-zero):
              A100 span peer on [0, 2); Alg. 2's span branch shrinks the
              span peer onto stage 1, the layout still routes, losses
              equal to ``train``'s to the bit, exactly once.
-13. train_rollback — checkpoints every 2 steps under ``build/``; stage
+13. train_overlap — ``train``'s setup under the async tick
+             (``overlap=True, staleness=0``): boundary tensors in flight
+             on the peers' links, stage programs through the executors'
+             dispatch/collect pair; losses equal to ``train``'s to the
+             bit, in-flight bytes and a hidden wire fraction above zero,
+             the virtual makespan no longer than ``train``'s.
+14. train_async — the same with ``staleness=1``: delayed parameter
+             updates behind the bounded-staleness barrier; losses
+             against the staged reference driven by
+             ``delayed_parameter_updates(adamw, 1)`` under ``train``'s
+             bounds.
+15. train_async_churn — ``train_churn``'s layout and kill under the
+             async tick: losses equal to ``train_async``'s to the bit,
+             exactly once.
+16. serve_shared — ``ServeRunner`` serving swarm-1b (three shared
+             groups, each applied 16 times) at full width and depth over
+             3 stages, one decode chain (0,2)->(2,3): tokens identical to
+             the single-process reference; then with the int8 wire, one
+             QDQ launch per span-edge crossing.
+17. serve_codec — swarm-1b-bottleneck session programs (the learned
+             codec at both stage edges) over (0,2)+(2,3) against one
+             (0,3) program, token for token, two encode and two decode
+             launches a prefill and a decode step; every stage's decode
+             steps against its no-cache recompute at two applications
+             per group, bounded in bf16 (the served path) and in an f32
+             twin, each bound shown to see two planted cache faults;
+             reported in bf16 at full depth, beside the f32 rounding
+             spread of the full depth's logits.
+18. train_rollback — checkpoints every 2 steps under ``build/``; stage
              1's only peer dies during step 4 and its replacement finds
              no donor: global rollback to the step-2 cut and replay; a
              new runner cold-starts on the directory and trains step 5.
              Losses equal to the staged reference's to the bit; bytes and
              seconds per save and for the resume's restore.  Fails early
              when the disk or the host memory is short of two cuts.
-14. wire_codes — the true wire format (int8 codes + f32 scales) through
+19. wire_codes — the true wire format (int8 codes + f32 scales) through
              the ops entry points of ``encode_quantize`` /
              ``dequantize_decode`` and the quant8 pair, on swarm-1b's
              boundary: the priced payload, and the decoded state equal
              to the fused QDQ wire's to the bit.
-15. train_profile — one training microbatch under ``torch.profiler``:
+20. train_profile — one training microbatch under ``torch.profiler``:
              device time per kernel, grouped, and the device's idle
              share.
 
@@ -1166,16 +1194,18 @@ def prompts_for(cfg):
 
 
 def make_runner(torch, cfg, params, codec: str, spare: bool,
-                quant_block: int = 64):
+                quant_block: int = 64, n_stages: int = 4):
+    """A ``ServeRunner`` over ``n_stages`` with one decode chain
+    (0,2) -> (2,n_stages) (and a spare second peer with ``spare``)."""
     from repro_torch.serve import ServeConfig, ServeRunner
-    r = ServeRunner(cfg, ServeConfig(n_stages=4, max_batch=MAX_BATCH,
+    r = ServeRunner(cfg, ServeConfig(n_stages=n_stages, max_batch=MAX_BATCH,
                                      max_sessions=1 if spare else 2,
                                      codec=codec, quant_block=quant_block),
                     params=params, device="cuda")
     r.add_peer((0, 2), pool="decode", name="d0")
-    r.add_peer((2, 4), pool="decode", name="d1")
+    r.add_peer((2, n_stages), pool="decode", name="d1")
     if spare:
-        r.add_peer((2, 4), pool="decode", name="d1spare")
+        r.add_peer((2, n_stages), pool="decode", name="d1spare")
     return r
 
 
@@ -1262,7 +1292,8 @@ def free(torch) -> None:
 
 
 def phase_serve(torch, cfg, params, prompts, ref, codec: str,
-                quant_block: int = 64) -> dict:
+                quant_block: int = 64, n_stages: int = 4,
+                name: str = None) -> dict:
     """Serve the prompts through the chain; tokens identical to ``ref``
     (plain wire), or with the int8 wire of blocks of ``quant_block`` to
     the chain's programs with the plain int8 round trip at the edge."""
@@ -1272,7 +1303,7 @@ def phase_serve(torch, cfg, params, prompts, ref, codec: str,
     from repro_torch.models.stage_plan import get_stage_plan
     torch.cuda.reset_peak_memory_stats()
     r = make_runner(torch, cfg, params, codec, spare=False,
-                    quant_block=quant_block)
+                    quant_block=quant_block, n_stages=n_stages)
     kernels.reset_launches()
     toks, reqs, summary, secs = serve(torch, r, prompts)
     launches = dict(kernels.LAUNCHES)
@@ -1292,16 +1323,20 @@ def phase_serve(torch, cfg, params, prompts, ref, codec: str,
             f"(request, token) {np.argwhere(toks != ref)[0].tolist()}")
     if summary["failed"] or summary["completed"] != N_REQ:
         raise AssertionError(f"{codec}: {summary}")
-    # the serving path's kernels (the codec's are the training path's)
-    for name in ("flash_attention_fwd", "rmsnorm") + (
+    # the serving path's kernels (the codec's are the training path's;
+    # rmsnorm only where the model normalises with it)
+    for k in ("flash_attention_fwd",) + (
+            ("rmsnorm",) if cfg.norm == "rmsnorm" else ()) + (
             ("qdq_flat",) if codec == "int8" else ()):
-        if launches[name] <= 0:
-            raise AssertionError(f"{codec}: kernel {name} never launched")
+        if launches[k] <= 0:
+            raise AssertionError(f"{codec}: kernel {k} never launched")
     sessions = N_REQ // r.scfg.max_batch
     crossings = sessions * NEW          # prefill + NEW-1 decode hops
     B = r.scfg.max_batch
-    row = {"phase": "serve" if codec == "none" else "int8" if
-           quant_block == quant8.BLOCK else f"int8_block{quant_block}",
+    if name is None:
+        name = "serve" if codec == "none" else "int8" if \
+            quant_block == quant8.BLOCK else f"int8_block{quant_block}"
+    row = {"phase": name, "arch": cfg.name, "n_stages": n_stages,
            "codec": codec, "quant_block": quant_block,
            "tokens_identical": True,
            "reference": ("single-process model" if codec == "none" else
@@ -1324,7 +1359,7 @@ def phase_serve(torch, cfg, params, prompts, ref, codec: str,
                                  f" != {runner_bytes}")
         # what the int8 wire puts on a link at boundary 1: codes + scales
         # (the stage plan prices the default block)
-        plan = get_stage_plan(cfg, 4)
+        plan = get_stage_plan(cfg, n_stages)
         packed = sessions * (
             quant8.compressed_nbytes(B * PROMPT * d, quant_block)
             + (NEW - 1) * quant8.compressed_nbytes(B * d, quant_block))
@@ -1415,14 +1450,17 @@ def train_opt():
     return adamw(lr=1e-4)
 
 
-def train_reference(torch, cfg, steps: int, device="cuda") -> list:
+def train_reference(torch, cfg, steps: int, device="cuda",
+                    opt=None) -> list:
     """The staged reference's per-step losses from the same seed (the
-    same stage params a ``SwarmRunner(seed=0)`` installs)."""
+    same stage params a ``SwarmRunner(seed=0)`` installs), driven by
+    ``opt`` (default ``train_opt()``)."""
     from repro_torch.runtime import build_stage_programs
     from repro_torch.train.reference import reference_losses
     progs = build_stage_programs(cfg, 3, TRAIN_SEQ)
+    opt = train_opt() if opt is None else opt
     losses = _counted(torch, lambda: reference_losses(
-        cfg, progs, train_opt(), 0, steps, TRAIN_SEQ, TRAIN_MB, TRAIN_GB,
+        cfg, progs, opt, 0, steps, TRAIN_SEQ, TRAIN_MB, TRAIN_GB,
         device=device))
     del progs
     free(torch)
@@ -1788,6 +1826,290 @@ def phase_train_span_rebalance(torch, train: dict) -> dict:
                        setup=setup, check=check)
 
 
+# ------------------------------------------------------ phases 13-17
+# the async tick, then serving shared layers and a learned codec
+def phase_train_overlap(torch, train: dict) -> dict:
+    """``train``'s setup under the async tick's in-flight transfers and
+    dispatch/collect (``overlap=True, staleness=0``): only the virtual
+    clock moves, so the losses equal ``train``'s to the bit; edges ride
+    in flight and the virtual makespan is no longer than ``train``'s."""
+    def check(runner, m):
+        if not (m["inflight_bytes"] > 0 and m["overlap_fraction"] > 0):
+            raise AssertionError(f"train_overlap: in-flight bytes "
+                                 f"{m['inflight_bytes']}, overlap "
+                                 f"fraction {m['overlap_fraction']}")
+        if runner._t_stopped > train["virtual_s"] + 1e-9:
+            raise AssertionError(f"train_overlap: virtual makespan "
+                                 f"{runner._t_stopped} > train's "
+                                 f"{train['virtual_s']}")
+        return {k: m[k] for k in ("inflight_bytes", "overlap_fraction",
+                                  "wire_serial_s", "wire_inflight_s")} | {
+            "train_virtual_s": train["virtual_s"]}
+
+    return phase_train(torch, "train_overlap", swarm1b(), TRAIN_STEPS,
+                       train["losses"], exact=True, check=check,
+                       overlap=True, staleness=0)
+
+
+def _dpu_state_check(name: str):
+    """A ``check`` for the staleness=1 phases: every live peer holds the
+    DPU-wrapped optimizer state, its 0-d flag set after the first step."""
+    def check(runner, m):
+        for p in runner.peers.values():
+            if not p.alive:
+                continue
+            for s in p.stages:
+                opt = p.state.stage_view(s).opt
+                if "have_banked" not in opt or not bool(opt["have_banked"]):
+                    raise AssertionError(f"{name}: peer {p.id} stage {s} "
+                                         f"holds no banked DPU state")
+        return {k: m[k] for k in ("inflight_bytes", "overlap_fraction")} | {
+            "step_time": m["step_time"]}
+    return check
+
+
+def phase_train_async(torch) -> dict:
+    """``train_overlap`` with ``staleness=1``: the runner wraps AdamW in
+    delayed parameter updates and the All-Reduce window runs beside the
+    next round; losses held to the staged reference driven by
+    ``delayed_parameter_updates(train_opt(), 1)`` on the same card and
+    weights, under ``train``'s bounds."""
+    from repro_torch.optim import delayed_parameter_updates
+    ref = train_reference(torch, swarm1b(), TRAIN_STEPS,
+                          opt=delayed_parameter_updates(train_opt(), 1))
+    return phase_train(torch, "train_async", swarm1b(), TRAIN_STEPS, ref,
+                       check=_dpu_state_check("train_async"),
+                       overlap=True, staleness=1)
+
+
+def phase_train_async_churn(torch, train_async: dict) -> dict:
+    """``train_churn``'s layout and kill under the async tick with
+    staleness=1: each (stage, microbatch) admitted exactly once, the
+    ledger drained, losses equal to ``train_async``'s to the bit."""
+    return phase_train(torch, "train_async_churn", swarm1b(), TRAIN_STEPS,
+                       train_async["losses"], peers=[1, 2, 1], kill=True,
+                       exact=True, check=_dpu_state_check(
+                           "train_async_churn"),
+                       overlap=True, staleness=1)
+
+
+def phase_serve_shared(torch) -> list:
+    """``ServeRunner`` serving swarm-1b (three ALBERT-shared groups, each
+    applied 16 times) at full width and depth over 3 stages, one decode
+    chain (0,2) -> (2,3): tokens identical to the single-process
+    reference, then with the int8 wire (one QDQ launch per span-edge
+    crossing)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import params as P
+    from repro_torch.serve import reference_generate
+    cfg = get_config("swarm-1b")
+    free(torch)
+    params = P.init(0, model_lib.lm_specs(cfg), "cuda")
+    prompts = prompts_for(cfg)
+    ref = _counted(torch, lambda: np.concatenate([
+        reference_generate(cfg, params, prompts[i:i + MAX_BATCH], NEW)
+        for i in range(0, N_REQ, MAX_BATCH)]))
+    rows = [phase_serve(torch, cfg, params, prompts, ref, codec,
+                        n_stages=3, name=name)
+            for codec, name in (("none", "serve_shared"),
+                                ("int8", "serve_shared_int8"))]
+    del params, ref
+    free(torch)
+    return rows
+
+
+# A decode step against the no-cache recompute: with causal attention a
+# stage's prefill over a sequence gives, row for row, what a prefill of
+# each prefix gives, so one prefill per stage recomputes every step.
+# Each stage is fed the same input sequence on both paths (the previous
+# stage's recompute), so one stage's error does not compound into the
+# next.  With random weights the full 48 applications are ill-conditioned:
+# rounding alone (the same f32 prefill at batch 2 against batch 1, the
+# row's ``rounding_spread_f32``) moves the logits by several per cent of
+# their scale, so the bounds hold swarm-1b-bottleneck's widths and
+# weights at two applications per group (n_layers 6): the served bf16
+# path within ``CODEC_RTOL_BF16`` and an f32 twin within
+# ``CODEC_RTOL_F32``.  Each bound is shown to see two planted faults,
+# every application reading its neighbour's cache (the group-major index
+# off by one) and the newest prompt row of every cache zeroed: each
+# stage's planted error must exceed the bound.  The full depth's bf16
+# errors are reported beside them.
+CODEC_RTOL_BF16 = 0.1
+CODEC_RTOL_F32 = 5e-3
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max())
+
+
+def _plant(cache: list, kind: str) -> None:
+    """Plant a fault in a stage's stacked caches ``[n * reps, B, T, KV,
+    hd]`` in place: ``"apps"`` rolls the applications by one, ``"row"``
+    zeroes the newest prompt row."""
+    from repro_torch.tree import tree_leaves
+    for leaf in tree_leaves(cache):
+        if kind == "apps":
+            leaf.copy_(leaf.roll(1, 0))
+        else:
+            leaf[:, :, PROMPT - 1] = 0
+
+
+def phase_serve_codec(torch) -> dict:
+    """swarm-1b-bottleneck served through session programs (its learned
+    4096 -> 1024 codec at both stage edges), stage weights from
+    ``init_stage_params``: the chain (0,2) -> (2,3) against one (0,3)
+    program, token for token, with two encode and two decode launches a
+    prefill and a decode step (boundaries 0-1 and 1-2); then every
+    stage's decode steps against its no-cache recompute at two
+    applications per group, bounded by ``CODEC_RTOL_BF16`` in bf16 and
+    ``CODEC_RTOL_F32`` in an f32 twin, each bound shown to see a planted
+    fault; reported in bf16 at full depth."""
+    from repro_torch import kernels
+    from repro_torch.runtime import build_stage_programs, init_stage_params
+    from repro_torch.runtime.stage_model import _head_logits
+    from repro_torch.serve.programs import _make_stage_decode, \
+        _make_stage_prefill, build_session_program
+    cfg = swarm1b()
+    free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_stage_params(build_stage_programs(cfg, 3, TRAIN_SEQ), 0)
+    total = PROMPT + NEW
+    progs = {sp: build_session_program(cfg, 3, sp, total)
+             for sp in ((0, 2), (2, 3), (0, 3))}
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (MAX_BATCH, PROMPT),
+                         generator=gen, device="cuda", dtype=torch.int32)
+
+    def generate(chain):
+        """Greedy tokens [B, NEW] through the chain's programs, the
+        kernel launches of each call, prefill s and decode s."""
+        ps = [tuple(params[lo:hi]) for lo, hi in chain]
+        calls = []
+        torch.cuda.synchronize()
+        t0 = time.time()
+        kernels.reset_launches()
+        x, kvs = toks, []
+        for sp, p in zip(chain, ps):
+            x, kv = progs[sp].prefill(p, x)
+            kvs.append(kv)
+        calls.append(dict(kernels.LAUNCHES))
+        torch.cuda.synchronize()
+        t_pre, out = time.time() - t0, [x]
+        t0 = time.time()
+        for i in range(NEW - 1):
+            kernels.reset_launches()
+            for j, (sp, p) in enumerate(zip(chain, ps)):
+                x, kvs[j] = progs[sp].decode(p, kvs[j], x, PROMPT + i)
+            calls.append(dict(kernels.LAUNCHES))
+            out.append(x)
+        torch.cuda.synchronize()
+        return torch.cat(out, 1), calls, t_pre, time.time() - t0
+
+    # the first run warms the programs up; the second is timed
+    warm = generate(((0, 2), (2, 3)))[0]
+    chain, calls, t_pre, t_dec = generate(((0, 2), (2, 3)))
+    fused, fused_calls, _, _ = generate(((0, 3),))
+    if not (torch.equal(chain, fused) and torch.equal(chain, warm)):
+        raise AssertionError("serve_codec: the (0,2)+(2,3) chain's tokens "
+                             "differ from the (0,3) program's or its own")
+    for name, cs in (("chain", calls), ("fused", fused_calls)):
+        bad = [(i, c["encode"], c["decode"]) for i, c in enumerate(cs)
+               if (c["encode"], c["decode"]) != (2, 2)]
+        if bad:
+            raise AssertionError(f"serve_codec: {name} (call, encode, "
+                                 f"decode) launches {bad}, want 2 and 2")
+    seq = torch.cat([toks, chain[:, :NEW - 1]], 1)
+
+    def stage_errors(c, plant=None):
+        """Per stage, the relative error of each decode step's output
+        (the wire, or the last stage's hidden state and logits) against
+        its recompute, the stages fed the same input sequence; with
+        ``plant``, a fault planted in every stage's caches (:func:`_plant`)
+        after its prompt's prefill."""
+        out = {"stages": [], "logits": []}
+        with torch.inference_mode():
+            X = seq
+            for s in range(3):
+                pre = _make_stage_prefill(c, s, 3, "bottleneck", True)
+                dec = _make_stage_decode(c, s, 3, "bottleneck", True)
+                Y, _ = pre(params[s], X, total)
+                _, cache = pre(params[s], X[:, :PROMPT], total)
+                if plant:
+                    _plant(cache, plant)
+                errs = []
+                for i in range(NEW - 1):
+                    t = PROMPT + i
+                    y, _ = dec(params[s], cache, X[:, t:t + 1], t)
+                    errs.append(_rel(y, Y[:, t:t + 1]))
+                    if s == 2:
+                        out["logits"].append(_rel(
+                            _head_logits(c, params[2], y),
+                            _head_logits(c, params[2], Y[:, t:t + 1])))
+                out["stages"].append(errs)
+                del cache
+                X = Y
+        return out
+
+    def worst(errs) -> list:
+        """Each stage's largest error (the logits' with the last's)."""
+        w = [max(e) for e in errs["stages"]]
+        w[-1] = max(w[-1], max(errs["logits"]))
+        return w
+
+    errs16 = stage_errors(cfg)
+    c16 = cfg.with_overrides(n_layers=6)
+    c32 = cfg.with_overrides(compute_dtype="float32")
+    c32_6 = c32.with_overrides(n_layers=6)
+    checks = {}
+    for name, c, rtol in (("bf16", c16, CODEC_RTOL_BF16),
+                          ("f32", c32_6, CODEC_RTOL_F32)):
+        sound = stage_errors(c)
+        checks[name] = {"rtol": rtol, "sound": sound,
+                        "sound_worst": worst(sound),
+                        "apps_planted_worst": worst(stage_errors(c, "apps")),
+                        "row_planted_worst": worst(stage_errors(c, "row"))}
+        if max(worst(sound)) > rtol:
+            raise AssertionError(f"serve_codec: {name} decode steps vs "
+                                 f"recompute {sound}, bound {rtol}")
+        for plant in ("apps", "row"):
+            got = checks[name][f"{plant}_planted_worst"]
+            if min(got) <= rtol:
+                raise AssertionError(f"serve_codec: the {name} bound {rtol} "
+                                     f"misses a planted fault ({plant}): "
+                                     f"{got}")
+    # the conditioning of the full depth: the same f32 prefill, batch 2
+    # against batch 1 (the library picks other GEMM kernels)
+    with torch.inference_mode():
+        a, b = seq, seq[:1]
+        for s in range(3):
+            pre = _make_stage_prefill(c32, s, 3, "bottleneck", True)
+            a, _ = pre(params[s], a, total)
+            b, _ = pre(params[s], b, total)
+        spread = _rel(_head_logits(c32, params[2], a[:1, -1:]),
+                      _head_logits(c32, params[2], b[:, -1:]))
+    B = MAX_BATCH
+    row = {"phase": "serve_codec", "arch": cfg.name, "codec": "bottleneck",
+           "spans": [[0, 2], [2, 3]], "tokens_identical_to": "(0,3)",
+           "launches_per_call": {"encode": 2, "decode": 2},
+           "launches": calls[1],
+           "rtol_bf16": CODEC_RTOL_BF16, "rtol_f32": CODEC_RTOL_F32,
+           "two_applications": checks,
+           "bf16_full_depth_stage_rel_err": errs16["stages"],
+           "bf16_full_depth_logits_rel_err": errs16["logits"],
+           "rounding_spread_f32": spread,
+           "prefill_tokens_per_s": B * PROMPT / t_pre, "prefill_s": t_pre,
+           "decode_ms_per_token": t_dec / (NEW - 1) * 1e3,
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9}
+    emit(row)
+    del params, progs, a, b, warm
+    free(torch)
+    return row
+
+
 def _cut_bytes(root: str, step: int) -> int:
     """Bytes on disk of checkpoint ``step`` over every stage dir."""
     total = 0
@@ -2100,6 +2422,17 @@ def main() -> None:
     for phase in (phase_train_span, phase_train_span_resize,
                   phase_train_span_rebalance):
         phase(torch, train)
+    # the async tick: in-flight edges (losses to train's bit), then
+    # delayed parameter updates behind the bounded-staleness barrier
+    t_new = time.time()
+    phase_train_overlap(torch, train)
+    train_async = phase_train_async(torch)
+    phase_train_async_churn(torch, train_async)
+    # serving the paper's own model (shared groups) and a learned codec
+    phase_serve_shared(torch)
+    phase_serve_codec(torch)
+    emit({"phase": "async_and_shared_serving_done",
+          "seconds": time.time() - t_new})
     phase_train_rollback(torch, ref_losses)
     launches.update(phase_wire_codes(torch)["launches"])
     phase_train_profile(torch)

@@ -118,18 +118,20 @@ def wire_qblock(cfg: ArchConfig, compress: Optional[str] = None) -> int:
 
 
 def encode_wire(cfg: ArchConfig, mode: str, p: Tree,
-                x: torch.Tensor) -> torch.Tensor:
+                x: torch.Tensor, quant: Optional[bool] = None
+                ) -> torch.Tensor:
     """Sending side of a boundary crossing: codec encode (+ the blockwise
-    int8 wire QDQ under ``cfg.wire_quant``) through the autograd op of
-    :mod:`repro_torch.kernels.boundary.ops` — the ``encode`` kernel on a
-    CUDA tensor, the plain version on a CPU tensor."""
+    int8 wire QDQ under ``quant``, default ``cfg.wire_quant``) through
+    the autograd op of :mod:`repro_torch.kernels.boundary.ops` — the
+    ``encode`` kernel on a CUDA tensor, the plain version on a CPU
+    tensor."""
     if mode not in LEARNED:
         return x
     from repro_torch.kernels.boundary import ops as bops
     w = (p or {}).get("w_c") if mode == "bottleneck" else None
     k = maxout_k(cfg) if mode == "maxout" else 1
     return bops.encode_wire(x, w, mode, k, wire_qblock(cfg, mode),
-                            cfg.wire_quant)
+                            cfg.wire_quant if quant is None else quant)
 
 
 def decode_wire(cfg: ArchConfig, mode: str, p: Tree,

@@ -1,5 +1,5 @@
 """SwarmRunner — elastic SWARM training on the virtual clock (port of
-``repro.core.swarm``, synchronous tick).
+``repro.core.swarm``).
 
 Composition (paper Fig. 2): consecutive swarms of peers serve pipeline
 stages; trainer processes route microbatches via stochastic wiring; a
@@ -34,8 +34,11 @@ Two modes:
                    plan (the paper's throughput and preemption
                    experiments).
 
-``overlap`` and ``staleness``/``dpu`` come with the async slice and
-raise ``NotImplementedError`` until then (ROADMAP queue 1 item 4(b)).
+The async tick (``SwarmConfig.overlap`` / ``staleness`` / ``dpu``):
+boundary tensors ride the peers' links in flight, stage math goes
+through the executors' dispatch/collect pair, and the All-Reduce window
+runs beside the next round's compute, with delayed parameter updates
+keeping the trajectory the sequential DPU reference's.
 """
 from __future__ import annotations
 
@@ -64,14 +67,28 @@ from repro_torch.tree import tree_map
 
 Tree = Any
 
-_ASYNC = "ROADMAP queue 1 item 4(b), async overlap"
-
-
 @dataclasses.dataclass
 class SwarmConfig:
     """Swarm-level knobs (the architecture lives in ``ArchConfig``); the
     JAX package's fields and defaults, minus the deprecated ``compress``
-    spelling.  Fields of later slices must keep their defaults.
+    spelling.
+
+    The async tick is controlled by two fields:
+
+    * ``overlap`` — boundary tensors ride the peers' links as in-flight
+      transfers (priced end to end at the sending/receiving pair's
+      bottleneck) instead of two blocking serial sleeps, and stage math
+      goes through the executors' dispatch/collect pair.  Pure timing:
+      the losses are those of the blocking tick, float for float.
+    * ``staleness`` — bounded staleness for the All-Reduce window: the
+      optimizer step's numerics apply at the barrier instant while the
+      window's time runs beside the next round's compute; at most
+      ``staleness`` windows may be unfinished before the next barrier
+      waits on the oldest.  Any value > 0 wraps the optimizer in
+      ``delayed_parameter_updates`` (DPU, paper §3.2), so the trajectory
+      equals the sequential DPU(delay=1) reference; 0 keeps the
+      synchronous barrier.  ``dpu=True`` is the historical spelling of
+      ``staleness=1``.
 
     ``ckpt_dir``: persist a pipeline-consistent cut of every stage's
     state each ``ckpt_period`` completed steps; a stage that loses all
@@ -117,11 +134,9 @@ class SwarmConfig:
         if self.staleness < 0:
             raise ValueError(f"staleness must be >= 0, got "
                              f"{self.staleness}")
-        for name in ("dpu", "overlap", "staleness"):
-            if getattr(self, name):
-                raise NotImplementedError(
-                    f"SwarmRunner: SwarmConfig.{name} is not ported yet "
-                    f"({_ASYNC})")
+        if self.dpu:
+            # historical spelling of the bounded-staleness knob
+            self.staleness = max(self.staleness, 1)
 
 
 def _as_span(stage: "int | range") -> range:
@@ -143,7 +158,16 @@ class SwarmRunner:
         tensors and reads no device."""
         self.cfg = cfg
         self.scfg = scfg
+        if scfg.staleness > 0:
+            # bounded staleness implies DPU: the step applies the grads
+            # banked one round ago while this round's fold rides the
+            # concurrent All-Reduce window (paper §3.2).  Wrapping here
+            # keeps checkpoints, the reference init and every
+            # export/adopt consistent with the wrapped state's shape.
+            from repro_torch.optim.dpu import delayed_parameter_updates
+            optimizer = delayed_parameter_updates(optimizer, delay=1)
         self.optimizer = optimizer
+        self.overlap = bool(scfg.overlap)
         self.numeric = numeric
         self.sim = Sim()
         self.dht = DHT(lambda: self.sim.now)
@@ -209,7 +233,14 @@ class SwarmRunner:
                                      # host (fused boundaries: none)
             "ckpt_restores": [],     # (stage, restored-from step)
             "rollbacks": [],         # (step rolled back from, to)
+            # async-tick accounting (overlap mode): what the same edges
+            # would have cost as blocking send + recv pairs, and what
+            # they took in flight; run() derives overlap_fraction
+            "wire_serial_s": 0.0,
+            "wire_inflight_s": 0.0,
+            "inflight_bytes": 0.0,
         }
+        self._ar_pending: list = []  # unfinished All-Reduce windows
         self._samples_done_total = 0
         self._default_ds = None
         # cold-start resume: a non-empty ckpt_dir means this runner
@@ -436,6 +467,18 @@ class SwarmRunner:
         """One boundary tensor actually crossed the host."""
         self.metrics["wire_bytes"] += nbytes
 
+    def count_inflight_wire(self, serial_s: float, actual_s: float,
+                            nbytes: float):
+        """One in-flight edge landed (overlap mode): ``serial_s`` is what
+        the blocking send + recv pair would have cost, ``actual_s`` what
+        the trainer really waited.  Clamped per edge: a wait beyond the
+        serial estimate is FIFO queueing on a contended link (the sync
+        path prices links as infinitely parallel), not negative overlap,
+        so it must not cancel savings other edges really hid."""
+        self.metrics["wire_serial_s"] += serial_s
+        self.metrics["wire_inflight_s"] += min(actual_s, serial_s)
+        self.metrics["inflight_bytes"] += nbytes
+
     # ================================================== gradient sync
     def accumulate(self, peer: Peer, gp: Optional[Tree], mb: Microbatch,
                    loss: Optional[float], stage: Optional[int] = None
@@ -475,6 +518,9 @@ class SwarmRunner:
     def _sync_loop(self):
         """Trigger All-Reduce + optimizer step when the ledger shows the
         full global batch accumulated at every stage."""
+        if self.scfg.staleness > 0:
+            yield from self._sync_loop_async()
+            return
         while not self.stopped:
             # barrier: every stage holds every index AND nothing is in
             # flight (an in-flight re-issue may still run stale thunks
@@ -493,22 +539,80 @@ class SwarmRunner:
                 self.stopped = True
                 self._t_stopped = self.sim.now
 
+    def _sync_loop_async(self):
+        """Bounded-staleness barrier (``scfg.staleness`` > 0): the step's
+        numerics apply atomically at the barrier instant (the gradients
+        and install order of the sync path, so the trajectory equals the
+        sequential DPU reference), while the All-Reduce *time* rides a
+        concurrent window off the critical path — the next round's
+        compute starts at once.  At most ``staleness`` windows may be
+        unfinished before the next barrier waits on the oldest; dispatch
+        never pauses (no yields between barrier detection and the
+        round's reopening)."""
+        last_barrier = 0.0
+        while not self.stopped:
+            if not self.ledger.complete() or self._inflight > 0:
+                yield Sleep(0.2)
+                continue
+            self._ar_pending = [ev for ev in self._ar_pending
+                                if not ev.fired]
+            if len(self._ar_pending) >= self.scfg.staleness:
+                yield self._ar_pending[0].wait()
+                # re-check the barrier: a peer that died during the wait
+                # released ledger rows whose recomputes are now in
+                # flight (the JAX package steps here on the incomplete
+                # round, then trips over their stale settles)
+                continue
+            total = yield from self._all_reduce_and_step(window=True)
+            # step_time = the inter-barrier interval: with the window off
+            # the critical path this is the number to compare to sync
+            self.metrics["step_time"].append(self.sim.now - last_barrier)
+            last_barrier = self.sim.now
+            ev = self.sim.event()
+            self._ar_pending.append(ev)
+            self.sim.spawn(self._ar_window(total, ev))
+            self._open_round()
+            if (self.scfg.max_steps is not None
+                    and self.step >= self.scfg.max_steps):
+                self.stopped = True
+                self._t_stopped = self.sim.now
+
+    def _ar_window(self, duration: float, ev):
+        yield Sleep(duration)
+        ev.fire()
+
     def _log_releases(self, lost: list[tuple[int, int]], peer_id: str):
         if self.record_accumulation:
             for s, i in lost:
                 self.ledger_log.append(("rel", self.step, s, i, 0, peer_id))
 
-    def _all_reduce_and_step(self):
+    def _all_reduce_and_step(self, window: bool = False):
         """Per-stage ring All-Reduce (time) + optimizer step (numerics).
-        All numerics are computed at the barrier instant, so failures
-        inside the All-Reduce window cannot remove gradients from a step
-        that already observed the complete global batch."""
+
+        Synchronous barrier: every stage's step is computed at the
+        barrier instant, before the first sleep, so failures inside the
+        All-Reduce window cannot remove gradients from a step that
+        already observed the complete global batch; each stage installs
+        after its ring's time.  ``window=True`` (the bounded-staleness
+        barrier): nothing is slept — each stage installs as soon as it is
+        computed (no time passes, so the numerics are the same, and only
+        one stage's old and new state are alive together) — and the
+        generator returns the summed All-Reduce time for the concurrent
+        window."""
         plan = self._ar_plan()
+        if not window:
+            plan = list(plan)
+        total = 0.0
         for s, group, ar_time, new_params, new_opt in plan:
-            yield Sleep(ar_time)
+            if window:
+                total += ar_time
+            else:
+                yield Sleep(ar_time)
             self._ar_install(s, group, new_params, new_opt)
+            del new_params, new_opt
         self.step += 1
         self._maybe_checkpoint()
+        return total
 
     def _ar_install(self, s: int, group: list, new_params, new_opt):
         for p in group:
@@ -521,13 +625,13 @@ class SwarmRunner:
                 p.state.stage_view(s).zero_grads()
 
     def _ar_plan(self):
-        """Gradient averaging + optimizer step per stage: the group's
-        gradients summed (in f64, order-independent: see
+        """Gradient averaging + optimizer step, one stage at a time as the
+        caller draws (shared by the sync and bounded-staleness barriers):
+        the group's gradients summed (in f64, order-independent: see
         ``runtime.base.fold_into``) and divided by the group's token
         count, the update applied as ``p + u.to(p.dtype)``."""
         if self.record_accumulation:
             self.ledger_log.append(("step", self.step, -1, -1, 0, ""))
-        plan = []
         for s in range(self.n_stages):
             # non-serving peers are mid-download: stale params, drained
             # grads — they adopt the stepped state when the download ends
@@ -541,7 +645,7 @@ class SwarmRunner:
             ar_time = (2 * (k - 1) / max(k, 1)) * nbytes \
                 / self.scfg.allreduce_bw + 0.01 * k
             if not self.numeric:
-                plan.append((s, group, ar_time, None, None))
+                yield s, group, ar_time, None, None
                 continue
             total_tokens = sum(p.state.stage_view(s).token_count
                                for p in group)
@@ -557,12 +661,14 @@ class SwarmRunner:
             updates, new_opt = self.optimizer.update(gmean, opt, params)
             new_params = tree_map(lambda p, u: p + u.to(p.dtype), params,
                                   updates)
-            del gsum, gmean, updates
+            # hold no reference to the old state across the yield: a
+            # caller that installs before drawing the next stage frees it
+            del gsum, gmean, updates, params, opt
             loss_sum = sum(p.state.stage_view(s).loss_sum for p in group)
             if s == self.n_stages - 1 and total_tokens:
                 self.metrics["loss"].append(loss_sum / total_tokens)
-            plan.append((s, group, ar_time, new_params, new_opt))
-        return plan
+            yield s, group, ar_time, new_params, new_opt
+            del new_params, new_opt
 
     # ================================================== rebalancing
     def _rebalance_loop(self):
@@ -781,7 +887,11 @@ class SwarmRunner:
         downloaded before a later stage's download ended, is a version
         behind its live covers when a step landed meanwhile.  No
         transfer time is charged, so timing-only runs are unchanged.
-        (The JAX package serves such a stage stale.)"""
+        (The JAX package serves such a stage stale.)  The
+        bounded-staleness barrier installs its step the same way, at the
+        barrier instant and into serving peers only, so the same single
+        re-adoption holds there; under DPU the banked gradients travel
+        in the snapshot's ``opt`` with the moments."""
         if peer.executor is None:
             return
         for s in peer.stages:
@@ -1009,6 +1119,12 @@ class SwarmRunner:
         m = self.metrics
         m["peer_idle_s"] = {pid: p.total_idle(t_end)
                             for pid, p in self.peers.items()}
+        # how much of the serial wire cost the in-flight transfers hid;
+        # clamped: an all-span swarm has no peer-to-peer edge to hide, so
+        # in-flight equals serial up to float noise — 0, not -1e-15
+        m["overlap_fraction"] = max(0.0, (
+            1.0 - m["wire_inflight_s"] / m["wire_serial_s"]
+            if m["wire_serial_s"] > 0 else 0.0))
         return self.metrics
 
     def throughput(self, window: Optional[float] = None) -> float:

@@ -1,5 +1,5 @@
 """Trainer processes (paper §3.2 / App. C; port of
-``repro.core.trainer``, synchronous tick).
+``repro.core.trainer``).
 
 Trainers own no parameters and no device: they form microbatches and
 route them through the pipeline as a chain of *hops* — one peer per
@@ -11,8 +11,12 @@ checkpointing, App. A); a re-routed backward hop must cover the SAME
 span (the cotangent in hand is pinned to that span's edges).
 
 Stage execution and wire handling go through the peer's
-:class:`repro_torch.runtime.StageExecutor`.  The async tick (in-flight
-transfers, dispatch/collect) comes with the async slice.
+:class:`repro_torch.runtime.StageExecutor`.  Under the async tick
+(``swarm.overlap``) each edge's tensor is one in-flight transfer on the
+peers' links, priced end to end at the pair's bottleneck, instead of two
+blocking sleeps; the synchronous path keeps its two sleeps.  In both
+modes stage math goes through the executors' dispatch/collect pair,
+collected at once.
 """
 from __future__ import annotations
 
@@ -93,6 +97,7 @@ class Trainer:
         swarm = self.swarm
         S = swarm.n_stages
         numeric = swarm.numeric
+        overlap = swarm.overlap
         hops: list[_Hop] = []
 
         # ---------------- forward (hop chain over spans)
@@ -118,28 +123,50 @@ class Trainer:
                 mb.n_tokens * 4.0
             t0 = self.sim.now
             try:
-                yield Sleep(peer.profile.recv_time(nbytes))
+                if overlap:
+                    # one in-flight transfer prices the whole edge at the
+                    # pair's bottleneck (vs the serial send + recv pair);
+                    # the sender's uplink is occupied, never its queue
+                    prev = hops[-1].peer if hops else None
+                    serial = peer.profile.recv_time(nbytes) + (
+                        prev.profile.send_time(nbytes)
+                        if prev is not None else 0.0)
+                    tw = self.sim.now
+                    yield peer.recv(nbytes, frm=prev).wait()
+                    swarm.count_inflight_wire(
+                        serial, self.sim.now - tw, nbytes)
+                else:
+                    yield Sleep(peer.profile.recv_time(nbytes))
                 if s > 0:        # a real host boundary crossing
                     swarm.count_wire_bytes(nbytes)
                 inp = x
                 if numeric:
                     # the executor runs the whole span AND produces the
-                    # wire tensor that crosses to the next hop
+                    # wire tensor that crosses to the next hop; the
+                    # program is launched when the thunk runs, and
+                    # collect orders the consumer behind its launches
                     if covers_last:
                         thunk = (lambda _p=peer, _i=inp:
-                                 _p.executor.run_fwd(_p.state, _i,
-                                                     mb.labels))
+                                 _p.executor.dispatch_fwd(
+                                     _p.state, _i, mb.labels)())
                     else:
                         thunk = (lambda _p=peer, _i=inp:
                                  _p.executor.wire_fwd(
-                                     _p.executor.run_fwd(_p.state, _i)))
+                                     _p.executor.dispatch_fwd(
+                                         _p.state, _i)()))
                 else:
                     thunk = lambda: None
                 ct = swarm.compute_time(peer, "fwd", s, mb)
                 y = yield peer.submit("fwd", ct, thunk).wait()
-                yield Sleep(peer.profile.send_time(
-                    self._boundary_bytes(mb, span.stop - 1)
-                    if not covers_last else 64.0))
+                if overlap:
+                    if covers_last:     # the scalar loss back to us
+                        yield peer.send(64.0).wait()
+                    # else: the next hop's recv prices this edge once,
+                    # end to end — nothing to wait on here
+                else:
+                    yield Sleep(peer.profile.send_time(
+                        self._boundary_bytes(mb, span.stop - 1)
+                        if not covers_last else 64.0))
                 self.wiring.observe(peer.id, self.sim.now - t0)
                 hops.append(_Hop(peer, span, inp))
                 x = y
@@ -154,6 +181,7 @@ class Trainer:
         # ---------------- backward (reverse hop chain, re-routable)
         loss_sum = float(x) if numeric else 0.0
         dy = None
+        bwd_prev: Optional[Peer] = None   # who produced the dy in hand
         h = len(hops) - 1
         retries = 0
         while h >= 0:
@@ -177,21 +205,30 @@ class Trainer:
             nbytes = self._boundary_bytes(mb, hop.span.stop - 1)
             t0 = self.sim.now
             try:
-                yield Sleep(peer.profile.recv_time(nbytes))
+                if overlap:
+                    serial = peer.profile.recv_time(nbytes) + (
+                        bwd_prev.profile.send_time(nbytes)
+                        if bwd_prev is not None else 0.0)
+                    tw = self.sim.now
+                    yield peer.recv(nbytes, frm=bwd_prev).wait()
+                    swarm.count_inflight_wire(
+                        serial, self.sim.now - tw, nbytes)
+                else:
+                    yield Sleep(peer.profile.recv_time(nbytes))
                 if not covers_last:      # a cotangent really crossed
                     swarm.count_wire_bytes(nbytes)
                 if numeric and covers_last:
                     def thunk(_p=peer, _i=hop.inp):
-                        loss, gx, gp = _p.executor.run_bwd(
-                            _p.state, _i, labels=mb.labels)
+                        loss, gx, gp = _p.executor.dispatch_bwd(
+                            _p.state, _i, labels=mb.labels)()
                         # the ledger admits each covered (stage, index)
                         # at most once per round
                         self.swarm.accumulate(_p, gp, mb, float(loss))
                         return _p.executor.wire_bwd(gx)
                 elif numeric:
                     def thunk(_p=peer, _i=hop.inp, _dy=dy):
-                        _, gx, gp = _p.executor.run_bwd(_p.state, _i,
-                                                        dy=_dy)
+                        _, gx, gp = _p.executor.dispatch_bwd(
+                            _p.state, _i, dy=_dy)()
                         self.swarm.accumulate(_p, gp, mb, None)
                         return _p.executor.wire_bwd(gx)
                 else:
@@ -200,11 +237,17 @@ class Trainer:
                         return None
                 ct = swarm.compute_time(peer, "bwd", hop.span.start, mb)
                 gx = yield peer.submit("bwd", ct, thunk).wait()
-                yield Sleep(peer.profile.send_time(
-                    self._boundary_bytes(mb, hop.span.start - 1)
-                    if hop.span.start > 0 else 64.0))
+                if overlap:
+                    if hop.span.start == 0:   # grads landed: a tiny ack
+                        yield peer.send(64.0).wait()
+                    # else: the next hop's recv prices this edge
+                else:
+                    yield Sleep(peer.profile.send_time(
+                        self._boundary_bytes(mb, hop.span.start - 1)
+                        if hop.span.start > 0 else 64.0))
                 self.wiring.observe(peer.id, self.sim.now - t0)
                 dy = gx
+                bwd_prev = peer
                 h -= 1
                 retries = 0
             except PeerFailure:

@@ -7,8 +7,12 @@ Where JAX scans over the stack, the port loops over layers and indexes
 the stack (``a[i]`` is a view, no copy).  The GSPMD sharding hints
 (``dist.constrain``) have no effect on one device and are left out;
 ``remat`` is accepted and ignored (serving computes no gradients).
-Serving ALBERT-shared stacks is still to port; the training stage
-programs (``repro_torch.runtime.stage_model``) re-apply shared layers.
+
+ALBERT-style layer sharing (the paper's 1B model, §4.3) stores
+``share_groups`` parameter groups and re-applies each ``reps = n_layers
+/ share_groups`` times.  Decode caches stay one per application,
+stacked group-major as the JAX package stacks them: application ``r``
+of group ``g`` is cache row ``g * reps + r``.
 """
 from __future__ import annotations
 
@@ -35,14 +39,6 @@ def segments(pattern: tuple[str, ...]) -> list[tuple[str, int]]:
     return runs
 
 
-def _no_sharing(cfg: ArchConfig) -> None:
-    if cfg.share_groups:
-        raise NotImplementedError(
-            f"{cfg.name}: serving ALBERT-shared layers is not ported yet "
-            "(ROADMAP queue 1 item 3; the training stage programs share "
-            "them)")
-
-
 def stack_specs(tree: Tree, n: int) -> Tree:
     def s(p: ParamSpec) -> ParamSpec:
         return ParamSpec((n,) + p.shape, p.dtype, p.init,
@@ -60,16 +56,50 @@ def _shared_kind(cfg: ArchConfig) -> str:
     return cfg.block_kinds[0]
 
 
+def _shared_runs(cfg: ArchConfig) -> list[tuple[str, int]]:
+    return [(_shared_kind(cfg), cfg.share_groups)]
+
+
+def model_runs(cfg: ArchConfig) -> tuple[list[tuple[str, int]], int]:
+    """The whole model's ``(runs, reps)``: one run of ``share_groups``
+    groups applied ``reps`` times each for a shared stack, else the
+    pattern's runs applied once."""
+    if cfg.share_groups:
+        return _shared_runs(cfg), cfg.n_layers // cfg.share_groups
+    return segments(cfg.block_kinds), 1
+
+
+# norm parameters are read in f32 by apply_norm (the rmsnorm kernel takes
+# an f32 scale); every other block weight is cast to the activation
+# dtype at its matmul, so casting it once up front computes the same
+_NORM_KEYS = frozenset({"ln1", "ln2"})
+
+
+def compute_cast(tree: Tree, dtype: torch.dtype) -> Tree:
+    """A block's params with every non-norm floating leaf cast to
+    ``dtype`` (a no-op, no copy, where it already has that dtype),
+    outside autograd: what each of a shared layer's applications would
+    cast at its matmuls, cast once."""
+    with torch.no_grad():
+        return {key: (sub if key in _NORM_KEYS else tree_map(
+                    lambda a: a.to(dtype) if a.is_floating_point() else a,
+                    sub))
+                for key, sub in tree.items()}
+
+
 def lm_specs(cfg: ArchConfig) -> Tree:
     """The full model's parameter specs (an ALBERT-shared stack holds
-    ``share_groups`` stacked layers; serving such a stack raises
-    elsewhere)."""
+    ``share_groups`` stacked layers)."""
     d, V, pd = cfg.d_model, cfg.vocab_size, cfg.param_jdtype
     specs: Tree = {
         "embed": ParamSpec((V, d), pd, "embed", ("vocab", "embed")),
         "final_norm": L.norm_specs(cfg),
     }
     if cfg.share_groups:
+        if cfg.n_layers % cfg.share_groups:
+            raise ValueError(f"{cfg.name}: n_layers={cfg.n_layers} not "
+                             f"divisible by share_groups="
+                             f"{cfg.share_groups}")
         specs["blocks"] = [stack_specs(REGISTRY[_shared_kind(cfg)][0](cfg),
                                        cfg.share_groups)]
     else:
@@ -111,33 +141,46 @@ def n_stacked(tree: Tree) -> int:
     return tree_leaves(tree)[0].shape[0]
 
 
+def _applied(seg_params: Tree, i: int, reps: int, dtype) -> Tree:
+    """Layer ``i``'s params as its applications use them: a layer
+    applied ``reps`` > 1 times is cast to the activation dtype once, not
+    once per application (the same numbers)."""
+    p = layer(seg_params, i)
+    return compute_cast(p, dtype) if reps > 1 else p
+
+
 def prefill_runs(cfg: ArchConfig, runs, blocks: list, x: torch.Tensor,
-                 positions: torch.Tensor, cache_len: int):
-    """Walk ``runs`` of stacked blocks over ``x``, emitting each run's
-    decode caches stacked ``[n, ...]`` — shared by ``lm_prefill`` and
-    the staged session programs."""
+                 positions: torch.Tensor, cache_len: int, reps: int = 1):
+    """Walk ``runs`` of stacked blocks over ``x`` (each layer applied
+    ``reps`` times), emitting each run's decode caches stacked
+    ``[n * reps, ...]`` group-major — shared by ``lm_prefill`` and the
+    staged session programs."""
     caches = []
     for (kind, _), seg_params in zip(runs, blocks):
         prefill_fn = REGISTRY[kind][4]
         cs = []
         for i in range(n_stacked(seg_params)):
-            x, _, c = prefill_fn(cfg, layer(seg_params, i), x, positions,
-                                 cache_len)
-            cs.append(c)
+            p = _applied(seg_params, i, reps, x.dtype)
+            for _ in range(reps):
+                x, _, c = prefill_fn(cfg, p, x, positions, cache_len)
+                cs.append(c)
         caches.append(tree_map(lambda *a: torch.stack(a), cs[0], *cs[1:]))
     return x, caches
 
 
 def decode_runs(cfg: ArchConfig, runs, blocks: list, caches: list,
-                x: torch.Tensor, pos: int, positions: torch.Tensor):
-    """One-token walk of ``runs``; each layer writes its cache row in
-    place through a view of the stacked cache, so the stacked caches are
-    returned as they came."""
+                x: torch.Tensor, pos: int, positions: torch.Tensor,
+                reps: int = 1):
+    """One-token walk of ``runs``; each application writes its cache row
+    (``i * reps + r``) in place through a view of the stacked cache, so
+    the stacked caches are returned as they came."""
     for (kind, _), seg_params, seg_cache in zip(runs, blocks, caches):
         decode_fn = REGISTRY[kind][2]
         for i in range(n_stacked(seg_params)):
-            x, _ = decode_fn(cfg, layer(seg_params, i), x,
-                             layer(seg_cache, i), pos, positions)
+            p = _applied(seg_params, i, reps, x.dtype)
+            for r in range(reps):
+                x, _ = decode_fn(cfg, p, x, layer(seg_cache, i * reps + r),
+                                 pos, positions)
     return x, caches
 
 
@@ -149,14 +192,14 @@ def lm_prefill(cfg: ArchConfig, params: Tree, tokens: torch.Tensor,
     [B,S|1,V], caches); caches hand off to ``lm_decode_step`` at
     ``pos = S``."""
     del remat
-    _no_sharing(cfg)
     B, S = tokens.shape
     cache_len = cache_len or S
     if positions is None:
         positions = default_positions(cfg, B, S, device=tokens.device)
     x = embed(cfg, params, tokens)
-    x, caches = prefill_runs(cfg, segments(cfg.block_kinds),
-                             params["blocks"], x, positions, cache_len)
+    runs, reps = model_runs(cfg)
+    x, caches = prefill_runs(cfg, runs, params["blocks"], x, positions,
+                             cache_len, reps)
     if last_only:
         x = x[:, -1:]
     return head(cfg, params, x), caches
@@ -174,11 +217,11 @@ def lm_decode_step(cfg: ArchConfig, params: Tree, token: torch.Tensor,
                    positions: Optional[torch.Tensor] = None):
     """One-token decode. token [B,1] -> (logits [B,1,V], caches updated
     in place)."""
-    _no_sharing(cfg)
     B = token.shape[0]
     if positions is None:
         positions = decode_positions(cfg, B, pos, token.device)
     x = embed(cfg, params, token)
-    x, caches = decode_runs(cfg, segments(cfg.block_kinds),
-                            params["blocks"], caches, x, pos, positions)
+    runs, reps = model_runs(cfg)
+    x, caches = decode_runs(cfg, runs, params["blocks"], caches, x, pos,
+                            positions, reps)
     return head(cfg, params, x), caches

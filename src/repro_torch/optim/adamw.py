@@ -6,7 +6,7 @@ returns ``(updates, new_state)`` and the caller applies ``p +
 u.to(p.dtype)``, as the JAX package does.  Moments are f32 (or
 ``state_dtype``), the step count a 0-d int32 tensor on the params'
 device, and the arithmetic the JAX package's, in f32.  Delayed parameter
-updates (DPU) come with the async slice (ROADMAP queue 1 item 4(b)).
+updates (DPU) wrap any of these (:mod:`repro_torch.optim.dpu`).
 """
 from __future__ import annotations
 

@@ -15,11 +15,12 @@ yi-6b chain therefore hold views of the one full parameter tree.
 
 ``fold_into`` folds microbatch gradients into a state's accumulator;
 ``wire_fwd_codec`` / ``wire_bwd_codec`` are the int8 wire of both
-directions.
+directions; ``dispatched`` is the collect half of the executors'
+``dispatch_fwd`` / ``dispatch_bwd`` pair.
 """
 from __future__ import annotations
 
-from typing import Any, Hashable, Iterable, Optional, Protocol, \
+from typing import Any, Callable, Hashable, Iterable, Optional, Protocol, \
     runtime_checkable
 
 import numpy as np
@@ -136,9 +137,13 @@ class StageState:
 
 @runtime_checkable
 class StageExecutor(Protocol):
-    """How a peer runs its pipeline stages (the JAX package's protocol
-    without the async ``dispatch_fwd``/``dispatch_bwd`` pair, which
-    comes with the async slice)."""
+    """How a peer runs its pipeline stages (the JAX package's protocol).
+
+    ``dispatch_fwd`` / ``dispatch_bwd`` launch the span's program NOW and
+    return a zero-argument *collect* thunk for its result: the async
+    tick's executor-side lever.  ``collect()`` equals ``run_fwd`` /
+    ``run_bwd`` on the same arguments (same kernels, same order, same
+    bits); see :func:`dispatched` for what it waits on."""
 
     stage: int
     stages: range
@@ -158,6 +163,15 @@ class StageExecutor(Protocol):
     def run_bwd(self, state: StageState, inp: Tree,
                 dy: Optional[Tree] = None,
                 labels: Optional[torch.Tensor] = None): ...
+
+    def dispatch_fwd(self, state: StageState, inp: Tree,
+                     labels: Optional[torch.Tensor] = None
+                     ) -> Callable[[], Tree]: ...
+
+    def dispatch_bwd(self, state: StageState, inp: Tree,
+                     dy: Optional[Tree] = None,
+                     labels: Optional[torch.Tensor] = None
+                     ) -> Callable[[], tuple]: ...
 
     def wire_fwd(self, y: Tree) -> Tree: ...
 
@@ -192,6 +206,34 @@ class StageExecutor(Protocol):
     def drop_slot(self, state: StageState, name: str,
                   key: Optional[Hashable] = None,
                   stage: Optional[int] = None) -> None: ...
+
+
+def dispatched(out: Any, device: torch.device) -> Callable[[], Any]:
+    """The collect thunk of a launched program: ``out`` holds the results
+    of kernels the caller has just launched on its current stream.
+
+    On the card a ``torch.cuda.Event`` is recorded behind those launches
+    and ``collect()`` makes the *consumer's* current stream wait on it
+    (``wait_event``): device-side ordering, never a host wait — neither
+    ``torch.cuda.synchronize`` nor ``.item()``.  The program runs on the
+    caller's stream, not on a side stream: outputs made on a side stream
+    would need ``record_stream`` for the caching allocator, and a side
+    stream buys nothing here, since the trainer collects at once, as the
+    JAX package's does.  (On one stream the wait is already satisfied;
+    it keeps the thunk right for a consumer on another stream.)  On the
+    CPU the work is done when the launch returns, so ``collect`` just
+    hands ``out`` over, as JAX's synchronous backends do.  The event
+    stays reachable as ``collect.event``."""
+    if device.type != "cuda":
+        return lambda: out
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(device))
+
+    def collect():
+        torch.cuda.current_stream(device).wait_event(ev)
+        return out
+    collect.event = ev
+    return collect
 
 
 def place(tree: Tree, device: torch.device) -> Tree:

@@ -27,8 +27,8 @@ from repro_torch.compression import codecs
 from repro_torch.models.config import ArchConfig
 from repro_torch.models import params as P
 from repro_torch.models.stage_plan import get_stage_plan
-from repro_torch.runtime.base import StageState, fold_into, place, \
-    host_snapshot, install_snapshot, single_stage, slot_export, \
+from repro_torch.runtime.base import StageState, dispatched, fold_into, \
+    place, host_snapshot, install_snapshot, single_stage, slot_export, \
     slot_install, wire_bwd_codec, wire_fwd_codec
 from repro_torch.runtime.stage_model import SpanProgram, StageProgram, \
     build_span_program, build_stage_programs
@@ -175,6 +175,18 @@ class NumericExecutor:
         gx, gp = self.prog.bwd(state.params, self._here(inp),
                                self._here(dy))
         return None, gx, gp
+
+    # ------------------------------------------------- dispatch / collect
+    def dispatch_fwd(self, state: StageState, inp: Tree,
+                     labels: Optional[torch.Tensor] = None):
+        # the launches are asynchronous on the card: run_fwd returns with
+        # the kernels queued, and collect orders the consumer behind them
+        return dispatched(self.run_fwd(state, inp, labels), self.device)
+
+    def dispatch_bwd(self, state: StageState, inp: Tree,
+                     dy: Optional[Tree] = None,
+                     labels: Optional[torch.Tensor] = None):
+        return dispatched(self.run_bwd(state, inp, dy, labels), self.device)
 
     # --------------------------------------------------------- wire codec
     def wire_fwd(self, y: Tree) -> Tree:

@@ -18,9 +18,9 @@ State is per-stage-keyed (``StageState.per_stage``): every covered stage
 keeps its own params, optimizer state, accumulator and version, so a
 span peer joins one All-Reduce group per covered stage, checkpoint cuts
 write single-stage snapshots, and span split/merge hand-offs move
-single-stage snapshots between span and single-stage peers.  The async
-``dispatch_fwd``/``dispatch_bwd`` pair comes with the async slice
-(ROADMAP queue 1 item 4(b)).
+single-stage snapshots between span and single-stage peers.
+``dispatch_fwd``/``dispatch_bwd`` launch the fused program and hand back
+a collect thunk (:func:`repro_torch.runtime.base.dispatched`).
 """
 from __future__ import annotations
 
@@ -31,9 +31,9 @@ import torch
 from repro_torch.compression import codecs
 from repro_torch.models.config import ArchConfig
 from repro_torch.models import params as P
-from repro_torch.runtime.base import StageState, fold_into, host_snapshot, \
-    install_snapshot, place, slot_export, slot_install, wire_bwd_codec, \
-    wire_fwd_codec
+from repro_torch.runtime.base import StageState, dispatched, fold_into, \
+    host_snapshot, install_snapshot, place, slot_export, slot_install, \
+    wire_bwd_codec, wire_fwd_codec
 from repro_torch.runtime.numeric import get_span_program
 
 Tree = Any
@@ -148,6 +148,18 @@ class PipelineExecutor:
         # folds each covered stage on its own (the ledger may admit a
         # subset of them on a re-issued attempt)
         return loss, gx, dict(zip(self.stages, gps))
+
+    # ------------------------------------------------- dispatch / collect
+    def dispatch_fwd(self, state: StageState, inp: Tree,
+                     labels: Optional[torch.Tensor] = None):
+        # the fused span's launches are queued when run_fwd returns
+        return dispatched(self.run_fwd(state, inp, labels), self.device)
+
+    def dispatch_bwd(self, state: StageState, inp: Tree,
+                     dy: Optional[Tree] = None,
+                     labels: Optional[torch.Tensor] = None):
+        # gradients keyed by global stage id, as run_bwd keys them
+        return dispatched(self.run_bwd(state, inp, dy, labels), self.device)
 
     # --------------------------------------------------------- wire codec
     def wire_fwd(self, y: Tree) -> Tree:

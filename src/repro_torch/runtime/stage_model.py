@@ -122,12 +122,6 @@ def _stage_specs(cfg: ArchConfig, s: int, n_stages: int,
     return specs
 
 
-# norm parameters are read in f32 by apply_norm (the rmsnorm kernel takes
-# an f32 scale); every other block weight is cast to the activation
-# dtype at its matmul, so casting it once up front computes the same
-_NORM_KEYS = frozenset({"ln1", "ln2"})
-
-
 class _SharedCast(torch.autograd.Function):
     """One application's view of a weight already cast to the compute
     dtype: the forward returns a view of the shared low-precision copy
@@ -145,17 +139,6 @@ class _SharedCast(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g.to(ctx.dtype), None
-
-
-def _compute_cast(tree: Tree, dtype: torch.dtype) -> Tree:
-    """A block's params with every non-norm floating leaf cast to
-    ``dtype`` (a no-op, no copy, where it already has that dtype),
-    outside autograd."""
-    with torch.no_grad():
-        return {key: (sub if key in _NORM_KEYS else tree_map(
-                    lambda a: a.to(dtype) if a.is_floating_point() else a,
-                    sub))
-                for key, sub in tree.items()}
 
 
 def _application(p32: Tree, p_low: Tree) -> Tree:
@@ -185,7 +168,7 @@ def make_block_core(cfg: ArchConfig, runs: list[tuple[str, int]],
             apply_fn = REGISTRY[kind][1]
             for i in range(model_lib.n_stacked(seg)):
                 p32 = model_lib.layer(seg, i)
-                p_low = _compute_cast(p32, x.dtype)
+                p_low = model_lib.compute_cast(p32, x.dtype)
                 for _ in range(reps):
                     x, _aux = apply_fn(cfg, _application(p32, p_low), x,
                                        positions)
@@ -418,16 +401,30 @@ def split_lm_params(cfg: ArchConfig, n_stages: int, params: Tree,
     slices (the JAX version ``jnp.stack``s per-layer copies).  A staged
     yi-6b swarm therefore costs no parameter memory beyond the full
     tree, and staged prefill/decode see exactly the full model's
-    numbers.
+    numbers.  An ALBERT-shared stack splits by groups: stage ``s`` takes
+    its ``share_groups / n_stages`` groups as one ``[g:g+n]`` view (one
+    group per stage, ``[s:s+1]``, as in the JAX package, for swarm-1b).
+
+    Learned boundary codecs are refused, as the JAX package refuses
+    them: the single-process tree carries no per-stage ``w_c``/``w_d``
+    split (serve them through :func:`init_stage_params` and the session
+    programs).
     """
     comp = codecs.resolve_mode(cfg, compress)
     if comp in codecs.LEARNED and n_stages > 1:
         raise NotImplementedError(
-            "split_lm_params cannot split learned boundary-codec params")
-    model_lib._no_sharing(cfg)
+            "split_lm_params cannot split learned boundary-codec params; "
+            "init per-stage codec weights via init_stage_params instead")
     if cfg.n_layers % n_stages:
         raise ValueError(f"{cfg.name}: n_layers={cfg.n_layers} not "
                          f"divisible by n_stages={n_stages}")
+    if cfg.share_groups:
+        get_stage_plan(cfg, n_stages)   # groups must split evenly
+        per_groups = cfg.share_groups // n_stages
+        return [_stage_extras(cfg, n_stages, s, params, [tree_map(
+                    lambda a, _g=s * per_groups: a[_g:_g + per_groups],
+                    params["blocks"][0])])
+                for s in range(n_stages)]
     per = cfg.n_layers // n_stages
     # (segment index, offset within it) of every layer
     where = [(i, j) for i, (_, n) in
@@ -443,14 +440,22 @@ def split_lm_params(cfg: ArchConfig, n_stages: int, params: Tree,
                 lambda a, _o=off, _n=n: a[_o:_o + _n],
                 params["blocks"][seg]))
             idx += n
-        st: Tree = {"blocks": blocks}
-        if s == 0:
-            st["embed"] = params["embed"]
-        if s == n_stages - 1:
-            st["final_norm"] = params["final_norm"]
-            if not cfg.tie_embeddings:
-                st["head"] = params["head"]
-            elif s != 0:
-                st["head"] = params["embed"].T      # view of the table
-        out.append(st)
+        out.append(_stage_extras(cfg, n_stages, s, params, blocks))
     return out
+
+
+def _stage_extras(cfg: ArchConfig, n_stages: int, s: int, params: Tree,
+                  blocks: list) -> Tree:
+    """Stage ``s``'s tree: its ``blocks`` plus the edge params it owns
+    (embed on stage 0; final norm and head on the last), as views of
+    the full tree."""
+    st: Tree = {"blocks": blocks}
+    if s == 0:
+        st["embed"] = params["embed"]
+    if s == n_stages - 1:
+        st["final_norm"] = params["final_norm"]
+        if not cfg.tie_embeddings:
+            st["head"] = params["head"]
+        elif s != 0:
+            st["head"] = params["embed"].T          # view of the table
+    return st

@@ -11,6 +11,16 @@ Caches are allocated at ``total_len`` (the session's full horizon) by
 the prefill; decode steps write their row into them in place.  Every
 program call runs under ``torch.inference_mode()``.
 
+A stage is framed as the training stage forward frames it: under a
+learned codec (bottleneck, maxout) every stage but the first decodes the
+inbound wire tensor and every stage but the last encodes its outbound
+one, through the codec's ``encode_wire`` / ``decode_wire`` (the encode
+and decode kernels on the card).  The encode carries no int8 wire QDQ,
+also under ``cfg.wire_quant``: the JAX package's session programs call
+the codec's plain ``compress``, which has none.
+An ALBERT-shared stage applies each of its groups ``reps`` times, its
+caches stacked group-major (:mod:`repro_torch.models.model`).
+
 Programs are cached process-wide, one per ``(config, span, horizon,
 codec)`` — N peers of a span share one — and each build is counted in
 :func:`repro_torch.runtime.numeric.record_trace`, tagged ``"serve"``.
@@ -95,36 +105,58 @@ def _embed_in(cfg: ArchConfig, params: Tree, tokens) -> torch.Tensor:
     return model_lib.embed(cfg, params, tokens)
 
 
-def _make_stage_prefill(cfg: ArchConfig, s: int, n_stages: int
-                        ) -> Callable:
-    """Stage ``s``'s wire-to-wire prefill (embed at stage 0) plus
-    decode-cache emission at ``cache_len``."""
-    _, runs, _ = _stage_runs(cfg, s, n_stages)
-    is_first = s == 0
+def _stage_in(cfg: ArchConfig, params: Tree, inp, is_first: bool,
+              comp: str, learned: bool) -> torch.Tensor:
+    """A stage's input framing: embed at stage 0, else the inbound wire
+    tensor in the compute dtype, decoded from the codec's width."""
+    if is_first:
+        return _embed_in(cfg, params, inp)
+    x = inp.to(cfg.compute_jdtype)
+    if learned:
+        x = codecs.decode_wire(cfg, comp, params.get("boundary"), x)
+    return x
+
+
+def _stage_out(cfg: ArchConfig, params: Tree, x: torch.Tensor,
+               is_last: bool, comp: str, learned: bool) -> torch.Tensor:
+    """A stage's output framing: the outbound wire tensor, encoded to the
+    codec's width (the last stage's hidden state goes to the head)."""
+    if learned and not is_last:
+        x = codecs.encode_wire(cfg, comp, params.get("boundary"), x,
+                               quant=False)
+    return x
+
+
+def _make_stage_prefill(cfg: ArchConfig, s: int, n_stages: int,
+                        comp: str, learned: bool) -> Callable:
+    """Stage ``s``'s wire-to-wire prefill (the training stage forward's
+    framing) plus decode-cache emission at ``cache_len``."""
+    _, runs, reps = _stage_runs(cfg, s, n_stages)
+    is_first, is_last = s == 0, s == n_stages - 1
 
     def stage_prefill(params: Tree, inp, cache_len: int):
-        x = (_embed_in(cfg, params, inp) if is_first
-             else inp.to(cfg.compute_jdtype))
+        x = _stage_in(cfg, params, inp, is_first, comp, learned)
         positions = torch.arange(x.shape[1], device=x.device)
-        return model_lib.prefill_runs(cfg, runs, params["blocks"], x,
-                                      positions, cache_len)
+        x, caches = model_lib.prefill_runs(cfg, runs, params["blocks"], x,
+                                           positions, cache_len, reps)
+        return _stage_out(cfg, params, x, is_last, comp, learned), caches
 
     return stage_prefill
 
 
-def _make_stage_decode(cfg: ArchConfig, s: int, n_stages: int
-                       ) -> Callable:
+def _make_stage_decode(cfg: ArchConfig, s: int, n_stages: int,
+                       comp: str, learned: bool) -> Callable:
     """Stage ``s``'s one-token decode against its caches."""
-    _, runs, _ = _stage_runs(cfg, s, n_stages)
-    is_first = s == 0
+    _, runs, reps = _stage_runs(cfg, s, n_stages)
+    is_first, is_last = s == 0, s == n_stages - 1
 
     def stage_decode(params: Tree, caches: Tree, inp, pos: int):
-        x = (_embed_in(cfg, params, inp) if is_first
-             else inp.to(cfg.compute_jdtype))
+        x = _stage_in(cfg, params, inp, is_first, comp, learned)
         positions = model_lib.decode_positions(cfg, x.shape[0], pos,
                                                x.device)
-        return model_lib.decode_runs(cfg, runs, params["blocks"], caches,
-                                     x, pos, positions)
+        x, caches = model_lib.decode_runs(cfg, runs, params["blocks"],
+                                          caches, x, pos, positions, reps)
+        return _stage_out(cfg, params, x, is_last, comp, learned), caches
 
     return stage_decode
 
@@ -149,17 +181,13 @@ def build_session_program(cfg: ArchConfig, n_stages: int,
         raise NotImplementedError(
             "staged serving covers the LM families; audio comes with the "
             "whisper slice")
-    model_lib._no_sharing(cfg)
     comp = codecs.resolve_mode(cfg, compress)
     learned = comp in codecs.LEARNED and n_stages > 1
-    if learned:
-        raise NotImplementedError(
-            f"codec {comp!r}: serving through learned codecs is not "
-            "ported yet (ROADMAP queue 1 item 3; training has them)")
     covers_last = hi == n_stages
-    prefs = {s: _make_stage_prefill(cfg, s, n_stages)
+    prefs = {s: _make_stage_prefill(cfg, s, n_stages, comp, learned)
              for s in range(lo, hi)}
-    decs = {s: _make_stage_decode(cfg, s, n_stages) for s in range(lo, hi)}
+    decs = {s: _make_stage_decode(cfg, s, n_stages, comp, learned)
+            for s in range(lo, hi)}
     flops = sum(_stage_fwd_flops(cfg, s, n_stages, total_len, comp,
                                  learned) for s in range(lo, hi))
 

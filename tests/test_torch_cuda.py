@@ -852,3 +852,89 @@ def test_cuda_span_swarm_equals_single_stage_swarm():
     assert span["wire_bytes"] * 2 == single["wire_bytes"]
     for name in ("flash_attention_fwd", "encode", "decode"):
         assert launches[name] > 0, name
+
+
+def _dispatch_executors(dev, span: bool):
+    """Single-stage executors of a bf16 swarm-1b-shaped pipeline with
+    their states, or one [0, 3) ``PipelineExecutor`` holding the same
+    three stages."""
+    from repro_torch.runtime import PipelineExecutor, \
+        build_numeric_executors
+    cfg = _span_cfg()
+    num = build_numeric_executors(cfg, 3, 64, device=dev)
+    sts = [e.init_state(s) for s, e in enumerate(num)]
+    if not span:
+        return list(zip(num, sts))
+    pex = PipelineExecutor(cfg, 3, 64, (0, 3), device=dev)
+    pst = pex.init_state(7)
+    for s in range(3):
+        pex.restore(pst, num[s].snapshot(sts[s]), stage=s)
+    return [(pex, pst)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("span", [False, True], ids=["numeric", "span"])
+def test_cuda_dispatch_equals_run_to_the_bit(span):
+    """``dispatch_fwd`` / ``dispatch_bwd`` then collect: the values of
+    ``run_fwd`` / ``run_bwd`` to the bit, with the same kernel launches,
+    for single-stage executors and a fused span."""
+    from repro_torch.tree import tree_leaves
+    dev = _card()
+    hops = _dispatch_executors(dev, span)
+    g = _gen(dev)
+    tok = torch.randint(0, 256, (2, 64), generator=g, device=dev)
+    lab = torch.randint(0, 256, (2, 64), generator=g, device=dev)
+    outs = {}
+    for mode in ("run", "dispatch"):
+        kernels.reset_launches()
+        x, inputs, res = tok, [], []
+        for ex, st in hops:
+            last = ex.stages.stop == 3
+            args = (st, x, lab) if last else (st, x)
+            y = (ex.run_fwd(*args) if mode == "run"
+                 else ex.dispatch_fwd(*args)())
+            inputs.append(x)
+            res.append(y)
+            x = y if last else ex.wire_fwd(y)
+        dy = None
+        for (ex, st), inp in zip(reversed(hops), reversed(inputs)):
+            kw = {"labels": lab} if ex.stages.stop == 3 else {"dy": dy}
+            out = (ex.run_bwd(st, inp, **kw) if mode == "run"
+                   else ex.dispatch_bwd(st, inp, **kw)())
+            res.append(out)
+            dy = out[1]
+        outs[mode] = (res, dict(kernels.LAUNCHES))
+    assert outs["run"][1] == outs["dispatch"][1]
+    got, want = tree_leaves(outs["dispatch"][0]), tree_leaves(outs["run"][0])
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert _same_bits(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_collect_waits_on_an_event_not_the_host(monkeypatch):
+    """The collect thunk holds a CUDA event recorded behind the
+    program's launches and orders the consumer's stream on it: it runs
+    under ``torch.cuda.set_sync_debug_mode("error")`` (any synchronising
+    call raises) and never calls ``torch.cuda.synchronize``."""
+    dev = _card()
+    (ex, st), = _dispatch_executors(dev, span=True)
+    g = _gen(dev)
+    tok = torch.randint(0, 256, (2, 64), generator=g, device=dev)
+    lab = torch.randint(0, 256, (2, 64), generator=g, device=dev)
+    calls = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **k: (calls.append(a), real(*a, **k)))
+    for collect in (ex.dispatch_fwd(st, tok, lab),
+                    ex.dispatch_bwd(st, tok, labels=lab)):
+        assert isinstance(collect.event, torch.cuda.Event)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = collect()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert out is not None
+    assert calls == []
+    collect.event.synchronize()
+    assert collect.event.query()

@@ -523,12 +523,3 @@ def test_synthetic_lm_is_deterministic_markov():
     t = torch.cat([a["tokens"], a["labels"][:, -1:]], 1).long()
     d = (t[:, 2:] - 5 * t[:, 1:-1] - 3 * t[:, :-2]) % 64
     assert ((d >= 0) & (d < 3)).all()          # order-2 markov, noise < 3
-
-
-@pytest.mark.parametrize("kw", [dict(overlap=True), dict(staleness=1),
-                                dict(dpu=True)])
-def test_later_slices_raise(kw):
-    _, tcfg = _configs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SwarmRunner(tcfg, SwarmConfig(n_stages=2, **kw), adamw(),
-                    device="cpu")
