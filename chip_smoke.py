@@ -10,13 +10,17 @@ JSON line; any failure raises and exits non-zero):
 
 1. build   — compile the CUDA kernels of ``src/repro_torch/csrc`` with
              nvcc; where ``cuobjdump`` exists, count the tensor-core
-             instructions of the bf16 flash forward (HMMA) and codec
-             GEMM (HGMMA), and the 16-byte global loads (LDG.E.128) of
-             every instantiation of the codec's row passes and qdq;
-             print the card's name and power limit.
+             instructions of the bf16 flash forward (HMMA, at every
+             head-dim pair) and codec GEMM (HGMMA), and the 16-byte
+             global loads (LDG.E.128) of every instantiation of the
+             codec's row passes and qdq; ptxas's registers of every flash
+             instantiation, none spilling; print the card's name and
+             power limit.
 2. kernels — each kernel against its plain PyTorch version on the card at
              the shapes of its paths (serving for rmsnorm and qdq,
-             serving and training for flash with its ``lse``, training
+             serving and training for flash with its ``lse``, and the
+             attention families' prefill shapes for flash at head dims
+             120, 256 and 192/128, timed beside SDPA; training
              swarm-1b-bottleneck for the codec's encode and decode and
              its true-wire pair encode_quantize / dequantize_decode,
              held stage by stage on their own intermediates, the int8
@@ -47,65 +51,76 @@ JSON line; any failure raises and exits non-zero):
              (``ServeConfig.quant_block``).
 5. churn   — a spare (2,4) peer; the chain's (2,4) peer dies mid-decode;
              exactly-once KV recovery.
-6. train   — ``SwarmRunner`` training swarm-1b-bottleneck at full width
+6. serve_families — ``ServeRunner`` serving the attention families at
+             full width with random weights from a seed, yi-6b's
+             requests, one decode chain each, tokens identical to the
+             single-process reference: gemma-2b (18 layers, 3 stages),
+             qwen1.5-4b (40), h2o-danube-3-4b (24; also one 4,608-token
+             prompt past its 4,096-token window at batch 1),
+             qwen2-vl-2b (28, M-RoPE), each over 4 stages; llama4-scout
+             (4 of 48 layers, 4 stages) and deepseek-v2 (2 of 60, 2
+             stages; also on the int8 wire) cut in depth to fit the
+             card.  Flash and rmsnorm launch in each; prefill and decode
+             times (the median of three), peak memory.
+7. train   — ``SwarmRunner`` training swarm-1b-bottleneck at full width
              and depth (48 layer applications, random weights from a
              seed), 3 stages, one peer each, seq 512, microbatch 2, global
              batch 8, adamw, 3 steps; per-step losses against the staged
              reference (``repro_torch.train.reference``) on the same card
              and weights; wall-clock tokens/s, peak memory, launches of
              flash, encode and decode.
-7. train_q — the same with ``wire_quant=True`` for 2 steps: the encode
+8. train_q — the same with ``wire_quant=True`` for 2 steps: the encode
              kernel's fused QDQ and the cotangent ``qdq_flat`` launch.
-8. train_churn — a second stage-1 peer; one stage-1 peer dies mid-step;
+9. train_churn — a second stage-1 peer; one stage-1 peer dies mid-step;
              each (stage, microbatch) admitted exactly once, the ledger
              drained, losses equal to the fault-free ``train`` losses.
-9. train_rebalance — peers [1, 1, 2], stages 0 and 1 on a T4 profile
+10. train_rebalance — peers [1, 1, 2], stages 0 and 1 on a T4 profile
              at 1/16 of its compute (``slow_front``), four trainers,
              Alg. 2 every 5.0 virtual seconds: a stage-2 peer migrates
              while it holds gradients, its ledger rows are released and
              recomputed; every (stage, microbatch) admitted once per
              round, losses equal to ``train``'s to the bit.
-10. train_span — swarm-1b-span (swarm-1b-bottleneck's shapes and
+11. train_span — swarm-1b-span (swarm-1b-bottleneck's shapes and
              weights): one span peer on stages [0, 2)
              (``PipelineExecutor``, the two stages fused in one program)
              and one peer on stage 2; losses equal to ``train``'s to the
              bit, the span peer accumulating under both of its stages,
              exactly once; host wire bytes beside ``train``'s (one
              boundary of two is fused).
-11. train_span_resize — the same layout with every peer on the T4/16
+12. train_span_resize — the same layout with every peer on the T4/16
              profile; mid-step 1 the span splits at stage 1 (a fresh
              peer warm-joins [1, 2), downloading stage 1 from the span
              peer, which then shrinks to [0, 1)), mid-step 2 it merges
              back to [0, 2), and the [1, 2) peer dies: two span
              changes, one join, one failure, losses equal to ``train``'s
              to the bit, exactly once.
-12. train_span_rebalance — ``spans=True``, Alg. 2 every 5.0 virtual
+13. train_span_rebalance — ``spans=True``, Alg. 2 every 5.0 virtual
              seconds, the WAN link table pricing
              boundaries by the regions of four zones: single peers on
              stages 0, 1, 2 (stage 1's on T4/16, the others T4s) and an
              A100 span peer on [0, 2); Alg. 2's span branch shrinks the
              span peer onto stage 1, the layout still routes, losses
              equal to ``train``'s to the bit, exactly once.
-13. train_overlap — ``train``'s setup under the async tick
+14. train_overlap — ``train``'s setup under the async tick
              (``overlap=True, staleness=0``): boundary tensors in flight
              on the peers' links, stage programs through the executors'
              dispatch/collect pair; losses equal to ``train``'s to the
              bit, in-flight bytes and a hidden wire fraction above zero,
              the virtual makespan no longer than ``train``'s.
-14. train_async — the same with ``staleness=1``: delayed parameter
+15. train_async — the same with ``staleness=1``: delayed parameter
              updates behind the bounded-staleness barrier; losses
              against the staged reference driven by
              ``delayed_parameter_updates(adamw, 1)`` under ``train``'s
              bounds.
-15. train_async_churn — ``train_churn``'s layout and kill under the
+16. train_async_churn — ``train_churn``'s layout and kill under the
              async tick: losses equal to ``train_async``'s to the bit,
              exactly once.
-16. serve_shared — ``ServeRunner`` serving swarm-1b (three shared
+17. serve_shared — ``ServeRunner`` serving swarm-1b (three shared
              groups, each applied 16 times) at full width and depth over
              3 stages, one decode chain (0,2)->(2,3): tokens identical to
              the single-process reference; then with the int8 wire, one
              QDQ launch per span-edge crossing.
-17. serve_codec — swarm-1b-bottleneck session programs (the learned
+18. serve_codec — swarm-1b-bottleneck session programs (the learned
              codec at both stage edges) over (0,2)+(2,3) against one
              (0,3) program, token for token, two encode and two decode
              launches a prefill and a decode step; every stage's decode
@@ -114,19 +129,19 @@ JSON line; any failure raises and exits non-zero):
              twin, each bound shown to see two planted cache faults;
              reported in bf16 at full depth, beside the f32 rounding
              spread of the full depth's logits.
-18. train_rollback — checkpoints every 2 steps under ``build/``; stage
+19. train_rollback — checkpoints every 2 steps under ``build/``; stage
              1's only peer dies during step 4 and its replacement finds
              no donor: global rollback to the step-2 cut and replay; a
              new runner cold-starts on the directory and trains step 5.
              Losses equal to the staged reference's to the bit; bytes and
              seconds per save and for the resume's restore.  Fails early
              when the disk or the host memory is short of two cuts.
-19. wire_codes — the true wire format (int8 codes + f32 scales) through
+20. wire_codes — the true wire format (int8 codes + f32 scales) through
              the ops entry points of ``encode_quantize`` /
              ``dequantize_decode`` and the quant8 pair, on swarm-1b's
              boundary: the priced payload, and the decoded state equal
              to the fused QDQ wire's to the bit.
-20. train_profile — one training microbatch under ``torch.profiler``:
+21. train_profile — one training microbatch under ``torch.profiler``:
              device time per kernel, grouped, and the device's idle
              share.
 
@@ -335,6 +350,7 @@ def sass_counts(path):
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(exe):
         return None
+    import re
     sass = subprocess.run([exe, "-sass", str(path)], capture_output=True,
                           text=True, check=True).stdout
     counts, cur, ops = {}, None, ()
@@ -348,7 +364,8 @@ def sass_counts(path):
                         ("HGMMA", "HMMA") if k in TENSOR_CORE_KERNELS
                         else LOADS)
                     if k == "flash_fwd_mma_kernel":
-                        cur = k + ("<64>" if "ILi64E" in name else "<128>")
+                        m = re.search(k + r"ILi(\d+)ELi(\d+)E", name)
+                        cur = f"{k}<{m.group(1)},{m.group(2)}>"
                     counts[cur] = dict.fromkeys(ops, 0)
                     break
         elif cur is not None:
@@ -358,8 +375,41 @@ def sass_counts(path):
     return counts
 
 
+def flash_ptxas(log: str) -> dict:
+    """Per flash instantiation (``kernel<Dqk,Dv>`` of the bf16 kernel,
+    ``kernel<dtype,Dqk,Dv>`` of the SIMT one), ptxas's registers and
+    spill bytes from the build log."""
+    import re
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\S+?)'?(?: for|$)", ln)
+        if m:
+            name = m.group(1)
+            f = re.search(r"(flash_fwd_mma_kernel|flash_fwd_kernel)I"
+                          r"(f|13__nv_bfloat16)?L?i?(\d+)ELi(\d+)E", name)
+            cur = None
+            if f:
+                dt = {"f": "f32,", "13__nv_bfloat16": "bf16,"}.get(
+                    f.group(2), "")
+                cur = f"{f.group(1)}<{dt}{f.group(3)},{f.group(4)}>"
+                out.setdefault(cur, {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            out[cur]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    return out
+
+
 def phase_build(torch) -> None:
     from repro_torch.kernels import _lib
+    from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
     emit({"phase": "env", "python": sys.version.split()[0],
           "torch": torch.__version__, "cuda": torch.version.cuda})
     t0 = time.time()
@@ -368,11 +418,17 @@ def phase_build(torch) -> None:
     ptxas = [ln.strip() for ln in _lib.BUILD_LOG.splitlines()
              if "registers" in ln or "spill" in ln]
     sass = sass_counts(path)
+    flash = flash_ptxas(_lib.BUILD_LOG)
     emit({"phase": "build", "library": os.path.relpath(path),
-          "seconds": secs, "ptxas": ptxas[:24], "sass": sass})
+          "seconds": secs, "ptxas": ptxas[:24], "flash_ptxas": flash,
+          "sass": sass})
+    # every head-dim pair of both flash kernels built, none spilling
+    if len(flash) != 2 * len(HEAD_DIMS) or any(
+            v.get("spill_bytes", 1) for v in flash.values()):
+        raise AssertionError(f"flash instantiations or spills: {flash}")
     if sass is not None:
-        want = {"flash_fwd_mma_kernel<64>", "flash_fwd_mma_kernel<128>",
-                "codec_gemm_wgmma_kernel"}
+        want = {f"flash_fwd_mma_kernel<{a},{b}>" for a, b in HEAD_DIMS}
+        want.add("codec_gemm_wgmma_kernel")
         idle = sorted(k for k in want
                       if sum(sass.get(k, {}).values()) == 0)
         if idle:
@@ -472,6 +528,116 @@ def check_flash(torch, gen, rows: list) -> dict:
             if (path, S, dt) == ("serve", 512, torch.bfloat16):
                 main = row
     return main
+
+
+# flash at the attention families' prefill shapes: (config, B, S, H, KV,
+# Dqk, Dv, window, scale (None: Dqk^-0.5))
+FAMILY_FLASH = (
+    ("gemma-2b", 2, 512, 8, 1, 256, 256, 0, None),
+    ("h2o-danube-3-4b", 2, 512, 32, 8, 120, 120, 4096, None),
+    ("h2o-danube-3-4b", 1, 4608, 32, 8, 120, 120, 4096, None),  # LONG_PROMPT
+    ("deepseek-v2-236b", 2, 512, 128, 128, 192, 128, 0, 192 ** -0.5),
+)
+
+
+def _sdpa_backend(torch, fn) -> str:
+    """Which of SDPA's backends ``fn`` ran, read off its kernels' names."""
+    names = " ".join(_profiled(torch, fn, 1)).lower()
+    for key, backend in (("cudnn", "cudnn"), ("flash", "flash"),
+                         ("fmha", "efficient"), ("efficient", "efficient"),
+                         ("mem_eff", "efficient")):
+        if key in names:
+            return backend
+    return "math"
+
+
+def check_flash_families(torch, gen, rows: list) -> dict:
+    """The flash forward at the head-dim pairs the attention families
+    add, at their prefill shapes (gemma's MQA at 256; danube's GQA at 120
+    with its 4096-token window, at prompt 512 and past the window at
+    4608; deepseek-v2's MLA at 192 against 128 over 128 heads), in bf16
+    and f32, with ``lse``, against the plain version under the bounds of
+    ``check_flash``; each call again (bit-equal) and each batch row alone
+    (equal to its row of the batch call).  Timed beside the bound, the
+    plain version and SDPA with the same masks and scale (a boolean mask
+    where the window is shorter than the sequence), naming the backend
+    SDPA took.  Returns the bf16 rows by config."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_fwd
+    from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
+    out_rows = {}
+    for arch, B, S, H, KV, D, Dv, win, scale in FAMILY_FLASH:
+        sc = D ** -0.5 if scale is None else scale
+        for dt, bound, peak in ((torch.bfloat16, 2e-2, H100_BF16_FLOPS),
+                                (torch.float32, 1e-4, H100_F32_FLOPS)):
+            q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dt)
+            k = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dt)
+            v = torch.randn(B, S, KV, Dv, generator=gen,
+                            device="cuda").to(dt)
+            call = lambda: flash_attention_fwd(q, k, v, True, win, sc,
+                                               with_lse=True)
+            out, lse = _counted(torch, call)
+            torch.cuda.synchronize()
+            with plain_precision(torch):
+                ref, ref_lse = flash_fwd_ref(q, k, v, True, win, 0, 512,
+                                             1024, sc)
+            err = float((out.float() - ref.float()).abs().max())
+            lse_err = float((lse - ref_lse).abs().max())
+            tag = f"flash {arch} B={B} S={S} D={D}/{Dv} window={win} {dt}"
+            if not (err <= bound and lse_err <= 1e-4):
+                raise AssertionError(f"{tag}: max err {err} (bound {bound})"
+                                     f", lse {lse_err} (bound 1e-4)")
+            again = _counted(torch, call)
+            if not (torch.equal(again[0], out) and torch.equal(again[1], lse)):
+                raise AssertionError(f"{tag}: two calls differ")
+            for b in range(B if B > 1 else 0):
+                one = _counted(torch, lambda: flash_attention_fwd(
+                    q[b:b + 1], k[b:b + 1], v[b:b + 1], True, win, sc,
+                    with_lse=True))
+                if not (torch.equal(one[0], out[b:b + 1])
+                        and torch.equal(one[1], lse[b:b + 1])):
+                    raise AssertionError(f"{tag}: batch row {b} alone "
+                                         f"differs")
+            fwd = lambda: flash_attention_fwd(q, k, v, True, win, sc)
+            ms = _counted(torch, lambda: time_ms(torch, fwd))
+            cold = _counted(torch, lambda: time_ms(torch, fwd, cold=True))
+            plain = time_ms(torch, lambda: flash_fwd_ref(
+                q, k, v, True, win, 0, 512, 1024, sc), iters=3, warmup=1)
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            pos = torch.arange(S, device="cuda")
+            if 0 < win < S:
+                mask = (pos[:, None] >= pos[None, :]) & \
+                    (pos[:, None] - pos[None, :] < win)
+                sdpa = lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, scale=sc, enable_gqa=True)
+                pairs = int(mask.sum())
+            else:
+                sdpa = lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, scale=sc, enable_gqa=True)
+                pairs = S * (S + 1) // 2
+            lib = time_ms(torch, sdpa)
+            backend = _sdpa_backend(torch, sdpa)
+            flops = 2.0 * (D + Dv) * pairs * B * H
+            nbytes = (q.numel() + k.numel() + v.numel()
+                      + B * S * H * Dv) * q.element_size()
+            b_ms, b_by = bound_ms(nbytes, flops, peak)
+            row = {"kernel": "flash_attention_fwd", "path": "serve_families",
+                   "arch": arch, "shape": f"B={B} S={S} H={H} KV={KV} "
+                   f"D={D} Dv={Dv} window={win}", "dtype": str(dt),
+                   "max_abs_err": err, "lse_max_abs_err": lse_err,
+                   "bound": bound, "lse_bound": 1e-4,
+                   "deterministic": True, "row_independent": B > 1,
+                   "ms": ms, "cold_ms": cold, "plain_ms": plain,
+                   "library_ms": lib, "library": f"SDPA ({backend})",
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "cold_share_of_bound": b_ms / cold}
+            emit(row)
+            rows.append(row)
+            if dt == torch.bfloat16:
+                out_rows[f"{arch} S={S}"] = row
+            del q, k, v, out, lse, ref, ref_lse, again
+    return out_rows
 
 
 def check_rmsnorm(torch, gen, rows: list) -> dict:
@@ -1158,6 +1324,7 @@ def phase_kernels(torch) -> dict:
     gen.manual_seed(0)
     rows: list = []
     main = {"flash_attention_fwd": check_flash(torch, gen, rows),
+            "flash_families": check_flash_families(torch, gen, rows),
             "rmsnorm": check_rmsnorm(torch, gen, rows),
             "qdq_flat": check_qdq(torch, gen, rows),
             **check_codec(torch, gen, rows),
@@ -1194,18 +1361,19 @@ def prompts_for(cfg):
 
 
 def make_runner(torch, cfg, params, codec: str, spare: bool,
-                quant_block: int = 64, n_stages: int = 4):
+                quant_block: int = 64, n_stages: int = 4, split: int = 2):
     """A ``ServeRunner`` over ``n_stages`` with one decode chain
-    (0,2) -> (2,n_stages) (and a spare second peer with ``spare``)."""
+    (0,split) -> (split,n_stages) (and a spare second peer with
+    ``spare``)."""
     from repro_torch.serve import ServeConfig, ServeRunner
     r = ServeRunner(cfg, ServeConfig(n_stages=n_stages, max_batch=MAX_BATCH,
                                      max_sessions=1 if spare else 2,
                                      codec=codec, quant_block=quant_block),
                     params=params, device="cuda")
-    r.add_peer((0, 2), pool="decode", name="d0")
-    r.add_peer((2, n_stages), pool="decode", name="d1")
+    r.add_peer((0, split), pool="decode", name="d0")
+    r.add_peer((split, n_stages), pool="decode", name="d1")
     if spare:
-        r.add_peer((2, n_stages), pool="decode", name="d1spare")
+        r.add_peer((split, n_stages), pool="decode", name="d1spare")
     return r
 
 
@@ -1293,17 +1461,19 @@ def free(torch) -> None:
 
 def phase_serve(torch, cfg, params, prompts, ref, codec: str,
                 quant_block: int = 64, n_stages: int = 4,
-                name: str = None) -> dict:
-    """Serve the prompts through the chain; tokens identical to ``ref``
-    (plain wire), or with the int8 wire of blocks of ``quant_block`` to
-    the chain's programs with the plain int8 round trip at the edge."""
+                name: str = None, split: int = 2,
+                extra: dict = None) -> dict:
+    """Serve the prompts through the chain (0,split) -> (split,n_stages);
+    tokens identical to ``ref`` (plain wire), or with the int8 wire of
+    blocks of ``quant_block`` to the chain's programs with the plain int8
+    round trip at the edge.  ``extra`` joins the phase's row."""
     import numpy as np
     from repro_torch import kernels
     from repro_torch.compression import quant8
     from repro_torch.models.stage_plan import get_stage_plan
     torch.cuda.reset_peak_memory_stats()
     r = make_runner(torch, cfg, params, codec, spare=False,
-                    quant_block=quant_block, n_stages=n_stages)
+                    quant_block=quant_block, n_stages=n_stages, split=split)
     kernels.reset_launches()
     toks, reqs, summary, secs = serve(torch, r, prompts)
     launches = dict(kernels.LAUNCHES)
@@ -1337,7 +1507,7 @@ def phase_serve(torch, cfg, params, prompts, ref, codec: str,
         name = "serve" if codec == "none" else "int8" if \
             quant_block == quant8.BLOCK else f"int8_block{quant_block}"
     row = {"phase": name, "arch": cfg.name, "n_stages": n_stages,
-           "codec": codec, "quant_block": quant_block,
+           "chain": [[0, split], [split, n_stages]], "codec": codec, "quant_block": quant_block,
            "tokens_identical": True,
            "reference": ("single-process model" if codec == "none" else
                          "chain programs with the plain int8 round trip"),
@@ -1350,10 +1520,12 @@ def phase_serve(torch, cfg, params, prompts, ref, codec: str,
             raise AssertionError(f"int8: {launches['qdq_flat']} QDQ launches"
                                  f" for {crossings} span-edge crossings")
         d = cfg.d_model
+        esz = torch.finfo(cfg.compute_jdtype).bits // 8
         # what the runner counts: int32 tokens into stage 0 and the
-        # (dequantized) bf16 wire into stage 2, per hop
-        runner_bytes = sessions * (B * PROMPT * 4 + B * PROMPT * d * 2
-                                   + (NEW - 1) * (B * 4 + B * d * 2))
+        # (dequantized) wire in the compute dtype into the chain's second
+        # span, per hop
+        runner_bytes = sessions * (B * PROMPT * 4 + B * PROMPT * d * esz
+                                   + (NEW - 1) * (B * 4 + B * d * esz))
         if summary["wire_bytes"] != runner_bytes:
             raise AssertionError(f"int8: wire_bytes {summary['wire_bytes']}"
                                  f" != {runner_bytes}")
@@ -1363,8 +1535,9 @@ def phase_serve(torch, cfg, params, prompts, ref, codec: str,
         packed = sessions * (
             quant8.compressed_nbytes(B * PROMPT * d, quant_block)
             + (NEW - 1) * quant8.compressed_nbytes(B * d, quant_block))
-        priced = sessions * (plan.boundary_bytes(1, B, PROMPT, "int8")
-                             + (NEW - 1) * plan.boundary_bytes(1, B, 1,
+        edge = split - 1                # the boundary the chain crosses
+        priced = sessions * (plan.boundary_bytes(edge, B, PROMPT, "int8")
+                             + (NEW - 1) * plan.boundary_bytes(edge, B, 1,
                                                                "int8"))
         if quant_block == quant8.BLOCK and packed != priced:
             raise AssertionError(f"int8: compressed bytes {packed} != "
@@ -1374,10 +1547,130 @@ def phase_serve(torch, cfg, params, prompts, ref, codec: str,
                             "compressed_nbytes": packed}
     row.update(chain_rates(torch, r, prompts))
     row["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    row.update(extra or {})
     emit(row)
     del r
     free(torch)
     return row
+
+
+# The attention families served at full width (ROADMAP queue 1 item 6a):
+# (name, layers served (None: the full depth), n_stages, chain split).
+# The two MoE models fit the card only at a cut depth: llama4-scout's 48
+# layers are 211 GB of bf16 weights, deepseek-v2's 60 are 470 GB.
+FAMILY_SERVING = (
+    ("gemma-2b", None, 3, 2),
+    ("qwen1.5-4b", None, 4, 2),
+    ("h2o-danube-3-4b", None, 4, 2),
+    ("qwen2-vl-2b", None, 4, 2),
+    ("llama4-scout-17b-a16e", 4, 4, 2),
+    ("deepseek-v2-236b", 2, 2, 1),
+)
+LONG_PROMPT = 4608      # h2o-danube-3: past its 4096-token window
+
+
+def family_config(name: str, n_layers):
+    """The registered config, its depth cut to ``n_layers`` (None: kept);
+    widths untouched."""
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    if n_layers is None:
+        return cfg
+    kw = {"n_layers": n_layers}
+    if cfg.block_pattern is not None:
+        kw["block_pattern"] = cfg.block_pattern[:n_layers]
+    return cfg.with_overrides(**kw)
+
+
+def _head_dims(cfg) -> list:
+    """The flash kernel's (Dqk, Dv) pair on the config's prefill."""
+    if cfg.mla is not None:
+        return [cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim,
+                cfg.mla.v_head_dim]
+    return [cfg.hd, cfg.hd]
+
+
+def phase_serve_long(torch, cfg, params) -> dict:
+    """One request whose prompt (``LONG_PROMPT`` tokens) is longer than
+    the sliding window, at batch 1 through the chain: the window mask in
+    the flash kernel and the ring cache at full width; tokens identical
+    to the single-process reference."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.serve import reference_generate
+    torch.cuda.reset_peak_memory_stats()
+    prompt = np.random.default_rng(2).integers(0, cfg.vocab_size,
+                                               size=(1, LONG_PROMPT))
+    ref = _counted(torch, lambda: reference_generate(cfg, params, prompt,
+                                                     NEW))
+    r = make_runner(torch, cfg, params, "none", spare=False)
+    kernels.reset_launches()
+    req = r.submit(prompt[0], NEW)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    summary = r.run()
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches = dict(kernels.LAUNCHES)
+    if req.tokens is None or not (np.asarray(req.tokens)[None] == ref).all():
+        raise AssertionError(f"{cfg.name} long prompt: tokens differ from "
+                             f"the reference ({summary})")
+    for k in ("flash_attention_fwd", "rmsnorm"):
+        if launches[k] <= 0:
+            raise AssertionError(f"{cfg.name} long prompt: kernel {k} "
+                                 f"never launched")
+    row = {"phase": "serve_families_long", "arch": cfg.name,
+           "prompt": LONG_PROMPT, "window": cfg.sliding_window,
+           "batch": 1, "tokens_identical": True, "launches": launches,
+           "wall_s": secs,
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9}
+    emit(row)
+    del r
+    free(torch)
+    return row
+
+
+def phase_serve_families(torch) -> dict:
+    """``ServeRunner`` serving each attention family at full width (random
+    weights from a seed, ``FAMILY_SERVING``'s depths and chains), yi-6b's
+    requests, tokens identical to the single-process reference; danube
+    also past its window, deepseek-v2 also on the int8 wire.  Returns
+    each config's row."""
+    import numpy as np
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import params as P
+    from repro_torch.serve import reference_generate
+    t0 = time.time()
+    rows = {}
+    for name, depth, n_stages, split in FAMILY_SERVING:
+        cfg = family_config(name, depth)
+        free(torch)
+        params = P.init(0, model_lib.lm_specs(cfg), "cuda")
+        prompts = prompts_for(cfg)
+        ref = _counted(torch, lambda: np.concatenate([
+            reference_generate(cfg, params, prompts[i:i + MAX_BATCH], NEW)
+            for i in range(0, N_REQ, MAX_BATCH)]))
+        full = family_config(name, None).n_layers
+        extra = {"n_layers": cfg.n_layers, "n_layers_full": full,
+                 "depth_cut": cfg.n_layers < full,
+                 "param_dtype": cfg.param_dtype,
+                 "params": P.n_params(model_lib.lm_specs(cfg)),
+                 "head_dims": _head_dims(cfg)}
+        row = phase_serve(torch, cfg, params, prompts, ref, "none",
+                          n_stages=n_stages, split=split,
+                          name="serve_families", extra=extra)
+        rows[name] = row
+        if cfg.sliding_window and cfg.sliding_window < LONG_PROMPT:
+            rows[name + " long"] = phase_serve_long(torch, cfg, params)
+        if name == "deepseek-v2-236b":
+            rows[name + " int8"] = phase_serve(
+                torch, cfg, params, prompts, ref, "int8", n_stages=n_stages,
+                split=split, name="serve_families_int8", extra=extra)
+        del params, ref
+        free(torch)
+    emit({"phase": "serve_families_done", "seconds": time.time() - t0})
+    return rows
 
 
 def phase_churn(torch, cfg, params, prompts, ref) -> dict:
@@ -2395,6 +2688,9 @@ def main() -> None:
     phase_churn(torch, cfg, params, prompts, ref)
     del params, ref
     free(torch)
+    # the attention families at full width (depth cut for the two MoE
+    # models), each config's launches counted from its own serve run
+    phase_serve_families(torch)
     # five reference steps: train holds the first three, train_rollback
     # four and its cold resume the fifth
     ref_losses = train_reference(torch, swarm1b(), 5)

@@ -113,8 +113,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_rmsnorm.restype = I
     lib.repro_qdq_flat.argtypes = [P, P, P, P, I64, I, I, I, P]
     lib.repro_qdq_flat.restype = I
-    lib.repro_flash_fwd.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P, F,
-                                    I, I, I, P]
+    lib.repro_flash_fwd.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, P,
+                                    F, I, I, I, P]
     lib.repro_flash_fwd.restype = I
     lib.repro_codec_ln_rows.argtypes = [P, P, I64, I, I, I, I, P]
     lib.repro_codec_ln_rows.restype = I

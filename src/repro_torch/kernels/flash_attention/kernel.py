@@ -9,7 +9,9 @@ the kernel's fixed query offset ``Sk - Sq``.  The kernel tiles queries
 and keys by 64 itself; ``block_q``/``block_k`` set the chunks of the
 plain version only.  bf16 runs on the tensor cores with 16-byte copies,
 so its q, k and v must meet :func:`bf16_layout_problem`'s rule; f32 runs
-the SIMT kernel, which takes any strides.
+the SIMT kernel, which takes any strides.  Both take the head-dim pairs
+``(Dqk, Dv)`` of :data:`HEAD_DIMS` (the served models' own); on the card
+any other pair raises, where the plain version takes any.
 """
 from __future__ import annotations
 
@@ -22,7 +24,9 @@ from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
 
 DEFAULT_BQ = 256
 DEFAULT_BK = 512
-HEAD_DIMS = (64, 128)
+# (q/k head dim, v head dim): 64 and 128 (yi-6b, swarm-1b, qwen), 120
+# (h2o-danube-3), 192/128 (DeepSeek-V2's MLA prefill), 256 (gemma)
+HEAD_DIMS = ((64, 64), (120, 120), (128, 128), (192, 128), (256, 256))
 
 
 def bf16_layout_problem(t: torch.Tensor):
@@ -45,10 +49,10 @@ def bf16_layout_problem(t: torch.Tensor):
 def flash_attention_fwd(q, k, v, causal=True, window=0, scale=None,
                         block_q: int = DEFAULT_BQ,
                         block_k: int = DEFAULT_BK, with_lse: bool = False):
-    """q [B,Sq,H,D], k/v [B,Sk,KV,D] -> out [B,Sq,H,D] (and, with
-    ``with_lse``, the f32 log-sum-exp ``[B, KV, G, Sq]``)."""
+    """q [B,Sq,H,D], k [B,Sk,KV,D], v [B,Sk,KV,Dv] -> out [B,Sq,H,Dv]
+    (and, with ``with_lse``, the f32 log-sum-exp ``[B, KV, G, Sq]``)."""
     B, Sq, H, D = q.shape
-    Sk, KV = k.shape[1], k.shape[2]
+    Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[-1]
     scale = D ** -0.5 if scale is None else float(scale)
     if q.device.type == "cpu":
         out, lse = flash_fwd_ref(q, k, v, causal, window, Sk - Sq,
@@ -63,10 +67,10 @@ def flash_attention_fwd(q, k, v, causal=True, window=0, scale=None,
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"flash_attention_fwd: dtypes differ "
                         f"({q.dtype}, {k.dtype}, {v.dtype})")
-    if D not in HEAD_DIMS or k.shape[-1] != D or v.shape[-1] != D:
+    if (D, Dv) not in HEAD_DIMS or k.shape[-1] != D:
         raise ValueError(f"flash_attention_fwd: head dims q {D}, k "
-                         f"{k.shape[-1]}, v {v.shape[-1]}; the kernel "
-                         f"takes equal head dims in {HEAD_DIMS}")
+                         f"{k.shape[-1]}, v {Dv}; the kernel takes q = k "
+                         f"and (q, v) in {HEAD_DIMS}")
     if (k.shape[0] != B or v.shape[:3] != k.shape[:3] or KV == 0
             or H % KV or Sk == 0):
         raise ValueError(f"flash_attention_fwd: shapes q {tuple(q.shape)}"
@@ -80,14 +84,14 @@ def flash_attention_fwd(q, k, v, causal=True, window=0, scale=None,
             if problem:
                 raise ValueError(f"flash_attention_fwd: bf16 {name} "
                                  f"{problem}")
-    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     strides = (ctypes.c_int64 * 9)(*q.stride()[:3], *k.stride()[:3],
                                    *v.stride()[:3])
     rc = _lib.lib().repro_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), B, H, KV, Sq, Sk, D,
+        None if lse is None else lse.data_ptr(), B, H, KV, Sq, Sk, D, Dv,
         ctypes.cast(strides, ctypes.c_void_p), scale, int(bool(causal)),
         int(window), code, _lib.stream_ptr(q.device))
     _lib.check(rc, "flash_attention_fwd")

@@ -1,12 +1,20 @@
 """Block registry (port of ``repro.models.blocks``): one (specs, apply,
-decode, cache_specs, prefill) tuple per kind.  The serving slice brings
-the dense ``attn`` kind (self-attention + dense FFN); the other kinds
-come with their slices."""
+decode, cache_specs, prefill) tuple per kind.
+
+Kinds:
+  attn      — self-attention + dense FFN            (dense LMs, VLM backbone)
+  moe       — self-attention + MoE FFN              (llama4-scout)
+  mla       — multi-head latent attention + FFN     (deepseek dense layer)
+  mla_moe   — MLA + MoE FFN                         (deepseek-v2)
+
+The recurrent kinds (mlstm, slstm, hymba, mamba) come with the SSM
+slice (ROADMAP queue 1 item 6b)."""
 from __future__ import annotations
 
 from typing import Any
 
 from repro_torch.models import layers as L
+from repro_torch.models import mla as mla_lib
 
 Tree = Any
 
@@ -41,6 +49,74 @@ def attn_cache(cfg, batch, seq):
     return L.attn_cache_specs(cfg, batch, seq)
 
 
+# ---------------------------------------------------------------- moe
+def moe_specs(cfg):
+    return {"ln1": L.norm_specs(cfg), "attn": L.attn_specs(cfg),
+            "ln2": L.norm_specs(cfg), "moe": L.moe_specs(cfg)}
+
+
+def _residual_moe(cfg, p, x):
+    y, aux = L.apply_moe(cfg, p["moe"], L.apply_norm(cfg, p["ln2"], x))
+    return x + y, aux
+
+
+def moe_apply(cfg, p, x, positions):
+    x = x + L.apply_attn(cfg, p["attn"], L.apply_norm(cfg, p["ln1"], x),
+                         positions)
+    return _residual_moe(cfg, p, x)
+
+
+def moe_decode(cfg, p, x, cache, pos, positions):
+    h, cache = L.apply_attn_decode(
+        cfg, p["attn"], L.apply_norm(cfg, p["ln1"], x), cache, pos, positions)
+    x = x + h
+    return _residual_moe(cfg, p, x)[0], cache
+
+
+# ---------------------------------------------------------------- mla
+def mla_specs(cfg):
+    return {"ln1": L.norm_specs(cfg), "mla": mla_lib.mla_specs(cfg),
+            "ln2": L.norm_specs(cfg), "mlp": L.ffn_specs(cfg)}
+
+
+def mla_apply(cfg, p, x, positions):
+    x = x + mla_lib.apply_mla(cfg, p["mla"], L.apply_norm(cfg, p["ln1"], x),
+                              positions)
+    return _residual_ffn(cfg, p, x), 0.0
+
+
+def _mla_decode_attn(cfg, p, x, cache, pos, positions):
+    h, cache = mla_lib.apply_mla_decode(
+        cfg, p["mla"], L.apply_norm(cfg, p["ln1"], x), cache, pos, positions)
+    return x + h, cache
+
+
+def mla_decode(cfg, p, x, cache, pos, positions):
+    x, cache = _mla_decode_attn(cfg, p, x, cache, pos, positions)
+    return _residual_ffn(cfg, p, x), cache
+
+
+def mla_cache(cfg, batch, seq):
+    return mla_lib.mla_cache_specs(cfg, batch, seq)
+
+
+# ---------------------------------------------------------------- mla_moe
+def mla_moe_specs(cfg):
+    return {"ln1": L.norm_specs(cfg), "mla": mla_lib.mla_specs(cfg),
+            "ln2": L.norm_specs(cfg), "moe": L.moe_specs(cfg)}
+
+
+def mla_moe_apply(cfg, p, x, positions):
+    x = x + mla_lib.apply_mla(cfg, p["mla"], L.apply_norm(cfg, p["ln1"], x),
+                              positions)
+    return _residual_moe(cfg, p, x)
+
+
+def mla_moe_decode(cfg, p, x, cache, pos, positions):
+    x, cache = _mla_decode_attn(cfg, p, x, cache, pos, positions)
+    return _residual_moe(cfg, p, x)[0], cache
+
+
 # ---------------------------------------------------------------- prefill
 # Each prefill runs the full-sequence path AND emits the decode cache so a
 # serving stack can hand off prefill -> decode (SWA caches land in ring
@@ -64,6 +140,40 @@ def attn_prefill(cfg, p, x, positions, cache_len):
     return _residual_ffn(cfg, p, x), 0.0, cache
 
 
+def moe_prefill(cfg, p, x, positions, cache_len):
+    y, cache = _attn_kv_prefill(cfg, p, x, positions, cache_len)
+    x, aux = _residual_moe(cfg, p, x + y)
+    return x, aux, cache
+
+
+def _mla_prefill_inner(cfg, p, x, positions, cache_len):
+    """MLA over the sequence, and its latent decode caches placed in ring
+    layout at ``cache_len`` slots (as the attention caches are)."""
+    y, (c_kv, k_rope) = mla_lib.apply_mla(
+        cfg, p["mla"], L.apply_norm(cfg, p["ln1"], x), positions,
+        return_cache=True)
+    cache = {"c_kv": L.ring_place(c_kv.to(cfg.compute_jdtype), cache_len),
+             "k_rope": L.ring_place(k_rope.to(cfg.compute_jdtype),
+                                    cache_len)}
+    return y, cache
+
+
+def mla_prefill(cfg, p, x, positions, cache_len):
+    y, cache = _mla_prefill_inner(cfg, p, x, positions, cache_len)
+    x = x + y
+    return _residual_ffn(cfg, p, x), 0.0, cache
+
+
+def mla_moe_prefill(cfg, p, x, positions, cache_len):
+    y, cache = _mla_prefill_inner(cfg, p, x, positions, cache_len)
+    x, aux = _residual_moe(cfg, p, x + y)
+    return x, aux, cache
+
+
 REGISTRY = {
     "attn": (attn_specs, attn_apply, attn_decode, attn_cache, attn_prefill),
+    "moe": (moe_specs, moe_apply, moe_decode, attn_cache, moe_prefill),
+    "mla": (mla_specs, mla_apply, mla_decode, mla_cache, mla_prefill),
+    "mla_moe": (mla_moe_specs, mla_moe_apply, mla_moe_decode, mla_cache,
+                mla_moe_prefill),
 }

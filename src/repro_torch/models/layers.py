@@ -1,12 +1,13 @@
-"""Norms, FFNs and dense attention (port of ``repro.models.layers``;
-MoE comes with its slice).  RMSNorm and flash attention go through the
+"""Norms, FFNs, dense attention and capacity-bounded MoE (port of
+``repro.models.layers``).  RMSNorm and flash attention go through the
 kernel wrappers: the CUDA kernels on a CUDA tensor, their plain versions
 on a CPU tensor.
 
 Weights are stored in ``cfg.param_dtype`` and cast to the activation's
-dtype at each matmul, as the JAX package does.  The projections and the
-FFN stay ``torch.matmul``/``einsum``: the JAX package leaves them to XLA
-outside any Pallas kernel.
+dtype at each matmul, as the JAX package does.  The projections, the
+FFN and the MoE's routing, scatter, expert products and gather stay
+plain PyTorch: the JAX package leaves them to XLA outside any Pallas
+kernel.
 """
 from __future__ import annotations
 
@@ -43,9 +44,11 @@ def apply_norm(cfg: ArchConfig, p: Tree, x: torch.Tensor) -> torch.Tensor:
         return (y * p["scale"].to(torch.float32)
                 + p["bias"].to(torch.float32)).to(dt)
     # the kernel on a CUDA tensor, its plain version on a CPU tensor;
-    # closed-form backward under autograd
+    # closed-form backward under autograd.  The kernel takes an f32 scale:
+    # a bf16 tree's (llama4-scout, deepseek-v2) is widened exactly, as the
+    # JAX package's jnp path widens it
     from repro_torch.kernels.rmsnorm.ops import rmsnorm_train
-    return rmsnorm_train(x, p["scale"])
+    return rmsnorm_train(x, p["scale"].to(torch.float32))
 
 
 # ---------------------------------------------------------------- FFN
@@ -116,7 +119,8 @@ def _pos_embed(cfg: ArchConfig, q, k, positions):
         q = rope_lib.apply_rope(q, positions, cfg.rope_theta)
         k = rope_lib.apply_rope(k, positions, cfg.rope_theta)
     elif cfg.rope == "mrope":
-        raise NotImplementedError("mrope comes with the VLM slice")
+        q = rope_lib.apply_mrope(q, positions, cfg.rope_theta)
+        k = rope_lib.apply_mrope(k, positions, cfg.rope_theta)
     return q, k
 
 
@@ -193,3 +197,88 @@ def attn_cache_specs(cfg: ArchConfig, batch: int, seq: int) -> Tree:
         "v": ParamSpec((batch, seq, cfg.n_kv_heads, hd), dt, "zeros",
                        ("batch", "kv_seq", "kv_heads", "head_dim")),
     }
+
+
+# ---------------------------------------------------------------- MoE
+def moe_specs(cfg: ArchConfig) -> Tree:
+    """Routed experts stacked ``[E, ...]``, an f32 router whatever
+    ``param_dtype`` is, and the shared experts as one dense FFN."""
+    m = cfg.moe
+    d, f, pd = cfg.d_model, m.d_ff_expert, cfg.param_jdtype
+    s = {
+        "router": ParamSpec((d, m.num_experts), torch.float32,
+                            axes=("embed", "experts")),
+        "wi_gate": ParamSpec((m.num_experts, d, f), pd,
+                             axes=("experts", "embed", "expert_mlp")),
+        "wi_up": ParamSpec((m.num_experts, d, f), pd,
+                           axes=("experts", "embed", "expert_mlp")),
+        "wo": ParamSpec((m.num_experts, f, d), pd,
+                        axes=("experts", "expert_mlp", "embed")),
+    }
+    if m.num_shared:
+        s["shared"] = ffn_specs(cfg, d_ff=m.num_shared * m.d_ff_expert)
+    return s
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """``jax.lax.top_k``: the k largest along the last axis, equal values
+    in index order (a stable descending sort; ``torch.topk`` promises no
+    order among ties)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def apply_moe(cfg: ArchConfig, p: Tree, x: torch.Tensor):
+    """Capacity-bounded top-k MoE, the JAX package's routing exactly.
+    x [B, S, d] -> (y [B, S, d], aux loss).
+
+    The router runs in f32; each token's k choices are renormalised;
+    the Switch load-balance loss is ``E * sum_e f_e * P_e``.  Each
+    expert takes ``C = max(1, int(capacity_factor * T * k / E))`` rows:
+    a (token, choice) pair's slot is its rank among the pairs routed to
+    that expert in token-major order, and pairs ranked C or later are
+    dropped.  Every slot holds at most one kept row, so the buffers
+    ``[E, C, d]`` are written with a plain index put (no accumulation:
+    no kept row's value depends on the order rows land in), the experts
+    run as batched matmuls, and each kept pair gathers its expert's row
+    back, weighted.  Capacity couples the rows of a batch: the same
+    token can be kept in one batch and dropped in another."""
+    m = cfg.moe
+    B, S, d = x.shape
+    T = B * S
+    xt = x.reshape(T, d)
+    E, k = m.num_experts, m.top_k
+    cd = xt.dtype
+
+    logits = xt.to(torch.float32) @ p["router"].to(torch.float32)  # [T, E]
+    probs = torch.softmax(logits, dim=-1)
+    weights, sel = _top_k(probs, k)                              # [T, k]
+    weights = weights / torch.clamp(weights.sum(-1, keepdim=True),
+                                    min=1e-9)
+
+    e_flat = sel.reshape(T * k)                                  # [T*k]
+    dispatch_frac = torch.bincount(e_flat, minlength=E).to(
+        torch.float32) / (T * k)
+    aux = E * torch.sum(dispatch_frac * probs.mean(0))
+
+    C = max(1, int(m.capacity_factor * T * k / E))
+    onehot = torch.nn.functional.one_hot(e_flat, E)
+    pos_in_e = (torch.cumsum(onehot, dim=0) * onehot).sum(-1) - 1  # [T*k]
+    keep = pos_in_e < C
+    # kept pairs to their own rows of the [E * C, d] buffers, dropped ones
+    # to one spare row past them (never read): no host sync for a count
+    rows = torch.where(keep, e_flat * C + pos_in_e, E * C)
+    buf = xt.new_zeros((E * C + 1, d))
+    buf[rows] = xt.repeat_interleave(k, dim=0)
+    buf = buf[:E * C].view(E, C, d)
+    g = torch.bmm(buf, p["wi_gate"].to(cd))
+    u = torch.bmm(buf, p["wi_up"].to(cd))
+    eo = torch.bmm(F.silu(g) * u, p["wo"].to(cd))                # [E, C, d]
+
+    w = weights.reshape(T * k, 1).to(cd) * keep[:, None].to(cd)
+    gathered = eo[e_flat, torch.clamp(pos_in_e, max=C - 1)] * w  # [T*k, d]
+    y = gathered.reshape(T, k, d).sum(1)
+
+    if m.num_shared:
+        y = y + apply_ffn(cfg, p["shared"], xt)
+    return y.reshape(B, S, d), aux * m.aux_loss_coef

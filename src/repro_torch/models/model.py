@@ -23,6 +23,7 @@ import torch
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.params import ParamSpec
 from repro_torch.models import layers as L
+from repro_torch.models import rope as rope_lib
 from repro_torch.models.blocks import REGISTRY
 from repro_torch.tree import tree_map
 
@@ -69,22 +70,29 @@ def model_runs(cfg: ArchConfig) -> tuple[list[tuple[str, int]], int]:
     return segments(cfg.block_kinds), 1
 
 
-# norm parameters are read in f32 by apply_norm (the rmsnorm kernel takes
-# an f32 scale); every other block weight is cast to the activation
-# dtype at its matmul, so casting it once up front computes the same
-_NORM_KEYS = frozenset({"ln1", "ln2"})
+# leaves read in f32 whatever the activation dtype: the norms' scales
+# (apply_norm; the rmsnorm kernel takes an f32 scale) and the MoE router
+# (apply_moe routes in f32); every other block weight is cast to the
+# activation dtype at its matmul, so casting it once up front computes
+# the same
+_F32_KEYS = frozenset({"ln1", "ln2", "router"})
+
+
+def _cast_tree(tree: Tree, dtype: torch.dtype) -> Tree:
+    if isinstance(tree, dict):
+        return {key: sub if key in _F32_KEYS else _cast_tree(sub, dtype)
+                for key, sub in tree.items()}
+    return tree_map(lambda a: a.to(dtype) if a.is_floating_point() else a,
+                    tree)
 
 
 def compute_cast(tree: Tree, dtype: torch.dtype) -> Tree:
-    """A block's params with every non-norm floating leaf cast to
-    ``dtype`` (a no-op, no copy, where it already has that dtype),
-    outside autograd: what each of a shared layer's applications would
-    cast at its matmuls, cast once."""
+    """A block's params with every floating leaf but the f32 ones
+    (norms, the MoE router) cast to ``dtype`` (a no-op, no copy, where it
+    already has that dtype), outside autograd: what each of a shared
+    layer's applications would cast at its matmuls, cast once."""
     with torch.no_grad():
-        return {key: (sub if key in _NORM_KEYS else tree_map(
-                    lambda a: a.to(dtype) if a.is_floating_point() else a,
-                    sub))
-                for key, sub in tree.items()}
+        return _cast_tree(tree, dtype)
 
 
 def lm_specs(cfg: ArchConfig) -> Tree:
@@ -126,8 +134,9 @@ def head(cfg: ArchConfig, params: Tree, x: torch.Tensor) -> torch.Tensor:
 
 def default_positions(cfg: ArchConfig, batch: int, seq: int, offset=0,
                       device=None) -> torch.Tensor:
+    """Prefill positions: ``[S]``, or M-RoPE's text-only ``[3, B, S]``."""
     if cfg.rope == "mrope":
-        raise NotImplementedError("mrope comes with the VLM slice")
+        return rope_lib.default_mrope_positions(batch, seq, offset, device)
     return torch.arange(seq, device=device) + offset
 
 
@@ -207,9 +216,10 @@ def lm_prefill(cfg: ArchConfig, params: Tree, tokens: torch.Tensor,
 
 def decode_positions(cfg: ArchConfig, batch: int, pos: int,
                      device) -> torch.Tensor:
-    if cfg.rope == "mrope":
-        raise NotImplementedError("mrope comes with the VLM slice")
-    return torch.full((batch, 1), pos, dtype=torch.int64, device=device)
+    """One decode step's positions: ``[B, 1]``, or ``[3, B, 1]``
+    (M-RoPE)."""
+    shape = (3, batch, 1) if cfg.rope == "mrope" else (batch, 1)
+    return torch.full(shape, pos, dtype=torch.int64, device=device)
 
 
 def lm_decode_step(cfg: ArchConfig, params: Tree, token: torch.Tensor,

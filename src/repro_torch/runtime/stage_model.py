@@ -188,6 +188,13 @@ def _make_stage_fwd(cfg: ArchConfig, s: int, n_stages: int, comp: str,
     is_first, is_last = s == 0, s == n_stages - 1
 
     def stage_fwd(params: Tree, inp: torch.Tensor) -> torch.Tensor:
+        if cfg.rope == "mrope":
+            raise NotImplementedError(
+                f"{cfg.name}: M-RoPE stage programs are refused.  The JAX "
+                "package's stage programs pass 1-D positions (arange) to "
+                "apply_mrope, which needs [3, B, S] and raises, so the "
+                "reference trains no M-RoPE config through SWARM stages "
+                "(ROADMAP queue 3); serve it through ServeRunner instead")
         if is_first:
             x = model_lib.embed(cfg, params, inp)
         else:

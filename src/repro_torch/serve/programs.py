@@ -20,6 +20,11 @@ also under ``cfg.wire_quant``: the JAX package's session programs call
 the codec's plain ``compress``, which has none.
 An ALBERT-shared stage applies each of its groups ``reps`` times, its
 caches stacked group-major (:mod:`repro_torch.models.model`).
+Positions are the single-process model's (``default_positions`` /
+``decode_positions``): M-RoPE's ``[3, B, S]`` for qwen2-vl.  The JAX
+package's session prefill passes 1-D positions there, which its
+``apply_mrope`` cannot take, so only its single-process reference serves
+an M-RoPE config; the port's staged swarm is held to that reference.
 
 Programs are cached process-wide, one per ``(config, span, horizon,
 codec)`` — N peers of a span share one — and each build is counted in
@@ -136,7 +141,8 @@ def _make_stage_prefill(cfg: ArchConfig, s: int, n_stages: int,
 
     def stage_prefill(params: Tree, inp, cache_len: int):
         x = _stage_in(cfg, params, inp, is_first, comp, learned)
-        positions = torch.arange(x.shape[1], device=x.device)
+        positions = model_lib.default_positions(cfg, x.shape[0], x.shape[1],
+                                                device=x.device)
         x, caches = model_lib.prefill_runs(cfg, runs, params["blocks"], x,
                                            positions, cache_len, reps)
         return _stage_out(cfg, params, x, is_last, comp, learned), caches

@@ -938,3 +938,129 @@ def test_cuda_collect_waits_on_an_event_not_the_host(monkeypatch):
     assert calls == []
     collect.event.synchronize()
     assert collect.event.query()
+
+
+# ------------------------------------------------ the attention families
+FAMILY_FLASH_CASES = [
+    # B, Sq, Sk, H, KV, Dqk, Dv, window: each new head-dim pair at the
+    # edges of the kernel's query and key tiles, causal and windowed
+    (2, 130, 130, 4, 1, 120, 120, 0),        # danube's 120 (pad columns)
+    (1, 200, 200, 8, 2, 120, 120, 70),       # window straddling key tiles
+    (2, 65, 65, 8, 1, 256, 256, 0),          # gemma's 256, MQA, 32-key tiles
+    (1, 24, 150, 4, 1, 256, 256, 40),        # query offset + window
+    (2, 129, 129, 4, 4, 192, 128, 0),        # MLA: qk 192 against v 128
+    (1, 100, 100, 4, 4, 192, 128, 33),       # MLA with a window
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FAMILY_FLASH_CASES)
+def test_cuda_flash_family_head_dims(case, dtype):
+    """Every new (Dqk, Dv) pair against the plain version with its lse,
+    at MLA's explicit scale where Dv differs; two calls bit-equal and
+    each batch row alone equal to that row of the batch call."""
+    dev = _card()
+    B, Sq, Sk, H, KV, D, Dv, window = case
+    g = _gen(dev)
+    q = torch.randn(B, Sq, H, D, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, Sk, KV, D, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, Sk, KV, Dv, generator=g, device=dev).to(dtype)
+    scale = D ** -0.5 if D == Dv else 192 ** -0.5
+    out, lse = flash_attention_fwd(q, k, v, True, window, scale,
+                                   with_lse=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = flash_fwd_ref(q, k, v, True, window, Sk - Sq, 64, 64,
+                                 scale)
+    assert out.dtype == dtype and out.shape == (B, Sq, H, Dv)
+    assert float((out.float() - ref.float()).abs().max()) <= \
+        FLASH_BOUND[dtype]
+    assert float((lse - ref_lse).abs().max()) <= 1e-4
+    again = flash_attention_fwd(q, k, v, True, window, scale, with_lse=True)
+    assert _same_bits(again[0], out) and _same_bits(again[1], lse)
+    for b in range(B):
+        one = flash_attention_fwd(q[b:b + 1], k[b:b + 1], v[b:b + 1], True,
+                                  window, scale, with_lse=True)
+        assert _same_bits(one[0], out[b:b + 1])
+        assert _same_bits(one[1], lse[b:b + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dqk,dv", [(96, 96), (128, 64), (192, 192),
+                                    (256, 128), (32, 32)])
+def test_cuda_flash_refuses_other_head_dim_pairs(dqk, dv):
+    dev = _card()
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn(1, 8, 2, dqk, device=dev).to(dtype)
+        v = torch.randn(1, 8, 2, dv, device=dev).to(dtype)
+        before = kernels.LAUNCHES["flash_attention_fwd"]
+        with pytest.raises(ValueError, match="head dims"):
+            flash_attention_fwd(q, q, v)
+        assert kernels.LAUNCHES["flash_attention_fwd"] == before
+
+
+def _family_cfg(kind: str, dtype: str) -> ArchConfig:
+    """A small MoE (top-2 of 4 experts + a shared expert; attention head
+    dim 64) or MLA + MoE (qk 128 + 64 against v 128: the kernel's
+    (192, 128) pair) config."""
+    from repro_torch.models.config import MLAConfig, MoEConfig
+    moe = MoEConfig(num_experts=4, num_shared=1, top_k=2, d_ff_expert=128,
+                    capacity_factor=1.25)
+    if kind == "moe":
+        return _cuda_cfg(name="tiny-moe", family="moe", moe=moe,
+                         compute_dtype=dtype, param_dtype=dtype)
+    return _cuda_cfg(name="tiny-mla", family="moe", n_layers=2,
+                     n_kv_heads=4, block_pattern=("mla_moe",) * 2, moe=moe,
+                     mla=MLAConfig(kv_lora_rank=64, q_lora_rank=96,
+                                   qk_nope_dim=128, qk_rope_dim=64,
+                                   v_head_dim=128),
+                     compute_dtype=dtype, param_dtype=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_moe_repeats_to_the_bit(dtype):
+    """``apply_moe`` on the card: two calls bit-equal (one kept row a
+    slot, so no order of scatter changes a bit), the router f32."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import params as P
+    dev = _card()
+    cfg = _family_cfg("moe", dtype)
+    p = P.init(0, L.moe_specs(cfg), dev)
+    assert p["router"].dtype == torch.float32
+    x = torch.randn(2, 300, cfg.d_model, generator=_gen(dev),
+                    device=dev).to(cfg.compute_jdtype)
+    y, aux = L.apply_moe(cfg, p, x)
+    y2, aux2 = L.apply_moe(cfg, p, x)
+    assert _same_bits(y, y2) and _same_bits(aux, aux2)
+    assert bool(torch.isfinite(y.float()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["moe", "mla"])
+def test_cuda_family_serve_matches_reference(kind):
+    """A tiny MoE and a tiny MLA + MoE config served over two stages on
+    the card, token for token against the single-process reference on
+    the same weights (one reference call per session batch); flash and
+    rmsnorm launch."""
+    from repro_torch.serve import ServeConfig, ServeRunner, \
+        reference_generate
+    dev = _card()
+    cfg = _family_cfg(kind, "float32")
+    new, batch = 4, 2
+    r = ServeRunner(cfg, ServeConfig(n_stages=2, max_batch=batch,
+                                     max_sessions=1), seed=0, device=dev)
+    r.add_peer((0, 1), pool="decode")
+    r.add_peer((1, 2), pool="decode")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                size=(4, 40))
+    kernels.reset_launches()
+    reqs = [r.submit(p, new) for p in prompts]
+    summary = r.run()
+    assert summary["completed"] == 4 and summary["failed"] == 0
+    assert kernels.LAUNCHES["flash_attention_fwd"] > 0
+    assert kernels.LAUNCHES["rmsnorm"] > 0
+    ref = np.concatenate([reference_generate(cfg, r.params,
+                                             prompts[i:i + batch], new)
+                          for i in range(0, 4, batch)])
+    np.testing.assert_array_equal(np.stack([q.tokens for q in reqs]), ref)

@@ -183,6 +183,80 @@ def test_model_attention_calls_meet_the_bf16_kernel_layout(monkeypatch):
     assert any(train) and not all(train)          # forwards and recomputes
 
 
+FAMILY_ARCHS = ["gemma-2b", "qwen1.5-4b", "h2o-danube-3-4b", "qwen2-vl-2b",
+                "llama4-scout-17b-a16e", "deepseek-v2-236b"]
+
+
+def _family_serving_cfg(arch):
+    """``repro.configs.get_reduced(arch)`` as the port's config, in bf16,
+    with the full config's head dims (``head_dim``: 120 for danube, 256
+    for gemma; MLA's qk nope/rope and v dims, 128 + 64 against 128) and
+    parameter dtype (bf16 for llama4-scout and deepseek-v2)."""
+    import dataclasses
+    from repro.configs import get_config, get_reduced
+    from repro_torch.models import config as tconfig
+    full, cfg = get_config(arch), get_reduced(arch)
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    kw.update(head_dim=full.head_dim, compute_dtype="bfloat16",
+              param_dtype=full.param_dtype)
+    if cfg.moe is not None:
+        kw["moe"] = tconfig.MoEConfig(**dataclasses.asdict(cfg.moe))
+    if cfg.mla is not None:
+        kw["mla"] = tconfig.MLAConfig(**dict(
+            dataclasses.asdict(full.mla), kv_lora_rank=32, q_lora_rank=0))
+    return tconfig.ArchConfig(**kw)
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_attention_calls_meet_the_kernel_rule(arch, monkeypatch):
+    """Every flash call of each attention family's serving path (a
+    two-stage ServeRunner's prefills, at the full config's head dims)
+    meets the CUDA kernel's rule: a head-dim pair of ``HEAD_DIMS`` (q
+    and k equal) and q, k, v the bf16 kernel reads with 16-byte copies;
+    every rmsnorm call passes the f32 scale the kernel takes, also from
+    a bf16 tree.  On the card the wrappers raise otherwise; here the
+    tensors come from the same code on the CPU."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.rmsnorm import ops as rops
+    from repro_torch.serve import ServeConfig, ServeRunner
+    cfg = _family_serving_cfg(arch)
+    seen = []
+    orig = fk.flash_attention_fwd
+
+    def recording(q, k, v, *args, **kw):
+        assert k.shape[-1] == q.shape[-1]
+        assert (q.shape[-1], v.shape[-1]) in fk.HEAD_DIMS, (
+            q.shape, v.shape)
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            assert t.dtype == torch.bfloat16
+            assert fk.bf16_layout_problem(t) is None, (
+                name, tuple(t.shape), t.stride(), t.storage_offset())
+        seen.append((q.shape[-1], v.shape[-1]))
+        return orig(q, k, v, *args, **kw)
+
+    norm_scales = []
+    orig_rms = rops.rmsnorm
+
+    def rms_recording(x, scale, *args, **kw):
+        norm_scales.append(scale.dtype)
+        return orig_rms(x, scale, *args, **kw)
+
+    monkeypatch.setattr(fk, "flash_attention_fwd", recording)
+    monkeypatch.setattr(rops, "rmsnorm", rms_recording)
+    r = ServeRunner(cfg, ServeConfig(n_stages=2, max_batch=2,
+                                     max_sessions=1), seed=0, device="cpu")
+    r.add_peer((0, 1), pool="decode")
+    r.add_peer((1, 2), pool="decode")
+    for p in np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                               size=(2, 24)):
+        r.submit(p, 2)
+    assert r.run()["completed"] == 2
+    want = ((192, 128) if cfg.mla is not None
+            else (cfg.head_dim, cfg.head_dim))
+    assert seen == [want] * cfg.n_layers       # one prefill, every layer
+    assert norm_scales and set(norm_scales) == {torch.float32}
+
+
 def test_vector_layout_rule_on_cpu_tensors():
     """The rule the 16-byte vector kernels (qdq_flat, the codec's row
     passes) are refused by on the card, as a pure predicate of the
