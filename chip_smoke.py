@@ -17,10 +17,11 @@ JSON line; any failure raises and exits non-zero):
              instantiation, none spilling; print the card's name and
              power limit.
 2. kernels — each kernel against its plain PyTorch version on the card at
-             the shapes of its paths (serving for rmsnorm and qdq,
-             serving and training for flash with its ``lse``, and the
-             attention families' prefill shapes for flash at head dims
-             120, 256 and 192/128, timed beside SDPA; training
+             the shapes of its paths (serving for qdq; the serving
+             prefill of yi-6b and of every attention family, their
+             shapes taken from the registered configs, for rmsnorm and
+             for flash with its ``lse``, flash also at training's shape
+             and timed beside SDPA; training
              swarm-1b-bottleneck for the codec's encode and decode and
              its true-wire pair encode_quantize / dequantize_decode,
              held stage by stage on their own intermediates, the int8
@@ -457,87 +458,66 @@ def _ulps(torch, a, b):
     return float(((a32 - b32).abs() / spacing).max())
 
 
-def check_flash(torch, gen, rows: list) -> dict:
-    """The flash forward with its ``lse`` output against the plain
-    version at the serving path's GQA shapes (yi-6b: 32 heads on 4 KV
-    heads, prompt 512 and a ragged 200) and the training path's MHA
-    shape (swarm-1b: 32 heads, microbatch 2, seq 512), where the
-    backward reuses ``lse``.  Each call also runs again (output and
-    ``lse`` bit-equal: deterministic) and on each batch row alone (equal
-    to that row of the batch-2 call: a row's result does not depend on
-    the rest of the grid)."""
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention.kernel import \
-        flash_attention_fwd
-    from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
-    H, D, B = 32, 128, 2
-    main = None
-    for path, KV, S in (("serve", 4, 512), ("serve", 4, 200),
-                        ("train", 32, 512)):
-        for dt, bound, peak in ((torch.bfloat16, 2e-2, H100_BF16_FLOPS),
-                                (torch.float32, 1e-4, H100_F32_FLOPS)):
-            q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dt)
-            k = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dt)
-            v = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dt)
-            out, lse = _counted(torch, lambda: flash_attention_fwd(
-                q, k, v, True, 0, None, 512, 1024, with_lse=True))
-            torch.cuda.synchronize()
-            with plain_precision(torch):
-                ref, ref_lse = flash_fwd_ref(q, k, v, True, 0, 0, 512, 1024)
-            err = float((out.float() - ref.float()).abs().max())
-            lse_err = float((lse - ref_lse).abs().max())
-            if not (err <= bound and lse_err <= 1e-4):
-                raise AssertionError(f"flash {path} S={S} KV={KV} {dt}: max "
-                                     f"err {err} (bound {bound}), lse "
-                                     f"{lse_err} (bound 1e-4)")
-            again = _counted(torch, lambda: flash_attention_fwd(
-                q, k, v, True, with_lse=True))
-            if not (torch.equal(again[0], out) and torch.equal(again[1], lse)):
-                raise AssertionError(f"flash {path} S={S} KV={KV} {dt}: two "
-                                     f"calls differ")
-            for b in range(B):
-                one = _counted(torch, lambda: flash_attention_fwd(
-                    q[b:b + 1], k[b:b + 1], v[b:b + 1], True, with_lse=True))
-                if not (torch.equal(one[0], out[b:b + 1])
-                        and torch.equal(one[1], lse[b:b + 1])):
-                    raise AssertionError(f"flash {path} S={S} KV={KV} {dt}: "
-                                         f"batch row {b} alone differs")
-            fwd = lambda: flash_attention_fwd(q, k, v, True)
-            ms = _counted(torch, lambda: time_ms(torch, fwd))
-            cold = _counted(torch, lambda: time_ms(torch, fwd, cold=True))
-            eager = _counted(torch, lambda: eager_ms(torch, fwd))
-            plain = time_ms(torch, lambda: flash_fwd_ref(
-                q, k, v, True, 0, 0, 512, 1024), iters=5)
-            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True))
-            pairs = S * (S + 1) // 2                 # causal (q, k) pairs
-            flops = 4.0 * D * pairs * B * H
-            nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-            b_ms, b_by = bound_ms(nbytes, flops, peak)
-            row = {"kernel": "flash_attention_fwd", "path": path, "shape":
-                   f"B={B} S={S} H={H} KV={KV} D={D}", "dtype": str(dt),
-                   "max_abs_err": err, "lse_max_abs_err": lse_err,
-                   "bound": bound, "lse_bound": 1e-4,
-                   "deterministic": True, "row_independent": True,
-                   "ms": ms, "cold_ms": cold, "eager_ms": eager,
-                   "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
-                   "bound_by": b_by, "cold_share_of_bound": b_ms / cold}
-            emit(row)
-            rows.append(row)
-            if (path, S, dt) == ("serve", 512, torch.bfloat16):
-                main = row
-    return main
-
-
-# flash at the attention families' prefill shapes: (config, B, S, H, KV,
-# Dqk, Dv, window, scale (None: Dqk^-0.5))
-FAMILY_FLASH = (
-    ("gemma-2b", 2, 512, 8, 1, 256, 256, 0, None),
-    ("h2o-danube-3-4b", 2, 512, 32, 8, 120, 120, 4096, None),
-    ("h2o-danube-3-4b", 1, 4608, 32, 8, 120, 120, 4096, None),  # LONG_PROMPT
-    ("deepseek-v2-236b", 2, 512, 128, 128, 192, 128, 0, 192 ** -0.5),
+# The attention families served at full width (ROADMAP queue 1 item 6a):
+# (name, layers served (None: the full depth), n_stages, chain split).
+# The two MoE models fit the card only at a cut depth: llama4-scout's 48
+# layers are 211 GB of bf16 weights, deepseek-v2's 60 are 470 GB.
+FAMILY_SERVING = (
+    ("gemma-2b", None, 3, 2),
+    ("qwen1.5-4b", None, 4, 2),
+    ("h2o-danube-3-4b", None, 4, 2),
+    ("qwen2-vl-2b", None, 4, 2),
+    ("llama4-scout-17b-a16e", 4, 4, 2),
+    ("deepseek-v2-236b", 2, 2, 1),
 )
+LONG_PROMPT = 4608      # h2o-danube-3: past its 4096-token window
+
+
+def family_config(name: str, n_layers):
+    """The registered config, its depth cut to ``n_layers`` (None: kept);
+    widths untouched."""
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    if n_layers is None:
+        return cfg
+    kw = {"n_layers": n_layers}
+    if cfg.block_pattern is not None:
+        kw["block_pattern"] = cfg.block_pattern[:n_layers]
+    return cfg.with_overrides(**kw)
+
+
+def _head_dims(cfg) -> list:
+    """The flash kernel's (Dqk, Dv) pair on the config's prefill."""
+    if cfg.mla is not None:
+        return [cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim,
+                cfg.mla.v_head_dim]
+    return [cfg.hd, cfg.hd]
+
+
+def _long_prompt(cfg) -> bool:
+    """Whether the config also serves ``LONG_PROMPT``: past its window."""
+    return 0 < cfg.sliding_window < LONG_PROMPT
+
+
+def flash_shapes() -> list:
+    """The flash forward's shapes on the card's paths, as (arch, path, B,
+    S, H, KV, Dqk, Dv, window): yi-6b's serving GQA (prompt 512 and a
+    ragged 200), swarm-1b's training MHA, and each attention family's
+    prefill at the serving batch and prompt with the head counts, head
+    dims and window of its registered config (MLA's keys expanded to
+    every head), past the window at ``LONG_PROMPT`` where it serves
+    that."""
+    shapes = [("yi-6b", "serve", 2, 512, 32, 4, 128, 128, 0),
+              ("yi-6b", "serve", 2, 200, 32, 4, 128, 128, 0),
+              ("swarm-1b", "train", 2, 512, 32, 32, 128, 128, 0)]
+    for name, _, _, _ in FAMILY_SERVING:
+        cfg = family_config(name, None)
+        kv = cfg.n_heads if cfg.mla is not None else cfg.n_kv_heads
+        heads = (cfg.n_heads, kv, *_head_dims(cfg), cfg.sliding_window)
+        shapes.append((name, "serve_families", MAX_BATCH, PROMPT) + heads)
+        if _long_prompt(cfg):
+            shapes.append((name, "serve_families", 1, LONG_PROMPT) + heads)
+    return shapes
 
 
 def _sdpa_backend(torch, fn) -> str:
@@ -551,26 +531,28 @@ def _sdpa_backend(torch, fn) -> str:
     return "math"
 
 
-def check_flash_families(torch, gen, rows: list) -> dict:
-    """The flash forward at the head-dim pairs the attention families
-    add, at their prefill shapes (gemma's MQA at 256; danube's GQA at 120
-    with its 4096-token window, at prompt 512 and past the window at
-    4608; deepseek-v2's MLA at 192 against 128 over 128 heads), in bf16
-    and f32, with ``lse``, against the plain version under the bounds of
-    ``check_flash``; each call again (bit-equal) and each batch row alone
-    (equal to its row of the batch call).  Timed beside the bound, the
-    plain version and SDPA with the same masks and scale (a boolean mask
-    where the window is shorter than the sequence), naming the backend
-    SDPA took.  Returns the bf16 rows by config."""
+def check_flash(torch, gen, rows: list) -> dict:
+    """The flash forward with its ``lse`` output against the plain
+    version at every shape of ``flash_shapes`` (the training path's
+    backward reuses ``lse``), in bf16 and f32, at Dqk ** -0.5 (MLA's
+    explicit scale is that of its concatenated dims).  Each call also
+    runs again (output and ``lse`` bit-equal: deterministic) and on each
+    batch row alone (equal to that row of the batch call: a row's result
+    does not depend on the rest of the grid).  Timed beside the bound,
+    the plain version and SDPA with the same mask and scale (a boolean
+    mask where the window is shorter than the sequence), naming the
+    backend SDPA took; f32, which no model path runs, with 3 calls a
+    time.  Returns yi-6b's prompt-512 bf16 row."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_fwd
     from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
-    out_rows = {}
-    for arch, B, S, H, KV, D, Dv, win, scale in FAMILY_FLASH:
-        sc = D ** -0.5 if scale is None else scale
-        for dt, bound, peak in ((torch.bfloat16, 2e-2, H100_BF16_FLOPS),
-                                (torch.float32, 1e-4, H100_F32_FLOPS)):
+    main = None
+    for arch, path, B, S, H, KV, D, Dv, win in flash_shapes():
+        sc = D ** -0.5
+        for dt, bound, peak, iters in (
+                (torch.bfloat16, 2e-2, H100_BF16_FLOPS, 20),
+                (torch.float32, 1e-4, H100_F32_FLOPS, 3)):
             q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dt)
             k = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dt)
             v = torch.randn(B, S, KV, Dv, generator=gen,
@@ -584,7 +566,8 @@ def check_flash_families(torch, gen, rows: list) -> dict:
                                              1024, sc)
             err = float((out.float() - ref.float()).abs().max())
             lse_err = float((lse - ref_lse).abs().max())
-            tag = f"flash {arch} B={B} S={S} D={D}/{Dv} window={win} {dt}"
+            tag = (f"flash {arch} {path} B={B} S={S} H={H} KV={KV} "
+                   f"D={D}/{Dv} window={win} {dt}")
             if not (err <= bound and lse_err <= 1e-4):
                 raise AssertionError(f"{tag}: max err {err} (bound {bound})"
                                      f", lse {lse_err} (bound 1e-4)")
@@ -600,13 +583,17 @@ def check_flash_families(torch, gen, rows: list) -> dict:
                     raise AssertionError(f"{tag}: batch row {b} alone "
                                          f"differs")
             fwd = lambda: flash_attention_fwd(q, k, v, True, win, sc)
-            ms = _counted(torch, lambda: time_ms(torch, fwd))
-            cold = _counted(torch, lambda: time_ms(torch, fwd, cold=True))
+            warm = min(3, iters)
+            ms = _counted(torch, lambda: time_ms(torch, fwd, iters, warm))
+            cold = _counted(torch, lambda: time_ms(torch, fwd, iters, warm,
+                                                   cold=True))
+            eager = _counted(torch, lambda: eager_ms(torch, fwd, iters,
+                                                     warm))
             plain = time_ms(torch, lambda: flash_fwd_ref(
                 q, k, v, True, win, 0, 512, 1024, sc), iters=3, warmup=1)
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            pos = torch.arange(S, device="cuda")
             if 0 < win < S:
+                pos = torch.arange(S, device="cuda")
                 mask = (pos[:, None] >= pos[None, :]) & \
                     (pos[:, None] - pos[None, :] < win)
                 sdpa = lambda: F.scaled_dot_product_attention(
@@ -615,67 +602,93 @@ def check_flash_families(torch, gen, rows: list) -> dict:
             else:
                 sdpa = lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True, scale=sc, enable_gqa=True)
-                pairs = S * (S + 1) // 2
-            lib = time_ms(torch, sdpa)
+                pairs = S * (S + 1) // 2             # causal (q, k) pairs
+            lib = time_ms(torch, sdpa, iters, warm)
             backend = _sdpa_backend(torch, sdpa)
             flops = 2.0 * (D + Dv) * pairs * B * H
             nbytes = (q.numel() + k.numel() + v.numel()
                       + B * S * H * Dv) * q.element_size()
             b_ms, b_by = bound_ms(nbytes, flops, peak)
-            row = {"kernel": "flash_attention_fwd", "path": "serve_families",
+            row = {"kernel": "flash_attention_fwd", "path": path,
                    "arch": arch, "shape": f"B={B} S={S} H={H} KV={KV} "
                    f"D={D} Dv={Dv} window={win}", "dtype": str(dt),
                    "max_abs_err": err, "lse_max_abs_err": lse_err,
                    "bound": bound, "lse_bound": 1e-4,
                    "deterministic": True, "row_independent": B > 1,
-                   "ms": ms, "cold_ms": cold, "plain_ms": plain,
+                   "timed_calls": iters, "ms": ms, "cold_ms": cold,
+                   "eager_ms": eager, "plain_ms": plain,
                    "library_ms": lib, "library": f"SDPA ({backend})",
                    "bound_ms": b_ms, "bound_by": b_by,
                    "cold_share_of_bound": b_ms / cold}
             emit(row)
             rows.append(row)
-            if dt == torch.bfloat16:
-                out_rows[f"{arch} S={S}"] = row
-            del q, k, v, out, lse, ref, ref_lse, again
-    return out_rows
+            if main is None and dt == torch.bfloat16:
+                main = row
+            del q, k, v, qt, kt, vt, out, lse, ref, ref_lse, again
+    return main
+
+
+def rmsnorm_shapes() -> list:
+    """The rmsnorm kernel's row counts and widths on the serving paths, as
+    (arch, rows, d): yi-6b's prefill, and each attention family's prefill
+    at the serving batch and prompt (``LONG_PROMPT`` rows where it serves
+    that), once a shape."""
+    from repro_torch.configs import get_config
+    shapes = [("yi-6b", MAX_BATCH * PROMPT, get_config("yi-6b").d_model)]
+    for name, _, _, _ in FAMILY_SERVING:
+        cfg = family_config(name, None)
+        shapes.append((name, MAX_BATCH * PROMPT, cfg.d_model))
+        if _long_prompt(cfg):
+            shapes.append((name, LONG_PROMPT, cfg.d_model))
+    seen = set()
+    return [s for s in shapes if s[1:] not in seen and not seen.add(s[1:])]
 
 
 def check_rmsnorm(torch, gen, rows: list) -> dict:
+    """rmsnorm against its plain version within 1 ulp at every shape of
+    ``rmsnorm_shapes``, in bf16 and f32 with an f32 scale (as the models
+    call it).  yi-6b's rows are timed in full (warm, cold, eager, plain,
+    ``F.rms_norm``); the families' warm only.  Returns yi-6b's bf16
+    row."""
     import torch.nn.functional as F
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
-    R, d = 1024, 4096
     main = None
-    scale = torch.randn(d, generator=gen, device="cuda") + 1.0
-    for dt in (torch.bfloat16, torch.float32):
-        x = torch.randn(R, d, generator=gen, device="cuda").to(dt)
-        out = _counted(torch, lambda: rmsnorm(x, scale))
-        torch.cuda.synchronize()
-        ref = rmsnorm_ref(x, scale)
-        err = float((out.float() - ref.float()).abs().max())
-        ulps = _ulps(torch, out, ref)
-        if ulps > 1.0:
-            raise AssertionError(f"rmsnorm {dt}: {ulps} ulps (bound 1)")
-        ms = _counted(torch, lambda: time_ms(torch, lambda: rmsnorm(x, scale)))
-        cold = _counted(torch, lambda: time_ms(
-            torch, lambda: rmsnorm(x, scale), cold=True))
-        eager = _counted(torch, lambda: eager_ms(
-            torch, lambda: rmsnorm(x, scale)))
-        plain = time_ms(torch, lambda: rmsnorm_ref(x, scale))
-        w = scale.to(dt)
-        lib = time_ms(torch, lambda: F.rms_norm(x, (d,), w, 1e-6))
-        nbytes = 2 * x.numel() * x.element_size() + d * 4
-        b_ms, b_by = bound_ms(nbytes, 4.0 * x.numel(), H100_F32_FLOPS)
-        row = {"kernel": "rmsnorm", "shape": f"[{R}, {d}]", "dtype": str(dt),
-               "max_abs_err": err, "max_ulps": ulps, "bound": "1 ulp",
-               "ms": ms, "cold_ms": cold, "eager_ms": eager,
-               "plain_ms": plain, "library_ms": lib,
-               "bound_ms": b_ms, "bound_by": b_by,
-               "cold_share_of_bound": b_ms / cold}
-        emit(row)
-        rows.append(row)
-        if dt == torch.bfloat16:
-            main = row
+    for arch, R, d in rmsnorm_shapes():
+        full = main is None
+        scale = torch.randn(d, generator=gen, device="cuda") + 1.0
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn(R, d, generator=gen, device="cuda").to(dt)
+            out = _counted(torch, lambda: rmsnorm(x, scale))
+            torch.cuda.synchronize()
+            ref = rmsnorm_ref(x, scale)
+            err = float((out.float() - ref.float()).abs().max())
+            ulps = _ulps(torch, out, ref)
+            if ulps > 1.0:
+                raise AssertionError(f"rmsnorm {arch} [{R}, {d}] {dt}: "
+                                     f"{ulps} ulps (bound 1)")
+            fn = lambda: rmsnorm(x, scale)
+            nbytes = 2 * x.numel() * x.element_size() + d * 4
+            b_ms, b_by = bound_ms(nbytes, 4.0 * x.numel(), H100_F32_FLOPS)
+            row = {"kernel": "rmsnorm", "arch": arch, "shape": f"[{R}, {d}]",
+                   "dtype": str(dt), "max_abs_err": err, "max_ulps": ulps,
+                   "bound": "1 ulp",
+                   "ms": _counted(torch, lambda: time_ms(torch, fn)),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            if full:
+                w = scale.to(dt)
+                cold = _counted(torch, lambda: time_ms(torch, fn, cold=True))
+                row.update({
+                    "cold_ms": cold,
+                    "eager_ms": _counted(torch, lambda: eager_ms(torch, fn)),
+                    "plain_ms": time_ms(torch, lambda: rmsnorm_ref(x, scale)),
+                    "library_ms": time_ms(torch, lambda: F.rms_norm(
+                        x, (d,), w, 1e-6)),
+                    "cold_share_of_bound": b_ms / cold})
+            emit(row)
+            rows.append(row)
+            if full and dt == torch.bfloat16:
+                main = row
     return main
 
 
@@ -807,25 +820,64 @@ def check_qdq(torch, gen, rows: list) -> dict:
     return main
 
 
-def _faithful(torch, name, p, a, w):
+def _sequential_fma(torch, a, w):
+    """``a @ w`` (f32) as the port's f32 codec GEMM sums it: per output,
+    ``acc = fmaf(a[k], w[k], acc)`` for k = 0, 1, ... from +0, each step
+    rounded once to f32.  Emulated exactly in f64: the product of two
+    f32 values is exact there, TwoSum keeps the addition's error, and a
+    sum that f64 rounded onto an f32 midpoint goes to the side its error
+    lies on (the only case where rounding twice differs from once)."""
+    inf = torch.full((), float("inf"), device=a.device)
+    ad, wd = a.double(), w.double()
+    acc = torch.zeros(a.shape[0], w.shape[1], device=a.device)
+    for k in range(a.shape[1]):
+        p = ad[:, k, None] * wd[None, k, :]
+        c = acc.double()
+        t = p + c
+        bp = t - c
+        e = (p - bp) + (c - (t - bp))            # t + e == p + c exactly
+        r = t.float()
+        d = t - r.double()                       # exact
+        nb = torch.nextafter(r, torch.where(d > 0, inf, -inf))
+        mid = (d != 0) & (2 * d == nb.double() - r.double())
+        acc = torch.where(mid & (e * d > 0), nb, r)
+    return acc
+
+
+def _faithful(torch, name, p, a, w, kernel: bool = True):
     """Hold a codec product ``p`` (``a @ w`` with ``w`` rounded to
     ``a``'s dtype, f32 accumulation, rounded to that dtype) against the
     f64 product ``e`` of the same operands.  Each element must be
     faithfully rounded (``|p - e|`` below one ulp of ``e`` in the output
-    dtype, so ``p`` is one of the two values around ``e``) or within
-    ``4 u sqrt(n) ||a_i w_i||_2`` (u = 2^-24, n terms), about ten
-    standard deviations of the rounding error of an f32 running sum of
-    those terms: that floor decides only where the sum nearly cancels in
-    bf16, and everywhere in f32.  Returns (elements not correctly
-    rounded, elements only the floor admits)."""
+    dtype, so ``p`` is one of the two values around ``e``) or within a
+    floor for the f32 sum's rounding error, which decides only where the
+    sum nearly cancels in bf16, and everywhere in f32.  In bf16 the floor
+    is ``4 u sqrt(n) ||a_i w_i||_2`` (u = 2^-24, n terms), about ten
+    standard deviations of the rounding error of an f32 running sum
+    whose partial sums stay near their typical size.  In f32 that is too
+    tight: an element whose partial sums wander (RMS 1.85 times the
+    typical) came out 1.014 floors from ``e``, in the kernel and in
+    cuBLAS alike, each bit-equal to the sequential FMA sum.  So in f32
+    the floor is the bound for any order of summation, ``n u / (1 - n u)
+    sum_k |a_ik w_kj|``, and a ``kernel`` product must also equal
+    :func:`_sequential_fma` bit for bit.  Returns (elements not
+    correctly rounded, elements only the floor admits)."""
     wd = w.to(a.dtype).double()
     ad = a.double()
     e = ad @ wd
     err = (p.double() - e).abs()
     ulp = torch.exp2(torch.floor(torch.log2(e.abs() + 1e-300))) * \
         torch.finfo(a.dtype).eps
-    floor = 4 * 2.0 ** -24 * math.sqrt(a.shape[-1]) * \
-        torch.sqrt((ad * ad) @ (wd * wd))
+    n = a.shape[-1]
+    if a.dtype == torch.float32:
+        nu = n * 2.0 ** -24
+        floor = nu / (1 - nu) * (ad.abs() @ wd.abs())
+        if kernel:
+            _bits_equal(torch, f"{name} against the sequential f32 FMA sum",
+                        p, _sequential_fma(torch, a, w))
+    else:
+        floor = 4 * 2.0 ** -24 * math.sqrt(n) * \
+            torch.sqrt((ad * ad) @ (wd * wd))
     faithful = err < ulp
     bad = ~(faithful | (err <= floor))
     if bool(bad.any()):
@@ -844,7 +896,8 @@ def check_codec(torch, gen, rows: list) -> dict:
     kernel's own intermediate, so that a rounding step that one stage
     skipped would show: the LayerNorm passes (with maxout pooling and
     QDQ) bit-equal to ``ref._ln`` / ``qdq_ref``, and the codec GEMM's
-    product faithfully rounded against the f64 product (:func:`_faithful`).
+    product faithfully rounded against the f64 product, in f32 also equal
+    to the sequential FMA sum bit for bit (:func:`_faithful`).
     The end-to-end error against the plain version (whose product is
     cuBLAS's) is reported beside them: where cuBLAS and the kernel sum a
     product in another order, each may round it to the other bf16
@@ -883,7 +936,7 @@ def check_codec(torch, gen, rows: list) -> dict:
             prod_lib = h @ w_c.to(dt)
         not_cr, floor_only = _faithful(torch, f"encode {dt}", prod, h, w_c)
         lib_not_cr, _ = _faithful(torch, f"encode's plain version {dt}",
-                                  prod_lib, h, w_c)
+                                  prod_lib, h, w_c, kernel=False)
         rows_differ = (prod != prod_lib).any(-1, keepdim=True)
         for mode, w, k, c in (("bottleneck", w_c, 1, 1024),
                               ("maxout", None, 2, 2048)):
@@ -985,7 +1038,8 @@ def check_codec(torch, gen, rows: list) -> dict:
             with plain_precision(torch):
                 ref = R.decode_ref(z, w_d, mode)
             lib_not_cr, _ = _faithful(torch, f"decode's plain version "
-                                      f"{mode} {dt}", ref, a, w_d)
+                                      f"{mode} {dt}", ref, a, w_d,
+                                      kernel=False)
             err = (out.double() - ref.double()).abs()
             if dt == torch.float32 and bool((err > tol).any()):
                 raise AssertionError(f"decode {mode} f32: max error "
@@ -1324,7 +1378,6 @@ def phase_kernels(torch) -> dict:
     gen.manual_seed(0)
     rows: list = []
     main = {"flash_attention_fwd": check_flash(torch, gen, rows),
-            "flash_families": check_flash_families(torch, gen, rows),
             "rmsnorm": check_rmsnorm(torch, gen, rows),
             "qdq_flat": check_qdq(torch, gen, rows),
             **check_codec(torch, gen, rows),
@@ -1361,12 +1414,13 @@ def prompts_for(cfg):
 
 
 def make_runner(torch, cfg, params, codec: str, spare: bool,
-                quant_block: int = 64, n_stages: int = 4, split: int = 2):
+                quant_block: int = 64, n_stages: int = 4, split: int = 2,
+                max_batch: int = MAX_BATCH):
     """A ``ServeRunner`` over ``n_stages`` with one decode chain
     (0,split) -> (split,n_stages) (and a spare second peer with
     ``spare``)."""
     from repro_torch.serve import ServeConfig, ServeRunner
-    r = ServeRunner(cfg, ServeConfig(n_stages=n_stages, max_batch=MAX_BATCH,
+    r = ServeRunner(cfg, ServeConfig(n_stages=n_stages, max_batch=max_batch,
                                      max_sessions=1 if spare else 2,
                                      codec=codec, quant_block=quant_block),
                     params=params, device="cuda")
@@ -1402,7 +1456,8 @@ def chain_generate(torch, r, batch, wire):
     import numpy as np
     from repro_torch import kernels
     saved = dict(kernels.LAUNCHES)
-    total = PROMPT + NEW
+    prompt = len(batch[0])
+    total = prompt + NEW
     peers = r.decode_peers[:2]
     progs = [p.executor.session_program(total) for p in peers]
     params = [tuple(p.state.stage_view(s).params for s in prog.stages)
@@ -1417,8 +1472,8 @@ def chain_generate(torch, r, batch, wire):
     out = [tok]
     t0 = time.time()
     for i in range(NEW - 1):
-        w, kv0 = progs[0].decode(params[0], kv0, tok, PROMPT + i)
-        tok, kv1 = progs[1].decode(params[1], kv1, wire(w), PROMPT + i)
+        w, kv0 = progs[0].decode(params[0], kv0, tok, prompt + i)
+        tok, kv1 = progs[1].decode(params[1], kv1, wire(w), prompt + i)
         out.append(tok)
     torch.cuda.synchronize()
     t_dec = time.time() - t0
@@ -1443,7 +1498,7 @@ def chain_rates(torch, r, prompts) -> dict:
             for _ in range(RATE_RUNS)]
     t_pre = statistics.median(p for p, _ in runs)
     t_dec = statistics.median(d for _, d in runs)
-    return {"prefill_tokens_per_s": B * PROMPT / t_pre,
+    return {"prefill_tokens_per_s": B * len(prompts[0]) / t_pre,
             "prefill_s": t_pre,
             "decode_ms_per_token": t_dec / (NEW - 1) * 1e3,
             "decode_batch": B,
@@ -1462,18 +1517,22 @@ def free(torch) -> None:
 def phase_serve(torch, cfg, params, prompts, ref, codec: str,
                 quant_block: int = 64, n_stages: int = 4,
                 name: str = None, split: int = 2,
-                extra: dict = None) -> dict:
-    """Serve the prompts through the chain (0,split) -> (split,n_stages);
-    tokens identical to ``ref`` (plain wire), or with the int8 wire of
-    blocks of ``quant_block`` to the chain's programs with the plain int8
-    round trip at the edge.  ``extra`` joins the phase's row."""
+                max_batch: int = MAX_BATCH, extra: dict = None) -> dict:
+    """Serve the prompts [n, prompt] through the chain (0,split) ->
+    (split,n_stages), ``max_batch`` requests a session; tokens identical
+    to ``ref`` (plain wire), or with the int8 wire of blocks of
+    ``quant_block`` to the chain's programs with the plain int8 round
+    trip at the edge.  ``extra`` joins the phase's row."""
     import numpy as np
     from repro_torch import kernels
     from repro_torch.compression import quant8
     from repro_torch.models.stage_plan import get_stage_plan
     torch.cuda.reset_peak_memory_stats()
     r = make_runner(torch, cfg, params, codec, spare=False,
-                    quant_block=quant_block, n_stages=n_stages, split=split)
+                    quant_block=quant_block, n_stages=n_stages, split=split,
+                    max_batch=max_batch)
+    n_req, prompt = len(prompts), len(prompts[0])
+    B = max_batch
     kernels.reset_launches()
     toks, reqs, summary, secs = serve(torch, r, prompts)
     launches = dict(kernels.LAUNCHES)
@@ -1482,16 +1541,15 @@ def phase_serve(torch, cfg, params, prompts, ref, codec: str,
         # chain's programs called directly with the PLAIN int8 round trip
         # at the edge (same codes as the kernel, so the same tokens)
         from repro_torch.compression.quant8 import _roundtrip
-        B = r.scfg.max_batch
         ref = np.concatenate([
             chain_generate(torch, r, prompts[i:i + B],
                            lambda w: _roundtrip(w, quant_block))[0]
-            for i in range(0, N_REQ, B)])
+            for i in range(0, n_req, B)])
     if not (toks == ref).all():
         raise AssertionError(
             f"{codec}: staged tokens differ from the reference first at "
             f"(request, token) {np.argwhere(toks != ref)[0].tolist()}")
-    if summary["failed"] or summary["completed"] != N_REQ:
+    if summary["failed"] or summary["completed"] != n_req:
         raise AssertionError(f"{codec}: {summary}")
     # the serving path's kernels (the codec's are the training path's;
     # rmsnorm only where the model normalises with it)
@@ -1500,15 +1558,15 @@ def phase_serve(torch, cfg, params, prompts, ref, codec: str,
             ("qdq_flat",) if codec == "int8" else ()):
         if launches[k] <= 0:
             raise AssertionError(f"{codec}: kernel {k} never launched")
-    sessions = N_REQ // r.scfg.max_batch
+    sessions = n_req // B
     crossings = sessions * NEW          # prefill + NEW-1 decode hops
-    B = r.scfg.max_batch
     if name is None:
         name = "serve" if codec == "none" else "int8" if \
             quant_block == quant8.BLOCK else f"int8_block{quant_block}"
     row = {"phase": name, "arch": cfg.name, "n_stages": n_stages,
-           "chain": [[0, split], [split, n_stages]], "codec": codec, "quant_block": quant_block,
-           "tokens_identical": True,
+           "chain": [[0, split], [split, n_stages]], "codec": codec,
+           "quant_block": quant_block, "requests": n_req, "prompt": prompt,
+           "batch": B, "tokens_identical": True,
            "reference": ("single-process model" if codec == "none" else
                          "chain programs with the plain int8 round trip"),
            "launches": launches, "wall_s": secs,
@@ -1524,7 +1582,7 @@ def phase_serve(torch, cfg, params, prompts, ref, codec: str,
         # what the runner counts: int32 tokens into stage 0 and the
         # (dequantized) wire in the compute dtype into the chain's second
         # span, per hop
-        runner_bytes = sessions * (B * PROMPT * 4 + B * PROMPT * d * esz
+        runner_bytes = sessions * (B * prompt * 4 + B * prompt * d * esz
                                    + (NEW - 1) * (B * 4 + B * d * esz))
         if summary["wire_bytes"] != runner_bytes:
             raise AssertionError(f"int8: wire_bytes {summary['wire_bytes']}"
@@ -1533,10 +1591,10 @@ def phase_serve(torch, cfg, params, prompts, ref, codec: str,
         # (the stage plan prices the default block)
         plan = get_stage_plan(cfg, n_stages)
         packed = sessions * (
-            quant8.compressed_nbytes(B * PROMPT * d, quant_block)
+            quant8.compressed_nbytes(B * prompt * d, quant_block)
             + (NEW - 1) * quant8.compressed_nbytes(B * d, quant_block))
         edge = split - 1                # the boundary the chain crosses
-        priced = sessions * (plan.boundary_bytes(edge, B, PROMPT, "int8")
+        priced = sessions * (plan.boundary_bytes(edge, B, prompt, "int8")
                              + (NEW - 1) * plan.boundary_bytes(edge, B, 1,
                                                                "int8"))
         if quant_block == quant8.BLOCK and packed != priced:
@@ -1548,83 +1606,6 @@ def phase_serve(torch, cfg, params, prompts, ref, codec: str,
     row.update(chain_rates(torch, r, prompts))
     row["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     row.update(extra or {})
-    emit(row)
-    del r
-    free(torch)
-    return row
-
-
-# The attention families served at full width (ROADMAP queue 1 item 6a):
-# (name, layers served (None: the full depth), n_stages, chain split).
-# The two MoE models fit the card only at a cut depth: llama4-scout's 48
-# layers are 211 GB of bf16 weights, deepseek-v2's 60 are 470 GB.
-FAMILY_SERVING = (
-    ("gemma-2b", None, 3, 2),
-    ("qwen1.5-4b", None, 4, 2),
-    ("h2o-danube-3-4b", None, 4, 2),
-    ("qwen2-vl-2b", None, 4, 2),
-    ("llama4-scout-17b-a16e", 4, 4, 2),
-    ("deepseek-v2-236b", 2, 2, 1),
-)
-LONG_PROMPT = 4608      # h2o-danube-3: past its 4096-token window
-
-
-def family_config(name: str, n_layers):
-    """The registered config, its depth cut to ``n_layers`` (None: kept);
-    widths untouched."""
-    from repro_torch.configs import get_config
-    cfg = get_config(name)
-    if n_layers is None:
-        return cfg
-    kw = {"n_layers": n_layers}
-    if cfg.block_pattern is not None:
-        kw["block_pattern"] = cfg.block_pattern[:n_layers]
-    return cfg.with_overrides(**kw)
-
-
-def _head_dims(cfg) -> list:
-    """The flash kernel's (Dqk, Dv) pair on the config's prefill."""
-    if cfg.mla is not None:
-        return [cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim,
-                cfg.mla.v_head_dim]
-    return [cfg.hd, cfg.hd]
-
-
-def phase_serve_long(torch, cfg, params) -> dict:
-    """One request whose prompt (``LONG_PROMPT`` tokens) is longer than
-    the sliding window, at batch 1 through the chain: the window mask in
-    the flash kernel and the ring cache at full width; tokens identical
-    to the single-process reference."""
-    import numpy as np
-    from repro_torch import kernels
-    from repro_torch.serve import reference_generate
-    torch.cuda.reset_peak_memory_stats()
-    prompt = np.random.default_rng(2).integers(0, cfg.vocab_size,
-                                               size=(1, LONG_PROMPT))
-    ref = _counted(torch, lambda: reference_generate(cfg, params, prompt,
-                                                     NEW))
-    r = make_runner(torch, cfg, params, "none", spare=False)
-    kernels.reset_launches()
-    req = r.submit(prompt[0], NEW)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    summary = r.run()
-    torch.cuda.synchronize()
-    secs = time.time() - t0
-    launches = dict(kernels.LAUNCHES)
-    if req.tokens is None or not (np.asarray(req.tokens)[None] == ref).all():
-        raise AssertionError(f"{cfg.name} long prompt: tokens differ from "
-                             f"the reference ({summary})")
-    for k in ("flash_attention_fwd", "rmsnorm"):
-        if launches[k] <= 0:
-            raise AssertionError(f"{cfg.name} long prompt: kernel {k} "
-                                 f"never launched")
-    row = {"phase": "serve_families_long", "arch": cfg.name,
-           "prompt": LONG_PROMPT, "window": cfg.sliding_window,
-           "batch": 1, "tokens_identical": True, "launches": launches,
-           "wall_s": secs,
-           "max_memory_allocated_gb":
-               torch.cuda.max_memory_allocated() / 1e9}
     emit(row)
     del r
     free(torch)
@@ -1661,8 +1642,17 @@ def phase_serve_families(torch) -> dict:
                           n_stages=n_stages, split=split,
                           name="serve_families", extra=extra)
         rows[name] = row
-        if cfg.sliding_window and cfg.sliding_window < LONG_PROMPT:
-            rows[name + " long"] = phase_serve_long(torch, cfg, params)
+        if _long_prompt(cfg):
+            # one request past the window at batch 1: the window mask in
+            # the flash kernel and the ring cache at full width
+            long = np.random.default_rng(2).integers(
+                0, cfg.vocab_size, size=(1, LONG_PROMPT))
+            long_ref = _counted(torch, lambda: reference_generate(
+                cfg, params, long, NEW))
+            rows[name + " long"] = phase_serve(
+                torch, cfg, params, long, long_ref, "none", n_stages=n_stages,
+                split=split, name="serve_families_long", max_batch=1,
+                extra={**extra, "window": cfg.sliding_window})
         if name == "deepseek-v2-236b":
             rows[name + " int8"] = phase_serve(
                 torch, cfg, params, prompts, ref, "int8", n_stages=n_stages,

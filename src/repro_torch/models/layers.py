@@ -257,12 +257,12 @@ def apply_moe(cfg: ArchConfig, p: Tree, x: torch.Tensor):
                                     min=1e-9)
 
     e_flat = sel.reshape(T * k)                                  # [T*k]
-    dispatch_frac = torch.bincount(e_flat, minlength=E).to(
-        torch.float32) / (T * k)
+    # the counts from the one-hot (bincount sizes its output on the host)
+    onehot = torch.nn.functional.one_hot(e_flat, E)              # [T*k, E]
+    dispatch_frac = onehot.sum(0).to(torch.float32) / (T * k)
     aux = E * torch.sum(dispatch_frac * probs.mean(0))
 
     C = max(1, int(m.capacity_factor * T * k / E))
-    onehot = torch.nn.functional.one_hot(e_flat, E)
     pos_in_e = (torch.cumsum(onehot, dim=0) * onehot).sum(-1) - 1  # [T*k]
     keep = pos_in_e < C
     # kept pairs to their own rows of the [E * C, d] buffers, dropped ones

@@ -1037,6 +1037,28 @@ def test_cuda_moe_repeats_to_the_bit(dtype):
 
 
 @pytest.mark.cuda
+def test_cuda_moe_never_syncs_the_host():
+    """``apply_moe`` with its aux loss runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: no routing count, slot
+    or capacity is read back to the host, at prefill or decode width."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import params as P
+    dev = _card()
+    cfg = _family_cfg("moe", "bfloat16")
+    p = P.init(0, L.moe_specs(cfg), dev)
+    for seq in (300, 1):
+        x = torch.randn(2, seq, cfg.d_model, generator=_gen(dev),
+                        device=dev).to(cfg.compute_jdtype)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y, aux = L.apply_moe(cfg, p, x)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert y.shape == x.shape and bool(torch.isfinite(aux))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["moe", "mla"])
 def test_cuda_family_serve_matches_reference(kind):
     """A tiny MoE and a tiny MLA + MoE config served over two stages on
