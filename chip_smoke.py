@@ -18,9 +18,10 @@ JSON line; any failure raises and exits non-zero):
              power limit.
 2. kernels — each kernel against its plain PyTorch version on the card at
              the shapes of its paths (serving for qdq; the serving
-             prefill of yi-6b and of every attention family, their
-             shapes taken from the registered configs, for rmsnorm and
-             for flash with its ``lse``, flash also at training's shape
+             prefill of yi-6b and of every family that runs attention
+             or RMSNorm, their shapes taken from the registered
+             configs, hymba-1.5b's included, for rmsnorm and for flash
+             with its ``lse``, flash also at training's shape
              and timed beside SDPA; training
              swarm-1b-bottleneck for the codec's encode and decode and
              its true-wire pair encode_quantize / dequantize_decode,
@@ -52,17 +53,27 @@ JSON line; any failure raises and exits non-zero):
              (``ServeConfig.quant_block``).
 5. churn   — a spare (2,4) peer; the chain's (2,4) peer dies mid-decode;
              exactly-once KV recovery.
-6. serve_families — ``ServeRunner`` serving the attention families at
-             full width with random weights from a seed, yi-6b's
-             requests, one decode chain each, tokens identical to the
-             single-process reference: gemma-2b (18 layers, 3 stages),
-             qwen1.5-4b (40), h2o-danube-3-4b (24; also one 4,608-token
-             prompt past its 4,096-token window at batch 1),
-             qwen2-vl-2b (28, M-RoPE), each over 4 stages; llama4-scout
-             (4 of 48 layers, 4 stages) and deepseek-v2 (2 of 60, 2
-             stages; also on the int8 wire) cut in depth to fit the
-             card.  Flash and rmsnorm launch in each; prefill and decode
-             times (the median of three), peak memory.
+6. serve_families — ``ServeRunner`` serving the families at full width
+             with random weights from a seed, yi-6b's requests, one
+             decode chain each, tokens identical to the single-process
+             reference: gemma-2b (18 layers, 3 stages), qwen1.5-4b (40),
+             h2o-danube-3-4b (24; also one 4,608-token prompt past its
+             4,096-token window at batch 1), qwen2-vl-2b (28, M-RoPE),
+             hymba-1.5b (32, attention beside mamba heads; also the
+             4,608-token prompt past its 2,048-token window), each over
+             4 stages; xlstm-125m (12 mLSTM / sLSTM layers, 2 stages);
+             llama4-scout (4 of 48 layers, 4 stages) and deepseek-v2 (2
+             of 60, 2 stages; also on the int8 wire) cut in depth to fit
+             the card.  Flash and rmsnorm launch in each that runs them;
+             prefill and decode times (the median of three), peak
+             memory.  xlstm-125m and hymba-1.5b also run ``churn``
+             (``churn_families``): the re-prefill at 512 + k tokens, no
+             multiple of the chunk; the carry the spare installed, read
+             from its slot, held layer by layer to the probe peer's at
+             the same position, and the span's next logits to the
+             probe's, in bf16 and an f32 twin; each bound shown to
+             reject a carry one step stale planted through the runner,
+             a one-ulp witness reported beside them.
 7. train   — ``SwarmRunner`` training swarm-1b-bottleneck at full width
              and depth (48 layer applications, random weights from a
              seed), 3 stages, one peer each, seq 512, microbatch 2, global
@@ -160,6 +171,7 @@ import os
 import subprocess
 import sys
 import time
+import zlib
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12        # dense tensor-core peak
@@ -458,7 +470,7 @@ def _ulps(torch, a, b):
     return float(((a32 - b32).abs() / spacing).max())
 
 
-# The attention families served at full width (ROADMAP queue 1 item 6a):
+# The families served at full width (ROADMAP queue 1 items 6a and 6b):
 # (name, layers served (None: the full depth), n_stages, chain split).
 # The two MoE models fit the card only at a cut depth: llama4-scout's 48
 # layers are 211 GB of bf16 weights, deepseek-v2's 60 are 470 GB.
@@ -469,8 +481,11 @@ FAMILY_SERVING = (
     ("qwen2-vl-2b", None, 4, 2),
     ("llama4-scout-17b-a16e", 4, 4, 2),
     ("deepseek-v2-236b", 2, 2, 1),
+    ("xlstm-125m", None, 2, 1),
+    ("hymba-1.5b", None, 4, 2),
 )
-LONG_PROMPT = 4608      # h2o-danube-3: past its 4096-token window
+# past the windows of h2o-danube-3 (4096 tokens) and hymba-1.5b (2048)
+LONG_PROMPT = 4608
 
 
 def family_config(name: str, n_layers):
@@ -499,19 +514,31 @@ def _long_prompt(cfg) -> bool:
     return 0 < cfg.sliding_window < LONG_PROMPT
 
 
+def _has_attention(cfg) -> bool:
+    """Whether the config's layers run attention (the flash forward): a
+    block kind whose specs hold an attention subtree (``attn``, ``mla``
+    or any other key naming attention)."""
+    from repro_torch.models.blocks import REGISTRY
+    return any(key == "mla" or "attn" in key
+               for kind in set(cfg.block_kinds)
+               for key in REGISTRY[kind][0](cfg))
+
+
 def flash_shapes() -> list:
     """The flash forward's shapes on the card's paths, as (arch, path, B,
     S, H, KV, Dqk, Dv, window): yi-6b's serving GQA (prompt 512 and a
-    ragged 200), swarm-1b's training MHA, and each attention family's
-    prefill at the serving batch and prompt with the head counts, head
-    dims and window of its registered config (MLA's keys expanded to
-    every head), past the window at ``LONG_PROMPT`` where it serves
-    that."""
+    ragged 200), swarm-1b's training MHA, and the prefill of each family
+    that runs attention at the serving batch and prompt with the head
+    counts, head dims and window of its registered config (MLA's keys
+    expanded to every head), past the window at ``LONG_PROMPT`` where it
+    serves that."""
     shapes = [("yi-6b", "serve", 2, 512, 32, 4, 128, 128, 0),
               ("yi-6b", "serve", 2, 200, 32, 4, 128, 128, 0),
               ("swarm-1b", "train", 2, 512, 32, 32, 128, 128, 0)]
     for name, _, _, _ in FAMILY_SERVING:
         cfg = family_config(name, None)
+        if not _has_attention(cfg):
+            continue
         kv = cfg.n_heads if cfg.mla is not None else cfg.n_kv_heads
         heads = (cfg.n_heads, kv, *_head_dims(cfg), cfg.sliding_window)
         shapes.append((name, "serve_families", MAX_BATCH, PROMPT) + heads)
@@ -630,13 +657,15 @@ def check_flash(torch, gen, rows: list) -> dict:
 
 def rmsnorm_shapes() -> list:
     """The rmsnorm kernel's row counts and widths on the serving paths, as
-    (arch, rows, d): yi-6b's prefill, and each attention family's prefill
-    at the serving batch and prompt (``LONG_PROMPT`` rows where it serves
-    that), once a shape."""
+    (arch, rows, d): yi-6b's prefill, and the prefill of each family that
+    normalises with RMSNorm at the serving batch and prompt
+    (``LONG_PROMPT`` rows where it serves that), once a shape."""
     from repro_torch.configs import get_config
     shapes = [("yi-6b", MAX_BATCH * PROMPT, get_config("yi-6b").d_model)]
     for name, _, _, _ in FAMILY_SERVING:
         cfg = family_config(name, None)
+        if cfg.norm != "rmsnorm":
+            continue
         shapes.append((name, MAX_BATCH * PROMPT, cfg.d_model))
         if _long_prompt(cfg):
             shapes.append((name, LONG_PROMPT, cfg.d_model))
@@ -647,15 +676,16 @@ def rmsnorm_shapes() -> list:
 def check_rmsnorm(torch, gen, rows: list) -> dict:
     """rmsnorm against its plain version within 1 ulp at every shape of
     ``rmsnorm_shapes``, in bf16 and f32 with an f32 scale (as the models
-    call it).  yi-6b's rows are timed in full (warm, cold, eager, plain,
-    ``F.rms_norm``); the families' warm only.  Returns yi-6b's bf16
-    row."""
+    call it).  The first row of each width is timed in full (warm, cold,
+    eager, plain, ``F.rms_norm``), the others warm only.  Returns yi-6b's
+    bf16 row."""
     import torch.nn.functional as F
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
-    main = None
+    main, timed = None, set()
     for arch, R, d in rmsnorm_shapes():
-        full = main is None
+        full = d not in timed
+        timed.add(d)
         scale = torch.randn(d, generator=gen, device="cuda") + 1.0
         for dt in (torch.bfloat16, torch.float32):
             x = torch.randn(R, d, generator=gen, device="cuda").to(dt)
@@ -687,7 +717,7 @@ def check_rmsnorm(torch, gen, rows: list) -> dict:
                     "cold_share_of_bound": b_ms / cold})
             emit(row)
             rows.append(row)
-            if full and dt == torch.bfloat16:
+            if main is None and full and dt == torch.bfloat16:
                 main = row
     return main
 
@@ -1228,9 +1258,10 @@ def check_wire_codes(torch, gen, rows: list) -> dict:
     holds encode: the LN pass bit-equal, the product faithfully rounded,
     the codes and scales of the last pass bit-equal to the plain
     version's on the kernel's own product.  Against the plain version end
-    to end (cuBLAS's product), a code may differ by one step, and a scale
-    at all, only in rows whose two products round apart; their counts are
-    reported.  dequantize_decode's product is faithfully rounded against
+    to end (cuBLAS's product), a code may differ by one step (in bf16 two
+    in a block whose scales differ), and a scale at all, only in rows
+    whose two products round apart; their counts are reported.
+    dequantize_decode's product is faithfully rounded against
     the f64 product of the plain dequantized (maxout: LayerNorm'd) rows
     and, in f32, within 1e-4 of the plain version."""
     from repro_torch.kernels import _lib
@@ -1278,7 +1309,16 @@ def check_wire_codes(torch, gen, rows: list) -> dict:
                 pq, ps = R.encode_quantize_ref(x, w, mode, k, qb)
             dq = (q.int() - pq.int()).abs()
             bad_rows = (dq > 0).any(-1) | (sc != ps).any(-1)
-            if bool((dq > 1).any()) or (
+            # a code is round(127 z / s) of the encode output z and its
+            # block's scale s (the block's largest |z|), both rounded to
+            # x's dtype: in bf16 one ulp of z moves it by up to 127 / 128
+            # of a step and one ulp of s by up to 127 / 128 more, so the
+            # plain version's code lies within one step where the block's
+            # scales agree and within two where they differ; in f32 an
+            # ulp of either moves it by about 127 * 2^-24 of a step
+            step_limit = 1 + ((sc != ps).repeat_interleave(qb, -1).int()
+                              if dt == torch.bfloat16 else 0)
+            if bool((dq > step_limit).any()) or (
                     rows_apart is None and bool(bad_rows.any())) or (
                     rows_apart is not None
                     and bool((bad_rows & ~rows_apart).any())):
@@ -1307,7 +1347,8 @@ def check_wire_codes(torch, gen, rows: list) -> dict:
                    "rows_differing_from_plain": int(bad_rows.sum()),
                    "bound": "LN pass bit-equal; product faithfully "
                    "rounded; codes and scales of the last pass bit-equal; "
-                   "end to end one code step, only in rows whose products "
+                   "end to end one code step (in bf16 two where the "
+                   "block's scales differ), only in rows whose products "
                    "round apart" if mode == "bottleneck" else "bit-equal",
                    "ms": ms, "cold_ms": cold, "eager_ms": eager,
                    "plain_ms": plain, "library_ms": None,
@@ -1373,17 +1414,24 @@ def check_wire_codes(torch, gen, rows: list) -> dict:
     return main
 
 
-def phase_kernels(torch) -> dict:
+def _gen(torch, check):
+    """A generator for ``check`` alone, seeded from its name: a shape added
+    to one check leaves every other check's data as it was."""
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
+    gen.manual_seed(zlib.crc32(check.__name__.encode()))
+    return gen
+
+
+def phase_kernels(torch) -> dict:
     rows: list = []
-    main = {"flash_attention_fwd": check_flash(torch, gen, rows),
-            "rmsnorm": check_rmsnorm(torch, gen, rows),
-            "qdq_flat": check_qdq(torch, gen, rows),
-            **check_codec(torch, gen, rows),
-            **check_wire_codes(torch, gen, rows),
-            **check_quant8(torch, gen, rows)}
-    check_ln_rows(torch, gen, rows)      # encode's row pass on its own
+    run = lambda check: check(torch, _gen(torch, check), rows)
+    main = {"flash_attention_fwd": run(check_flash),
+            "rmsnorm": run(check_rmsnorm),
+            "qdq_flat": run(check_qdq),
+            **run(check_codec),
+            **run(check_wire_codes),
+            **run(check_quant8)}
+    run(check_ln_rows)                   # encode's row pass on its own
     return main
 
 
@@ -1552,8 +1600,9 @@ def phase_serve(torch, cfg, params, prompts, ref, codec: str,
     if summary["failed"] or summary["completed"] != n_req:
         raise AssertionError(f"{codec}: {summary}")
     # the serving path's kernels (the codec's are the training path's;
-    # rmsnorm only where the model normalises with it)
-    for k in ("flash_attention_fwd",) + (
+    # flash and rmsnorm only where the model runs attention and
+    # normalises with RMSNorm: xlstm-125m does neither)
+    for k in (("flash_attention_fwd",) if _has_attention(cfg) else ()) + (
             ("rmsnorm",) if cfg.norm == "rmsnorm" else ()) + (
             ("qdq_flat",) if codec == "int8" else ()):
         if launches[k] <= 0:
@@ -1613,14 +1662,17 @@ def phase_serve(torch, cfg, params, prompts, ref, codec: str,
 
 
 def phase_serve_families(torch) -> dict:
-    """``ServeRunner`` serving each attention family at full width (random
-    weights from a seed, ``FAMILY_SERVING``'s depths and chains), yi-6b's
+    """``ServeRunner`` serving each family at full width (random weights
+    from a seed, ``FAMILY_SERVING``'s depths and chains), yi-6b's
     requests, tokens identical to the single-process reference; danube
-    also past its window, deepseek-v2 also on the int8 wire.  Returns
-    each config's row."""
+    and hymba also past their windows, deepseek-v2 also on the int8
+    wire; the recurrent configs (xlstm-125m, hymba-1.5b) also through
+    ``phase_churn``, their carry rebuilt by a re-prefill.  Returns each
+    config's row."""
     import numpy as np
     from repro_torch.models import model as model_lib
     from repro_torch.models import params as P
+    from repro_torch.models.stage_plan import RECURRENT_KINDS
     from repro_torch.serve import reference_generate
     t0 = time.time()
     rows = {}
@@ -1657,62 +1709,273 @@ def phase_serve_families(torch) -> dict:
             rows[name + " int8"] = phase_serve(
                 torch, cfg, params, prompts, ref, "int8", n_stages=n_stages,
                 split=split, name="serve_families_int8", extra=extra)
+        if any(k in RECURRENT_KINDS for k in cfg.block_kinds):
+            rows[name + " churn"] = phase_churn(
+                torch, cfg, params, prompts, ref, n_stages=n_stages,
+                split=split, name="churn_families")
         del params, ref
         free(torch)
     emit({"phase": "serve_families_done", "seconds": time.time() - t0})
     return rows
 
 
-def phase_churn(torch, cfg, params, prompts, ref) -> dict:
-    import numpy as np
+# A recurrent config's churn reads the carry the runner itself installs
+# on the spare after its re-prefill and holds it, layer by layer over the
+# span (every cache leaf of the layer: max |difference| over max |probe
+# leaf|), to the carry the no-kill probe run's peer held before decoding
+# the same position; and the span's next logits, as the runner computes
+# them, to the probe's.  In the served bf16 path and an f32 twin of it.
+# Two more runs through the runner frame each reading: a planted fault
+# (the spare re-prefills one step short: a carry one step stale), which
+# every bound must reject, and a witness without a kill whose span is fed
+# the probe's own inputs moved by one ulp (rounding alone, no rebuild).
+# The span's first layer sees the same wire in every run, so its carry is
+# bounded tightly in both dtypes.  Deeper layers amplify rounding with
+# random weights (on the card the witness and the rebuilt carry grow
+# alike, about twofold a hymba layer and some 40-fold at xlstm's sLSTM
+# layer), so every layer and the logits are bounded in f32 only, and in
+# bf16 reported beside the witness.
+CARRY_FIRST_RTOL = {"bfloat16": 0.1, "float32": 1e-4}
+CARRY_LAYERS_RTOL = {"bfloat16": None, "float32": 0.5}
+CARRY_LOGITS_RTOL = {"bfloat16": None, "float32": 0.3}
+
+
+def _slot_carries(torch, peer, key, stages) -> list:
+    """The caches ``peer`` holds for session ``key`` on ``stages``, cloned
+    (a decode writes them in place)."""
+    from repro_torch.serve.programs import KV_SLOT
+    from repro_torch.tree import tree_map
+    return [tree_map(torch.clone, peer.state.stage_view(s).slot(KV_SLOT)[key])
+            for s in stages]
+
+
+def _layer_errs(got: list, want: list) -> list:
+    """One number a layer of the span (stages, their runs and each run's
+    stacked layers in order): the largest relative difference over the
+    layer's cache leaves."""
+    from repro_torch.tree import tree_leaves
+    errs = []
+    for g_stage, w_stage in zip(got, want):
+        for g, w in zip(g_stage, w_stage):
+            gl, wl = tree_leaves(g), tree_leaves(w)
+            errs += [max(_rel(a[i], b[i]) for a, b in zip(gl, wl))
+                     for i in range(wl[0].shape[0])]
+    return errs
+
+
+def _nudged(torch, x):
+    """``x`` moved one ulp away from zero in every element."""
+    ints = {2: torch.int16, 4: torch.int32}[x.element_size()]
+    return (x.contiguous().view(ints) + 1).view(x.dtype)
+
+
+def _churn_serve(torch, cfg, params, prompts, n_stages: int, split: int,
+                 fail_at=None, stale: bool = False, nudge_from=None,
+                 keep=()) -> dict:
+    """One serve in ``phase_churn``'s layout (chain (0, split) -> (split,
+    n_stages), a spare for the second span), ``d1`` killed at
+    ``fail_at``, tapped on the span ``(split, n_stages)``: each decode's
+    input and the f32 logits it computes, the carry its peer holds
+    before each decode at a ``(session, pos)`` of ``keep`` (None: every
+    one), and the carry each re-prefill installs.  ``stale`` plants a
+    fault: the spare re-prefills the history one step short.
+    ``nudge_from`` (an earlier run's inputs) feeds the span those inputs
+    moved by one ulp in place of its own."""
     from repro_torch.core.peer import T4
+    from repro_torch.serve import programs
+    r = make_runner(torch, cfg, params, "none", spare=True,
+                    n_stages=n_stages, split=split)
+    span = (split, n_stages)
+    out = {"carries": {}, "logits": {}, "inputs": {}, "rebuilt": []}
+    tap = {"at": None}
+    head, decode_thunk, reprefill = (programs._head_logits, r._decode_thunk,
+                                     r._reprefill)
+
+    def logits(c, p, x):
+        y = head(c, p, x)
+        if tap["at"] is not None:
+            out["logits"][tap["at"]] = y.float().clone()
+        return y
+
+    def decoding(sess, peer, prog, x, pos):
+        if prog.span != span:
+            return decode_thunk(sess, peer, prog, x, pos)
+        at = (sess.key, pos)
+        if nudge_from is not None:
+            x = _nudged(torch, nudge_from[at])
+        out["inputs"][at] = x
+        thunk = decode_thunk(sess, peer, prog, x, pos)
+
+        def run():
+            if keep is None or at in keep:
+                out["carries"][at] = _slot_carries(torch, peer, sess.key,
+                                                   prog.stages)
+            tap["at"] = at
+            try:
+                return thunk()
+            finally:
+                tap["at"] = None
+        return run
+
+    def reprefilling(sess, peer, prog, missing):
+        lo = prog.span[0]
+        hist = sess.edges[lo]
+        pos = sum(h.shape[1] for h in hist[:-1])
+        if stale:
+            assert len(hist) > 2, "a stale carry needs two decode steps"
+            sess.edges[lo] = hist[:-2] + hist[-1:]
+        try:
+            yield from reprefill(sess, peer, prog, missing)
+        finally:
+            sess.edges[lo] = hist
+        out["rebuilt"].append({"key": sess.key, "pos": pos,
+                               "carries": _slot_carries(
+                                   torch, peer, sess.key, prog.stages)})
+        out["logits"].pop((sess.key, pos), None)
+
+    r._decode_thunk, r._reprefill = decoding, reprefilling
+    programs._head_logits = logits
+    try:
+        toks, reqs, summary, secs = serve(torch, r, prompts, fail_at=fail_at)
+    finally:
+        programs._head_logits = head
+    B = r.scfg.max_batch
+    # a decode step of the chain's two hops in virtual time
+    out["step"] = (T4.recv_time(B * 4) + T4.recv_time(B * cfg.d_model * 2)
+                   + sum(T4.compute_time(
+                       p.executor.session_program(PROMPT + NEW)
+                       .flops_per_token * B) for p in r.decode_peers[:2]))
+    out.update(toks=toks, reqs=reqs, summary=summary, secs=secs,
+               ledger=r.kv.stage_counts())
+    # the runner sits in reference cycles: drop every handle to it
+    # (the bound methods too) before collecting
+    del r, decoding, reprefilling, decode_thunk, reprefill
+    free(torch)
+    return out
+
+
+def _carry_check(torch, cfg, params, prompts, n_stages: int, split: int,
+                 served: dict) -> dict:
+    """The carry the spare rebuilt, held to the one the dead peer would
+    have held.  ``served`` holds the served path's probe (every carry
+    kept) and kill runs; the f32 twin runs both anew.  In each dtype the
+    planted stale fault and the one-ulp witness run too.  Each bound
+    (``CARRY_FIRST_RTOL``: the span's first layer, ``CARRY_LAYERS_RTOL``:
+    every layer, ``CARRY_LOGITS_RTOL``: the next logits) must hold for
+    the rebuilt carry and reject the stale one (in every layer it
+    covers)."""
+    row = {}
+    for dt in ("bfloat16", "float32"):
+        if dt == cfg.compute_dtype:
+            c, probe, kill, fail_at = cfg, served["probe"], served["kill"], \
+                served["fail_at"]
+        else:
+            c = cfg.with_overrides(compute_dtype=dt)
+            probe = _churn_serve(torch, c, params, prompts, n_stages, split,
+                                 keep=None)
+            fail_at = min(q.done_at for q in probe["reqs"]) - 0.05
+            kill = _churn_serve(torch, c, params, prompts, n_stages, split,
+                                fail_at=fail_at)
+        rb = kill["rebuilt"][0]
+        at = (rb["key"], rb["pos"])
+        stale = _churn_serve(torch, c, params, prompts, n_stages, split,
+                             fail_at=fail_at, stale=True)
+        witness = _churn_serve(torch, c, params, prompts, n_stages, split,
+                               nudge_from=probe["inputs"], keep={at})
+        if stale["rebuilt"][0]["pos"] != at[1]:
+            raise AssertionError(f"carry {cfg.name} {dt}: the stale run "
+                                 f"re-prefilled at {stale['rebuilt'][0]}")
+        want = probe["carries"][at]
+        e = {"pos": at[1], "ragged": at[1] % cfg.ssm.chunk != 0,
+             "first_layer_bound": CARRY_FIRST_RTOL[dt],
+             "layers_bound": CARRY_LAYERS_RTOL[dt],
+             "logits_bound": CARRY_LOGITS_RTOL[dt]}
+        for what, run, carries in (
+                ("rebuilt", kill, rb["carries"]),
+                ("stale", stale, stale["rebuilt"][0]["carries"]),
+                ("witness", witness, witness["carries"][at])):
+            e[f"state_{what}"] = _layer_errs(carries, want)
+            e[f"logits_{what}"] = _rel(run["logits"][at],
+                                       probe["logits"][at])
+        e["layers"] = len(e["state_rebuilt"])
+        row[dt] = e
+        del probe, kill, stale, witness, want
+        free(torch)
+    emit({"phase": "carry", "arch": cfg.name, **row})
+    for dt, e in row.items():
+        if not e["ragged"]:
+            raise AssertionError(f"carry {cfg.name} {dt}: re-prefill at "
+                                 f"{e['pos']}, a multiple of the chunk")
+        for what, n, bound in (
+                ("state", 1, e["first_layer_bound"]),
+                ("state", None, e["layers_bound"]),
+                ("logits", None, e["logits_bound"])):
+            got, bad = e[f"{what}_rebuilt"], e[f"{what}_stale"]
+            got, bad = ([got], [bad]) if what == "logits" else \
+                (got[:n], bad[:n])
+            if bound is not None and not max(got) <= bound < min(bad):
+                raise AssertionError(f"carry {cfg.name} {dt} {what} over "
+                                     f"{len(got)} layer(s): {e}")
+    return row
+
+
+def phase_churn(torch, cfg, params, prompts, ref, n_stages: int = 4,
+                split: int = 2, name: str = "churn") -> dict:
+    """The chain (0,split) -> (split,n_stages) and a spare (split,n_stages)
+    peer; the chain's second peer dies mid-decode and the spare
+    re-prefills its span from the recorded boundary history.  No request
+    fails, every re-prefill rebuilds the span's stages, the ledger
+    drains, the tokens before the kill equal the reference; a recurrent
+    config's rebuilt carry (re-prefilled at a length no multiple of its
+    chunk) also passes ``_carry_check``."""
+    import numpy as np
+    from repro_torch.models.stage_plan import RECURRENT_KINDS
+    recurrent = any(k in RECURRENT_KINDS for k in cfg.block_kinds)
     torch.cuda.reset_peak_memory_stats()
     # probe: the same layout without a failure gives the virtual time the
     # first session finishes; the kill lands 0.05 s (about four decode
     # steps of two hops) before it
-    r = make_runner(torch, cfg, params, "none", spare=True)
-    toks0, reqs0, _, _ = serve(torch, r, prompts)
-    if not (toks0 == ref).all():
-        raise AssertionError("churn probe: tokens differ from the reference")
-    first_done = min(q.done_at for q in reqs0)
-    prog = r.decode_peers[1].executor.session_program(PROMPT + NEW)
-    B, d = r.scfg.max_batch, cfg.d_model
-    step = (T4.recv_time(B * 4) + T4.recv_time(B * d * 2)
-            + T4.compute_time(r.decode_peers[0].executor
-                              .session_program(PROMPT + NEW)
-                              .flops_per_token * B)
-            + T4.compute_time(prog.flops_per_token * B))
-    del r, prog
-    free(torch)
+    probe = _churn_serve(torch, cfg, params, prompts, n_stages, split,
+                         keep=None if recurrent else ())
+    if not (probe["toks"] == ref).all():
+        raise AssertionError(f"{name} probe: tokens differ from the "
+                             f"reference")
+    first_done = min(q.done_at for q in probe["reqs"])
     fail_at = first_done - 0.05
-    n_before = NEW - 1 - math.ceil(0.05 / step)   # tokens out before it
-    r = make_runner(torch, cfg, params, "none", spare=True)
-    toks, reqs, summary, secs = serve(torch, r, prompts, fail_at=fail_at)
+    n_before = NEW - 1 - math.ceil(0.05 / probe["step"])  # out before it
+    kill = _churn_serve(torch, cfg, params, prompts, n_stages, split,
+                        fail_at=fail_at)
+    toks, reqs, summary = kill["toks"], kill["reqs"], kill["summary"]
     if summary["failed"] != 0:
-        raise AssertionError(f"churn: {summary}")
+        raise AssertionError(f"{name}: {summary}")
     if not (summary["reprefills"] >= 1 and summary["reprefilled_stages"]
-            == 2 * summary["reprefills"]):
-        raise AssertionError(f"churn: re-prefill accounting {summary}")
-    if any(c != 0 for c in r.kv.stage_counts()):
-        raise AssertionError(f"churn: ledger not drained "
-                             f"{r.kv.stage_counts()}")
+            == (n_stages - split) * summary["reprefills"]):
+        raise AssertionError(f"{name}: re-prefill accounting {summary}")
+    if any(c != 0 for c in kill["ledger"]):
+        raise AssertionError(f"{name}: ledger not drained {kill['ledger']}")
     hit = [i for i, q in enumerate(reqs) if q.done_at == min(
         q2.done_at for q2 in reqs)]
     if not (toks[hit, :n_before] == ref[hit, :n_before]).all():
-        raise AssertionError("churn: tokens before the kill differ")
+        raise AssertionError(f"{name}: tokens before the kill differ")
     mism = np.argwhere(toks != ref)
-    row = {"phase": "churn", "fail_at": fail_at,
+    row = {"phase": name, "arch": cfg.name, "n_stages": n_stages,
+           "chain": [[0, split], [split, n_stages]], "fail_at": fail_at,
            "tokens_checked_before_kill": n_before,
+           "reprefill_lengths": [b["pos"] for b in kill["rebuilt"]],
            "first_mismatch": (None if mism.size == 0
                               else [int(v) for v in mism[0]]),
            "summary": {k: summary[k] for k in
                        ("completed", "failed", "hop_failures", "reprefills",
                         "reprefilled_stages", "elapsed_s")},
-           "ledger_counts": r.kv.stage_counts(), "wall_s": secs,
+           "ledger_counts": kill["ledger"], "wall_s": kill["secs"],
            "max_memory_allocated_gb":
                torch.cuda.max_memory_allocated() / 1e9}
+    if recurrent:
+        row["carry"] = _carry_check(
+            torch, cfg, params, prompts, n_stages, split,
+            {"probe": probe, "kill": kill, "fail_at": fail_at})
     emit(row)
-    del r
+    del probe, kill
     free(torch)
     return row
 

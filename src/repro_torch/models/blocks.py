@@ -6,15 +6,22 @@ Kinds:
   moe       — self-attention + MoE FFN              (llama4-scout)
   mla       — multi-head latent attention + FFN     (deepseek dense layer)
   mla_moe   — MLA + MoE FFN                         (deepseek-v2)
+  mlstm     — xLSTM matrix-memory block             (xlstm-125m)
+  slstm     — xLSTM scalar-memory block             (xlstm-125m)
+  hymba     — parallel attention ∥ mamba heads + FFN (hymba-1.5b)
+  mamba     — pure selective-SSM block
 
-The recurrent kinds (mlstm, slstm, hymba, mamba) come with the SSM
-slice (ROADMAP queue 1 item 6b)."""
+The recurrent kinds' caches are their decode states (``models.ssm``),
+advanced in place by their decode steps as the attention kinds write
+their KV rows; hymba's is ``{"kv": ring-windowed attention cache,
+"ssm": mamba state}``."""
 from __future__ import annotations
 
 from typing import Any
 
 from repro_torch.models import layers as L
 from repro_torch.models import mla as mla_lib
+from repro_torch.models import ssm as ssm_lib
 
 Tree = Any
 
@@ -117,6 +124,93 @@ def mla_moe_decode(cfg, p, x, cache, pos, positions):
     return _residual_moe(cfg, p, x)[0], cache
 
 
+# ---------------------------------------------------------------- xLSTM
+def _cell_specs(cell_specs):
+    return lambda cfg: {"ln1": L.norm_specs(cfg), "cell": cell_specs(cfg)}
+
+
+def _cell_apply(apply_fn):
+    def block_apply(cfg, p, x, positions):
+        del positions
+        y = apply_fn(cfg, p["cell"], L.apply_norm(cfg, p["ln1"], x))
+        return x + y, 0.0
+    return block_apply
+
+
+def _cell_decode(decode_fn):
+    def block_decode(cfg, p, x, cache, pos, positions):
+        del pos, positions
+        y, cache = decode_fn(cfg, p["cell"], L.apply_norm(cfg, p["ln1"], x),
+                             cache)
+        return x + y, cache
+    return block_decode
+
+
+def _cell_cache(cache_specs):
+    def block_cache(cfg, batch, seq):
+        del seq
+        return cache_specs(cfg, batch)
+    return block_cache
+
+
+def _cell_prefill(apply_fn):
+    def block_prefill(cfg, p, x, positions, cache_len):
+        del positions, cache_len
+        y, st = apply_fn(cfg, p["cell"], L.apply_norm(cfg, p["ln1"], x),
+                         return_state=True)
+        return x + y, 0.0, st
+    return block_prefill
+
+
+mlstm_specs = _cell_specs(ssm_lib.mlstm_specs)
+mlstm_apply = _cell_apply(ssm_lib.apply_mlstm)
+mlstm_decode = _cell_decode(ssm_lib.apply_mlstm_decode)
+mlstm_cache = _cell_cache(ssm_lib.mlstm_cache_specs)
+mlstm_prefill = _cell_prefill(ssm_lib.apply_mlstm)
+
+slstm_specs = _cell_specs(ssm_lib.slstm_specs)
+slstm_apply = _cell_apply(ssm_lib.apply_slstm)
+slstm_decode = _cell_decode(ssm_lib.apply_slstm_decode)
+slstm_cache = _cell_cache(ssm_lib.slstm_cache_specs)
+slstm_prefill = _cell_prefill(ssm_lib.apply_slstm)
+
+# ---------------------------------------------------------------- mamba
+mamba_specs = _cell_specs(ssm_lib.mamba_specs)
+mamba_apply = _cell_apply(ssm_lib.apply_mamba)
+mamba_decode = _cell_decode(ssm_lib.apply_mamba_decode)
+mamba_cache = _cell_cache(ssm_lib.mamba_cache_specs)
+mamba_prefill = _cell_prefill(ssm_lib.apply_mamba)
+
+
+# ---------------------------------------------------------------- hymba
+def hymba_specs(cfg):
+    return {"ln1": L.norm_specs(cfg), "attn": L.attn_specs(cfg),
+            "mamba": ssm_lib.mamba_specs(cfg),
+            "ln2": L.norm_specs(cfg), "mlp": L.ffn_specs(cfg)}
+
+
+def hymba_apply(cfg, p, x, positions):
+    h = L.apply_norm(cfg, p["ln1"], x)
+    ya = L.apply_attn(cfg, p["attn"], h, positions)
+    ys = ssm_lib.apply_mamba(cfg, p["mamba"], h)
+    x = x + 0.5 * (ya + ys)
+    return _residual_ffn(cfg, p, x), 0.0
+
+
+def hymba_decode(cfg, p, x, cache, pos, positions):
+    h = L.apply_norm(cfg, p["ln1"], x)
+    ya, kv = L.apply_attn_decode(cfg, p["attn"], h, cache["kv"], pos,
+                                 positions)
+    ys, st = ssm_lib.apply_mamba_decode(cfg, p["mamba"], h, cache["ssm"])
+    x = x + 0.5 * (ya + ys)
+    return _residual_ffn(cfg, p, x), {"kv": kv, "ssm": st}
+
+
+def hymba_cache(cfg, batch, seq):
+    return {"kv": attn_cache(cfg, batch, seq),
+            "ssm": ssm_lib.mamba_cache_specs(cfg, batch)}
+
+
 # ---------------------------------------------------------------- prefill
 # Each prefill runs the full-sequence path AND emits the decode cache so a
 # serving stack can hand off prefill -> decode (SWA caches land in ring
@@ -170,10 +264,27 @@ def mla_moe_prefill(cfg, p, x, positions, cache_len):
     return x, aux, cache
 
 
+def hymba_prefill(cfg, p, x, positions, cache_len):
+    h = L.apply_norm(cfg, p["ln1"], x)
+    ya, (k, v) = L.apply_attn(cfg, p["attn"], h, positions, return_kv=True)
+    ys, st = ssm_lib.apply_mamba(cfg, p["mamba"], h, return_state=True)
+    x = x + 0.5 * (ya + ys)
+    cache = {"kv": _pad_kv(cfg, k, v, cache_len), "ssm": st}
+    return _residual_ffn(cfg, p, x), 0.0, cache
+
+
 REGISTRY = {
     "attn": (attn_specs, attn_apply, attn_decode, attn_cache, attn_prefill),
     "moe": (moe_specs, moe_apply, moe_decode, attn_cache, moe_prefill),
     "mla": (mla_specs, mla_apply, mla_decode, mla_cache, mla_prefill),
     "mla_moe": (mla_moe_specs, mla_moe_apply, mla_moe_decode, mla_cache,
                 mla_moe_prefill),
+    "mlstm": (mlstm_specs, mlstm_apply, mlstm_decode, mlstm_cache,
+              mlstm_prefill),
+    "slstm": (slstm_specs, slstm_apply, slstm_decode, slstm_cache,
+              slstm_prefill),
+    "hymba": (hymba_specs, hymba_apply, hymba_decode, hymba_cache,
+              hymba_prefill),
+    "mamba": (mamba_specs, mamba_apply, mamba_decode, mamba_cache,
+              mamba_prefill),
 }

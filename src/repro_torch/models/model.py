@@ -71,11 +71,12 @@ def model_runs(cfg: ArchConfig) -> tuple[list[tuple[str, int]], int]:
 
 
 # leaves read in f32 whatever the activation dtype: the norms' scales
-# (apply_norm; the rmsnorm kernel takes an f32 scale) and the MoE router
-# (apply_moe routes in f32); every other block weight is cast to the
-# activation dtype at its matmul, so casting it once up front computes
-# the same
-_F32_KEYS = frozenset({"ln1", "ln2", "router"})
+# (apply_norm; the rmsnorm kernel takes an f32 scale), the MoE router
+# (apply_moe routes in f32) and Mamba's f32 ``a_log`` / ``d_skip`` (used
+# uncast by models.ssm, as the JAX package uses them); every other block
+# weight is cast to the activation dtype at its matmul, so casting it
+# once up front computes the same
+_F32_KEYS = frozenset({"ln1", "ln2", "router", "a_log", "d_skip"})
 
 
 def _cast_tree(tree: Tree, dtype: torch.dtype) -> Tree:
@@ -88,9 +89,10 @@ def _cast_tree(tree: Tree, dtype: torch.dtype) -> Tree:
 
 def compute_cast(tree: Tree, dtype: torch.dtype) -> Tree:
     """A block's params with every floating leaf but the f32 ones
-    (norms, the MoE router) cast to ``dtype`` (a no-op, no copy, where it
-    already has that dtype), outside autograd: what each of a shared
-    layer's applications would cast at its matmuls, cast once."""
+    (norms, the MoE router, Mamba's ``a_log`` / ``d_skip``) cast to
+    ``dtype`` (a no-op, no copy, where it already has that dtype),
+    outside autograd: what each of a shared layer's applications would
+    cast at its matmuls, cast once."""
     with torch.no_grad():
         return _cast_tree(tree, dtype)
 

@@ -1086,3 +1086,62 @@ def test_cuda_family_serve_matches_reference(kind):
                                              prompts[i:i + batch], new)
                           for i in range(0, 4, batch)])
     np.testing.assert_array_equal(np.stack([q.tokens for q in reqs]), ref)
+
+
+def _recurrent_cfg(kind: str) -> ArchConfig:
+    """Tiny recurrent configs: four mamba layers, the xLSTM pair twice
+    (mLSTM and sLSTM, LayerNorm, no attention), or hymba (attention at
+    head dim 64 beside mamba heads, window 32); chunks of 16."""
+    from repro_torch.models.config import SSMConfig
+    ssm = SSMConfig(state_dim=16, chunk=16)
+    if kind == "mamba":
+        return _cuda_cfg(name="tiny-mamba", block_pattern=("mamba",) * 4,
+                         ssm=ssm)
+    if kind == "xlstm":
+        return _cuda_cfg(name="tiny-xlstm", norm="layernorm", d_ff=0,
+                         block_pattern=("mlstm", "slstm") * 2, ssm=ssm)
+    return _cuda_cfg(name="tiny-hymba", family="hybrid", sliding_window=32,
+                     ssm=ssm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mamba", "xlstm", "hymba"])
+def test_cuda_recurrent_serve_matches_reference(kind):
+    """A tiny mamba, xLSTM and hymba config served over two stages on the
+    card (prompts of 40: two chunks and a ragged one of 8; hymba past its
+    window), token for token against the single-process reference on the
+    same weights; the prefill's logits and every cache leaf bit-equal on
+    a second call; hymba's flash and rmsnorm launch."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve import ServeConfig, ServeRunner, \
+        reference_generate
+    from repro_torch.tree import tree_leaves
+    dev = _card()
+    cfg = _recurrent_cfg(kind)
+    new, batch = 4, 2
+    r = ServeRunner(cfg, ServeConfig(n_stages=2, max_batch=batch,
+                                     max_sessions=1), seed=0, device=dev)
+    r.add_peer((0, 1), pool="decode")
+    r.add_peer((1, 2), pool="decode")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                size=(4, 40))
+    kernels.reset_launches()
+    reqs = [r.submit(p, new) for p in prompts]
+    summary = r.run()
+    assert summary["completed"] == 4 and summary["failed"] == 0
+    assert all(c == 0 for c in r.kv.stage_counts())
+    if kind == "hymba":
+        assert kernels.LAUNCHES["flash_attention_fwd"] > 0
+        assert kernels.LAUNCHES["rmsnorm"] > 0
+    ref = np.concatenate([reference_generate(cfg, r.params,
+                                             prompts[i:i + batch], new)
+                          for i in range(0, 4, batch)])
+    np.testing.assert_array_equal(np.stack([q.tokens for q in reqs]), ref)
+    toks = torch.as_tensor(prompts[:batch], device=dev)
+    with torch.inference_mode():
+        runs = [model_lib.lm_prefill(cfg, r.params, toks, cache_len=44)
+                for _ in range(2)]
+    (la, ca), (lb, cb) = runs
+    assert _same_bits(la, lb)
+    for a, b in zip(tree_leaves(ca), tree_leaves(cb)):
+        assert _same_bits(a, b)

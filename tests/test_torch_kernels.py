@@ -184,14 +184,15 @@ def test_model_attention_calls_meet_the_bf16_kernel_layout(monkeypatch):
 
 
 FAMILY_ARCHS = ["gemma-2b", "qwen1.5-4b", "h2o-danube-3-4b", "qwen2-vl-2b",
-                "llama4-scout-17b-a16e", "deepseek-v2-236b"]
+                "llama4-scout-17b-a16e", "deepseek-v2-236b", "hymba-1.5b"]
 
 
 def _family_serving_cfg(arch):
     """``repro.configs.get_reduced(arch)`` as the port's config, in bf16,
     with the full config's head dims (``head_dim``: 120 for danube, 256
-    for gemma; MLA's qk nope/rope and v dims, 128 + 64 against 128) and
-    parameter dtype (bf16 for llama4-scout and deepseek-v2)."""
+    for gemma, 64 for hymba; MLA's qk nope/rope and v dims, 128 + 64
+    against 128) and parameter dtype (bf16 for llama4-scout and
+    deepseek-v2)."""
     import dataclasses
     from repro.configs import get_config, get_reduced
     from repro_torch.models import config as tconfig
@@ -204,6 +205,8 @@ def _family_serving_cfg(arch):
     if cfg.mla is not None:
         kw["mla"] = tconfig.MLAConfig(**dict(
             dataclasses.asdict(full.mla), kv_lora_rank=32, q_lora_rank=0))
+    if cfg.ssm is not None:
+        kw["ssm"] = tconfig.SSMConfig(**dataclasses.asdict(cfg.ssm))
     return tconfig.ArchConfig(**kw)
 
 
