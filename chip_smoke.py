@@ -21,8 +21,9 @@ JSON line; any failure raises and exits non-zero):
              prefill of yi-6b and of every family that runs attention
              or RMSNorm, their shapes taken from the registered
              configs, hymba-1.5b's included, for rmsnorm and for flash
-             with its ``lse``, flash also at training's shape
-             and timed beside SDPA; training
+             with its ``lse``, flash also at training's shape and at
+             whisper-large-v3's bidirectional encoder and cross-attention
+             shapes, and timed beside SDPA; training
              swarm-1b-bottleneck for the codec's encode and decode and
              its true-wire pair encode_quantize / dequantize_decode,
              held stage by stage on their own intermediates, the int8
@@ -74,6 +75,24 @@ JSON line; any failure raises and exits non-zero):
              probe's, in bf16 and an f32 twin; each bound shown to
              reject a carry one step stale planted through the runner,
              a one-ulp witness reported beside them.
+6b. serve_whisper — whisper-large-v3 at full width and depth (32
+             encoder and 32 decoder layers, f32 weights from a seed)
+             through ``make_prefill_step`` / ``make_serve_step``: 2
+             requests of 1,500 audio frames, a 224-token prompt, 32
+             greedy tokens; 96 flash launches a prefill (encoder self,
+             decoder self and cross-attention a layer), none a decode
+             step, no plain flash call; every decode step's logits
+             against the no-cache recompute, bounded in an f32 twin at 2
+             decoder layers and shown to reject a swapped cross K/V and
+             a zeroed self-KV row, bf16 and full depth reported; prefill
+             and decode times (the median of three), peak memory.
+6c. train_whisper — ``SwarmRunner`` on whisper-large-v3, 3 stages (the
+             encoder pod, 2 decoder stages of 16 layers), seq 448,
+             microbatch 2, global batch 8, adamw, 3 steps: losses against
+             the staged reference, 768 flash launches a step; then a
+             second stage-1 peer killed mid-step and a warm join, losses
+             equal to the bit, exactly once; then the int8 wire, one QDQ
+             launch per float leaf of each boundary tree crossed.
 7. train   — ``SwarmRunner`` training swarm-1b-bottleneck at full width
              and depth (48 layer applications, random weights from a
              seed), 3 stages, one peer each, seq 512, microbatch 2, global
@@ -526,25 +545,49 @@ def _has_attention(cfg) -> bool:
 
 def flash_shapes() -> list:
     """The flash forward's shapes on the card's paths, as (arch, path, B,
-    S, H, KV, Dqk, Dv, window): yi-6b's serving GQA (prompt 512 and a
-    ragged 200), swarm-1b's training MHA, and the prefill of each family
-    that runs attention at the serving batch and prompt with the head
-    counts, head dims and window of its registered config (MLA's keys
-    expanded to every head), past the window at ``LONG_PROMPT`` where it
-    serves that."""
-    shapes = [("yi-6b", "serve", 2, 512, 32, 4, 128, 128, 0),
-              ("yi-6b", "serve", 2, 200, 32, 4, 128, 128, 0),
-              ("swarm-1b", "train", 2, 512, 32, 32, 128, 128, 0)]
+    Sq, Sk, H, KV, Dqk, Dv, window, causal): yi-6b's serving GQA (prompt
+    512 and a ragged 200), swarm-1b's training MHA, the prefill of each
+    family that runs attention at the serving batch and prompt with the
+    head counts, head dims and window of its registered config (MLA's
+    keys expanded to every head), past the window at ``LONG_PROMPT``
+    where it serves that, and whisper-large-v3's three attentions
+    (``whisper_shapes``)."""
+    shapes = [("yi-6b", "serve", 2, 512, 512, 32, 4, 128, 128, 0, True),
+              ("yi-6b", "serve", 2, 200, 200, 32, 4, 128, 128, 0, True),
+              ("swarm-1b", "train", 2, 512, 512, 32, 32, 128, 128, 0,
+               True)]
     for name, _, _, _ in FAMILY_SERVING:
         cfg = family_config(name, None)
         if not _has_attention(cfg):
             continue
         kv = cfg.n_heads if cfg.mla is not None else cfg.n_kv_heads
-        heads = (cfg.n_heads, kv, *_head_dims(cfg), cfg.sliding_window)
-        shapes.append((name, "serve_families", MAX_BATCH, PROMPT) + heads)
+        heads = (cfg.n_heads, kv, *_head_dims(cfg), cfg.sliding_window,
+                 True)
+        shapes.append((name, "serve_families", MAX_BATCH, PROMPT, PROMPT)
+                      + heads)
         if _long_prompt(cfg):
-            shapes.append((name, "serve_families", 1, LONG_PROMPT) + heads)
-    return shapes
+            shapes.append((name, "serve_families", 1, LONG_PROMPT,
+                           LONG_PROMPT) + heads)
+    return shapes + whisper_shapes()
+
+
+def whisper_shapes() -> list:
+    """whisper-large-v3's flash calls (``flash_shapes``' rows) at batch
+    2: the encoder's bidirectional self-attention over its 1,500
+    frames, the decoder's causal self-attention and its cross-attention
+    (queries against the frames, offset 0) at the serving prompt
+    (``WHISPER_PROMPT``) and the training length (``WHISPER_SEQ``)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("whisper-large-v3")
+    F, H, D = cfg.encoder_max_len, cfg.n_heads, cfg.hd
+    row = lambda path, Sq, Sk, causal: (  # noqa: E731
+        "whisper-large-v3", path, WHISPER_BATCH, Sq, Sk, H, H, D, D, 0,
+        causal)
+    return [row("serve_whisper train_whisper", F, F, False),
+            row("serve_whisper", WHISPER_PROMPT, WHISPER_PROMPT, True),
+            row("serve_whisper", WHISPER_PROMPT, F, False),
+            row("train_whisper", WHISPER_SEQ, WHISPER_SEQ, True),
+            row("train_whisper", WHISPER_SEQ, F, False)]
 
 
 def _sdpa_backend(torch, fn) -> str:
@@ -562,7 +605,9 @@ def check_flash(torch, gen, rows: list) -> dict:
     """The flash forward with its ``lse`` output against the plain
     version at every shape of ``flash_shapes`` (the training path's
     backward reuses ``lse``), in bf16 and f32, at Dqk ** -0.5 (MLA's
-    explicit scale is that of its concatenated dims).  Each call also
+    explicit scale is that of its concatenated dims), causal or
+    bidirectional as the path calls it (the plain version at the
+    kernel's query offset Sk - Sq, which no bidirectional mask reads).  Each call also
     runs again (output and ``lse`` bit-equal: deterministic) and on each
     batch row alone (equal to that row of the batch call: a row's result
     does not depend on the rest of the grid).  Timed beside the bound,
@@ -575,26 +620,28 @@ def check_flash(torch, gen, rows: list) -> dict:
         flash_attention_fwd
     from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
     main = None
-    for arch, path, B, S, H, KV, D, Dv, win in flash_shapes():
+    for arch, path, B, Sq, Sk, H, KV, D, Dv, win, causal in flash_shapes():
         sc = D ** -0.5
         for dt, bound, peak, iters in (
                 (torch.bfloat16, 2e-2, H100_BF16_FLOPS, 20),
                 (torch.float32, 1e-4, H100_F32_FLOPS, 3)):
-            q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dt)
-            k = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dt)
-            v = torch.randn(B, S, KV, Dv, generator=gen,
+            q = torch.randn(B, Sq, H, D, generator=gen,
                             device="cuda").to(dt)
-            call = lambda: flash_attention_fwd(q, k, v, True, win, sc,
+            k = torch.randn(B, Sk, KV, D, generator=gen,
+                            device="cuda").to(dt)
+            v = torch.randn(B, Sk, KV, Dv, generator=gen,
+                            device="cuda").to(dt)
+            call = lambda: flash_attention_fwd(q, k, v, causal, win, sc,
                                                with_lse=True)
             out, lse = _counted(torch, call)
             torch.cuda.synchronize()
             with plain_precision(torch):
-                ref, ref_lse = flash_fwd_ref(q, k, v, True, win, 0, 512,
-                                             1024, sc)
+                ref, ref_lse = flash_fwd_ref(q, k, v, causal, win, Sk - Sq,
+                                             512, 1024, sc)
             err = float((out.float() - ref.float()).abs().max())
             lse_err = float((lse - ref_lse).abs().max())
-            tag = (f"flash {arch} {path} B={B} S={S} H={H} KV={KV} "
-                   f"D={D}/{Dv} window={win} {dt}")
+            tag = (f"flash {arch} {path} B={B} Sq={Sq} Sk={Sk} H={H} "
+                   f"KV={KV} D={D}/{Dv} window={win} causal={causal} {dt}")
             if not (err <= bound and lse_err <= 1e-4):
                 raise AssertionError(f"{tag}: max err {err} (bound {bound})"
                                      f", lse {lse_err} (bound 1e-4)")
@@ -603,13 +650,13 @@ def check_flash(torch, gen, rows: list) -> dict:
                 raise AssertionError(f"{tag}: two calls differ")
             for b in range(B if B > 1 else 0):
                 one = _counted(torch, lambda: flash_attention_fwd(
-                    q[b:b + 1], k[b:b + 1], v[b:b + 1], True, win, sc,
+                    q[b:b + 1], k[b:b + 1], v[b:b + 1], causal, win, sc,
                     with_lse=True))
                 if not (torch.equal(one[0], out[b:b + 1])
                         and torch.equal(one[1], lse[b:b + 1])):
                     raise AssertionError(f"{tag}: batch row {b} alone "
                                          f"differs")
-            fwd = lambda: flash_attention_fwd(q, k, v, True, win, sc)
+            fwd = lambda: flash_attention_fwd(q, k, v, causal, win, sc)
             warm = min(3, iters)
             ms = _counted(torch, lambda: time_ms(torch, fwd, iters, warm))
             cold = _counted(torch, lambda: time_ms(torch, fwd, iters, warm,
@@ -617,28 +664,34 @@ def check_flash(torch, gen, rows: list) -> dict:
             eager = _counted(torch, lambda: eager_ms(torch, fwd, iters,
                                                      warm))
             plain = time_ms(torch, lambda: flash_fwd_ref(
-                q, k, v, True, win, 0, 512, 1024, sc), iters=3, warmup=1)
+                q, k, v, causal, win, Sk - Sq, 512, 1024, sc), iters=3,
+                warmup=1)
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            if 0 < win < S:
-                pos = torch.arange(S, device="cuda")
+            if 0 < win < Sk:
+                pos = torch.arange(Sk, device="cuda")
                 mask = (pos[:, None] >= pos[None, :]) & \
                     (pos[:, None] - pos[None, :] < win)
                 sdpa = lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=mask, scale=sc, enable_gqa=True)
                 pairs = int(mask.sum())
-            else:
+            elif causal:              # Sq = Sk on every causal path
                 sdpa = lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True, scale=sc, enable_gqa=True)
-                pairs = S * (S + 1) // 2             # causal (q, k) pairs
+                pairs = Sq * (Sq + 1) // 2           # causal (q, k) pairs
+            else:
+                sdpa = lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, scale=sc, enable_gqa=True)
+                pairs = Sq * Sk
             lib = time_ms(torch, sdpa, iters, warm)
             backend = _sdpa_backend(torch, sdpa)
             flops = 2.0 * (D + Dv) * pairs * B * H
             nbytes = (q.numel() + k.numel() + v.numel()
-                      + B * S * H * Dv) * q.element_size()
+                      + B * Sq * H * Dv) * q.element_size()
             b_ms, b_by = bound_ms(nbytes, flops, peak)
             row = {"kernel": "flash_attention_fwd", "path": path,
-                   "arch": arch, "shape": f"B={B} S={S} H={H} KV={KV} "
-                   f"D={D} Dv={Dv} window={win}", "dtype": str(dt),
+                   "arch": arch, "shape": f"B={B} Sq={Sq} Sk={Sk} H={H} "
+                   f"KV={KV} D={D} Dv={Dv} window={win}", "causal": causal,
+                   "dtype": str(dt),
                    "max_abs_err": err, "lse_max_abs_err": lse_err,
                    "bound": bound, "lse_bound": 1e-4,
                    "deterministic": True, "row_independent": B > 1,
@@ -2907,6 +2960,379 @@ def phase_train_profile(torch) -> dict:
 
 
 # -------------------------------------------------------------------- main
+# ------------------------------------------------------ whisper phases
+# whisper-large-v3 at full width and depth (32 encoder and 32 decoder
+# layers, d 1280, 20 heads of 64), f32 weights from seed 0: served at
+# batch 2 of 1,500 audio frames (a 30 s window from the stub frontend)
+# with a 224-token decoder prompt (previous-text conditioning at half of
+# the 448-token text context) and 32 greedy tokens; trained at seq 448
+# over 3 stages (the encoder pod, 2 decoder stages of 16 layers)
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_NEW = 2, 224, 32
+WHISPER_SEQ, WHISPER_GB, WHISPER_STEPS, WHISPER_INT8_STEPS = 448, 8, 3, 2
+# a decode step's logits against the no-cache recompute, relative to the
+# recompute's largest logit, with the first WHISPER_CHECK_LAYERS decoder
+# layers (every encoder layer; full width, the same weights), bounded in
+# the f32 twin: a run's worst step within the bound, and a run with
+# either planted cache fault beyond it.  The served bf16 path is
+# reported beside it, not bounded.  The random weights' attention is
+# saturated (JAX's init draws wq / wk at std 1/sqrt(n_heads): logits of
+# std ~60), so one rounding difference can pick another argmax key: two
+# f32 prefills of 224 and 255 tokens disagree at the same position by
+# O(1) at full depth, and bf16 rounding alone moves two decoder layers'
+# logits 0.35 where a zeroed self-KV row moves them 0.90 (PERF.md, §6)
+WHISPER_RTOL = 1e-3
+WHISPER_CHECK_LAYERS = 2
+# the int8 wire's first loss beside the plain wire's, relative
+WHISPER_INT8_STEP1_RTOL = 1e-2
+
+
+@contextlib.contextmanager
+def plain_flash_calls():
+    """Count the calls of the plain flash forward made from
+    ``models/flash.py``: on the card each is a call the kernel should
+    have taken."""
+    from repro_torch.models import flash as flash_lib
+    calls: list = []
+    orig = flash_lib.flash_fwd_ref
+
+    def counted(q, k, *args, **kw):
+        calls.append((tuple(q.shape), tuple(k.shape)))
+        return orig(q, k, *args, **kw)
+    flash_lib.flash_fwd_ref = counted
+    try:
+        yield calls
+    finally:
+        flash_lib.flash_fwd_ref = orig
+
+
+def _plant_whisper(caches, kind: str) -> None:
+    """Plant a fault in whisper's decode caches in place: ``"cross"``
+    swaps the two requests' cross K/V, ``"row"`` zeroes the newest
+    prompt row of the self-KV ring in every layer."""
+    from repro_torch.tree import tree_leaves
+    if kind == "cross":
+        for leaf in tree_leaves(caches["cross"]):       # [L, B, F, H, hd]
+            leaf.copy_(leaf.roll(1, 1))
+    else:
+        for leaf in tree_leaves(caches["self"]):        # [L, B, T, H, hd]
+            leaf[:, :, WHISPER_PROMPT - 1] = 0
+
+
+def phase_serve_whisper(torch) -> dict:
+    """whisper-large-v3 served through ``make_prefill_step`` /
+    ``make_serve_step``: greedy tokens, prefill and decode times (the
+    median of ``RATE_RUNS``), 3 x 32 flash launches a prefill and none a
+    decode step, no plain flash call; every decode step's logits against
+    the no-cache recompute (``whisper_prefill`` over prompt + generated,
+    every position), teacher-forced with the served tokens, in bf16 and
+    an f32 twin, with the first ``WHISPER_CHECK_LAYERS`` decoder layers:
+    the f32 twin within ``WHISPER_RTOL`` and the bound shown to reject
+    two planted cache faults (``_plant_whisper``); bf16, and both at
+    full depth, reported."""
+    import statistics
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import params as P
+    from repro_torch.models import whisper as W
+    from repro_torch.train.steps import make_prefill_step, make_serve_step
+    from repro_torch.tree import tree_map
+    cfg = get_config("whisper-large-v3")
+    free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.time()
+    params = P.init(0, W.whisper_specs(cfg), "cuda")
+    B, T, N = WHISPER_BATCH, WHISPER_PROMPT, WHISPER_NEW
+    total = T + N
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    audio = torch.randn(B, cfg.encoder_max_len, cfg.d_model, generator=gen,
+                        device="cuda").to(cfg.compute_jdtype)
+    prompt = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                           device="cuda", dtype=torch.int32)
+
+    def generate():
+        """(tokens [B, N], prefill s, decode s, launches of the prefill,
+        of the decode steps, plain flash calls)."""
+        pre = make_prefill_step(cfg, cache_len=total)
+        step = make_serve_step(cfg)
+        with torch.inference_mode(), plain_flash_calls() as plain:
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.time()
+            nxt, caches = pre(params, {"audio_embed": audio,
+                                       "tokens": prompt})
+            torch.cuda.synchronize()
+            t_pre, l_pre = time.time() - t0, dict(kernels.LAUNCHES)
+            kernels.reset_launches()
+            out = [nxt]
+            t0 = time.time()
+            for i in range(N - 1):
+                nxt, caches = step(params, caches, nxt, T + i)
+                out.append(nxt)
+            torch.cuda.synchronize()
+            return (torch.cat(out, 1), t_pre, time.time() - t0, l_pre,
+                    dict(kernels.LAUNCHES), len(plain))
+
+    # per prefill: the encoder's self-attention a layer, the decoder's
+    # self- and cross-attention a layer (3 x 32)
+    per_prefill = cfg.encoder_layers + 2 * cfg.n_layers
+    runs = [generate() for _ in range(RATE_RUNS)]
+    toks = runs[0][0]
+    for i, r in enumerate(runs):
+        if not torch.equal(r[0], toks):
+            raise AssertionError(f"serve_whisper: run {i}'s tokens differ")
+        if r[3]["flash_attention_fwd"] != per_prefill or \
+                r[4]["flash_attention_fwd"] != 0 or r[5]:
+            raise AssertionError(
+                f"serve_whisper: flash launches {r[3]['flash_attention_fwd']}"
+                f" a prefill (want {per_prefill}), "
+                f"{r[4]['flash_attention_fwd']} in the decode steps (want "
+                f"0), {r[5]} plain calls (want 0)")
+    if toks.shape != (B, N) or int(toks.min()) < 0 or \
+            int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"serve_whisper: tokens {toks.shape}")
+    peak_served = torch.cuda.max_memory_allocated() / 1e9
+
+    def errors(c, aud, plant=None, depth=None) -> list:
+        """The relative error of the prefill's logits and of each decode
+        step's against the recompute, the steps fed the served tokens,
+        with the first ``depth`` decoder layers (None: all); with
+        ``plant``, a fault planted after the prefill."""
+        p = params
+        if depth is not None:
+            c = c.with_overrides(n_layers=depth)
+            p = {**params, "dec_blocks": tree_map(lambda a: a[:depth],
+                                                  params["dec_blocks"])}
+        seq = torch.cat([prompt, toks[:, :N - 1]], 1)
+        with torch.inference_mode(), plain_flash_calls() as plain:
+            ref, _ = W.whisper_prefill(c, p, {"audio_embed": aud,
+                                              "tokens": seq},
+                                       last_only=False)
+            logits, caches = W.whisper_prefill(
+                c, p, {"audio_embed": aud, "tokens": prompt},
+                cache_len=total)
+            if not bool(torch.isfinite(ref).all()):
+                raise AssertionError("serve_whisper: non-finite logits")
+            errs = [_rel(logits[:, -1], ref[:, T - 1])]
+            if plant:
+                _plant_whisper(caches, plant)
+            for i in range(N - 1):
+                lg, caches = W.whisper_decode_step(
+                    c, p, toks[:, i:i + 1], caches, T + i)
+                errs.append(_rel(lg[:, 0], ref[:, T + i]))
+        if plain:
+            raise AssertionError(f"serve_whisper: plain flash calls {plain}")
+        return errs
+
+    checks, failed = {}, []
+    depth = WHISPER_CHECK_LAYERS
+    for name, c, aud in (
+            ("bfloat16", cfg, audio),
+            ("float32", cfg.with_overrides(compute_dtype="float32"),
+             audio.float())):
+        sound = errors(c, aud, depth=depth)
+        planted = {k: errors(c, aud, k, depth)[1:] for k in ("cross", "row")}
+        full = errors(c, aud)
+        checks[name] = {"decoder_layers": depth,
+                        "sound": sound, "sound_worst": max(sound),
+                        **{f"{k}_planted": v for k, v in planted.items()},
+                        **{f"{k}_planted_worst": max(v)
+                           for k, v in planted.items()},
+                        "full_depth_sound": full,
+                        "full_depth_prefill_vs_recompute": full[0]}
+    f32 = checks["float32"]
+    f32["rtol"] = WHISPER_RTOL
+    if f32["sound_worst"] > WHISPER_RTOL:
+        failed.append(f"f32 decode steps vs recompute {f32['sound_worst']}"
+                      f" > bound {WHISPER_RTOL}")
+    failed += [f"the f32 bound {WHISPER_RTOL} misses a planted fault ({k}):"
+               f" {f32[f'{k}_planted_worst']}" for k in ("cross", "row")
+               if f32[f"{k}_planted_worst"] <= WHISPER_RTOL]
+    row = {"phase": "serve_whisper", "arch": cfg.name,
+           "n_layers": cfg.n_layers, "encoder_layers": cfg.encoder_layers,
+           "params": P.n_params(W.whisper_specs(cfg)),
+           "param_dtype": cfg.param_dtype, "batch": B,
+           "audio_frames": cfg.encoder_max_len, "prompt": T, "new": N,
+           "tokens": toks.tolist(),
+           "launches_per_prefill": runs[0][3],
+           "launches_per_decode_run": runs[0][4],
+           "plain_flash_calls": 0, "checks": checks,
+           "prefill_ms": statistics.median(r[1] for r in runs) * 1e3,
+           "prefill_ms_runs": [r[1] * 1e3 for r in runs],
+           "decode_ms_per_step": statistics.median(r[2] for r in runs)
+           / (N - 1) * 1e3,
+           "decode_ms_per_step_runs": [r[2] / (N - 1) * 1e3 for r in runs],
+           "max_memory_allocated_gb_served": peak_served,
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9,
+           "seconds": time.time() - t_phase, "failed": failed}
+    emit(row)
+    del params, audio, prompt, runs
+    free(torch)
+    if failed:
+        raise AssertionError(f"serve_whisper: {failed}")
+    return row
+
+
+def whisper_data(torch, cfg):
+    """The whisper training phases' ``data_fn``: microbatch ``i``'s audio
+    frames (the compute dtype, as the frontend stub hands them), tokens
+    and labels, drawn on the card from a generator seeded with ``i``, so
+    a re-issued microbatch gets the same data."""
+    def data_fn(i: int) -> dict:
+        g = torch.Generator(device="cuda").manual_seed(5000 + int(i))
+        B, S = WHISPER_BATCH, WHISPER_SEQ
+        audio = torch.randn(B, cfg.encoder_max_len, cfg.d_model,
+                            generator=g, device="cuda").to(
+                                cfg.compute_jdtype)
+        tok = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                            device="cuda", dtype=torch.int32)
+        lab = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                            device="cuda", dtype=torch.int32)
+        return {"tokens": {"audio": audio, "tok": tok}, "labels": lab}
+    return data_fn
+
+
+def _kill_and_join(runner, stage: int):
+    """Sim process: kill a peer of ``stage`` holding gradients of the
+    round (``_kill_holder``), then warm-join a replacement on it."""
+    yield from _kill_holder(runner, stage)
+    yield from runner._join_new_peer(span=range(stage, stage + 1))
+
+
+def _whisper_swarm(torch, cfg, data_fn, name: str, steps: int, peers,
+                   codec: str = "none", kill: bool = False) -> dict:
+    """Train whisper ``steps`` steps with ``SwarmRunner`` over 3 stages
+    (counters zeroed just before); every (stage, microbatch) admitted
+    exactly once per round.  Returns the phase's row (not emitted)."""
+    from repro_torch import kernels
+    from repro_torch.core.swarm import SwarmConfig, SwarmRunner
+    from repro_torch.models.params import to_numpy_tree
+    free(torch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runner = SwarmRunner(cfg, SwarmConfig(
+        n_stages=3, microbatch_size=WHISPER_BATCH, seq_len=WHISPER_SEQ,
+        global_batch=WHISPER_GB, n_trainers=2, rebalance_period=0.0,
+        codec=codec, max_steps=steps), train_opt(), seed=0,
+        data_fn=data_fn, record_accumulation=True, device="cuda")
+    runner.build(peers)
+    # the peers now hold the step-0 state; the runner's own reference to
+    # it (what a stage restores when it loses every peer and finds no
+    # checkpoint) moves to host memory, where ``_ckpt_snapshot`` installs
+    # it from as from a checkpoint: on the card it would keep 19.2 GB of
+    # step-0 weights and AdamW moments beside the trained state from the
+    # first step on
+    runner._ref_params = [to_numpy_tree(p) for p in runner._ref_params]
+    runner._ref_opt = [to_numpy_tree(o) for o in runner._ref_opt]
+    if kill:
+        runner.sim.spawn(_kill_and_join(runner, 1))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with plain_flash_calls() as plain:
+        t0 = time.time()
+        m = runner.run(until=1e9)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    barriers = _exactly_once(runner)
+    if barriers != steps or runner._inflight or any(
+            runner.ledger.stage_counts()):
+        raise AssertionError(f"{name}: ledger not drained ({barriers} "
+                             f"barriers, {runner.ledger.stage_counts()})")
+    if plain:
+        raise AssertionError(f"{name}: plain flash calls {plain[:4]}")
+    got = m["loss"]
+    if len(got) != steps or not all(math.isfinite(v) for v in got):
+        raise AssertionError(f"{name}: losses {got}")
+    row = {"phase": name, "arch": cfg.name, "codec": codec, "steps": steps,
+           "losses": got, "launches": dict(kernels.LAUNCHES),
+           "plain_flash_calls": 0, "wall_s": wall,
+           "tokens_per_s": steps * WHISPER_GB * WHISPER_SEQ / wall,
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9,
+           "failures": m["failures"], "joins": m["joins"],
+           "recomputed_microbatches": m["recomputed_microbatches"],
+           "wire_bytes": m["wire_bytes"],
+           "barriers_exactly_once": barriers,
+           "peers_per_stage": [len(runner._covering(s))
+                               for s in range(runner.n_stages)]}
+    del runner, m
+    free(torch)
+    return row
+
+
+def phase_train_whisper(torch) -> dict:
+    """whisper-large-v3 trained by ``SwarmRunner`` (AdamW, seq 448,
+    microbatch 2, global batch 8): losses against the staged reference
+    on the same card, weights and data within ``train``'s bounds, 2 x 96
+    flash launches a microbatch (forward, recompute) and no plain call;
+    then a second stage-1 peer that dies holding gradients and a warm
+    join, losses equal to the fault-free run's to the bit; then the int8
+    wire, one QDQ launch per float leaf of every boundary tree crossed
+    (``enc``; ``x`` and ``enc``; back the same), ``tok`` passing
+    through."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import build_stage_programs
+    from repro_torch.train.reference import reference_losses
+    cfg = get_config("whisper-large-v3")
+    data_fn = whisper_data(torch, cfg)
+    t_phase = time.time()
+    free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    progs = build_stage_programs(cfg, 3, WHISPER_SEQ, "none")
+    t0 = time.time()
+    want = _counted(torch, lambda: reference_losses(
+        cfg, progs, train_opt(), 0, WHISPER_STEPS, WHISPER_SEQ,
+        WHISPER_BATCH, WHISPER_GB, data_fn=data_fn, device="cuda"))
+    ref = {"reference_losses": want, "reference_s": time.time() - t0,
+           "reference_max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9}
+    del progs
+    free(torch)
+    mbs = WHISPER_GB // WHISPER_BATCH
+    plain = _whisper_swarm(torch, cfg, data_fn, "train_whisper",
+                           WHISPER_STEPS, 1)
+    diff = _check_losses("train_whisper", plain["losses"], want)
+    # a microbatch's forward and its recompute, each the prefill's calls
+    per_step = 2 * (cfg.encoder_layers + 2 * cfg.n_layers) * mbs
+    if plain["launches"]["flash_attention_fwd"] != per_step * WHISPER_STEPS:
+        raise AssertionError(f"train_whisper: flash launches "
+                             f"{plain['launches']['flash_attention_fwd']},"
+                             f" want {per_step} a step")
+    plain.update(ref, max_abs_loss_diff=diff,
+                 step1_rel_diff=abs(plain["losses"][0] - want[0])
+                 / abs(want[0]), flash_launches_per_step=per_step)
+    emit(plain)
+    churn = _whisper_swarm(torch, cfg, data_fn, "train_whisper_churn",
+                           WHISPER_STEPS, [1, 2, 1], kill=True)
+    if churn["losses"] != plain["losses"]:
+        raise AssertionError(f"train_whisper_churn: losses "
+                             f"{churn['losses']} differ from "
+                             f"{plain['losses']}")
+    if not (churn["failures"] == 1 and churn["joins"] == 1
+            and churn["recomputed_microbatches"] >= 1):
+        raise AssertionError(f"train_whisper_churn: no peer died holding "
+                             f"gradients and rejoined: {churn}")
+    emit(churn)
+    q = _whisper_swarm(torch, cfg, data_fn, "train_whisper_int8",
+                       WHISPER_INT8_STEPS, 1, codec="int8")
+    # forward: {enc} out of stage 0, {x, enc} out of stage 1; backward
+    # the cotangents {x, enc} into stage 1 and {enc} into stage 0
+    want_q = 6 * mbs * WHISPER_INT8_STEPS
+    step1 = abs(q["losses"][0] - plain["losses"][0]) / abs(plain["losses"][0])
+    if q["launches"]["qdq_flat"] != want_q:
+        raise AssertionError(f"train_whisper_int8: {q['launches']['qdq_flat']}"
+                             f" QDQ launches, want {want_q}")
+    if step1 > WHISPER_INT8_STEP1_RTOL:
+        raise AssertionError(f"train_whisper_int8: step-1 loss "
+                             f"{q['losses'][0]} vs {plain['losses'][0]}")
+    q.update(qdq_launches_per_step=want_q // WHISPER_INT8_STEPS,
+             plain_wire_losses=plain["losses"][:WHISPER_INT8_STEPS],
+             step1_rel_diff_to_plain_wire=step1)
+    emit(q)
+    emit({"phase": "train_whisper_done", "seconds": time.time() - t_phase})
+    return plain
+
+
 def main() -> None:
     import numpy as np
     if sys.argv[1:] not in ([], ["--kernels-only"]):
@@ -2944,6 +3370,9 @@ def main() -> None:
     # the attention families at full width (depth cut for the two MoE
     # models), each config's launches counted from its own serve run
     phase_serve_families(torch)
+    # the encoder-decoder at full width and depth, served and trained
+    phase_serve_whisper(torch)
+    phase_train_whisper(torch)
     # five reference steps: train holds the first three, train_rollback
     # four and its cold resume the fifth
     ref_losses = train_reference(torch, swarm1b(), 5)

@@ -7,7 +7,8 @@ swarm-1b-span for span peers (spans slice), and the attention families
 (gemma-2b, qwen1.5-4b, h2o-danube-3-4b, qwen2-vl-2b with M-RoPE,
 llama4-scout's MoE and deepseek-v2's MLA + MoE), and the recurrent
 families (xlstm-125m's mLSTM and sLSTM, hymba-1.5b's attention beside
-mamba heads).
+mamba heads), and the encoder-decoder whisper-large-v3 (stubbed audio
+frontend).
 """
 from __future__ import annotations
 
@@ -16,10 +17,12 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.configs import (
     deepseek_v2_236b, gemma_2b, h2o_danube_3_4b, hymba_1_5b,
     llama4_scout_17b_a16e, qwen15_4b, qwen2_vl_2b, swarm1b,
-    swarm1b_bottleneck, swarm1b_maxout, swarm1b_span, xlstm_125m, yi_6b)
+    swarm1b_bottleneck, swarm1b_maxout, swarm1b_span, whisper_large_v3,
+    xlstm_125m, yi_6b)
 
 _MODULES = [yi_6b, h2o_danube_3_4b, qwen15_4b, gemma_2b, qwen2_vl_2b,
             xlstm_125m, hymba_1_5b, llama4_scout_17b_a16e, deepseek_v2_236b,
+            whisper_large_v3,
             swarm1b, swarm1b_bottleneck, swarm1b_maxout, swarm1b_span]
 
 REGISTRY: dict[str, ArchConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}

@@ -1,12 +1,15 @@
 """Flash attention with a recompute backward (port of
 ``repro.models.flash``).
 
-The forward of a call at the kernel's fixed alignment (``q_offset ==
-Sk - Sq``) without a soft-cap is the CUDA kernel of
-:mod:`repro_torch.kernels.flash_attention` on a CUDA tensor and its
-plain version on a CPU tensor, whatever ``impl`` says (``impl`` is
-accepted for the JAX signature; the tensor's device decides).  Every
-other call runs the chunked plain forward.
+The forward of a call the kernel computes without a soft-cap is the
+CUDA kernel of :mod:`repro_torch.kernels.flash_attention` on a CUDA
+tensor and its plain version on a CPU tensor, whatever ``impl`` says
+(``impl`` is accepted for the JAX signature; the tensor's device
+decides).  The kernel fixes the query offset at ``Sk - Sq``, so it takes
+a call at that offset, and a bidirectional call without a window at any
+offset (no mask reads the offset there: whisper's cross-attention, Sq
+decoder tokens against Sk encoder frames at offset 0).  Every other call
+runs the chunked plain forward.
 
 Under autograd the forward is a :class:`torch.autograd.Function` whose
 residuals are ``(q, k, v, out, lse)`` (the kernel's optional ``lse``
@@ -33,11 +36,19 @@ from repro_torch.kernels.flash_attention.ref import _ok_mask, _pad_seq, \
 NEG_INF = -1e30
 
 
+def _kernel_takes(causal, window, q_offset, Sq, Sk) -> bool:
+    """Whether the kernel, whose query offset is ``Sk - Sq``, computes the
+    call: at that offset, or where no mask reads the offset (neither
+    causal nor windowed)."""
+    return q_offset == Sk - Sq or (not causal and window == 0)
+
+
 def _flash_fwd(q, k, v, causal, window, q_offset, cq, ck, scale):
-    """(out, lse [B,KV,G,Sq]): the kernel wrapper at its alignment (the
-    CUDA kernel on a CUDA tensor), the plain version otherwise."""
+    """(out, lse [B,KV,G,Sq]): the kernel wrapper where the kernel takes
+    the call (the CUDA kernel on a CUDA tensor), the plain version
+    otherwise."""
     Sq, Sk = q.shape[1], k.shape[1]
-    if q_offset == Sk - Sq:
+    if _kernel_takes(causal, window, q_offset, Sq, Sk):
         from repro_torch.kernels.flash_attention.kernel import \
             flash_attention_fwd
         return flash_attention_fwd(q, k, v, causal, window, scale, cq, ck,
@@ -130,7 +141,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                                     or v.requires_grad):
         return _Flash.apply(q, k, v, causal, window, q_offset, cq, ck,
                             scale)
-    if q_offset == Sk - Sq:
+    if _kernel_takes(causal, window, q_offset, Sq, Sk):
         from repro_torch.kernels.flash_attention.kernel import \
             flash_attention_fwd
         return flash_attention_fwd(q, k, v, causal, window, scale, cq, ck)

@@ -10,12 +10,13 @@ from repro_torch.runtime.numeric import (NumericExecutor,
                                          reset_compile_stats)
 from repro_torch.runtime.pipeline import PipelineExecutor
 from repro_torch.runtime.stage_model import SpanProgram, StageProgram, \
-    build_span_program, build_stage_programs, init_stage_params
+    build_span_program, build_stage_programs, init_stage_params, \
+    split_whisper_params
 
 __all__ = [
     "StageExecutor", "StageState", "host_snapshot", "NumericExecutor",
     "PipelineExecutor", "build_numeric_executors", "compile_stats",
     "get_span_program", "reset_compile_stats", "SpanProgram",
     "StageProgram", "build_span_program", "build_stage_programs",
-    "init_stage_params",
+    "init_stage_params", "split_whisper_params",
 ]

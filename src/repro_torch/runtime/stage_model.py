@@ -30,6 +30,15 @@ runs inside it and every covered stage computes what its single-stage
 program computes.  Serving runs the session programs of
 :mod:`repro_torch.serve.programs` over the per-stage trees cut by
 :func:`split_lm_params`.
+
+An encoder-decoder config (whisper) plans stage 0 as the encoder pod and
+splits the decoder over the other stages; its boundaries are trees
+(``{"audio", "tok"}`` into stage 0, ``{"enc", "tok"}`` out of it,
+``{"x", "enc", "tok"}`` between decoder stages) whose integer token ids
+ride along and never take a gradient, so ``bwd``'s ``gx`` is the tree of
+the floating inputs' cotangents.  Learned codecs are refused there, as
+the JAX package refuses them; :func:`split_whisper_params` cuts a full
+whisper tree into stage trees.
 """
 from __future__ import annotations
 
@@ -255,6 +264,211 @@ def _grads_like(params: Tree, leaves: list, grads) -> Tree:
         for a, g in zip(leaves, grads)])
 
 
+# --------------------------------------------------- encoder-decoder stages
+# whisper boundary payloads are trees; these keys are integer leaves
+# (token ids) that ride the wire but never take gradients — the stage
+# programs split them out, so every autograd.grad runs over floating
+# inputs only
+_INT_KEYS = ("tok",)
+
+
+def _split_payload(inp: Tree) -> tuple[Tree, Tree]:
+    floats = {k: v for k, v in inp.items() if k not in _INT_KEYS}
+    ints = {k: v for k, v in inp.items() if k in _INT_KEYS}
+    return floats, ints
+
+
+def _cast_like(dy: Tree, y: Tree) -> Tree:
+    """A boundary cotangent tree cast leaf by leaf to the forward
+    output's dtypes."""
+    return {k: dy[k].to(y[k].dtype) for k in y}
+
+
+def _stage_specs_encdec(cfg: ArchConfig, s: int, n_stages: int) -> Tree:
+    """Whisper stage specs: stage 0 is the encoder pod, stages
+    ``1..n_stages-1`` split the decoder; stage 1 owns the token embed,
+    the last stage the final norm + head (plan ownership)."""
+    from repro_torch.models import whisper as W
+    if s == 0:
+        return {"enc_blocks": model_lib.stack_specs(
+                    W.enc_block_specs(cfg), cfg.encoder_layers),
+                "enc_norm": L.norm_specs(cfg)}
+    per = cfg.n_layers // (n_stages - 1)
+    specs: Tree = {"dec_blocks": model_lib.stack_specs(
+        W.dec_block_specs(cfg), per)}
+    if s == 1:
+        specs["embed"] = P.ParamSpec(
+            (cfg.vocab_size, cfg.d_model), cfg.param_jdtype, "embed",
+            ("vocab", "embed"))
+    if s == n_stages - 1:
+        specs["final_norm"] = L.norm_specs(cfg)
+        specs["head"] = P.ParamSpec(
+            (cfg.d_model, cfg.vocab_size), cfg.param_jdtype, "normal",
+            ("embed", "vocab"))
+    return specs
+
+
+def _make_stage_core_encdec(cfg: ArchConfig, s: int, n_stages: int
+                            ) -> Callable:
+    """Stage ``s``'s float-to-float core: ``(params, floats, ints) ->
+    out_floats``.  Integer token ids ride the boundary tree untouched,
+    so cross-attention gradients flow stage to stage through purely
+    floating cotangent trees: boundary 0 ships ``{"enc"}``, interior
+    boundaries ``{"x", "enc"}`` — the encoder pod hand-off sits exactly
+    at the cross-attention boundary.  A decoder stage returns ``enc``
+    beside ``x``: its cotangent is the pass-through plus the
+    cross-attention's contribution in every later decoder stage."""
+    from repro_torch.models import whisper as W
+    is_enc, first_dec = s == 0, s == 1
+    is_last = s == n_stages - 1
+
+    def core(params: Tree, floats: Tree, ints: Tree) -> Tree:
+        if is_enc:
+            return {"enc": W.encode(cfg, params, floats["audio"])}
+        enc = floats["enc"].to(cfg.compute_jdtype)
+        if first_dec:
+            x = W.embed_tokens(cfg, params["embed"], ints["tok"])
+        else:
+            x = floats["x"].to(cfg.compute_jdtype)
+        x = W.dec_scan(cfg, params["dec_blocks"], x, enc,
+                       torch.arange(x.shape[1], device=x.device))
+        return {"x": x} if is_last else {"x": x, "enc": enc}
+
+    return core
+
+
+def _fresh(floats: Tree) -> Tree:
+    """Floating boundary leaves as fresh autograd leaves (detached views:
+    no copy)."""
+    return {k: v.detach().requires_grad_() for k, v in floats.items()}
+
+
+def _encdec_grads(out, seed, leaves: list, fin: Optional[Tree], params):
+    """One stage's ``torch.autograd.grad``: ``out`` a loss (``seed``
+    None) or an output tree seeded leaf by leaf by ``seed`` (cast to
+    the output's dtypes); gradients for the param ``leaves`` and the
+    floating inputs ``fin`` (None on the encoder pod, whose audio takes
+    none).  Returns (gx tree or None, gp tree)."""
+    if seed is None:
+        outs, seeds = [out], None
+    else:
+        keys = sorted(out)
+        cast = _cast_like(seed, out)
+        outs, seeds = [out[k] for k in keys], [cast[k] for k in keys]
+    fkeys = [] if fin is None else sorted(fin)
+    grads = torch.autograd.grad(outs, leaves + [fin[k] for k in fkeys],
+                                seeds, allow_unused=True)
+    gp = _grads_like(params, leaves, grads[:len(leaves)])
+    if fin is None:
+        return None, gp
+    gx = {k: torch.zeros_like(fin[k]) if g is None else g
+          for k, g in zip(fkeys, grads[len(leaves):])}
+    return gx, gp
+
+
+def _build_stage_programs_encdec(cfg: ArchConfig, n_stages: int,
+                                 seq_len: int) -> list[StageProgram]:
+    """The encoder-decoder stage programs, framed as the LM ones: ``fwd``
+    under ``torch.no_grad()`` returns the outbound tree with the token
+    ids riding along (the token-sum loss on the last stage); ``bwd``
+    recomputes the stage under autograd and returns ``(gx, gp)``
+    (``(loss, gx, gp)`` on the last stage), ``gx`` the floating inputs'
+    cotangent tree, None on the encoder pod."""
+    programs = []
+    for s in range(n_stages):
+        specs = _stage_specs_encdec(cfg, s, n_stages)
+        core = _make_stage_core_encdec(cfg, s, n_stages)
+        is_enc, is_last = s == 0, s == n_stages - 1
+
+        def fwd(params, inp, labels=None, _c=core, _last=is_last):
+            floats, ints = _split_payload(inp)
+            with torch.no_grad():
+                y = _c(params, floats, ints)
+                if _last:
+                    return _head_loss(cfg, params, y["x"], labels)
+                return {**y, **ints}
+
+        def bwd(params, inp, dy_or_labels, _c=core, _enc=is_enc,
+                _last=is_last):
+            floats, ints = _split_payload(inp)
+            leaves = _grad_leaves(params)
+            fin = None if _enc else _fresh(floats)
+            with torch.enable_grad():
+                p = tree_unflatten_like(params, leaves)
+                y = _c(p, floats if _enc else fin, ints)
+                if _last:
+                    out, seed = _head_loss(cfg, p, y["x"], dy_or_labels), None
+                else:
+                    out, seed = y, _split_payload(dy_or_labels)[0]
+                gx, gp = _encdec_grads(out, seed, leaves, fin, params)
+            if _last:
+                return out.detach(), gx, gp
+            return gx, gp
+
+        fwd_f = _stage_fwd_flops(cfg, s, n_stages, seq_len, "none", False)
+        programs.append(StageProgram(
+            stage=s, n_stages=n_stages, specs=specs, fwd=fwd, bwd=bwd,
+            fwd_flops_per_token=fwd_f, bwd_flops_per_token=3.0 * fwd_f))
+    return programs
+
+
+def _build_span_encdec(cfg: ArchConfig, n_stages: int, seq_len: int,
+                       span: tuple[int, int]) -> SpanProgram:
+    """The encoder-decoder span program: the covered stages' cores
+    chained on the device, the token ids riding along; ``bwd`` keeps
+    the LM span's contract — one ``torch.autograd.grad`` per covered
+    stage over detached intra-span boundary trees, bit-equal to the
+    chain of single-stage programs on one device."""
+    lo, hi = span
+    stages = range(lo, hi)
+    covers_last = hi == n_stages
+    specs = {s: _stage_specs_encdec(cfg, s, n_stages) for s in stages}
+    cores = [_make_stage_core_encdec(cfg, s, n_stages) for s in stages]
+
+    def fwd(ps, inp, labels=None):
+        cur, ints = _split_payload(inp)
+        with torch.no_grad():
+            for core, p in zip(cores, ps):
+                cur = core(p, cur, ints)
+            if covers_last:
+                return _head_loss(cfg, ps[-1], cur["x"], labels)
+            return {**cur, **ints}
+
+    def bwd(ps, inp, dy_or_labels):
+        cur, ints = _split_payload(inp)
+        leaves = [_grad_leaves(p) for p in ps]
+        trees = [tree_unflatten_like(p, lv) for p, lv in zip(ps, leaves)]
+        ins, outs = [], []
+        gps: list = [None] * len(ps)
+        loss = None
+        with torch.enable_grad():
+            for s, core, p in zip(stages, cores, trees):
+                fin = None if s == 0 else _fresh(cur)
+                ins.append(fin)
+                cur = core(p, cur if fin is None else fin, ints)
+                outs.append(cur)
+            if covers_last:
+                loss = _head_loss(cfg, trees[-1], outs[-1]["x"],
+                                  dy_or_labels)
+            gx = None if covers_last else _split_payload(dy_or_labels)[0]
+            for i in reversed(range(len(ps))):
+                if covers_last and i == len(ps) - 1:
+                    out, seed = loss, None
+                else:
+                    out, seed = outs[i], gx
+                gx, gps[i] = _encdec_grads(out, seed, leaves[i], ins[i],
+                                           ps[i])
+        if covers_last:
+            return loss.detach(), gx, tuple(gps)
+        return gx, tuple(gps)
+
+    fwd_f = sum(_stage_fwd_flops(cfg, s, n_stages, seq_len, "none", False)
+                for s in stages)
+    return SpanProgram(span=(lo, hi), n_stages=n_stages, specs=specs,
+                       fwd=fwd, bwd=bwd, fwd_flops_per_token=fwd_f,
+                       bwd_flops_per_token=3.0 * fwd_f)
+
+
 def build_stage_programs(cfg: ArchConfig, n_stages: int, seq_len: int,
                          compress: Optional[str] = None
                          ) -> list[StageProgram]:
@@ -267,9 +481,11 @@ def build_stage_programs(cfg: ArchConfig, n_stages: int, seq_len: int,
     comp = codecs.resolve_mode(cfg, compress)
     learned = comp in codecs.LEARNED and n_stages > 1
     if cfg.encoder_layers:
-        raise NotImplementedError(
-            "encoder-decoder stage programs come with the other-kinds "
-            "slice (ROADMAP queue 1 item 6)")
+        if learned:
+            raise NotImplementedError(
+                "learned boundary codecs are unsupported for "
+                "encoder-decoder stage programs (tree-valued boundaries)")
+        return _build_stage_programs_encdec(cfg, n_stages, seq_len)
     programs = []
     for s in range(n_stages):
         specs = _stage_specs(cfg, s, n_stages, comp, learned)
@@ -333,9 +549,11 @@ def build_span_program(cfg: ArchConfig, n_stages: int, seq_len: int,
     comp = codecs.resolve_mode(cfg, compress)
     learned = comp in codecs.LEARNED and n_stages > 1
     if cfg.encoder_layers:
-        raise NotImplementedError(
-            "encoder-decoder span programs come with the other-kinds "
-            "slice (ROADMAP queue 1 item 6)")
+        if learned:
+            raise NotImplementedError(
+                "learned boundary codecs are unsupported for "
+                "encoder-decoder span programs (tree-valued boundaries)")
+        return _build_span_encdec(cfg, n_stages, seq_len, span)
     stages = range(lo, hi)
     specs = {s: _stage_specs(cfg, s, n_stages, comp, learned)
              for s in stages}
@@ -396,6 +614,31 @@ def init_stage_params(programs: list[StageProgram], seed: int,
     generator, seeded ``(seed << 16) + s``)."""
     return [P.init((int(seed) << 16) + i, p.specs, device)
             for i, p in enumerate(programs)]
+
+
+def split_whisper_params(cfg: ArchConfig, n_stages: int,
+                         params: Tree) -> list[Tree]:
+    """Slice a full whisper tree (``models.whisper.whisper_specs``
+    layout) into per-stage trees shaped like the encoder-decoder stage
+    programs: the encoder pod, then ``n_layers / (n_stages - 1)``
+    decoder layers a stage, stage 1 with the embedding and the last
+    with the final norm and head.  Every leaf is a view of the full
+    tree, so the staged pipeline computes ``whisper_apply``'s
+    numbers."""
+    per = cfg.n_layers // (n_stages - 1)
+    out: list[Tree] = [{"enc_blocks": params["enc_blocks"],
+                        "enc_norm": params["enc_norm"]}]
+    for s in range(1, n_stages):
+        lo = (s - 1) * per
+        st: Tree = {"dec_blocks": tree_map(
+            lambda a, _lo=lo: a[_lo:_lo + per], params["dec_blocks"])}
+        if s == 1:
+            st["embed"] = params["embed"]
+        if s == n_stages - 1:
+            st["final_norm"] = params["final_norm"]
+            st["head"] = params["head"]
+        out.append(st)
+    return out
 
 
 def split_lm_params(cfg: ArchConfig, n_stages: int, params: Tree,

@@ -185,8 +185,9 @@ def build_session_program(cfg: ArchConfig, n_stages: int,
                          f"divisible by n_stages={n_stages}")
     if cfg.family == "audio":
         raise NotImplementedError(
-            "staged serving covers the LM families; audio comes with the "
-            "whisper slice")
+            "staged serving covers the LM families, as the JAX package's "
+            "session programs do; serve whisper through "
+            "train.steps.make_prefill_step / make_serve_step")
     comp = codecs.resolve_mode(cfg, compress)
     learned = comp in codecs.LEARNED and n_stages > 1
     covers_last = hi == n_stages
@@ -248,7 +249,22 @@ def full_session_program(cfg: ArchConfig, total_len: int,
                          remat: bool = True) -> SessionProgram:
     """The whole model as one session program — the single-process
     reference path (``make_prefill_step``/``make_serve_step``).  ``kv``
-    is a 1-tuple (the model as one "stage")."""
+    is a 1-tuple (the model as one "stage").
+
+    An audio config is refused: the JAX package's ``prefill_fn`` hands
+    its prefill step ``{"tokens": tokens}``, and ``whisper_prefill``
+    then raises ``KeyError: 'audio_embed'``, so the reference serves no
+    audio config through this program (ROADMAP queue 3).  Whisper serves
+    through ``make_prefill_step`` / ``make_serve_step``, as the JAX
+    package's own tests drive it."""
+    if cfg.family == "audio":
+        raise NotImplementedError(
+            f"{cfg.name}: full_session_program serves the LM families.  The "
+            "JAX package's prefills {'tokens': tokens} alone, which its "
+            "whisper_prefill cannot take (KeyError: 'audio_embed'), so "
+            "the reference serves no audio config here (ROADMAP queue 3); "
+            "serve whisper through train.steps.make_prefill_step / "
+            "make_serve_step")
     key = (cfg, "full", total_len, remat)
     with _LOCK:
         prog = _SESSIONS.get(key)

@@ -1,7 +1,7 @@
 """Serving step builders and the model's parameter specs (port of
 ``make_prefill_step``, ``make_serve_step`` and ``model_specs`` of
-``repro.train.steps``; the single-process training step comes with
-ROADMAP queue 1 item 8)."""
+``repro.train.steps``, the audio family's whisper branches included;
+the single-process training step comes with ROADMAP queue 1 item 8)."""
 from __future__ import annotations
 
 from typing import Any, Optional
@@ -9,15 +9,19 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.models import model as model_lib
+from repro_torch.models import whisper as whisper_lib
 from repro_torch.models.config import ArchConfig
 
 Tree = Any
 
 
 def model_specs(cfg: ArchConfig) -> Tree:
-    """The whole model's parameter specs: ``lm_specs`` plus, for a
-    config that declares a pipeline depth and a learned codec, the
-    stage-stacked codec pairs (``boundary``)."""
+    """The whole model's parameter specs: ``whisper_specs`` for the audio
+    family, else ``lm_specs`` plus, for a config that declares a
+    pipeline depth and a learned codec, the stage-stacked codec pairs
+    (``boundary``)."""
+    if cfg.family == "audio":
+        return whisper_lib.whisper_specs(cfg)
     specs = model_lib.lm_specs(cfg)
     from repro_torch.compression import codecs  # lazy: codecs imports params
     boundary = codecs.pipeline_boundary_specs(cfg)
@@ -30,11 +34,17 @@ def make_prefill_step(cfg: ArchConfig, remat: bool = True,
                       last_only: bool = True,
                       cache_len: Optional[int] = None):
     """Inference prefill: forward + decode-cache emission + first token.
-    ``cache_len`` sizes the caches for the session's full horizon."""
+    ``cache_len`` sizes the caches for the session's full horizon.  An
+    audio config's batch is ``{"audio_embed", "tokens"}``."""
     def prefill_step(params: Tree, batch: Tree):
-        logits, caches = model_lib.lm_prefill(
-            cfg, params, batch["tokens"], batch.get("positions"),
-            cache_len=cache_len, remat=remat, last_only=last_only)
+        if cfg.family == "audio":
+            logits, caches = whisper_lib.whisper_prefill(
+                cfg, params, batch, cache_len=cache_len, remat=remat,
+                last_only=last_only)
+        else:
+            logits, caches = model_lib.lm_prefill(
+                cfg, params, batch["tokens"], batch.get("positions"),
+                cache_len=cache_len, remat=remat, last_only=last_only)
         nxt = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
         return nxt, caches
 
@@ -46,8 +56,12 @@ def make_serve_step(cfg: ArchConfig):
     (next_token [B,1], caches)."""
     def serve_step(params: Tree, caches: Tree, token: torch.Tensor,
                    pos: int):
-        logits, caches = model_lib.lm_decode_step(
-            cfg, params, token, caches, pos)
+        if cfg.family == "audio":
+            logits, caches = whisper_lib.whisper_decode_step(
+                cfg, params, token, caches, pos)
+        else:
+            logits, caches = model_lib.lm_decode_step(
+                cfg, params, token, caches, pos)
         nxt = torch.argmax(logits[:, -1:], dim=-1).to(token.dtype)
         return nxt, caches
 

@@ -25,6 +25,8 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.models.params import to_numpy_tree
 from repro_torch.optim import adamw
 
+torch.set_num_threads(1)   # as tests/test_torch_train.py explains
+
 KW = dict(n_stages=3, microbatch_size=2, seq_len=16, global_batch=4,
           n_trainers=1, rebalance_period=0.0, codec="bottleneck",
           max_steps=1)

@@ -31,6 +31,8 @@ from repro_torch.kernels.boundary import ops as tops
 from repro_torch.kernels.boundary import ref as tref
 from repro_torch.models.config import ArchConfig
 
+torch.set_num_threads(1)   # as tests/test_torch_train.py explains
+
 F32_TOL = 2e-6        # f32 LN outputs of O(1): a few ulps of summation order
 GRAD_RTOL = 1e-5      # f32 gradients, relative to the leaf's largest entry
 D, C = 64, 16

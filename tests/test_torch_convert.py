@@ -22,6 +22,8 @@ from repro_torch.runtime import build_numeric_executors as t_build_execs
 from repro_torch.runtime.pipeline import PipelineExecutor as \
     TPipelineExecutor
 
+torch.set_num_threads(1)   # as tests/test_torch_train.py explains
+
 
 def port_cfg(cfg):
     import dataclasses

@@ -1145,3 +1145,94 @@ def test_cuda_recurrent_serve_matches_reference(kind):
     assert _same_bits(la, lb)
     for a, b in zip(tree_leaves(ca), tree_leaves(cb)):
         assert _same_bits(a, b)
+
+
+# whisper-large-v3's bidirectional flash calls, q_offset 0 (B, Sq, Sk):
+# the training cross-attention (448 decoder tokens against 1,500 frames)
+# and the encoder's self-attention over the frames
+WHISPER_FLASH = [(2, 448, 1500), (2, 1500, 1500)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk", WHISPER_FLASH)
+def test_cuda_whisper_flash_reaches_the_kernel(B, Sq, Sk, dtype,
+                                               monkeypatch):
+    """``models/flash.py::flash_attention`` at whisper's bidirectional
+    shapes and query offset 0 launches the kernel once and never calls
+    the plain forward, forward-only and under autograd (with ``lse``),
+    each output within FLASH_BOUND of ``flash_fwd_ref``."""
+    from repro_torch.models import flash as flash_lib
+    dev = _card()
+    plain = []
+    orig = flash_lib.flash_fwd_ref
+    monkeypatch.setattr(flash_lib, "flash_fwd_ref",
+                        lambda *a, **k: plain.append(1) or orig(*a, **k))
+    g = _gen(dev)
+    q = torch.randn(B, Sq, 20, 64, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, Sk, 20, 64, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, Sk, 20, 64, generator=g, device=dev).to(dtype)
+    ref, _ = orig(q, k, v, False, 0, 0, 512, 1024)
+    before = kernels.LAUNCHES["flash_attention_fwd"]
+    out = flash_lib.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention_fwd"] == before + 1
+    qg = q.detach().clone().requires_grad_()
+    out_g = flash_lib.flash_attention(qg, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention_fwd"] == before + 2
+    assert not plain
+    for o in (out, out_g.detach()):
+        assert o.shape == (B, Sq, 20, 64) and o.dtype == dtype
+        assert float((o.float() - ref.float()).abs().max()) <= \
+            FLASH_BOUND[dtype]
+
+
+@pytest.mark.cuda
+def test_cuda_whisper_prefill_matches_cpu(monkeypatch):
+    """A tiny bf16 whisper (head dim 64) ``whisper_prefill`` on the card:
+    one flash launch per encoder layer and two per decoder layer, no
+    plain flash call, and its logits and caches within bf16 bounds (5e-2
+    of each tensor's scale) of the same prefill on the CPU, from the same
+    weights (``wq`` / ``wk`` scaled by 0.1)."""
+    from repro_torch.models import flash as flash_lib
+    from repro_torch.models import params as P
+    from repro_torch.models import whisper as W
+    from repro_torch.tree import tree_leaves, tree_map
+    dev = _card()
+    plain = []
+    orig = flash_lib.flash_fwd_ref
+    monkeypatch.setattr(flash_lib, "flash_fwd_ref",
+                        lambda *a, **k: plain.append(1) or orig(*a, **k))
+    cfg = ArchConfig(name="tiny-whisper", family="audio", n_layers=2,
+                     d_model=128, n_heads=2, n_kv_heads=2, d_ff=256,
+                     vocab_size=256, head_dim=64, rope="none", act="gelu",
+                     norm="layernorm", encoder_layers=2, encoder_max_len=100,
+                     frontend="audio_stub")
+    params = P.init(0, W.whisper_specs(cfg), "cpu")
+    # the init draws wq / wk at std 1/sqrt(n_heads): scaled down, so that
+    # no softmax is saturated enough for bf16 rounding to pick another key
+    for blk in ("enc_blocks", "dec_blocks"):
+        for att in ("attn", "xattn"):
+            for key in ("wq", "wk"):
+                if att in params[blk]:
+                    params[blk][att][key].mul_(0.1)
+    g = torch.Generator().manual_seed(0)
+    batch = {"audio_embed": torch.randn(2, 100, 128, generator=g).to(
+                 torch.bfloat16),
+             "tokens": torch.randint(0, 256, (2, 30), generator=g,
+                                     dtype=torch.int32)}
+    with torch.inference_mode():
+        want = W.whisper_prefill(cfg, params, batch, cache_len=40,
+                                 last_only=False)
+        kernels.reset_launches()
+        got = W.whisper_prefill(cfg, tree_map(lambda a: a.to(dev), params),
+                                tree_map(lambda a: a.to(dev), batch),
+                                cache_len=40, last_only=False)
+        torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention_fwd"] == 2 + 2 * 2
+    assert not plain
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        a, b = a.cpu().float(), b.float()
+        assert a.shape == b.shape
+        assert float((a - b).abs().max()) <= 5e-2 * float(b.abs().max())

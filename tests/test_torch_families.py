@@ -48,6 +48,8 @@ from repro_torch.runtime.stage_model import build_stage_programs as t_build
 from repro_torch.serve import ServeConfig, ServeRunner
 from repro_torch.tree import tree_leaves
 
+torch.set_num_threads(1)   # as tests/test_torch_train.py explains
+
 TOL = 1e-5
 FLASH_TOL = 1e-5
 BF16_TOL = 2e-2

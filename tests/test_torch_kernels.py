@@ -40,6 +40,8 @@ from repro_torch.compression import codecs as tcodecs
 from repro_torch.models import attention as t_attention
 from repro_torch.models import flash as t_flash_lib
 
+torch.set_num_threads(1)   # as tests/test_torch_train.py explains
+
 FLASH_TOL = 1e-5      # f32, the bound of tests/test_kernels.py's oracle sweep
 RMS_TOL = 1e-6
 

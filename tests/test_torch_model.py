@@ -21,6 +21,8 @@ from repro_torch.models.params import from_numpy_tree, to_numpy_tree
 from repro_torch.runtime.stage_model import split_lm_params as t_split
 from repro_torch.tree import tree_leaves
 
+torch.set_num_threads(1)   # as tests/test_torch_train.py explains
+
 TOL = 1e-5
 
 

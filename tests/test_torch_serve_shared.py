@@ -40,6 +40,8 @@ from repro_torch.serve import ServeConfig, ServeRunner
 from repro_torch.serve.programs import build_session_program as t_build
 from repro_torch.tree import tree_leaves
 
+torch.set_num_threads(1)   # as tests/test_torch_train.py explains
+
 TOL = 1e-5
 S, NEW = 8, 6
 SHARED_BOTTLENECK = dict(share_groups=2, boundary_compression="bottleneck",

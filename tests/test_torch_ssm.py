@@ -54,6 +54,8 @@ from repro_torch.tree import tree_leaves, tree_map
 from test_torch_families import assert_close, port_cfg
 from test_torch_train import ATTN_SCALE, TRAJ_ATOL, _jax_batches
 
+torch.set_num_threads(1)   # as tests/test_torch_train.py explains
+
 TOL = 1e-5
 # whole models: the projections' rounding differences pass through every
 # layer and, in sLSTM, 32 sequential steps (measured up to 1.1e-5 of the

@@ -47,6 +47,13 @@ from repro_torch.runtime import build_stage_programs
 from repro_torch.train.reference import reference_losses
 from repro_torch.tree import tree_leaves
 
+# one intra-op thread a process: a parallel test run (xdist) gives each
+# worker a share of the cores, and torch's default of a thread per core
+# oversubscribes them; the spin-waiting threads then slow the small ops of
+# the stage and swarm tests about twentyfold (test_torch_async.py: 49 s
+# alone, about 1,000 s beside five other workers)
+torch.set_num_threads(1)
+
 SEQ, MB, GB, STEPS = 32, 2, 8, 4
 TRAJ_ATOL = 2e-4      # the bound of the JAX package's own churn tests
 GRAD_RTOL = 1e-5      # f32 gradients, relative to the leaf's largest entry
