@@ -93,6 +93,24 @@ JSON line; any failure raises and exits non-zero):
              second stage-1 peer killed mid-step and a warm join, losses
              equal to the bit, exactly once; then the int8 wire, one QDQ
              launch per float leaf of each boundary tree crossed.
+6d. train_single — the one-process training step through
+             ``python -m repro_torch.launch.train``'s entry point:
+             qwen2-vl-2b at full width and depth (28 layers, 1.54 B f32
+             parameters, tied embeddings, M-RoPE), seq 512, global batch
+             8, ``--accum 4``: four steps, finite losses, flash and
+             rmsnorm launches a step per remat mode against their
+             reckoning, no plain flash call, tokens/s and peak memory;
+             ``none``, ``block`` and ``2level`` two steps each, losses
+             and params equal to the bit; a run cut after step 2 and
+             resumed from its checkpoint equal to the uninterrupted run
+             to the bit; ``--accum 1`` against ``--accum 4``: step 1
+             within 1e-6, step 2 reported beside an ``--accum 2``
+             witness, both steps within 1e-6 / 1e-4 in an f32 twin at 2
+             layers; then swarm-1b (3 groups x 16 applications) through
+             ``make_train_step`` against the staged reference on the same
+             params and microbatches, ``train``'s bounds with every
+             wq / wk scaled by 0.3, reported at JAX's init, the step-1
+             gradients' gap, both tokens/s.
 7. train   — ``SwarmRunner`` training swarm-1b-bottleneck at full width
              and depth (48 layer applications, random weights from a
              seed), 3 stages, one peer each, seq 512, microbatch 2, global
@@ -3333,6 +3351,365 @@ def phase_train_whisper(torch) -> dict:
     return plain
 
 
+# ------------------------------------------------------------ phase 6d
+# the one-process training step on the card: qwen2-vl-2b at full width
+# and depth through the launcher, global batch 8 of 512 tokens in 4
+# microbatches of 2; swarm-1b against the staged reference at the
+# ``train`` phase's shapes
+SINGLE_ARCH, SINGLE_BATCH, SINGLE_SEQ = "qwen2-vl-2b", 8, 512
+SINGLE_ARGS = ["--arch", SINGLE_ARCH, "--batch", str(SINGLE_BATCH),
+               "--seq", str(SINGLE_SEQ), "--lr", "1e-4"]
+SINGLE_ACCUM, SINGLE_STEPS = 4, 4
+# accum 1 against accum 4.  At full depth in bf16 the step-1 losses are
+# equal to the bit and held at the first bound; step 2 is reported: the
+# microbatches' weight gradients round to bf16 apart (the accumulated
+# gradient lies a few % from the whole batch's, as accum 2's witness
+# does), and AdamW's sign-like first step moves every element by about
+# lr whatever its size.  Both bounds hold an f32 twin at 2 layers, where
+# the difference is f32 rounding; with depth the random weights amplify
+# it (the twin at 4 layers is reported: PERF.md, §6)
+ACCUM_STEP1_RTOL, ACCUM_STEP2_RTOL = 1e-6, 1e-4
+ACCUM_TWIN_LAYERS = 2
+# swarm-1b against the staged reference is held with every wq / wk
+# scaled by this (as the CPU trajectory tests scale them): at JAX's init
+# the attention saturates, the one-process mean and the staged token
+# sums then give gradients that differ by far more than rounding, and
+# the JAX-init run is reported beside it (PERF.md, §6)
+SWARM_ATTN_SCALE = 0.3
+
+
+def remat_launches(cfg, mode: str, accum: int) -> dict:
+    """Flash and rmsnorm launches a training step: each layer's forward
+    once, again in a ``block`` checkpoint's recompute, and under
+    ``2level`` also in its group's recompute, except the group's last
+    layer, which nothing saved in the group needs (a non-reentrant
+    checkpoint stops its recompute once it has what backward reads).
+    Two norms a layer and the final norm, flash once a layer."""
+    from repro_torch.models.model import _sqrt_divisor
+    L = cfg.n_layers
+    passes = {"none": L, "block": 2 * L}
+    n1 = _sqrt_divisor(L)
+    passes["2level"] = 2 * L + n1 * (L // n1 - 1)
+    flash = passes[mode]
+    return {"flash_attention_fwd": accum * flash,
+            "rmsnorm": accum * (2 * flash + 1)}
+
+
+def _single_run(torch, argv: list, name: str, cfg, keep_state=False):
+    """One ``repro_torch.launch.train`` run on the card (``main``, or
+    ``run`` where the final state is kept), launch counters set to 0 just
+    before and read just after, no plain flash call.  Returns (row, final
+    state or None)."""
+    from repro_torch import kernels
+    from repro_torch.launch import train as launch_train
+    free(torch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    args = launch_train.parse_args(argv)
+    kernels.reset_launches()
+    with plain_flash_calls() as plain:
+        t0 = time.time()
+        if keep_state:
+            losses, summary, state = launch_train.run(args)
+        else:
+            (losses, summary), state = launch_train.main(argv), None
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    if plain:
+        raise AssertionError(f"{name}: plain flash calls {plain[:4]}")
+    steps = len(losses)
+    per_step = {k: v / steps for k, v in kernels.LAUNCHES.items() if v}
+    want = remat_launches(cfg, args.remat, args.accum)
+    if per_step != want:
+        raise AssertionError(f"{name}: launches a step {per_step}, "
+                             f"want {want}")
+    row = {"phase": name, "arch": cfg.name, "argv": argv,
+           "losses": losses, "launches_per_step": per_step,
+           "plain_flash_calls": 0, "wall_s": wall,
+           "step_seconds": summary["step_seconds"],
+           "tokens_per_s": summary["tokens_per_s"],
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9}
+    return row, state
+
+
+def _bits_differ(torch, got, want) -> list:
+    """Leaf indices where two trees of f32 tensors differ in any bit."""
+    from repro_torch.tree import tree_leaves
+    return [i for i, (a, b) in enumerate(zip(tree_leaves(got),
+                                              tree_leaves(want)))
+            if not torch.equal(a.view(torch.int32), b.view(torch.int32))]
+
+
+def _capture_opt(store: list):
+    """An optimizer that keeps the gradients it is handed and returns
+    zero updates: the step's accumulated gradients, read through the
+    entry points that compute them."""
+    from repro_torch.optim.adamw import Optimizer
+    from repro_torch.tree import tree_map
+
+    def update(grads, state, params):
+        store.append(grads)
+        return tree_map(lambda p: p.new_zeros(p.shape), params), state
+    return Optimizer(lambda params: {}, update)
+
+
+def _grad_gap(torch, got: list, want: list) -> dict:
+    """Relative L2 distance of two gradient leaf lists, and the share of
+    elements above 1e-8 in either whose signs disagree (AdamW's first
+    step moves each such element by about lr, whatever its size)."""
+    num = den = 0.0
+    flips = above = 0
+    for a, b in zip(got, want):
+        d = a.double() - b.double()
+        num += float((d * d).sum())
+        den += float((b.double() ** 2).sum())
+        m = (a.abs() > 1e-8) | (b.abs() > 1e-8)
+        above += int(m.sum())
+        flips += int(((torch.sign(a) != torch.sign(b)) & m).sum())
+    return {"grad_rel_l2": math.sqrt(num / den),
+            "grad_sign_flip_share": flips / max(above, 1)}
+
+
+def _swarm_vs_single(torch, attn_scale: float, bounded: bool) -> dict:
+    """swarm-1b (3 groups x 16 shared applications, LayerNorm, no
+    learned codec) at full width, every attention's wq / wk scaled by
+    ``attn_scale``: ``make_train_step`` (accum 4, block remat) from
+    ``make_state(seed 0)`` against ``reference_losses`` fed
+    ``split_lm_params`` of the same initial params and the same
+    microbatches; ``adamw`` without clipping on both sides (SWARM clips
+    each stage's own gradients, the plain step the whole model's).
+    Also the two sides' step-1 gradients (one-process accumulated mean,
+    staged token sums over the token count) leaf by leaf.  ``bounded``:
+    the losses are held to ``train``'s bounds."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import build_stage_programs
+    from repro_torch.runtime.stage_model import split_lm_params
+    from repro_torch.train.reference import reference_losses
+    from repro_torch.train.steps import make_state, make_train_step
+    from repro_torch.tree import tree_leaves
+    name = f"train_single_swarm_attn{attn_scale:g}"
+    cfg = get_config("swarm-1b")
+    accum = TRAIN_GB // TRAIN_MB
+    data_fn = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_MB, seed=17).batch
+    opt = adamw(lr=1e-4, grad_clip=0.0)
+    free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    state = make_state(cfg, opt, 0)
+    params0 = state["params"]
+    with torch.no_grad():
+        for seg in params0["blocks"]:
+            for key in ("wq", "wk"):
+                seg["attn"][key].mul_(attn_scale)
+    device = params0["embed"].device
+
+    def step_batch(k):
+        mbs = [data_fn(k * accum + j) for j in range(accum)]
+        return {key: torch.cat([m[key] for m in mbs]).to(device)
+                for key in ("tokens", "labels")}
+
+    progs = build_stage_programs(cfg, 3, TRAIN_SEQ, "none")
+    single, staged = [], []
+    make_train_step(cfg, _capture_opt(single), remat="block",
+                    accum=accum)(state, step_batch(0))
+    _counted(torch, lambda: reference_losses(
+        cfg, progs, _capture_opt(staged), 0, 1, TRAIN_SEQ, TRAIN_MB,
+        TRAIN_GB, params=split_lm_params(cfg, 3, params0), data_fn=data_fn,
+        device="cuda"))
+    gap = _grad_gap(torch, [a for t in split_lm_params(cfg, 3, single[0])
+                            for a in tree_leaves(t)],
+                    [a for t in staged for a in tree_leaves(t)])
+    del single, staged
+    free(torch)
+    step_fn = make_train_step(cfg, opt, remat="block", accum=accum)
+    got, step_s = [], []
+    with plain_flash_calls() as plain:
+        for k in range(TRAIN_STEPS):
+            batch = step_batch(k)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            state, m = step_fn(state, batch)
+            got.append(float(m["loss"]))
+            step_s.append(time.time() - t0)
+    if plain:
+        raise AssertionError(f"{name}: plain flash {plain[:4]}")
+    single_peak = torch.cuda.max_memory_allocated() / 1e9
+    del state, m, batch
+    free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    want = _counted(torch, lambda: reference_losses(
+        cfg, progs, opt, 0, TRAIN_STEPS, TRAIN_SEQ, TRAIN_MB, TRAIN_GB,
+        params=split_lm_params(cfg, 3, params0), data_fn=data_fn,
+        device="cuda"))
+    torch.cuda.synchronize()
+    ref_s = time.time() - t0
+    tokens = TRAIN_STEPS * TRAIN_GB * TRAIN_SEQ
+    row = {"phase": name, "arch": cfg.name, "attn_scale": attn_scale,
+           "bounded": bounded, "steps": TRAIN_STEPS, "accum": accum,
+           "remat": "block", "losses": got, "reference_losses": want,
+           "rel_diff": [abs(a - b) / abs(b) for a, b in zip(got, want)],
+           "abs_diff": [abs(a - b) for a, b in zip(got, want)],
+           **gap, "step_seconds": step_s,
+           "tokens_per_s": tokens / sum(step_s),
+           "reference_tokens_per_s": tokens / ref_s,
+           "max_memory_allocated_gb": single_peak,
+           "reference_max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9}
+    del progs, params0
+    free(torch)
+    if bounded:
+        _check_losses(name, got, want)
+    return row
+
+
+def _accum_twin(torch, layers: int) -> dict:
+    """``--accum 1`` (and 2, a witness) against ``--accum 4`` in an
+    f32-compute twin of qwen2-vl-2b at full width and ``layers`` layers,
+    JAX's init, through ``make_state`` / ``make_train_step`` on the
+    launcher's batches, two steps each.  Returns the row (not emitted;
+    the caller bounds it)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.launch.train import step_batch
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import make_state, make_train_step
+    cfg = get_config(SINGLE_ARCH).with_overrides(compute_dtype="float32",
+                                                 n_layers=layers)
+    ds = SyntheticLM(cfg.vocab_size, SINGLE_SEQ, SINGLE_BATCH, seed=17)
+    losses = {}
+    for accum in (4, 1, 2):
+        opt = adamw(lr=1e-4)
+        state = make_state(cfg, opt, 0)
+        device = state["params"]["embed"].device
+        step_fn = make_train_step(cfg, opt, remat="block", accum=accum)
+        losses[accum] = []
+        for k in range(2):
+            state, m = step_fn(state, step_batch(cfg, ds, k, device))
+            losses[accum].append(float(m["loss"]))
+        del state, m
+        free(torch)
+    rel = {a: [abs(x - y) / abs(y) for x, y in zip(losses[a], losses[4])]
+           for a in (1, 2)}
+    return {"phase": "train_single_accum_twin", "arch": cfg.name,
+            "compute_dtype": "float32", "layers": layers,
+            "bounded": layers == ACCUM_TWIN_LAYERS, "losses": losses,
+            "rel_diff_accum1": rel[1], "rel_diff_accum2_witness": rel[2]}
+
+
+def phase_train_single(torch) -> dict:
+    """The single-process training path (``launch/train.py`` over
+    ``train/steps.py``'s ``make_train_step``) on qwen2-vl-2b at full
+    width and depth (28 layers, d 1536, 12/2 heads of 128, vocab
+    151,936, tied embeddings; f32 weights from seed 0, M-RoPE text
+    positions), seq 512, global batch 8, ``--accum 4``, lr 1e-4:
+    four steps with finite losses, flash and rmsnorm launches a step
+    against ``remat_launches``, no plain flash call; two steps under each
+    remat mode with losses and params after step 2 equal to the bit; a
+    run cut after step 2 and resumed from its checkpoint equal to the
+    uninterrupted one to the bit (the cuts under ``build/``, removed at
+    the end); ``--accum 1`` (and ``--accum 2``, a witness) against
+    ``--accum 4``, step 1 bounded, and both steps bounded in an f32 twin
+    at 2 layers (``ACCUM_STEP1_RTOL``'s comment says why); then swarm-1b
+    against the staged reference, bounded at ``SWARM_ATTN_SCALE`` and
+    reported at JAX's init."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.models import flops as F
+    cfg = get_config(SINGLE_ARCH)
+    t_phase = time.time()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build")
+    os.makedirs(root, exist_ok=True)
+    # a cut: f32 params and AdamW's two f32 moments
+    cut = 12.0 * F.total_params(cfg)
+    disk, host = shutil.disk_usage(root).free, _mem_available()
+    emit({"phase": "train_single_resources", "cut_gb": cut / 1e9,
+          "free_disk_gb": disk / 1e9, "mem_available_gb": host / 1e9})
+    if disk < 2.2 * cut:          # the step-2 cut and the resumed run's
+        raise RuntimeError(f"train_single: {disk / 1e9:.1f} GB free "
+                           f"under {root}, need {2.2 * cut / 1e9:.1f}")
+    if host < 1.2 * cut:          # one host copy of the state
+        raise RuntimeError(f"train_single: {host / 1e9:.1f} GB of host "
+                           f"memory available, need {1.2 * cut / 1e9:.1f}")
+    base = SINGLE_ARGS + ["--accum", str(SINGLE_ACCUM)]
+    main_row, _ = _single_run(torch, base + [
+        "--steps", str(SINGLE_STEPS), "--remat", "block"],
+        "train_single", cfg)
+    full = main_row["losses"]
+    emit(main_row)
+    ckpt = tempfile.mkdtemp(prefix="ckpt_single_", dir=root)
+    try:
+        cut_row, state2 = _single_run(torch, base + [
+            "--steps", "2", "--remat", "block", "--ckpt-dir", ckpt],
+            "train_single_cut", cfg, keep_state=True)
+        params2 = state2["params"]
+        del state2
+        cut_bytes = sum(os.path.getsize(os.path.join(ckpt, "step_00000002",
+                                                     f))
+                        for f in os.listdir(os.path.join(
+                            ckpt, "step_00000002")))
+        if cut_row["losses"] != full[:2]:
+            raise AssertionError(f"train_single_cut: losses "
+                                 f"{cut_row['losses']} vs {full[:2]}")
+        resumed, _ = _single_run(torch, base + [
+            "--steps", str(SINGLE_STEPS), "--remat", "block",
+            "--ckpt-dir", ckpt], "train_single_resume", cfg)
+        if resumed["losses"] != full[2:]:
+            raise AssertionError(f"train_single_resume: losses "
+                                 f"{resumed['losses']} vs {full[2:]}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    emit({**resumed, "cut_losses": cut_row["losses"],
+          "cut_bytes": cut_bytes, "cut_wall_s": cut_row["wall_s"],
+          "uninterrupted_losses": full[2:]})
+    modes = {"block": {"losses": cut_row["losses"],
+                       "launches_per_step": cut_row["launches_per_step"],
+                       "max_memory_allocated_gb":
+                           cut_row["max_memory_allocated_gb"],
+                       "tokens_per_s": cut_row["tokens_per_s"]}}
+    for mode in ("none", "2level"):
+        row, state = _single_run(torch, base + [
+            "--steps", "2", "--remat", mode], f"train_single_{mode}", cfg,
+            keep_state=True)
+        differ = _bits_differ(torch, state["params"], params2)
+        del state
+        if row["losses"] != cut_row["losses"] or differ:
+            raise AssertionError(f"train_single_{mode}: losses "
+                                 f"{row['losses']} vs block's "
+                                 f"{cut_row['losses']}, params differ at "
+                                 f"leaves {differ[:8]}")
+        modes[mode] = {k: row[k] for k in modes["block"]}
+    del params2
+    emit({"phase": "train_single_remat", "arch": cfg.name,
+          "params_equal_to_the_bit": True, "modes": modes})
+    for a in (1, 2):
+        row, _ = _single_run(torch, SINGLE_ARGS + [
+            "--accum", str(a), "--steps", "2", "--remat", "block"],
+            f"train_single_accum{a}", cfg)
+        rel = [abs(x - y) / abs(y) for x, y in zip(row["losses"], full[:2])]
+        if rel[0] > ACCUM_STEP1_RTOL:
+            raise AssertionError(f"train_single_accum{a}: step-1 loss "
+                                 f"{row['losses'][0]} vs accum 4's "
+                                 f"{full[0]}")
+        emit({**row, "accum4_losses": full[:2], "rel_diff": rel})
+    for layers in (ACCUM_TWIN_LAYERS, 2 * ACCUM_TWIN_LAYERS):
+        row = _accum_twin(torch, layers)
+        emit(row)
+        rel = row["rel_diff_accum1"]
+        if row["bounded"] and (rel[0] > ACCUM_STEP1_RTOL
+                               or rel[1] > ACCUM_STEP2_RTOL):
+            raise AssertionError(f"train_single_accum_twin: {row}")
+    emit(_swarm_vs_single(torch, SWARM_ATTN_SCALE, bounded=True))
+    emit(_swarm_vs_single(torch, 1.0, bounded=False))
+    emit({"phase": "train_single_done", "seconds": time.time() - t_phase})
+    return main_row
+
+
 def main() -> None:
     import numpy as np
     if sys.argv[1:] not in ([], ["--kernels-only"]):
@@ -3373,6 +3750,9 @@ def main() -> None:
     # the encoder-decoder at full width and depth, served and trained
     phase_serve_whisper(torch)
     phase_train_whisper(torch)
+    # one-process training through the launcher, and swarm-1b's staged
+    # reference against it
+    phase_train_single(torch)
     # five reference steps: train holds the first three, train_rollback
     # four and its cold resume the fifth
     ref_losses = train_reference(torch, swarm1b(), 5)

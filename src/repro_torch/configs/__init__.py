@@ -1,4 +1,5 @@
-"""Architecture registry: ``get_config(name)``.
+"""Architecture registry: ``get_config(name)`` / ``get_reduced(name)``
+(``--arch <id>`` resolution) and the dry-run cell shapes ``SHAPES``.
 
 The port registers each architecture with the slice that brings its
 block kinds: yi-6b (serving slice), the paper's swarm-1b with its
@@ -12,7 +13,9 @@ frontend).
 """
 from __future__ import annotations
 
-from repro_torch.models.config import ArchConfig
+import dataclasses
+
+from repro_torch.models.config import ArchConfig, reduced
 
 from repro_torch.configs import (
     deepseek_v2_236b, gemma_2b, h2o_danube_3_4b, hymba_1_5b,
@@ -33,3 +36,23 @@ def get_config(name: str) -> ArchConfig:
         raise KeyError(f"unknown arch {name!r}; have {sorted(REGISTRY)}")
     return REGISTRY[name]
 
+
+
+def get_reduced(name: str) -> ArchConfig:
+    return reduced(get_config(name))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}

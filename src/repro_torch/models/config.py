@@ -169,3 +169,46 @@ class ArchConfig:
 
     def with_overrides(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
+
+
+def reduced(cfg: ArchConfig) -> ArchConfig:
+    """Tiny same-family config for CPU smoke runs (``--reduced``): the
+    JAX package's ``reduced``, field for field."""
+    n_layers = min(cfg.n_layers, 2)
+    kv = max(1, min(cfg.n_kv_heads, 2))
+    heads = max(kv, 4)
+    heads = (heads // kv) * kv
+    kw = dict(
+        n_layers=n_layers,
+        d_model=64,
+        n_heads=heads,
+        n_kv_heads=kv,
+        head_dim=16,
+        d_ff=0 if cfg.d_ff == 0 else 128,
+        vocab_size=512,
+        encoder_layers=min(cfg.encoder_layers, 2),
+        encoder_max_len=16,
+        compute_dtype="float32",
+        param_dtype="float32",
+        max_seq_len=4096,
+    )
+    if cfg.sliding_window:
+        kw["sliding_window"] = 8
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, num_experts=4, top_k=min(cfg.moe.top_k, 2),
+            num_shared=min(cfg.moe.num_shared, 1), d_ff_expert=32)
+    if cfg.mla is not None:
+        kw["mla"] = MLAConfig(kv_lora_rank=32, qk_nope_dim=16, qk_rope_dim=8,
+                              v_head_dim=16)
+    if cfg.ssm is not None:
+        kw["ssm"] = dataclasses.replace(cfg.ssm, state_dim=8, chunk=16)
+    if cfg.block_pattern is not None:
+        kw["block_pattern"] = cfg.block_pattern[:n_layers]
+    if cfg.share_groups:
+        kw["share_groups"] = n_layers  # one layer per group
+    if cfg.bottleneck_dim:
+        kw["bottleneck_dim"] = 32      # keeps the 64 -> c compression
+    if cfg.pipeline_stages:
+        kw["pipeline_stages"] = 2      # matches the 2-layer stack
+    return cfg.with_overrides(**kw)

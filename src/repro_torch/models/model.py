@@ -1,12 +1,18 @@
-"""Decoder-LM assembly for serving: embed -> per-run layer walk -> head
-(port of ``repro.models.model``).
+"""Decoder-LM assembly: embed -> per-run layer walk -> head (port of
+``repro.models.model``).
 
 Layer patterns are grouped into runs of identical block kinds, each run
 one stacked ``[n, ...]`` parameter tree, exactly the JAX tree layout.
 Where JAX scans over the stack, the port loops over layers and indexes
 the stack (``a[i]`` is a view, no copy).  The GSPMD sharding hints
-(``dist.constrain``) have no effect on one device and are left out;
-``remat`` is accepted and ignored (serving computes no gradients).
+(``dist.constrain``) have no effect on one device and are left out.
+
+:func:`lm_apply` is the training forward.  Its ``remat`` selects the
+activation checkpointing of JAX's ``jax.checkpoint`` / ``remat_scan``
+(non-reentrant ``torch.utils.checkpoint``): ``"none"``, ``"block"``
+(one checkpoint per layer application) or ``"2level"`` (``sqrt(n)``
+checkpointed groups of checkpointed layers).  Serving's ``lm_prefill``
+computes no gradient and ignores its ``remat``.
 
 ALBERT-style layer sharing (the paper's 1B model, §4.3) stores
 ``share_groups`` parameter groups and re-applies each ``reps = n_layers
@@ -19,13 +25,14 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.params import ParamSpec
 from repro_torch.models import layers as L
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.blocks import REGISTRY
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten_like
 
 Tree = Any
 
@@ -97,6 +104,36 @@ def compute_cast(tree: Tree, dtype: torch.dtype) -> Tree:
         return _cast_tree(tree, dtype)
 
 
+class SharedCast(torch.autograd.Function):
+    """One application's view of a weight already cast to the compute
+    dtype: the forward returns a view of the shared low-precision copy
+    (no new memory, and what the application's matmuls save for their
+    backward is that one copy), the backward hands the f32 weight its
+    cotangent in f32.  Each application is its own node, so the
+    ``reps`` cotangents add in f32 at the weight, as the JAX package's
+    per-use casts do; one shared cast node would add them in bf16."""
+
+    @staticmethod
+    def forward(ctx, w, w_low):
+        ctx.dtype = w.dtype
+        return w_low.view_as(w_low)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype), None
+
+
+def shared_application(p32: Tree, p_low: Tree) -> Tree:
+    """One application's params: the shared cast copies, each behind its
+    own :class:`SharedCast` node when gradients flow to the f32
+    weights."""
+    def one(w, w_low):
+        if w_low is w or not (torch.is_grad_enabled() and w.requires_grad):
+            return w_low
+        return SharedCast.apply(w, w_low)
+    return tree_map(one, p32, p_low)
+
+
 def lm_specs(cfg: ArchConfig) -> Tree:
     """The full model's parameter specs (an ALBERT-shared stack holds
     ``share_groups`` stacked layers)."""
@@ -148,8 +185,18 @@ def layer(tree: Tree, i: int) -> Tree:
 
 
 def n_stacked(tree: Tree) -> int:
-    from repro_torch.tree import tree_leaves
     return tree_leaves(tree)[0].shape[0]
+
+
+def layers(tree: Tree) -> list[Tree]:
+    """Every layer of a stacked ``[n, ...]`` tree, as views: one
+    ``unbind`` a leaf, whose backward stacks the layers' gradients once.
+    (Under autograd ``a[i]`` gives each layer's gradient the size of the
+    whole stack, zeros but its own row, and adds ``n`` of them.)"""
+    leaves = tree_leaves(tree)
+    cols = [a.unbind(0) for a in leaves]
+    return [tree_unflatten_like(tree, [c[i] for c in cols])
+            for i in range(len(cols[0]))]
 
 
 def _applied(seg_params: Tree, i: int, reps: int, dtype) -> Tree:
@@ -158,6 +205,100 @@ def _applied(seg_params: Tree, i: int, reps: int, dtype) -> Tree:
     once per application (the same numbers)."""
     p = layer(seg_params, i)
     return compute_cast(p, dtype) if reps > 1 else p
+
+
+def remat_mode(remat: bool | str) -> str:
+    """``remat`` as JAX's ``lm_apply`` reads it: a mode name, or a bool
+    (``True`` -> ``"block"``)."""
+    if isinstance(remat, str):
+        if remat not in ("none", "block", "2level"):
+            raise ValueError(f"remat {remat!r}: want none, block or 2level")
+        return remat
+    return "block" if remat else "none"
+
+
+def checkpointed(fn):
+    """``fn`` under one non-reentrant activation checkpoint, as
+    ``jax.checkpoint`` (nothing saveable): only its tensor arguments are
+    kept, and its forward runs again when backward reaches it.  A call
+    without autograd runs ``fn`` as it is.  The blocks draw no random
+    numbers, so no RNG state is stashed."""
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return run
+
+
+def _sqrt_divisor(n: int) -> int:
+    n1 = max(1, int(n ** 0.5))
+    while n % n1:
+        n1 -= 1
+    return n1
+
+
+def remat_scan(steps: list, x, aux, mode: str):
+    """Walk ``steps``, one callable ``(x, aux) -> (x, aux)`` a layer
+    application, each already checkpointed where ``mode`` asks.
+    ``2level`` over at least 4 steps nests them in ``sqrt(n)``
+    checkpointed groups (``_sqrt_divisor``): backward then keeps one
+    carry a group and recomputes a group's carries from it, each layer
+    once more from its own (JAX's ``remat_scan``)."""
+    n = len(steps)
+    if mode != "2level" or n < 4:
+        for step in steps:
+            x, aux = step(x, aux)
+        return x, aux
+    per = n // _sqrt_divisor(n)
+    for g in range(0, n, per):
+        def group(x, aux, _steps=steps[g:g + per]):
+            for step in _steps:
+                x, aux = step(x, aux)
+            return x, aux
+        x, aux = checkpointed(group)(x, aux)
+    return x, aux
+
+
+def _step(cfg: ArchConfig, apply_fn, p: Tree, positions: torch.Tensor,
+          p_low: Optional[Tree] = None):
+    """One layer application ``(x, aux) -> (x, aux + a)``; ``p_low`` is
+    a shared layer's compute-dtype copy, reached through
+    :func:`shared_application` (one cast a call, the reps' cotangents
+    added in f32)."""
+    def step(x, aux):
+        w = p if p_low is None else shared_application(p, p_low)
+        y, a = apply_fn(cfg, w, x, positions)
+        return y, aux + a
+    return step
+
+
+def lm_apply(cfg: ArchConfig, params: Tree, tokens: torch.Tensor,
+             positions: Optional[torch.Tensor] = None,
+             *, remat: bool | str = True):
+    """Training / prefill forward.  tokens [B, S] -> (logits [B, S, V] in
+    the compute dtype, aux f32 scalar: the MoE balance loss summed over
+    applications).  ``remat``: see the module docstring; a shared
+    stack checkpoints each application (``2level`` reads as ``block``
+    there, as JAX scans its groups without ``remat_scan``)."""
+    mode = remat_mode(remat)
+    B, S = tokens.shape
+    if positions is None:
+        positions = default_positions(cfg, B, S, device=tokens.device)
+    x = embed(cfg, params, tokens)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    runs, reps = model_runs(cfg)
+    for (kind, _), seg in zip(runs, params["blocks"]):
+        apply_fn = REGISTRY[kind][1]
+        steps = []
+        for p in layers(seg):
+            p_low = compute_cast(p, x.dtype) if reps > 1 else None
+            step = _step(cfg, apply_fn, p, positions, p_low)
+            if mode != "none":
+                step = checkpointed(step)
+            steps += [step] * reps
+        x, aux = remat_scan(steps, x, aux, "block" if reps > 1 else mode)
+    return head(cfg, params, x), aux
 
 
 def prefill_runs(cfg: ArchConfig, runs, blocks: list, x: torch.Tensor,
@@ -177,6 +318,17 @@ def prefill_runs(cfg: ArchConfig, runs, blocks: list, x: torch.Tensor,
                 cs.append(c)
         caches.append(tree_map(lambda *a: torch.stack(a), cs[0], *cs[1:]))
     return x, caches
+
+
+def lm_cache_specs(cfg: ArchConfig, batch: int, seq: int) -> Tree:
+    """Decode-cache specs, one stacked tree a run (an ALBERT-shared stack:
+    one cache per application, ``n_layers`` rows)."""
+    if cfg.share_groups:
+        kind = _shared_kind(cfg)
+        return [stack_specs(REGISTRY[kind][3](cfg, batch, seq),
+                            cfg.n_layers)]
+    return [stack_specs(REGISTRY[k][3](cfg, batch, seq), n)
+            for k, n in segments(cfg.block_kinds)]
 
 
 def decode_runs(cfg: ArchConfig, runs, blocks: list, caches: list,

@@ -1,7 +1,9 @@
 """Parameter specification framework (port of ``repro.models.params``).
 
 A model is a tree of :class:`ParamSpec`s; ``init`` materializes it into
-a tree of tensors on one device.  Initialisation follows the JAX
+a tree of tensors on one device, ``abstract`` into meta-device tensors
+of the same shapes and dtypes that allocate nothing (the JAX package's
+``ShapeDtypeStruct`` trees).  Initialisation follows the JAX
 package's rules (``_init_one``: zeros / ones / embed-normal / truncated
 normal at ``scale / sqrt(fan_in)``) with an explicit
 ``torch.Generator``, so the numbers differ from jax's threefry stream —
@@ -82,8 +84,21 @@ def init(seed: int, specs: Tree, device="cuda") -> Tree:
         specs, [_init_one(gen, s, device) for s in leaves], is_leaf=is_spec)
 
 
+def abstract(specs: Tree) -> Tree:
+    """The spec tree as meta-device tensors: shapes and dtypes, no
+    storage."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"),
+                    specs, is_leaf=is_spec)
+
+
 def n_params(specs: Tree) -> int:
     return sum(int(np.prod(s.shape))
+               for s in tree_leaves(specs, is_leaf=is_spec))
+
+
+def bytes_of(specs: Tree) -> int:
+    return sum(int(np.prod(s.shape)) * s.dtype.itemsize
                for s in tree_leaves(specs, is_leaf=is_spec))
 
 

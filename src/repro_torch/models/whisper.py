@@ -8,8 +8,12 @@ self-attention KV ring plus the *precomputed* cross-attention K/V.
 
 Where JAX scans the stacked ``enc_blocks`` / ``dec_blocks``, the port
 loops over layers and indexes the stack (views), as
-:mod:`repro_torch.models.model` walks its stacks; ``remat`` is accepted
-and ignored.  Every attention over a full sequence goes through
+:mod:`repro_torch.models.model` walks its stacks.  Under autograd
+``encode`` / ``dec_scan`` / ``decode_train`` checkpoint each block
+unless ``remat`` is ``False`` or ``"none"`` (JAX's
+``jax.checkpoint(body)``); the stage programs pass ``False`` (a stage's
+``bwd`` is itself the recompute), and ``whisper_prefill`` computes no
+gradient and ignores it.  Every attention over a full sequence goes through
 :func:`repro_torch.models.flash.flash_attention` (the CUDA kernel on a
 CUDA tensor): the encoder's bidirectional self-attention, the decoder's
 causal self-attention and its cross-attention (``causal=False``, Sq
@@ -20,6 +24,7 @@ package's does.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Optional
 
 import torch
@@ -107,25 +112,31 @@ def _cross_attend(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     return L._out_proj(out, p["wo"], x.dtype)
 
 
-def _steps(stack: Tree):
-    """Layer ``i``'s params for every layer of a stacked tree (views)."""
-    return [model_lib.layer(stack, i)
-            for i in range(model_lib.n_stacked(stack))]
+def _walk(body, x: torch.Tensor, stack: Tree, remat) -> torch.Tensor:
+    """``x = body(x, p_l)`` over every layer of ``stack``, each block
+    under its own checkpoint where ``remat`` asks for one."""
+    on = model_lib.remat_mode(remat) != "none"
+    for p_l in model_lib.layers(stack):
+        step = functools.partial(body, p_l=p_l)
+        x = model_lib.checkpointed(step)(x) if on else step(x)
+    return x
 
 
 def encode(cfg: ArchConfig, params: Tree, audio_embed: torch.Tensor,
            remat: bool = True) -> torch.Tensor:
     """audio_embed [B, S_enc, d] (the frontend stub's output) -> the
     normed encoder output, in ``audio_embed``'s dtype."""
-    del remat
     B, S, d = audio_embed.shape
     x = audio_embed + sinusoid(S, d, audio_embed.dtype, audio_embed.device)
     positions = torch.arange(S, device=x.device)
-    for p_l in _steps(params["enc_blocks"]):
+
+    def body(x, p_l):
         h = L.apply_norm(cfg, p_l["ln1"], x)
         x = x + L.apply_attn(cfg, p_l["attn"], h, positions, causal=False)
-        x = x + L.apply_ffn(cfg, p_l["mlp"],
-                            L.apply_norm(cfg, p_l["ln2"], x))
+        return x + L.apply_ffn(cfg, p_l["mlp"],
+                               L.apply_norm(cfg, p_l["ln2"], x))
+
+    x = _walk(body, x, params["enc_blocks"], remat)
     return L.apply_norm(cfg, params["enc_norm"], x)
 
 
@@ -158,10 +169,10 @@ def dec_scan(cfg: ArchConfig, dec_blocks: Tree, x: torch.Tensor,
     """Walk a stacked slice of decoder blocks.  The whole-model
     ``decode_train`` walks all ``n_layers``; a pipeline stage only its
     own slice."""
-    del remat
-    for p_l in _steps(dec_blocks):
-        x, _, _ = _dec_block(cfg, p_l, x, enc_out, positions)
-    return x
+    def body(x, p_l):
+        return _dec_block(cfg, p_l, x, enc_out, positions)[0]
+
+    return _walk(body, x, dec_blocks, remat)
 
 
 def decode_train(cfg: ArchConfig, params: Tree, tokens: torch.Tensor,
@@ -207,7 +218,7 @@ def prefill_cross_cache(cfg: ArchConfig, params: Tree,
     """Per-layer cross K/V from the encoder output, stacked
     ``[n_layers, B, S_enc, H, hd]``."""
     kv = []
-    for p_l in _steps(params["dec_blocks"]):
+    for p_l in model_lib.layers(params["dec_blocks"]):
         k, v = _cross_kv(cfg, p_l["xattn"], enc_out)
         kv.append({"k": k, "v": v})
     return _stacked(kv)
@@ -221,14 +232,14 @@ def whisper_prefill(cfg: ArchConfig, params: Tree, batch: Tree,
     over the decoder layers, handed to :func:`whisper_decode_step` at
     ``pos = S``."""
     del remat
-    enc_out = encode(cfg, params, batch["audio_embed"])
+    enc_out = encode(cfg, params, batch["audio_embed"], remat=False)
     tokens = batch["tokens"]
     S = tokens.shape[1]
     cache_len = cache_len or S
     x = embed_tokens(cfg, params["embed"], tokens)
     positions = torch.arange(S, device=x.device)
     selfs, crosses = [], []
-    for p_l in _steps(params["dec_blocks"]):
+    for p_l in model_lib.layers(params["dec_blocks"]):
         x, (k, v), (ck, cv) = _dec_block(cfg, p_l, x, enc_out, positions)
         selfs.append({"k": L.ring_place(k, cache_len),
                       "v": L.ring_place(v, cache_len)})
@@ -261,7 +272,7 @@ def whisper_decode_step(cfg: ArchConfig, params: Tree, token: torch.Tensor,
     x = x + decode_position_row(cfg, pos, x.dtype, x.device)[None]
     positions = torch.full((B, 1), int(pos), dtype=torch.int64,
                            device=x.device)
-    for i, p_l in enumerate(_steps(params["dec_blocks"])):
+    for i, p_l in enumerate(model_lib.layers(params["dec_blocks"])):
         c_self = model_lib.layer(caches["self"], i)
         c_cross = model_lib.layer(caches["cross"], i)
         h = L.apply_norm(cfg, p_l["ln1"], x)

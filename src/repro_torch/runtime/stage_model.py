@@ -131,36 +131,6 @@ def _stage_specs(cfg: ArchConfig, s: int, n_stages: int,
     return specs
 
 
-class _SharedCast(torch.autograd.Function):
-    """One application's view of a weight already cast to the compute
-    dtype: the forward returns a view of the shared low-precision copy
-    (no new memory, and what the application's matmuls save for their
-    backward is that one copy), the backward hands the f32 weight its
-    cotangent in f32.  Each application is its own node, so the
-    ``reps`` cotangents add in f32 at the weight, as the JAX package's
-    per-use casts do; one shared cast node would add them in bf16."""
-
-    @staticmethod
-    def forward(ctx, w, w_low):
-        ctx.dtype = w.dtype
-        return w_low.view_as(w_low)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g.to(ctx.dtype), None
-
-
-def _application(p32: Tree, p_low: Tree) -> Tree:
-    """One application's params: the shared cast copies, each behind its
-    own :class:`_SharedCast` node when gradients flow to the f32
-    weights."""
-    def one(w, w_low):
-        if w_low is w or not (torch.is_grad_enabled() and w.requires_grad):
-            return w_low
-        return _SharedCast.apply(w, w_low)
-    return tree_map(one, p32, p_low)
-
-
 def make_block_core(cfg: ArchConfig, runs: list[tuple[str, int]],
                     reps: int = 1) -> Callable:
     """The stage core: walk ``runs`` of stacked layer params over ``x``.
@@ -170,17 +140,18 @@ def make_block_core(cfg: ArchConfig, runs: list[tuple[str, int]],
     dtype once, outside the ``reps`` loop: under autograd one cast copy
     per application would be saved for backward (16 x 537 MB per
     swarm-1b stage); the applications share one copy and add their
-    weight cotangents in f32 (:class:`_SharedCast`)."""
+    weight cotangents in f32 (:class:`repro_torch.models.model.SharedCast`,
+    as ``lm_apply`` does)."""
     def block_fn(blocks_s: Tree, x: torch.Tensor,
                  positions: torch.Tensor) -> torch.Tensor:
         for (kind, _), seg in zip(runs, blocks_s):
             apply_fn = REGISTRY[kind][1]
-            for i in range(model_lib.n_stacked(seg)):
-                p32 = model_lib.layer(seg, i)
+            for p32 in model_lib.layers(seg):
                 p_low = model_lib.compute_cast(p32, x.dtype)
                 for _ in range(reps):
-                    x, _aux = apply_fn(cfg, _application(p32, p_low), x,
-                                       positions)
+                    x, _aux = apply_fn(
+                        cfg, model_lib.shared_application(p32, p_low), x,
+                        positions)
         return x
 
     return block_fn
@@ -324,14 +295,16 @@ def _make_stage_core_encdec(cfg: ArchConfig, s: int, n_stages: int
 
     def core(params: Tree, floats: Tree, ints: Tree) -> Tree:
         if is_enc:
-            return {"enc": W.encode(cfg, params, floats["audio"])}
+            return {"enc": W.encode(cfg, params, floats["audio"],
+                                    remat=False)}
         enc = floats["enc"].to(cfg.compute_jdtype)
         if first_dec:
             x = W.embed_tokens(cfg, params["embed"], ints["tok"])
         else:
             x = floats["x"].to(cfg.compute_jdtype)
         x = W.dec_scan(cfg, params["dec_blocks"], x, enc,
-                       torch.arange(x.shape[1], device=x.device))
+                       torch.arange(x.shape[1], device=x.device),
+                       remat=False)
         return {"x": x} if is_last else {"x": x, "enc": enc}
 
     return core

@@ -1,25 +1,51 @@
-"""Serving step builders and the model's parameter specs (port of
-``make_prefill_step``, ``make_serve_step`` and ``model_specs`` of
-``repro.train.steps``, the audio family's whisper branches included;
-the single-process training step comes with ROADMAP queue 1 item 8)."""
+"""Step functions and no-allocation input specs (port of
+``repro.train.steps``).
+
+Training: :func:`make_train_step` is the single-process step over the
+whole model (``lm_apply`` or, for the audio family, ``whisper_apply``),
+with gradient accumulation over microbatches; :func:`make_state` builds
+its ``{"params", "opt", "step"}`` state.  Serving:
+:func:`make_prefill_step` / :func:`make_serve_step`.  Specs:
+:func:`input_specs` gives every input of a cell's step as meta-device
+tensors (shapes and dtypes, no storage) where the JAX package has
+``ShapeDtypeStruct``s.
+"""
 from __future__ import annotations
 
 from typing import Any, Optional
 
 import torch
 
+from repro_torch.configs import ShapeSpec
 from repro_torch.models import model as model_lib
+from repro_torch.models import params as P
 from repro_torch.models import whisper as whisper_lib
 from repro_torch.models.config import ArchConfig
+from repro_torch.optim.adamw import Optimizer
+from repro_torch.runtime.stage_model import _grad_leaves, _grads_like
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten_like
 
 Tree = Any
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                  ) -> torch.Tensor:
+    """Stable mean token CE in f32; logits [B, S, V] (any float), labels
+    [B, S] int.  JAX takes the gold logit by a one-hot contraction (it
+    partitions under GSPMD); that sum has one non-zero term, so a gather
+    gives it bit for bit without a [B, S, V] f32 one-hot."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return (lse - gold).mean()
 
 
 def model_specs(cfg: ArchConfig) -> Tree:
     """The whole model's parameter specs: ``whisper_specs`` for the audio
     family, else ``lm_specs`` plus, for a config that declares a
     pipeline depth and a learned codec, the stage-stacked codec pairs
-    (``boundary``)."""
+    (``boundary``).  The single-process step carries those with zero
+    gradients, but the optimizer still decays them."""
     if cfg.family == "audio":
         return whisper_lib.whisper_specs(cfg)
     specs = model_lib.lm_specs(cfg)
@@ -28,6 +54,91 @@ def model_specs(cfg: ArchConfig) -> Tree:
     if boundary is not None:
         specs["boundary"] = boundary
     return specs
+
+
+def make_loss_fn(cfg: ArchConfig, remat: bool | str = True):
+    """``loss_fn(params, batch) -> (ce + aux, ce)``."""
+    def loss_fn(params: Tree, batch: Tree):
+        if cfg.family == "audio":
+            logits, aux = whisper_lib.whisper_apply(cfg, params, batch, remat)
+        else:
+            logits, aux = model_lib.lm_apply(
+                cfg, params, batch["tokens"], batch.get("positions"),
+                remat=remat)
+        ce = cross_entropy(logits, batch["labels"])
+        return ce + aux, ce
+    return loss_fn
+
+
+def _split_microbatches(batch: Tree, accum: int) -> Tree:
+    """Every leaf ``[B, ...]`` as ``[accum, B / accum, ...]`` (microbatch
+    ``j`` the rows ``j * B / accum`` on); M-RoPE ``positions [3, B, S]``
+    as ``[accum, 3, B / accum, S]``."""
+    def split(name, a):
+        if name == "positions":                       # [3, B, S]
+            return a.reshape(a.shape[0], accum, a.shape[1] // accum,
+                             *a.shape[2:]).transpose(0, 1)
+        return a.reshape(accum, a.shape[0] // accum, *a.shape[1:])
+
+    def walk(t, name):
+        if isinstance(t, dict):
+            return {k: walk(v, k) for k, v in t.items()}
+        return split(name, t)
+    return walk(batch, None)
+
+
+def _value_and_grad(loss_fn, params: Tree, batch: Tree):
+    """``(loss, ce, grads)``: gradients for every leaf of ``params``
+    (``torch.autograd.grad`` over fresh leaves, as the stage programs
+    take them; a leaf the loss does not reach gets zeros)."""
+    leaves = _grad_leaves(params)
+    with torch.enable_grad():
+        loss, ce = loss_fn(tree_unflatten_like(params, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), ce.detach(), _grads_like(params, leaves, grads)
+
+
+def make_train_step(cfg: ArchConfig, optimizer: Optimizer,
+                    remat: bool | str = True, accum: int = 1):
+    """``train_step(state, batch) -> (new_state, {"loss", "ce"})``.
+
+    ``accum > 1``: gradient accumulation over ``accum`` microbatches of
+    ``B / accum`` rows, summed in an f32 tree (each microbatch's
+    gradients freed once added) and divided by ``accum``; the loss and
+    CE are the microbatches' means.  The activation working set scales
+    with ``B / accum``.  The step is functional: the new state is new
+    storage, and the input state is left as it was (a caller that drops
+    it frees it)."""
+    loss_fn = make_loss_fn(cfg, remat)
+
+    def train_step(state: Tree, batch: Tree):
+        params = state["params"]
+        if accum == 1:
+            loss, ce, grads = _value_and_grad(loss_fn, params, batch)
+        else:
+            mbs = _split_microbatches(batch, accum)
+            grads = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+            ls, cs = [], []
+            for j in range(accum):
+                l, c, g = _value_and_grad(
+                    loss_fn, params, tree_map(lambda a: a[j], mbs))
+                tree_map(lambda a, g: a.add_(g), grads, g)
+                del g
+                ls.append(l)
+                cs.append(c)
+            for a in tree_leaves(grads):
+                a.div_(accum)
+            loss, ce = torch.stack(ls).mean(), torch.stack(cs).mean()
+        updates, opt = optimizer.update(grads, state["opt"], params)
+        del grads
+        new_params = tree_map(lambda p, u: p + u.to(p.dtype),
+                              params, updates)
+        new_state = {"params": new_params, "opt": opt,
+                     "step": state["step"] + 1}
+        return new_state, {"loss": loss, "ce": ce}
+
+    return train_step
 
 
 def make_prefill_step(cfg: ArchConfig, remat: bool = True,
@@ -66,3 +177,73 @@ def make_serve_step(cfg: ArchConfig):
         return nxt, caches
 
     return serve_step
+
+
+def make_state(cfg: ArchConfig, optimizer: Optimizer, seed: int,
+               device="cuda") -> Tree:
+    """``{"params", "opt", "step"}``: params drawn by ``P.init`` from
+    ``seed`` on ``device`` (the card unless the caller names another;
+    asking for the card where there is none raises)."""
+    params = P.init(seed, model_specs(cfg), device)
+    return {"params": params, "opt": optimizer.init(params),
+            "step": torch.zeros((), dtype=torch.int32,
+                                device=P.resolve_device(device))}
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def make_abstract_state(cfg: ArchConfig) -> Tree:
+    """The AdamW train state as meta tensors (no allocation)."""
+    aparams = P.abstract(model_specs(cfg))
+
+    def moments():
+        return tree_map(lambda p: _meta(p.shape, torch.float32), aparams)
+    return {"params": aparams,
+            "opt": {"m": moments(), "v": moments(),
+                    "count": _meta((), torch.int32)},
+            "step": _meta((), torch.int32)}
+
+
+# ------------------------------------------------------------ input specs
+def train_batch_specs(cfg: ArchConfig, shape: ShapeSpec,
+                      labels: bool = True) -> Tree:
+    B, S = shape.global_batch, shape.seq_len
+    batch: Tree = {"tokens": _meta((B, S), torch.int32)}
+    if labels:
+        batch["labels"] = _meta((B, S), torch.int32)
+    if cfg.rope == "mrope":
+        batch["positions"] = _meta((3, B, S), torch.int32)
+    if cfg.family == "audio":
+        # the frontend stub hands over precomputed frame embeddings
+        enc = min(S, cfg.encoder_max_len)
+        batch["audio_embed"] = _meta((B, enc, cfg.d_model),
+                                     cfg.compute_jdtype)
+    return batch
+
+
+def decode_cache_param_specs(cfg: ArchConfig, shape: ShapeSpec) -> Tree:
+    """The decode caches' ParamSpec tree (with logical axes)."""
+    B, S = shape.global_batch, shape.seq_len
+    if cfg.family == "audio":
+        return whisper_lib.whisper_cache_specs(cfg, B, S)
+    return model_lib.lm_cache_specs(cfg, B, S)
+
+
+def decode_cache_specs(cfg: ArchConfig, shape: ShapeSpec) -> Tree:
+    return P.abstract(decode_cache_param_specs(cfg, shape))
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> Tree:
+    """Every input of the cell's step function, as meta tensors."""
+    if shape.kind == "train":
+        return {"state": make_abstract_state(cfg),
+                "batch": train_batch_specs(cfg, shape)}
+    if shape.kind == "prefill":
+        return {"params": P.abstract(model_specs(cfg)),
+                "batch": train_batch_specs(cfg, shape, labels=False)}
+    return {"params": P.abstract(model_specs(cfg)),
+            "caches": decode_cache_specs(cfg, shape),
+            "token": _meta((shape.global_batch, 1), torch.int32),
+            "pos": _meta((), torch.int32)}

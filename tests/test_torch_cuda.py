@@ -1236,3 +1236,72 @@ def test_cuda_whisper_prefill_matches_cpu(monkeypatch):
         a, b = a.cpu().float(), b.float()
         assert a.shape == b.shape
         assert float((a - b).abs().max()) <= 5e-2 * float(b.abs().max())
+
+
+# ------------------------------------------------- single-process training
+def _tiny_train_cfg():
+    """Attention with M-RoPE and RMSNorm, bf16 compute, f32 params: both
+    kernels of the training path at a head dim the flash kernel takes."""
+    return ArchConfig(name="tiny-train", family="vlm", n_layers=4,
+                      d_model=128, n_heads=4, n_kv_heads=2, d_ff=256,
+                      vocab_size=512, head_dim=64, rope="mrope",
+                      qkv_bias=True, tie_embeddings=True)
+
+
+@pytest.mark.cuda
+def test_cuda_make_state_defaults_to_the_card():
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import make_state
+    from repro_torch.tree import tree_leaves
+    _card()
+    state = make_state(_tiny_train_cfg(), adamw(), 0)
+    assert all(a.is_cuda for a in tree_leaves(state))
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_remat_modes(monkeypatch):
+    """Two steps of ``make_train_step`` (accum 2) under each remat mode
+    from one state and batches: losses and params equal to the bit;
+    flash and rmsnorm launches a step one forward a layer (``none``),
+    two (``block``), and under ``2level`` (2 groups of 2) also each
+    group's first layer again; no plain flash call."""
+    from repro_torch.models import flash as flash_lib
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import make_state, make_train_step
+    from repro_torch.tree import tree_leaves
+    dev = _card()
+    plain = []
+    orig = flash_lib.flash_fwd_ref
+    monkeypatch.setattr(flash_lib, "flash_fwd_ref",
+                        lambda *a, **k: plain.append(1) or orig(*a, **k))
+    cfg, opt = _tiny_train_cfg(), adamw(lr=1e-3)
+    g = _gen(dev)
+    batches = [{"tokens": torch.randint(0, 512, (4, 64), generator=g,
+                                        device=dev, dtype=torch.int32),
+                "labels": torch.randint(0, 512, (4, 64), generator=g,
+                                        device=dev, dtype=torch.int32),
+                "positions": torch.arange(64, device=dev).expand(3, 4, 64)}
+               for _ in range(2)]
+    want_flash = {"none": 4, "block": 8, "2level": 10}
+    runs = {}
+    for mode in ("none", "block", "2level"):
+        state = make_state(cfg, opt, 0)
+        step = make_train_step(cfg, opt, remat=mode, accum=2)
+        kernels.reset_launches()
+        losses = []
+        for b in batches:
+            state, m = step(state, b)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["flash_attention_fwd"] == \
+            2 * 2 * want_flash[mode]
+        assert kernels.LAUNCHES["rmsnorm"] == \
+            2 * 2 * (2 * want_flash[mode] + 1)
+        runs[mode] = (losses, tree_leaves(state["params"]))
+    assert not plain
+    losses0, params0 = runs["none"]
+    assert all(np.isfinite(float(v)) for v in losses0)
+    for mode in ("block", "2level"):
+        losses, params = runs[mode]
+        assert all(_same_bits(a, b) for a, b in zip(losses, losses0))
+        assert all(_same_bits(a, b) for a, b in zip(params, params0))
