@@ -13,9 +13,10 @@ JSON line; any failure raises and exits non-zero):
              instructions of the bf16 flash forward (HMMA, at every
              head-dim pair) and codec GEMM (HGMMA), and the 16-byte
              global loads (LDG.E.128) of every instantiation of the
-             codec's row passes and qdq; ptxas's registers of every flash
-             instantiation, none spilling; print the card's name and
-             power limit.
+             codec's row passes, qdq and rmsnorm's register path;
+             ptxas's registers of every flash instantiation and of every
+             rmsnorm register-path instantiation, none spilling; print the
+             card's name and power limit.
 2. kernels — each kernel against its plain PyTorch version on the card at
              the shapes of its paths (serving for qdq; the serving
              prefill of yi-6b and of every family that runs attention
@@ -23,7 +24,10 @@ JSON line; any failure raises and exits non-zero):
              configs, hymba-1.5b's included, for rmsnorm and for flash
              with its ``lse``, flash also at training's shape and at
              whisper-large-v3's bidirectional encoder and cross-attention
-             shapes, and timed beside SDPA; training
+             shapes, and timed beside SDPA; rmsnorm also at each config's
+             decode row and on two rows of its general path, each row's
+             path checked and every row timed beside ``F.rms_norm``;
+             training
              swarm-1b-bottleneck for the codec's encode and decode and
              its true-wire pair encode_quantize / dequantize_decode,
              held stage by stage on their own intermediates, the int8
@@ -353,13 +357,18 @@ def _counted(torch, fn):
 
 # ------------------------------------------------------------------ phase 1
 TENSOR_CORE_KERNELS = ("flash_fwd_mma_kernel", "codec_gemm_wgmma_kernel")
+RMSNORM_ROWS = "rmsnorm_rows_kernel"
+# rmsnorm's register path: NV 1-8 vectors a lane at 4 warps a row, 5-8 at
+# 8 warps (kernels/rmsnorm/kernel.py::_plan), in two dtypes
+RMSNORM_INSTANTIATIONS = 2 * (8 + 4)
 VECTOR_KERNELS = ("ln_rows_kernel", "dequant_rows_kernel", "blockq_vec_kernel",
-                  "blockdq_vec_kernel")
+                  "blockdq_vec_kernel", RMSNORM_ROWS)
 # instantiations of the vector kernels: ln_rows 2 dtypes x 4 x 5, its
 # dequant pass 2 x 7; blockq.cuh's lane-group quantize 2 x 6 lane counts
 # x 3 (qdq with and without codes, quant8's codes alone) and its
-# dequantize, one a dtype
-VECTOR_INSTANTIATIONS = 2 * (4 * 5 + 7) + 2 * 6 * 3 + 2
+# dequantize, one a dtype; rmsnorm's register path
+VECTOR_INSTANTIATIONS = (2 * (4 * 5 + 7) + 2 * 6 * 3 + 2
+                         + RMSNORM_INSTANTIATIONS)
 LOADS = ("LDG.E.128", "LDG.E.64", "LDG.E")     # first match counts
 
 
@@ -425,24 +434,17 @@ def sass_counts(path):
     return counts
 
 
-def flash_ptxas(log: str) -> dict:
-    """Per flash instantiation (``kernel<Dqk,Dv>`` of the bf16 kernel,
-    ``kernel<dtype,Dqk,Dv>`` of the SIMT one), ptxas's registers and
-    spill bytes from the build log."""
+def _ptxas(log: str, key) -> dict:
+    """ptxas's registers and spill bytes from the build log, per kernel
+    instantiation ``key(mangled name)`` (None: not wanted)."""
     import re
     out, cur = {}, None
     for ln in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?(\S+?)'?(?: for|$)", ln)
         if m:
-            name = m.group(1)
-            f = re.search(r"(flash_fwd_mma_kernel|flash_fwd_kernel)I"
-                          r"(f|13__nv_bfloat16)?L?i?(\d+)ELi(\d+)E", name)
-            cur = None
-            if f:
-                dt = {"f": "f32,", "13__nv_bfloat16": "bf16,"}.get(
-                    f.group(2), "")
-                cur = f"{f.group(1)}<{dt}{f.group(3)},{f.group(4)}>"
+            cur = key(m.group(1))
+            if cur is not None:
                 out.setdefault(cur, {})
             continue
         if cur is None:
@@ -457,6 +459,29 @@ def flash_ptxas(log: str) -> dict:
     return out
 
 
+def flash_ptxas(log: str) -> dict:
+    """Per flash instantiation (``kernel<Dqk,Dv>`` of the bf16 kernel,
+    ``kernel<dtype,Dqk,Dv>`` of the SIMT one), ptxas's registers and
+    spill bytes."""
+    import re
+
+    def key(name):
+        f = re.search(r"(flash_fwd_mma_kernel|flash_fwd_kernel)I"
+                      r"(f|13__nv_bfloat16)?L?i?(\d+)ELi(\d+)E", name)
+        if f is None:
+            return None
+        dt = {"f": "f32,", "13__nv_bfloat16": "bf16,"}.get(f.group(2), "")
+        return f"{f.group(1)}<{dt}{f.group(3)},{f.group(4)}>"
+    return _ptxas(log, key)
+
+
+def rmsnorm_ptxas(log: str) -> dict:
+    """Per instantiation ``rmsnorm_rows_kernel<dtype,NV,W>`` of the
+    register path, ptxas's registers and spill bytes."""
+    return _ptxas(log, lambda name: _instantiation(name, RMSNORM_ROWS)
+                  if RMSNORM_ROWS in name else None)
+
+
 def phase_build(torch) -> None:
     from repro_torch.kernels import _lib
     from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
@@ -469,13 +494,18 @@ def phase_build(torch) -> None:
              if "registers" in ln or "spill" in ln]
     sass = sass_counts(path)
     flash = flash_ptxas(_lib.BUILD_LOG)
+    rms = rmsnorm_ptxas(_lib.BUILD_LOG)
     emit({"phase": "build", "library": os.path.relpath(path),
           "seconds": secs, "ptxas": ptxas[:24], "flash_ptxas": flash,
-          "sass": sass})
-    # every head-dim pair of both flash kernels built, none spilling
+          "rmsnorm_ptxas": rms, "sass": sass})
+    # every head-dim pair of both flash kernels built, and every
+    # instantiation of rmsnorm's register path, none spilling
     if len(flash) != 2 * len(HEAD_DIMS) or any(
             v.get("spill_bytes", 1) for v in flash.values()):
         raise AssertionError(f"flash instantiations or spills: {flash}")
+    if len(rms) < RMSNORM_INSTANTIATIONS or any(
+            v.get("spill_bytes", 1) for v in rms.values()):
+        raise AssertionError(f"rmsnorm instantiations or spills: {rms}")
     if sass is not None:
         want = {f"flash_fwd_mma_kernel<{a},{b}>" for a, b in HEAD_DIMS}
         want.add("codec_gemm_wgmma_kernel")
@@ -726,40 +756,59 @@ def check_flash(torch, gen, rows: list) -> dict:
     return main
 
 
+# rows the general path of csrc/rmsnorm.cu must take: a width that is no
+# whole number of 16-byte vectors in either dtype, and yi-6b's width on a
+# view that starts one element past a 16-byte boundary
+RMSNORM_GENERAL = (("odd width", 1024, 1001, 0),
+                   ("unaligned view", 1024, 4096, 1))
+
+
 def rmsnorm_shapes() -> list:
-    """The rmsnorm kernel's row counts and widths on the serving paths, as
-    (arch, rows, d): yi-6b's prefill, and the prefill of each family that
-    normalises with RMSNorm at the serving batch and prompt
-    (``LONG_PROMPT`` rows where it serves that), once a shape."""
+    """The rmsnorm kernel's shapes on the serving and training paths, as
+    (arch, rows, d, offset): yi-6b's prefill, the prefill of each family
+    that normalises with RMSNorm at the serving batch and prompt
+    (``LONG_PROMPT`` rows where it serves that), each config's decode row
+    ``[MAX_BATCH, d]``, once a shape, then ``RMSNORM_GENERAL``.  ``offset``
+    is the elements the row's view starts past an aligned storage."""
     from repro_torch.configs import get_config
-    shapes = [("yi-6b", MAX_BATCH * PROMPT, get_config("yi-6b").d_model)]
-    for name, _, _, _ in FAMILY_SERVING:
-        cfg = family_config(name, None)
-        if cfg.norm != "rmsnorm":
-            continue
-        shapes.append((name, MAX_BATCH * PROMPT, cfg.d_model))
+    cfgs = [("yi-6b", get_config("yi-6b"))] + [
+        (name, family_config(name, None))
+        for name, _, _, _ in FAMILY_SERVING]
+    cfgs = [(name, cfg) for name, cfg in cfgs if cfg.norm == "rmsnorm"]
+    shapes = []
+    for name, cfg in cfgs:
+        shapes.append((name, MAX_BATCH * PROMPT, cfg.d_model, 0))
         if _long_prompt(cfg):
-            shapes.append((name, LONG_PROMPT, cfg.d_model))
+            shapes.append((name, LONG_PROMPT, cfg.d_model, 0))
+    shapes += [(name, MAX_BATCH, cfg.d_model, 0) for name, cfg in cfgs]
     seen = set()
-    return [s for s in shapes if s[1:] not in seen and not seen.add(s[1:])]
+    return [s for s in shapes if s[1:] not in seen
+            and not seen.add(s[1:])] + list(RMSNORM_GENERAL)
 
 
 def check_rmsnorm(torch, gen, rows: list) -> dict:
-    """rmsnorm against its plain version within 1 ulp at every shape of
-    ``rmsnorm_shapes``, in bf16 and f32 with an f32 scale (as the models
-    call it).  The first row of each width is timed in full (warm, cold,
-    eager, plain, ``F.rms_norm``), the others warm only.  Returns yi-6b's
-    bf16 row."""
+    """rmsnorm against its plain version within 1 ulp (0 expected) at
+    every shape of ``rmsnorm_shapes``, in bf16 and f32 with an f32 scale
+    (as the models call it), each row timed in full: warm, cold, eager,
+    plain, and ``F.rms_norm`` (a bf16 weight in bf16: the library's one
+    call on the same input) warm and eager.  Each row names the path
+    ``_plan`` gave it: the registered configs' widths must take the
+    register path, ``RMSNORM_GENERAL``'s rows the general one.  Returns
+    yi-6b's bf16 prefill row."""
     import torch.nn.functional as F
-    from repro_torch.kernels.rmsnorm.kernel import rmsnorm
+    from repro_torch.kernels.rmsnorm.kernel import plan_for, rmsnorm
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
-    main, timed = None, set()
-    for arch, R, d in rmsnorm_shapes():
-        full = d not in timed
-        timed.add(d)
+    general = {s[0] for s in RMSNORM_GENERAL}
+    main = None
+    for arch, R, d, off in rmsnorm_shapes():
         scale = torch.randn(d, generator=gen, device="cuda") + 1.0
         for dt in (torch.bfloat16, torch.float32):
-            x = torch.randn(R, d, generator=gen, device="cuda").to(dt)
+            full = torch.randn(R * d + off, generator=gen, device="cuda")
+            x = full.to(dt)[off:].view(R, d)
+            plan = plan_for(x, scale)
+            if plan.path != ("general" if arch in general else "registers"):
+                raise AssertionError(f"rmsnorm {arch} [{R}, {d}] {dt}: "
+                                     f"{plan} takes the {plan.path} path")
             out = _counted(torch, lambda: rmsnorm(x, scale))
             torch.cuda.synchronize()
             ref = rmsnorm_ref(x, scale)
@@ -769,26 +818,27 @@ def check_rmsnorm(torch, gen, rows: list) -> dict:
                 raise AssertionError(f"rmsnorm {arch} [{R}, {d}] {dt}: "
                                      f"{ulps} ulps (bound 1)")
             fn = lambda: rmsnorm(x, scale)
+            w = scale.to(dt)
+            lib = lambda: F.rms_norm(x, (d,), w, 1e-6)
             nbytes = 2 * x.numel() * x.element_size() + d * 4
             b_ms, b_by = bound_ms(nbytes, 4.0 * x.numel(), H100_F32_FLOPS)
+            ms = _counted(torch, lambda: time_ms(torch, fn))
+            cold = _counted(torch, lambda: time_ms(torch, fn, cold=True))
             row = {"kernel": "rmsnorm", "arch": arch, "shape": f"[{R}, {d}]",
-                   "dtype": str(dt), "max_abs_err": err, "max_ulps": ulps,
-                   "bound": "1 ulp",
-                   "ms": _counted(torch, lambda: time_ms(torch, fn)),
-                   "bound_ms": b_ms, "bound_by": b_by}
-            if full:
-                w = scale.to(dt)
-                cold = _counted(torch, lambda: time_ms(torch, fn, cold=True))
-                row.update({
-                    "cold_ms": cold,
-                    "eager_ms": _counted(torch, lambda: eager_ms(torch, fn)),
-                    "plain_ms": time_ms(torch, lambda: rmsnorm_ref(x, scale)),
-                    "library_ms": time_ms(torch, lambda: F.rms_norm(
-                        x, (d,), w, 1e-6)),
-                    "cold_share_of_bound": b_ms / cold})
+                   "offset": off, "dtype": str(dt), "path": plan.path,
+                   "vectors": plan.vectors, "warps": plan.warps,
+                   "max_abs_err": err, "max_ulps": ulps, "bound": "1 ulp",
+                   "ms": ms, "cold_ms": cold,
+                   "eager_ms": _counted(torch, lambda: eager_ms(torch, fn)),
+                   "plain_ms": time_ms(torch, lambda: rmsnorm_ref(x, scale)),
+                   "library_ms": time_ms(torch, lib),
+                   "library_eager_ms": eager_ms(torch, lib),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "share_of_bound": b_ms / ms,
+                   "cold_share_of_bound": b_ms / cold}
             emit(row)
             rows.append(row)
-            if main is None and full and dt == torch.bfloat16:
+            if main is None and dt == torch.bfloat16:
                 main = row
     return main
 
@@ -1495,7 +1545,13 @@ def _gen(torch, check):
 
 def phase_kernels(torch) -> dict:
     rows: list = []
-    run = lambda check: check(torch, _gen(torch, check), rows)
+    seconds: dict = {}
+
+    def run(check):
+        t0 = time.time()
+        got = check(torch, _gen(torch, check), rows)
+        seconds[check.__name__] = time.time() - t0
+        return got
     main = {"flash_attention_fwd": run(check_flash),
             "rmsnorm": run(check_rmsnorm),
             "qdq_flat": run(check_qdq),
@@ -1503,6 +1559,7 @@ def phase_kernels(torch) -> dict:
             **run(check_wire_codes),
             **run(check_quant8)}
     run(check_ln_rows)                   # encode's row pass on its own
+    emit({"phase": "kernels", "seconds": seconds})
     return main
 
 

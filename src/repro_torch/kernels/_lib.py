@@ -109,7 +109,7 @@ def build() -> Path:
 def _declare(lib: ctypes.CDLL) -> None:
     P, I, I64, F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                     ctypes.c_float)
-    lib.repro_rmsnorm.argtypes = [P, P, P, I64, I, F, I, P]
+    lib.repro_rmsnorm.argtypes = [P, P, P, I64, I, F, I, I, I, P]
     lib.repro_rmsnorm.restype = I
     lib.repro_qdq_flat.argtypes = [P, P, P, P, I64, I, I, I, P]
     lib.repro_qdq_flat.restype = I

@@ -21,7 +21,8 @@ from repro_torch.compression import quant8
 from repro_torch.kernels.boundary.kernel import qdq_flat
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
 from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
-from repro_torch.kernels.rmsnorm.kernel import rmsnorm
+from repro_torch.configs import REGISTRY
+from repro_torch.kernels.rmsnorm.kernel import plan_for, rmsnorm
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from repro_torch.models.config import ArchConfig
 
@@ -64,6 +65,34 @@ def test_cuda_kernels_match_plain(dtype):
     assert torch.equal(rmsnorm(x, s), rmsnorm_ref(x, s))
     y = torch.randn(3, 1000, generator=g, device=dev).to(dtype)
     assert torch.equal(qdq_flat(y, 64), quant8._roundtrip(y, 64))
+
+
+# every registered RMSNorm width (the register path) and one that is no
+# whole number of 16-byte vectors (the general path)
+RMS_WIDTHS = sorted({c.d_model for c in REGISTRY.values()
+                     if c.norm == "rmsnorm"}) + [1001]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 2, 1024, 4608])
+@pytest.mark.parametrize("d", RMS_WIDTHS)
+def test_cuda_rmsnorm_both_paths_bit_equal_one_launch(d, rows, dtype):
+    """rmsnorm equals its plain version on an aligned tensor (the register
+    path at the registered widths) and on a view one element past it (the
+    general path), one launch a call."""
+    dev = _card()
+    g = _gen(dev)
+    full = torch.randn(rows * d + 1, generator=g, device=dev).to(dtype)
+    s = torch.randn(d, generator=g, device=dev) + 1
+    aligned = "general" if d == 1001 else "registers"
+    for x, path in ((full[:-1].view(rows, d), aligned),
+                    (full[1:].view(rows, d), "general")):
+        assert plan_for(x, s).path == path
+        before = kernels.LAUNCHES["rmsnorm"]
+        out = rmsnorm(x, s)
+        assert kernels.LAUNCHES["rmsnorm"] == before + 1
+        assert torch.equal(out, rmsnorm_ref(x, s))
 
 
 FLASH_CASES = [

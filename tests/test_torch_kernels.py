@@ -35,6 +35,7 @@ from repro_torch.kernels.flash_attention.kernel import \
     flash_attention_fwd as t_flash
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      flash_fwd_ref)
+from repro_torch.kernels.rmsnorm import kernel as t_rms_kernel
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm as t_rmsnorm
 from repro_torch.compression import codecs as tcodecs
 from repro_torch.models import attention as t_attention
@@ -426,7 +427,12 @@ def test_naive_attention_matches_jax(window, softcap):
                                rtol=0)
 
 
-@pytest.mark.parametrize("shape", [(4, 128), (2, 3, 64), (1, 256)])
+@pytest.mark.parametrize("shape", [(4, 128), (2, 3, 64), (1, 256),
+                                   # the families' widths, and widths
+                                   # that are (1000) and are not (1001)
+                                   # a whole number of 16-byte vectors
+                                   (8, 1536), (8, 1600), (4, 5120),
+                                   (3, 1000), (3, 1001)])
 def test_rmsnorm_plain_matches_pallas_and_oracle(shape):
     rng = np.random.default_rng(2)
     x = (rng.standard_normal(shape) * 3).astype(np.float32)
@@ -436,6 +442,51 @@ def test_rmsnorm_plain_matches_pallas_and_oracle(shape):
     t = t_rmsnorm(_t(x), _t(s)).numpy()
     np.testing.assert_allclose(t, jp, atol=RMS_TOL, rtol=RMS_TOL)
     np.testing.assert_allclose(t, jr, atol=RMS_TOL, rtol=RMS_TOL)
+
+
+# rmsnorm_rows_kernel's instantiations in csrc/rmsnorm.cu: (vectors a
+# lane, warps a row)
+RMS_INSTANTIATED = {(nv, 4) for nv in range(1, 9)} | {
+    (nv, 8) for nv in range(5, 9)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rmsnorm_plan_takes_the_register_path_at_every_config(dtype):
+    """Every registered RMSNorm width takes the register path: 4 warps a
+    row, 8 where 4 would need more than 8 vectors a lane."""
+    from repro_torch.configs import REGISTRY
+    widths = {c.d_model for c in REGISTRY.values() if c.norm == "rmsnorm"}
+    assert widths == {1536, 1600, 2048, 2560, 3840, 4096, 5120}
+    per = 16 // dtype.itemsize
+    for d in sorted(widths):
+        plan = t_rms_kernel._plan(d, dtype, True)
+        assert plan.path == "registers", (d, plan)
+        assert (plan.vectors, plan.warps) in RMS_INSTANTIATED
+        assert plan.vectors * 32 * plan.warps * per >= d
+        assert (plan.vectors - 1) * 32 * plan.warps * per < d
+        assert plan.warps == 4 or -(-d // (4 * 32 * per)) > 8
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rmsnorm_plan_general_path_and_instantiations(dtype):
+    """Odd widths, unaligned starts and rows past 8 warps of 8 vectors
+    take the general path; every other width's plan is one the kernel
+    instantiates, and the choice is cached by its arguments."""
+    per = 16 // dtype.itemsize
+    most = 8 * 32 * 8 * per
+    for d in (1, 7, 1001, 1536 + 2, most + per):
+        assert t_rms_kernel._plan(d, dtype, True).path == "general", d
+    for d in (1536, 1600, 4096):
+        assert t_rms_kernel._plan(d, dtype, False) == (0, 0)
+    for d in range(per, most + 1, per):
+        plan = t_rms_kernel._plan(d, dtype, True)
+        assert (plan.vectors, plan.warps) in RMS_INSTANTIATED, (d, plan)
+    assert t_rms_kernel._plan(1600, dtype, True) is \
+        t_rms_kernel._plan(1600, dtype, True)
+    x = torch.zeros(4 * 1600 + 1, dtype=dtype)
+    s = torch.ones(1600)
+    assert t_rms_kernel.plan_for(x[:-1].view(4, 1600), s).path == "registers"
+    assert t_rms_kernel.plan_for(x[1:].view(4, 1600), s).path == "general"
 
 
 def _tie_input(n, dtype):
