@@ -269,6 +269,18 @@ class SwarmRunner:
                 self.executors[span.start].for_span(span)
         return ex
 
+    def _rebacked_executor(self, peer: Peer,
+                           span: range) -> Optional[StageExecutor]:
+        """``peer``'s backend re-targeted at ``span``: a mesh-backed peer
+        keeps its mesh (``for_span``); a default-backed peer goes back
+        through the runner's shared executors."""
+        if peer.executor is None:
+            return None
+        from repro_torch.runtime.mesh import MeshExecutor, MeshSpanExecutor
+        if isinstance(peer.executor, (MeshExecutor, MeshSpanExecutor)):
+            return peer.executor.for_span(span)
+        return self._span_executor(span)
+
     def _routes_without(self, peer: Peer,
                         new_span: Optional[range]) -> bool:
         """Would the serving layout still tile [0, n_stages) if ``peer``
@@ -954,7 +966,7 @@ class SwarmRunner:
                 or not self._routes_without(peer, dst_span):
             return
         self._retire_assignment(peer)
-        peer.executor = self._span_executor(dst_span)
+        peer.executor = self._rebacked_executor(peer, dst_span)
         peer.set_span(dst_span)
         # the old stage's device state (its gradient slots; params and
         # moments alias the stage's other peers) is dropped here, before
@@ -992,7 +1004,7 @@ class SwarmRunner:
                     kept[s] = {"params": v.params, "opt": v.opt,
                                "version": v.version}
         self._retire_assignment(peer)
-        peer.executor = self._span_executor(new_span)
+        peer.executor = self._rebacked_executor(peer, new_span)
         peer.set_span(new_span)
         peer.state = peer._fresh_state()
         for s, snap in kept.items():
@@ -1089,7 +1101,9 @@ class SwarmRunner:
         dead = [p for p in self.peers.values() if not p.alive]
         if dead:
             peer = dead[0]
-            peer.executor = self._span_executor(span)
+            # a revived peer keeps its backend (a mesh coming back is
+            # that mesh), re-targeted at the join span
+            peer.executor = self._rebacked_executor(peer, span)
             if region is not None:
                 peer.region = region
             peer.revive(span)

@@ -38,6 +38,9 @@ Tree = Any
 # (cfg, n_stages, seq_len, comp, (lo, hi)) -> SpanProgram: one program
 # per (span, codec), shared by every peer serving that span
 _SPANS: dict[tuple, SpanProgram] = {}
+# (cfg, n_stages, seq_len, comp) -> [StageProgram]: the stage programs a
+# mesh peer runs, shared with every other mesh peer of the configuration
+_STAGES: dict[tuple, list[StageProgram]] = {}
 # (span-or-stage, kind, shapes) per program key -> number of builds
 _TRACES: dict[tuple, int] = {}
 _LOCK = threading.Lock()
@@ -54,6 +57,7 @@ def reset_compile_stats() -> None:
     with _LOCK:
         _TRACES.clear()
         _SPANS.clear()
+        _STAGES.clear()
     serve_progs = sys.modules.get("repro_torch.serve.programs")
     if serve_progs is not None:
         serve_progs.reset_session_cache()
@@ -63,6 +67,24 @@ def compile_stats() -> dict:
     """``{"traces", "per_key"}`` since the last reset."""
     with _LOCK:
         return {"traces": sum(_TRACES.values()), "per_key": dict(_TRACES)}
+
+
+def get_stage_programs(cfg: ArchConfig, n_stages: int, seq_len: int,
+                       compress: Optional[str] = None
+                       ) -> list[StageProgram]:
+    """The shared stage programs of a configuration: one build per
+    (configuration, seq, codec) process-wide, so N mesh peers of one
+    configuration (each stage's executor) run the same program
+    objects."""
+    comp = codecs.resolve_mode(cfg, compress)
+    key = (cfg, n_stages, seq_len, comp)
+    with _LOCK:
+        progs = _STAGES.get(key)
+    if progs is None:
+        progs = build_stage_programs(cfg, n_stages, seq_len, comp)
+        with _LOCK:
+            progs = _STAGES.setdefault(key, progs)
+    return progs
 
 
 def get_span_program(cfg: ArchConfig, n_stages: int, seq_len: int,

@@ -1334,3 +1334,197 @@ def test_cuda_train_step_remat_modes(monkeypatch):
         losses, params = runs[mode]
         assert all(_same_bits(a, b) for a, b in zip(losses, losses0))
         assert all(_same_bits(a, b) for a, b in zip(params, params0))
+
+
+# ------------------------------------------------------- meshes
+def _virtual(shape, axes):
+    from repro_torch.launch.mesh import make_debug_mesh
+    dev = torch.device(_card(), 0)
+    n = int(np.prod(shape))
+    return make_debug_mesh(shape, axes, devices=[dev] * n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", [(), ("data",), (None, "data"),
+                                  (("data", "model"),), ("model", "data")])
+def test_cuda_place_gather_reduce_scatter_to_the_bit(spec):
+    """On a virtual (2, 2) mesh of the card: placement then gathering
+    gives the tensor back to the bit, and reduce-scattering two parts
+    gives their f64 sum, block for block."""
+    from repro_torch.dist.mesh import NamedSharding, gather, place, \
+        reduce_scatter_tree
+    mesh = _virtual((2, 2), ("data", "model"))
+    g = _gen("cuda")
+    x = torch.randn(8, 12, generator=g, device="cuda")
+    y = torch.randn(8, 12, generator=g, device="cuda")
+    p = place(x, mesh, spec)
+    assert _same_bits(gather(p, "cuda"), x)
+    assert _same_bits(gather(p, "cuda", rows=(2, 6)), x[2:6])
+    acc = reduce_scatter_tree(iter([x, y]), NamedSharding(mesh, spec))
+    assert _same_bits(gather(acc, "cuda"), x.double() + y.double())
+
+
+def _mesh_cfg():
+    """The bottleneck codec at a width the codec kernels take, bf16
+    compute, flash at head dim 64."""
+    return ArchConfig(name="tiny-mesh", family="dense", n_layers=4,
+                      d_model=128, n_heads=4, n_kv_heads=2, d_ff=256,
+                      vocab_size=512, head_dim=64, norm="layernorm",
+                      boundary_compression="bottleneck", bottleneck_dim=64,
+                      pipeline_stages=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2])
+def test_cuda_mesh_executor_launches_the_kernels(n):
+    """A ``MeshExecutor`` step on the card (one device, and the card
+    listed twice with the microbatch split 1 + 1) launches flash, encode
+    and decode; one device is the numeric step to the bit, two within
+    bf16 rounding of it."""
+    from repro_torch.launch.mesh import make_peer_mesh
+    from repro_torch.runtime import MeshExecutor, build_numeric_executors
+    from repro_torch.dist.mesh import gather
+    from repro_torch.tree import tree_leaves
+    dev = torch.device(_card(), 0)
+    cfg = _mesh_cfg()
+    num = build_numeric_executors(cfg, 2, 64)
+    st = [e.init_state(i) for i, e in enumerate(num)]
+    mesh = make_peer_mesh(devices=[dev] * n)
+    mex = [MeshExecutor(cfg, 2, 64, s, mesh) for s in range(2)]
+    mst = [m.init_state(7) for m in mex]
+    for s in range(2):
+        mex[s].restore(mst[s], num[s].snapshot(st[s]))
+    g = _gen("cuda")
+    tok = torch.randint(0, 512, (2, 64), generator=g, device="cuda")
+    lab = torch.randint(0, 512, (2, 64), generator=g, device="cuda")
+    kernels.reset_launches()
+    w = mex[0].wire_fwd(mex[0].run_fwd(mst[0], tok))
+    loss, gx, gp = mex[1].run_bwd(mst[1], w, labels=lab)
+    _, gp0 = mex[0].run_bwd(mst[0], tok, dy=mex[1].wire_bwd(gx))[1:]
+    torch.cuda.synchronize()
+    for k in ("flash_attention_fwd", "encode", "decode"):
+        assert kernels.LAUNCHES[k] > 0, k
+    w_n = num[0].wire_fwd(num[0].run_fwd(st[0], tok))
+    loss_n, _, gp_n = num[1].run_bwd(st[1], w_n, labels=lab)
+    if n == 1:
+        assert _same_bits(w, w_n) and float(loss) == float(loss_n)
+        for a, b in zip(tree_leaves(gp), tree_leaves(gp_n)):
+            assert _same_bits(gather(a, dev), b.double())
+    else:
+        assert abs(float(loss) - float(loss_n)) < 1e-2 * abs(float(loss_n))
+    assert all(torch.isfinite(gather(a, dev)).all()
+               for a in tree_leaves(gp0))
+
+
+@pytest.mark.cuda
+def test_cuda_pipeline_step_launches_match_reckoning():
+    """``make_pipeline_train_step`` over (``pod`` 2, ``data`` 1) of the
+    card, M-RoPE + RMSNorm + tied embeddings on the int8 wire, 4
+    microbatches, remat per tick: flash, rmsnorm and qdq launches a step
+    as reckoned (forward and recompute: 2 M L flash, 2 M (2 L + 1)
+    rmsnorm; qdq 3 M (S - 1) less the S - 1 warm-up ticks' last
+    crossing, which the recompute stops before), no plain flash call,
+    the loss within bf16 rounding of the staged reference's."""
+    from repro_torch.dist.pipeline import make_pipeline_train_step, \
+        make_reference_loss_fn
+    from repro_torch.models import flash as flash_lib
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import make_state
+    _card()
+    plain = []
+    orig = flash_lib.flash_fwd_ref
+    flash_lib.flash_fwd_ref = lambda *a, **k: plain.append(1) or orig(*a,
+                                                                      **k)
+    try:
+        cfg, opt = _tiny_train_cfg(), adamw(lr=1e-3)
+        S, M, L = 2, 4, cfg.n_layers
+        state = make_state(cfg, opt, 0)
+        g = _gen("cuda")
+        batch = {"tokens": torch.randint(0, 512, (M, 64), generator=g,
+                                         device="cuda", dtype=torch.int32),
+                 "labels": torch.randint(0, 512, (M, 64), generator=g,
+                                         device="cuda", dtype=torch.int32),
+                 "positions": torch.arange(64, device="cuda").expand(3, M,
+                                                                     64)}
+        with torch.no_grad():
+            want = float(make_reference_loss_fn(cfg, S, M, compress="int8")(
+                state["params"], batch)[0])
+        step = make_pipeline_train_step(cfg, opt, S, M, compress="int8")
+        kernels.reset_launches()
+        with _virtual((2, 1), ("pod", "data")):
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+    finally:
+        flash_lib.flash_fwd_ref = orig
+    assert kernels.LAUNCHES["flash_attention_fwd"] == 2 * M * L
+    assert kernels.LAUNCHES["rmsnorm"] == 2 * M * (2 * L + 1)
+    assert kernels.LAUNCHES["qdq_flat"] == 3 * M * (S - 1) - (S - 1)
+    assert not plain
+    assert abs(float(m["loss"]) - want) < 1e-2 * abs(want)
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_across_distinct_cards():
+    """Where the machine has two cards or more (the one-card machines
+    skip): placement, gathering and reduce-scattering across distinct
+    cards give the one-card tensors to the bit; a 2-way mesh executor
+    over ``cuda:0`` and ``cuda:1`` equals the numeric program run on each
+    half of the microbatch on ``cuda:0`` to the bit; and the pipeline
+    over ``pod`` 2 on two cards gives the one-card pipeline's loss to the
+    bit and its gradients within 1e-6 of each leaf's largest entry (the
+    gradients of the two cards' uses add in another order)."""
+    from repro_torch.dist.mesh import NamedSharding, gather, place, \
+        reduce_scatter_tree
+    from repro_torch.dist.pipeline import make_pipeline_train_step
+    from repro_torch.launch.mesh import make_debug_mesh, make_peer_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import MeshExecutor, build_numeric_executors
+    from repro_torch.train.steps import _value_and_grad, make_state
+    from repro_torch.tree import tree_leaves
+    _card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    cards = [torch.device("cuda", i) for i in range(2)]
+    mesh = make_debug_mesh((2, 1), ("data", "model"), devices=cards)
+    g = _gen("cuda")
+    x = torch.randn(8, 12, generator=g, device="cuda")
+    p = place(x, mesh, ("data",))
+    assert p.shards[1, 0].device == cards[1]
+    assert _same_bits(gather(p, cards[0]), x)
+    acc = reduce_scatter_tree(iter([x, 2 * x]), NamedSharding(mesh, ("data",)))
+    assert _same_bits(gather(acc, cards[0]), x.double() + (2 * x).double())
+
+    cfg = _mesh_cfg()
+    num = build_numeric_executors(cfg, 2, 64)
+    st = num[1].init_state(1)
+    mex = MeshExecutor(cfg, 2, 64, 1, make_peer_mesh(2))
+    mst = mex.init_state(2)
+    mex.restore(mst, num[1].snapshot(st))
+    w = torch.randn(2, 64, cfg.bottleneck_dim, generator=g,
+                    device="cuda").to(torch.bfloat16)
+    lab = torch.randint(0, 512, (2, 64), generator=g, device="cuda")
+    loss, gx, gp = mex.run_bwd(mst, w, labels=lab)
+    halves = [num[1].run_bwd(st, w[i:i + 1], labels=lab[i:i + 1])
+              for i in range(2)]
+    assert float(loss) == float(halves[0][0]) + float(halves[1][0])
+    assert _same_bits(gx, torch.cat([h[1] for h in halves]))
+    for a, h0, h1 in zip(tree_leaves(gp), tree_leaves(halves[0][2]),
+                         tree_leaves(halves[1][2])):
+        assert _same_bits(gather(a, cards[0]), h0.double() + h1.double())
+
+    tcfg, opt = _tiny_train_cfg(), adamw(lr=1e-3)
+    state = make_state(tcfg, opt, 0)
+    batch = {"tokens": torch.randint(0, 512, (4, 64), generator=g,
+                                     device="cuda", dtype=torch.int32),
+             "labels": torch.randint(0, 512, (4, 64), generator=g,
+                                     device="cuda", dtype=torch.int32)}
+    loss_fn = make_pipeline_train_step(tcfg, opt, 2, 4).loss_fn
+    runs = []
+    for devs in ([cards[0]] * 2, cards):
+        with make_debug_mesh((2, 1), ("pod", "data"), devices=devs):
+            runs.append(_value_and_grad(loss_fn, state["params"], batch))
+    (l1, _, g1), (l2, _, g2) = runs
+    assert _same_bits(l1, l2)
+    for a, b in zip(tree_leaves(g2), tree_leaves(g1)):
+        scale = float(b.abs().max()) or 1.0
+        assert float((a - b).abs().max()) <= 1e-6 * scale

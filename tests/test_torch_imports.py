@@ -100,6 +100,33 @@ def test_training_slice_modules_are_in_the_guard():
     assert get_config("swarm-1b-maxout").maxout_k == 2
 
 
+MESH_SLICE = ("dist/__init__.py", "dist/mesh.py", "dist/constrain.py",
+              "dist/sharding.py", "dist/pipeline.py", "launch/mesh.py",
+              "runtime/mesh.py")
+
+
+def test_mesh_slice_modules_are_in_the_guard_and_import_without_jax():
+    """The mesh slice's modules are guarded, and import (with the
+    runtime and the swarm that use them) in a process where ``jax`` and
+    ``repro`` cannot be imported at all."""
+    import os
+    import subprocess
+    import sys
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
+             for p in PORT_FILES if "repro_torch" in str(p)}
+    assert all(mod in names for mod in MESH_SLICE)
+    code = ("import sys\n"
+            "sys.modules['jax'] = sys.modules['repro'] = None\n"
+            "import repro_torch.dist.pipeline, repro_torch.dist.sharding\n"
+            "import repro_torch.launch.mesh, repro_torch.runtime.mesh\n"
+            "import repro_torch.core.swarm\n"
+            "assert 'jaxlib' not in sys.modules\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=ROOT,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert r.returncode == 0, r.stderr
+
+
 @pytest.mark.parametrize("kernels_flag", ["jnp", "pallas"])
 def test_wrappers_route_by_device_not_by_config(kernels_flag):
     """``cfg.kernels`` selects nothing: a tensor on a device other than
