@@ -227,6 +227,17 @@ JSON line; any failure raises and exits non-zero):
 21. train_profile — one training microbatch under ``torch.profiler``:
              device time per kernel, grouped, and the device's idle
              share.
+22. dryrun — the dry run (``repro_torch.launch.dryrun``) against the
+             card: yi-6b's attn layer at the train shape (forward and
+             backward), swarm-1b-bottleneck's boundary (encode, decode)
+             and swarm-1b's int8 wire, each once on meta under the dry
+             run's ledger and once on the card: launches equal to the
+             meta calls kernel for kernel, the meta peak and the ledger
+             on the card's call against the allocator's peak within 5 %
+             + 64 MiB; then the pipeline cell yi-6b train_4k on the
+             multi-pod mesh, its record's memory, FLOPs and collectives
+             (a reckoning on meta), computed by a background process
+             that the script starts first (``start_dryrun_cell``).
 
 The next-to-last line is the ``{"kernels": [...]}`` summary, the last
 ``{"ok": true, "device": {...}}``.  ``--kernels-only`` runs phases 1 and
@@ -4334,6 +4345,185 @@ def phase_train_pipeline(torch) -> dict:
     return rows
 
 
+# ------------------------------------------------------------ phase 22
+# the dry run's pipeline cell: make_pipeline_train_step over the multi-pod
+# mesh (pod 2 x data 16 x model 16, on meta), which the dry run takes for
+# a stage-periodic config: yi-6b's 32 layers split 16 + 16, while
+# swarm-1b-bottleneck's 3 shared groups do not split over 2 pods (its
+# multi cell is the data-parallel path)
+DRYRUN_CELL = ("yi-6b", "train_4k", "multi")
+# the meta reckoning against the card, both ways: |meta - card| within 5 %
+# of the card's peak plus 64 MiB (PERF.md §6, the dry run's prediction:
+# allocator blocks, CUDA ops' own workspaces)
+DRYRUN_REL, DRYRUN_ABS = 0.05, 64 * 2 ** 20
+TRAIN_SEQ_DRYRUN = 4096         # the train_4k cell's sequence
+DRYRUN_WAIT = 600               # seconds the last phase waits for the cell
+
+
+def _dryrun_calls(torch, dev: str) -> dict:
+    """Phase dryrun's three calls on ``dev`` (``"meta"`` or ``"cuda"``),
+    their inputs made there (random from a seed on the card, shapes alone
+    on meta): yi-6b's attn layer at the train shape (B 2, S 4,096),
+    forward and backward (flash, rmsnorm); swarm-1b-bottleneck's
+    boundary at its training microbatch (2 x 512), encode then decode;
+    the same boundary on swarm-1b's int8 wire (qdq_flat)."""
+    from repro_torch.compression import codecs
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import params as P
+    from repro_torch.models.blocks import REGISTRY
+    from repro_torch.tree import tree_leaves
+    meta = dev == "meta"
+
+    def make(specs, seed):
+        return P.abstract(specs) if meta else P.init(seed, specs, dev)
+
+    def randn(shape, dtype, seed):
+        if meta:
+            return torch.empty(shape, dtype=dtype, device="meta")
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    yi = get_config("yi-6b")
+    p = make(REGISTRY["attn"][0](yi), 25)
+    leaves = [a.requires_grad_() for a in tree_leaves(p)]
+    x = randn((2, TRAIN_SEQ_DRYRUN, yi.d_model), yi.compute_jdtype, 26)
+    x.requires_grad_()
+    pos = model_lib.default_positions(yi, 2, TRAIN_SEQ_DRYRUN, device=dev)
+
+    def attn_layer():
+        y, _ = REGISTRY["attn"][1](yi, p, x, pos)
+        return torch.autograd.grad(y.to(torch.float32).sum(), [x] + leaves)
+
+    sw = swarm1b()
+    bp = {**make(codecs.sender_specs(sw), 27),
+          **make(codecs.receiver_specs(sw), 28)}
+    z = randn((2, 512, sw.d_model), sw.compute_jdtype, 29)
+    int8 = get_config("swarm-1b")
+
+    def boundary():
+        with torch.no_grad():
+            return codecs.decode_wire(sw, "bottleneck", bp, codecs.encode_wire(
+                sw, "bottleneck", bp, z))
+
+    def int8_wire():
+        with torch.no_grad():
+            return codecs.int8_boundary(int8, z)
+
+    return {"attn_layer": attn_layer, "boundary": boundary,
+            "int8_wire": int8_wire}
+
+
+
+def _within(a: float, card: float) -> bool:
+    return abs(a - card) <= DRYRUN_REL * card + DRYRUN_ABS
+
+
+def start_dryrun_cell():
+    """Start the dry run of ``DRYRUN_CELL`` (``python -m
+    repro_torch.launch.dryrun``, one CPU thread) beside the card's
+    phases: it runs on meta and needs the host alone (about two minutes
+    on one core), so it costs the script no wall time.  Stopped at exit
+    if it is still running."""
+    import atexit
+    root = os.path.dirname(os.path.abspath(__file__))
+    arch, shape, mesh = DRYRUN_CELL
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.path.join(root, "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", mesh, "--force"], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    atexit.register(stop)
+    return proc
+
+
+def phase_dryrun(torch, proc) -> dict:
+    """(a) Each of ``_dryrun_calls`` once on meta under the dry run's
+    ledger and counters and once on the card: ``LAUNCHES`` on the card
+    equal to ``META_CALLS`` on meta for every kernel; the ledger's meta
+    peak and the ledger run on the card's call against the allocator's
+    peak above what was allocated before (after a warm-up call), within
+    ``DRYRUN_REL`` / ``DRYRUN_ABS``.  (b) The dry-run cell ``DRYRUN_CELL``
+    on this machine's torch (``proc``, :func:`start_dryrun_cell`): its
+    record's memory, FLOPs and collectives (a reckoning on meta)."""
+    from repro_torch import kernels
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import hlo_analysis as H
+    t0 = time.time()
+    on_meta, on_card = _dryrun_calls(torch, "meta"), \
+        _dryrun_calls(torch, "cuda")
+    rows = {}
+    for name, fn in on_meta.items():
+        kernels.reset_meta_calls()
+        ledger = H.DeviceLedger()
+        with ledger:
+            out = fn()
+        del out
+        meta_calls, meta_peak = dict(kernels.META_CALLS), \
+            ledger.peak.get("meta", 0)
+        card = on_card[name]
+        _counted(torch, card)                 # warm: cuBLAS workspaces
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        tracked = H.DeviceLedger()
+        with tracked:
+            out = card()
+        torch.cuda.synchronize()
+        card_peak = torch.cuda.max_memory_allocated() - base
+        launches = dict(kernels.LAUNCHES)
+        del out
+        on_card_peak = tracked.peak.get(f"cuda:{torch.cuda.current_device()}",
+                                        0)
+        row = {"launches": launches, "meta_calls": meta_calls,
+               "meta_peak_bytes": meta_peak, "card_peak_bytes": card_peak,
+               "tracked_card_peak_bytes": on_card_peak,
+               "meta_minus_card_bytes": meta_peak - card_peak,
+               "tracked_minus_card_bytes": on_card_peak - card_peak,
+               "bound_bytes": DRYRUN_REL * card_peak + DRYRUN_ABS}
+        emit({"phase": "dryrun", "call": name, **row})
+        if launches != meta_calls or not any(launches.values()):
+            raise AssertionError(f"dryrun {name}: launches {launches} != "
+                                 f"meta calls {meta_calls}")
+        if not (_within(meta_peak, card_peak)
+                and _within(on_card_peak, card_peak)):
+            raise AssertionError(f"dryrun {name}: meta {meta_peak} / "
+                                 f"tracked {on_card_peak} bytes against "
+                                 f"the card's {card_peak}")
+        rows[name] = row
+    del on_meta, on_card
+    free(torch)
+    t1 = time.time()
+    out, err = proc.communicate(timeout=DRYRUN_WAIT)
+    arch, shape, mesh = DRYRUN_CELL
+    path = os.path.join(os.path.dirname(dryrun.artifact_path(arch, shape,
+                                                             mesh)),
+                        f"{mesh}__{arch}__{shape}.json")
+    if proc.returncode != 0 or not os.path.exists(path):
+        raise AssertionError(f"dryrun cell {DRYRUN_CELL} failed: "
+                             f"{out[-2000:]} {err[-4000:]}")
+    with open(path) as f:
+        rec = json.load(f)
+    if rec["status"] != "ok" or not rec["pipeline"] or \
+            rec["flops_per_device"] <= 0:
+        raise AssertionError(f"dryrun cell {DRYRUN_CELL}: {rec}")
+    rows["cell"] = {k: rec[k] for k in (
+        "arch", "shape", "mesh", "pipeline", "n_devices", "device",
+        "data_shards", "computed_shards", "memory", "flops_per_device",
+        "bytes_per_device", "collectives", "run_s", "cell_s")}
+    emit({"phase": "dryrun_cell", "reckoned_on": "meta", **rows["cell"],
+          "waited_s": time.time() - t1})
+    emit({"phase": "dryrun_done", "seconds": time.time() - t0})
+    return rows
+
+
 def main() -> None:
     import numpy as np
     if sys.argv[1:] not in ([], ["--kernels-only"]):
@@ -4341,6 +4531,7 @@ def main() -> None:
     torch = setup()
     from repro_torch import kernels
     t_start = time.time()
+    dryrun_proc = None if sys.argv[1:] else start_dryrun_cell()
     phase_build(torch)
     main_rows = phase_kernels(torch)
     if sys.argv[1:]:
@@ -4422,6 +4613,8 @@ def main() -> None:
     phase_train_rollback(torch, ref_losses)
     launches.update(phase_wire_codes(torch)["launches"])
     phase_train_profile(torch)
+    # the dry run's meta reckoning against the card, and one pipeline cell
+    phase_dryrun(torch, dryrun_proc)
     replaces = {
         "flash_attention_fwd":
             ("src/repro_torch/csrc/flash_attention.cu",

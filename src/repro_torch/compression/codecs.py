@@ -117,6 +117,32 @@ def wire_qblock(cfg: ArchConfig, compress: Optional[str] = None) -> int:
     return bref.wire_qblock(wire_dim(cfg, compress))
 
 
+# ------------------------------------------------------------ apply
+def compress(cfg: ArchConfig, mode: str, p: Tree, x: torch.Tensor
+             ) -> torch.Tensor:
+    """[.., d_model] -> [.., wire_dim]: what the sending stage emits, in
+    plain PyTorch (:mod:`.bottleneck`, :mod:`.maxout`; the crossings of
+    the execution paths go through :func:`encode_wire`)."""
+    from repro_torch.compression import bottleneck, maxout
+    if mode == "bottleneck":
+        return bottleneck.compress(p, x)
+    if mode == "maxout":
+        return maxout.compress(x, maxout_k(cfg))
+    return x
+
+
+def decompress(cfg: ArchConfig, mode: str, p: Tree, z: torch.Tensor
+               ) -> torch.Tensor:
+    """[.., wire_dim] -> [.., d_model]: what the receiving stage
+    restores, in plain PyTorch."""
+    from repro_torch.compression import bottleneck, maxout
+    if mode == "bottleneck":
+        return bottleneck.decompress(p, z)
+    if mode == "maxout":
+        return maxout.decompress(p, z)
+    return z
+
+
 def encode_wire(cfg: ArchConfig, mode: str, p: Tree,
                 x: torch.Tensor, quant: Optional[bool] = None
                 ) -> torch.Tensor:

@@ -6,8 +6,13 @@ Tensors are flattened into blocks of ``block_size``; each block is scaled
 by its absmax and rounded (half to even, as ``jnp.round``) to int8.
 This module is the plain PyTorch version of the boundary round trip;
 the CUDA kernel of ``repro_torch.kernels.boundary`` computes the same
-codes.  The straight-through ``compress_boundary`` comes with the
-training slice.
+codes.  :func:`compress_boundary` is JAX's autodiff-aware wrapper of
+this plain round trip: the forward sends quantized activations, the
+backward quantizes the cotangent (blocks of ``grad_block``), a
+straight-through estimator around the rounding itself.  The execution
+paths cross boundaries through
+``repro_torch.kernels.boundary.ops.int8_roundtrip`` (the same function,
+on the kernel where the tensor is on the card).
 """
 from __future__ import annotations
 
@@ -64,3 +69,37 @@ def compressed_nbytes(n: int, block: int = BLOCK) -> int:
     int8 code per element + one f32 scale per (ceil-divided) block."""
     nb = -(-n // block)
     return n + 4 * nb
+
+
+class _CompressBoundary(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, block, grad_block):
+        ctx.grad_block = grad_block
+        return _roundtrip(x, block)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _roundtrip(g, ctx.grad_block), None, None
+
+
+def compress_boundary(x: torch.Tensor, block: int = BLOCK,
+                      grad_block: int = BLOCK) -> torch.Tensor:
+    """8-bit compress what crosses a SWARM stage boundary, both
+    directions (straight through the rounding)."""
+    return _CompressBoundary.apply(x, block, grad_block)
+
+
+def quantization_error(x: torch.Tensor, block: int = BLOCK
+                       ) -> torch.Tensor:
+    """Relative L2 round-trip error: for absmax scaling the per-element
+    error is <= scale/254, so a non-degenerate block's relative error is
+    <= ~1/127."""
+    q, s, meta = blockwise_quantize(x, block)
+    xr = blockwise_dequantize(q, s, meta)
+    return torch.linalg.vector_norm(xr - x) / torch.clamp(
+        torch.linalg.vector_norm(x), min=1e-12)
+
+
+def compressed_bytes(x: torch.Tensor, block: int = BLOCK) -> int:
+    """Wire size after 8-bit compression (codes + per-block f32 scales)."""
+    return compressed_nbytes(x.numel(), block)

@@ -34,9 +34,22 @@ no kernel of the port's.  Every helper is differentiable where its
 inputs are (slices, copies and ``torch.cat``), so autograd carries a
 gradient from a gathered tensor back to the shards, or to the tensor the
 shards were placed from.
+
+Under :func:`record_collectives` the helpers log the payload bytes each
+destination coordinate receives, by kind in JAX's vocabulary:
+:func:`gather` an ``all-gather``, :func:`reduce_scatter_tree` a
+``reduce-scatter``, :func:`place` and :func:`send` (a point-to-point
+copy, the pipeline's shifts) a ``collective-permute``.  A move counts
+between distinct coordinates even where they list the same device (a
+virtual or a ``meta`` mesh): the record is of the mesh the coordinates
+stand for.  :func:`at` names the coordinate the caller runs as (the
+source of a placement, the destination of a gather, the owner of what
+is allocated meanwhile, which the dry run's live-bytes tracker reads).
+With no recorder active the helpers run as they would without one.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import threading
@@ -144,6 +157,91 @@ class NamedSharding:
     """A mesh and a resolved spec: where each block of a tensor lives."""
     mesh: Any
     spec: tuple
+
+
+# ------------------------------------------------- collective recording
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter",
+                    "all-to-all", "collective-permute")
+_REC: dict = {"recorder": None, "coord": None}
+
+
+class CollectiveRecorder:
+    """Payload bytes (and moves) each mesh coordinate receives, by kind."""
+
+    def __init__(self):
+        self.bytes: dict[tuple, dict[str, float]] = {}
+        self.counts: dict[tuple, dict[str, int]] = {}
+
+    def log(self, kind: str, coord: tuple, nbytes: float) -> None:
+        if kind not in COLLECTIVE_KINDS:
+            raise ValueError(f"not a collective kind: {kind!r}")
+        coord = tuple(coord)
+        by = self.bytes.setdefault(coord, dict.fromkeys(COLLECTIVE_KINDS,
+                                                        0.0))
+        n = self.counts.setdefault(coord, dict.fromkeys(COLLECTIVE_KINDS, 0))
+        by[kind] += float(nbytes)
+        n[kind] += 1
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """Log every move of the mesh helpers into a new
+    :class:`CollectiveRecorder` (yielded) until the block ends."""
+    prev, rec = _REC["recorder"], CollectiveRecorder()
+    _REC["recorder"] = rec
+    try:
+        yield rec
+    finally:
+        _REC["recorder"] = prev
+
+
+@contextlib.contextmanager
+def at(coord: Optional[tuple]):
+    """Run the block as mesh coordinate ``coord`` (None: none)."""
+    prev = _REC["coord"]
+    _REC["coord"] = None if coord is None else tuple(coord)
+    try:
+        yield
+    finally:
+        _REC["coord"] = prev
+
+
+def current_coord() -> Optional[tuple]:
+    return _REC["coord"]
+
+
+def _recorder() -> Optional[CollectiveRecorder]:
+    return _REC["recorder"]
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _coord_of(mesh: "Mesh", device) -> Optional[tuple]:
+    """The current coordinate, else the first of ``mesh`` on ``device``
+    (None: off the mesh)."""
+    if _REC["coord"] is not None:
+        return _REC["coord"]
+    device = norm_device(device)
+    for c in mesh.coords():
+        if mesh.devices[c] == device:
+            return c
+    return None
+
+
+def send(x: torch.Tensor, mesh: "Mesh", coord: tuple) -> torch.Tensor:
+    """``x`` on mesh coordinate ``coord``'s device: a point-to-point copy
+    (none where ``x`` is there already), logged as a
+    ``collective-permute`` under a recorder when ``coord`` is not the
+    current coordinate."""
+    rec, coord = _recorder(), tuple(coord)
+    dev = mesh.devices[coord]
+    if rec is None or coord == _REC["coord"]:
+        return x.to(dev)
+    rec.log("collective-permute", coord, _nbytes(x))
+    with at(coord):
+        return x.to(dev)
 
 
 # ------------------------------------------------------------ geometry
@@ -297,11 +395,17 @@ def place(x, mesh: Mesh, spec: tuple) -> Placed:
     _check_spec(mesh, spec, x.shape)
     out = np.empty(mesh.devices.shape, dtype=object)
     full = tuple(slice(0, n) for n in x.shape)
+    rec = _recorder()
+    src = None if rec is None else _coord_of(mesh, x.device)
     for c in mesh.coords():
         sl = shard_slices(x.shape, mesh, spec, c)
         piece = x if sl == full else x[sl]
         dev = mesh.devices[c]
-        if piece.device != dev:
+        if rec is not None and c != src:
+            rec.log("collective-permute", c, _nbytes(piece))
+            with at(c):
+                piece = piece.to(dev)
+        elif piece.device != dev:
             piece = piece.to(dev)
         out[c] = piece
     return Placed(mesh, spec, x.shape, x.dtype, out)
@@ -317,31 +421,46 @@ def place_as(x, sharding: NamedSharding) -> Placed:
     return place(x, sharding.mesh, sharding.spec)
 
 
-def gather(p: Placed, device, rows: Optional[tuple[int, int]] = None
-           ) -> torch.Tensor:
-    """The full tensor on ``device``, or only rows ``[lo, hi)`` of dim 0:
-    one shard a block (a shard already on ``device`` where there is
-    one), copied over and concatenated.  A block held whole on
-    ``device`` comes back as that shard itself (no copy)."""
+def gather(p: Placed, device, rows: Optional[tuple[int, int]] = None,
+           where: Optional[dict[str, int]] = None) -> torch.Tensor:
+    """The full tensor on ``device``, or only rows ``[lo, hi)`` of dim 0,
+    or only the blocks the coordinates with ``where``'s axis indices hold
+    (a data shard's rows of a batch-sharded tensor): one shard a block
+    (a shard already on ``device`` where there is one), copied over and
+    concatenated.  A block held whole on ``device`` comes back as that
+    shard itself (no copy)."""
     device = norm_device(device)
     nb = _blocks_per_dim(p.mesh, p.spec, p.ndim)
     lo, hi = rows if rows is not None else (0, p.shape[0] if p.ndim else 0)
     step0 = p.shape[0] // nb[0] if p.ndim else 1
+    rec = _recorder()
+    dst = None if rec is None else _coord_of(p.mesh, device)
+    pos = {a: i for i, a in enumerate(p.mesh.axis_names)}
     chosen: dict[tuple[int, ...], torch.Tensor] = {}
+    src: dict[tuple[int, ...], tuple] = {}
     for c in p.mesh.coords():
+        if where and any(c[pos[a]] != i for a, i in where.items()):
+            continue
         b = block_index(p.mesh, p.spec, c, p.ndim)
         if rows is not None and not (b[0] * step0 < hi
                                      and (b[0] + 1) * step0 > lo):
             continue
         cur = chosen.get(b)
         t = p.shards[c]
-        if cur is None or (cur.device != device and t.device == device):
-            chosen[b] = t
+        if rec is not None:
+            better = cur is None or (src[b] != dst and c == dst)
+        else:
+            better = cur is None or (cur.device != device
+                                     and t.device == device)
+        if better:
+            chosen[b], src[b] = t, c
 
     def build(prefix: tuple[int, ...]) -> torch.Tensor:
         d = len(prefix)
         if d == p.ndim:
             t = chosen[prefix]
+            if rec is not None and src[prefix] != dst:
+                rec.log("all-gather", dst, _nbytes(t))
             return t if t.device == device else t.to(device)
         idx = sorted({k[d] for k in chosen if k[:d] == prefix})
         parts = [build(prefix + (i,)) for i in idx]
@@ -355,6 +474,49 @@ def gather(p: Placed, device, rows: Optional[tuple[int, int]] = None
     return out
 
 
+def scatter_block(x: torch.Tensor, sharding: NamedSharding,
+                  shape: Sequence[int], where: dict[str, int],
+                  out: Optional[Placed] = None) -> dict:
+    """Lay ``x`` -- the part of a tensor of global ``shape`` that the
+    coordinates with ``where``'s axis indices hold together (a data
+    shard's rows) -- out onto those coordinates by ``sharding``: each
+    coordinate gets a copy of its block (a ``collective-permute`` under
+    a recorder, but for the current coordinate), written into ``out``'s
+    shards in place where ``out`` is given.  Returns ``{coord: block}``
+    (the inverse of :func:`gather` with ``where``)."""
+    mesh, spec = sharding.mesh, tuple(sharding.spec)
+    pos = {a: i for i, a in enumerate(mesh.axis_names)}
+    group = [c for c in mesh.coords()
+             if all(c[pos[a]] == i for a, i in where.items())]
+    nb = _blocks_per_dim(mesh, spec, len(shape))
+    blocks = {c: block_index(mesh, spec, c, len(shape)) for c in group}
+    origin = [min(b[d] for b in blocks.values()) for d in range(len(shape))]
+    rec, here = _recorder(), _REC["coord"]
+    placed = {}
+    for c in group:
+        sl = tuple(slice((b - o) * (n // k), (b - o + 1) * (n // k))
+                   for b, o, n, k in zip(blocks[c], origin, shape, nb))
+        piece = x[sl]
+        if rec is not None and c != here:
+            rec.log("collective-permute", c, _nbytes(piece))
+        with at(c):
+            if out is not None:
+                placed[c] = out.shards[c].copy_(piece)
+            else:
+                placed[c] = piece.to(mesh.devices[c], copy=True)
+    return placed
+
+
+def log_collective(kind: str, coords: Iterable[tuple], nbytes: float
+                   ) -> None:
+    """Under a recorder, log a collective the caller makes by other
+    means (a scalar all-reduce) as received by each of ``coords``."""
+    rec = _recorder()
+    if rec is not None:
+        for c in coords:
+            rec.log(kind, c, nbytes)
+
+
 def gather_tree(tree: Tree, device) -> Tree:
     """Every placed leaf gathered onto ``device``; other leaves as
     they are."""
@@ -363,30 +525,47 @@ def gather_tree(tree: Tree, device) -> Tree:
 
 
 def reduce_scatter_tree(parts: Iterable[Tree], shardings: Tree,
-                        dtype: torch.dtype = torch.float64) -> Tree:
+                        dtype: torch.dtype = torch.float64,
+                        sources: Optional[Sequence[tuple]] = None) -> Tree:
     """Sum full-shape partial trees (one a device that computed a part,
     e.g. a data shard's gradients) into placed trees laid out by
     ``shardings``: shard ``c`` of a leaf is the sum of every part's
     block ``c``, added in ``dtype`` in the order the parts come.  The
     default f64 holds the sum of a few f32 parts exactly, so the order
     of the parts does not matter.  ``parts`` may be a generator: each
-    part is folded in and dropped before the next is made."""
+    part is folded in and dropped before the next is made.  ``sources``
+    (for the recorder) names the coordinate each part was computed on: a
+    block a part holds for its own coordinate is not a move."""
     acc: Optional[Tree] = None
+    rec = _recorder()
+    src = None
+
+    def moved(c, t: torch.Tensor):
+        """The recorder's entry of ``t`` (a part's block) reaching ``c``,
+        and the coordinate to run its copy as."""
+        if rec is None:
+            return contextlib.nullcontext()
+        if c != src:
+            rec.log("reduce-scatter", c, _nbytes(t))
+        return at(c)
 
     def first(t: torch.Tensor, s: NamedSharding) -> Placed:
         out = np.empty(s.mesh.devices.shape, dtype=object)
         for c in s.mesh.coords():
             sl = shard_slices(t.shape, s.mesh, tuple(s.spec), c)
-            out[c] = t[sl].to(s.mesh.devices[c], dtype, copy=True)
+            with moved(c, t[sl]):
+                out[c] = t[sl].to(s.mesh.devices[c], dtype, copy=True)
         return Placed(s.mesh, tuple(s.spec), t.shape, dtype, out)
 
     def fold(a: Placed, t: torch.Tensor) -> Placed:
         for c in a.mesh.coords():
             sl = shard_slices(t.shape, a.mesh, a.spec, c)
-            a.shards[c].add_(t[sl].to(a.mesh.devices[c], dtype))
+            with moved(c, t[sl]):
+                a.shards[c].add_(t[sl].to(a.mesh.devices[c], dtype))
         return a
 
-    for part in parts:
+    for k, part in enumerate(parts):
+        src = None if sources is None else tuple(sources[k])
         if acc is None:
             _check_tree(part, shardings)
             acc = tree_map(first, part, shardings)

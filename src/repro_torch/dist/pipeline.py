@@ -11,7 +11,9 @@ Schedule: with ``S`` stages and ``M`` microbatches the step runs ``T = M
 + S - 1`` ticks.  At tick ``t`` slot ``s`` holds microbatch ``t - s``:
 slot 0 embeds microbatch ``t``, slot ``S - 1`` feeds the head and the
 loss, and every other slot's output moves to slot ``s + 1`` for the next
-tick — a copy from slot ``s``'s device to slot ``s + 1``'s.  JAX runs
+tick — a copy from slot ``s``'s device to slot ``s + 1``'s
+(``dist.mesh.send``: a ``collective-permute`` under a collective
+recorder; each slot runs as its mesh coordinate, ``dist.mesh.at``).  JAX runs
 every slot each tick (one vmapped program over the stage dim) and lets
 the slots outside ``[0, M)`` compute garbage that the loss never reads;
 here each slot is its own call, so a dead slot is not run at all: no
@@ -56,7 +58,8 @@ import torch.utils.checkpoint
 
 from repro_torch.compression import codecs
 from repro_torch.dist.constrain import current_mesh, resolve_spec
-from repro_torch.dist.mesh import Mesh, gather, gather_tree, place_as
+from repro_torch.dist.mesh import Mesh, at, gather, gather_tree, \
+    place_as, send
 from repro_torch.models import model as model_lib
 from repro_torch.models.blocks import REGISTRY
 from repro_torch.models.config import ArchConfig
@@ -243,15 +246,18 @@ class _Layout:
             ["data"], [mb], mesh) else 1
         self.rows = mb // self.n_data
 
+    def coord(self, s: int, j: int) -> tuple[int, ...]:
+        return self.mesh.coord(pod=s // self.per_pod, data=j)
+
     def device(self, s: int, j: int) -> torch.device:
-        return self.mesh.device(self.mesh.coord(pod=s // self.per_pod,
-                                                data=j))
+        return self.mesh.device(self.coord(s, j))
 
 
 def make_pipeline_train_step(cfg: ArchConfig, optimizer: Optimizer,
                              n_stages: int, n_microbatches: int, *,
                              remat: bool | str = True,
-                             compress: Optional[str] = None):
+                             compress: Optional[str] = None,
+                             shards: Optional[int] = None):
     """``(state, batch) -> (state, {"loss", "ce"})`` — the pipelined twin
     of ``train.steps.make_train_step``, on the ambient mesh (``with
     mesh:``; off a mesh every slot runs on the params' device).
@@ -262,7 +268,9 @@ def make_pipeline_train_step(cfg: ArchConfig, optimizer: Optimizer,
     M-RoPE, ``positions [3, B, S]``, with ``B`` a multiple of
     ``n_microbatches``.  ``train_step.loss_fn(params, batch) -> (loss,
     ce)`` is the pipelined loss alone (a step's gradients without its
-    update)."""
+    update).  ``shards`` runs only the first ``shards`` data shards of
+    every slot (None: all): the dry run's count of equal shards, once
+    each (the loss then averages the shards run)."""
     if not stage_periodic(cfg, n_stages):
         raise ValueError(f"{cfg.name}: layer stack is not periodic at "
                          f"{n_stages} stages (see stage_periodic)")
@@ -325,6 +333,11 @@ def make_pipeline_train_step(cfg: ArchConfig, optimizer: Optimizer,
             """Slot ``s`` at tick ``t`` on data shard ``j``: the wire
             tensor for slot ``s + 1`` and the aux so far, or (ce, aux)
             on the last slot."""
+            with at(lay.coord(s, j)):
+                return slot_on(t, s, j, z, aux)
+
+        def slot_on(t: int, s: int, j: int, z: Optional[Tensor],
+                    aux: Optional[Tensor]):
             m, dev = t - s, lay.device(s, j)
             if s == 0:
                 x = model_lib.embed(cfg, {"embed": gather(
@@ -335,9 +348,9 @@ def make_pipeline_train_step(cfg: ArchConfig, optimizer: Optimizer,
             x, aux = stage_fn(blocks_on(s, dev), x, aux,
                               positions(m, j, dev))
             if s < S_ - 1:
-                nxt = lay.device(s + 1, j)
+                nxt = lay.coord(s + 1, j)
                 out = _encode(cfg, comp, codec_on(s, dev), x)
-                return out.to(nxt), aux.to(nxt)
+                return send(out, mesh, nxt), send(aux, mesh, nxt)
             head_p = {k: gather_tree(placed[k], dev)
                       for k in ("final_norm", "embed", "head")
                       if k in placed and (k != "embed"
@@ -355,6 +368,9 @@ def make_pipeline_train_step(cfg: ArchConfig, optimizer: Optimizer,
                     out += [None, None] * lay.n_data
                     continue
                 for j in range(lay.n_data):
+                    if shards is not None and j >= shards:
+                        out += [None, None]
+                        continue
                     i = 2 * ((s - 1) * lay.n_data + j)
                     z, aux = (None, None) if s == 0 else carry[i:i + 2]
                     out += list(slot(t, s, j, z, aux))
@@ -375,9 +391,11 @@ def make_pipeline_train_step(cfg: ArchConfig, optimizer: Optimizer,
             wire = out[:(S_ - 1) * k]
             if 0 <= t - (S_ - 1) < M:
                 last = out[(S_ - 1) * k:]
-                ces.append(torch.stack([c.to(home) for c in last[0::2]]
+                ces.append(torch.stack([c.to(home) for c in last[0::2]
+                                        if c is not None]
                                        ).mean())
-                auxs.append(torch.stack([a.to(home) for a in last[1::2]]
+                auxs.append(torch.stack([a.to(home) for a in last[1::2]
+                                         if a is not None]
                                         ).mean())
         ce = torch.stack(ces).mean()
         return ce + torch.stack(auxs).mean(), ce

@@ -16,7 +16,14 @@ the value, what :func:`vector_layout_problem` rules out (it never takes
 another path).
 On a CUDA tensor each launches its kernel or raises; on a CPU tensor it
 runs the plain version (``repro_torch.compression.quant8._roundtrip``,
-:mod:`.ref`).  ``repro_torch.kernels.LAUNCHES`` counts one per call that
+:mod:`.ref`); on a meta tensor it takes the meta route of
+:mod:`repro_torch.kernels`: the CUDA route's checks and every tensor it
+allocates (each pass's output, the GEMM's scratch: the bf16 weight copy
+and the split-K partials, sized by :func:`gemm_scratch_bytes`) on meta,
+no launch, the call's work counted (:func:`codec_work` and the flat
+reckonings beside the wrappers).  The plain versions are not that
+account: they upcast whole tensors to f32 where the kernels hold rows in
+registers.  ``repro_torch.kernels.LAUNCHES`` counts one per call that
 launches the kernels (``encode`` and ``decode`` are each up to three
 CUDA launches, see ``csrc/codec.cu``; so are ``encode_quantize`` and
 ``dequantize_decode``).
@@ -33,6 +40,53 @@ from repro_torch.kernels.boundary import ref as R
 ROW_WIDTH_MAX = 32768        # elements of a row the row passes hold
 POOLS = (1, 2, 4, 8)         # maxout widths whose windows tile a unit of 8
 FLAT_PATHS = {"scalar": 0, "units": 1, "lanes": 2}   # csrc/blockq.cuh
+GEMM_TILE_N = 128            # csrc/codec.cu namespace tc: BN
+
+
+def gemm_splits(kdim: int, m: int) -> int:
+    """The bf16 codec GEMM's split-K count (``tc::gemm_splits``)."""
+    col_tiles = -(-m // GEMM_TILE_N)
+    return max(min(kdim // 1024, 32 // col_tiles), 1)
+
+
+def gemm_scratch_bytes(n: int, kdim: int, m: int,
+                       dtype: torch.dtype) -> int:
+    """Bytes of scratch the codec GEMM takes at ``[n, kdim] x [kdim, m]``
+    (``repro_codec_gemm_scratch``): bf16 only, the weight rounded to bf16
+    (256-byte aligned), then the f32 split-K partials where it splits."""
+    if dtype != torch.bfloat16:
+        return 0
+    splits = gemm_splits(kdim, m)
+    return -(-kdim * m * 2 // 256) * 256 + (splits * n * m * 4
+                                            if splits > 1 else 0)
+
+
+def codec_work(call: str, mode: str, N: int, d: int, c: int, es: int,
+               quantize: bool = False, qb: int = 0
+               ) -> tuple[float, float]:
+    """(operations, bytes) of one codec call on ``N`` rows between width
+    ``d`` and wire width ``c`` (``es``: the activations' element size),
+    the kernel table's bound: inputs read once (the f32 weight, 4 bytes
+    an element), outputs written once, 8 operations an element a
+    LayerNorm pass, 2 a product's multiply-add, 5 a QDQ'd or coded
+    element, 3 a dequantized one."""
+    bott = mode == "bottleneck"
+    if call == "encode":
+        ops = 8.0 * N * d + (2.0 * N * d * c + 8.0 * N * c if bott
+                             else 0.0) + (5.0 * N * c if quantize else 0.0)
+        return ops, (N * d + N * c) * es + (d * c * 4 if bott else 0)
+    if call == "decode":
+        ops = 2.0 * N * c * d + (0.0 if bott else 8.0 * N * c)
+        return ops, (N * c + N * d) * es + c * d * 4
+    if call == "encode_quantize":
+        ops = 8.0 * N * d + 5.0 * N * c + (2.0 * N * d * c + 8.0 * N * c
+                                           if bott else 0.0)
+        return ops, N * d * es + N * c + N * (c // qb) * 4 + (
+            d * c * 4 if bott else 0)
+    if call == "dequantize_decode":
+        ops = 2.0 * N * c * d + 3.0 * N * c + (0.0 if bott else 8.0 * N * c)
+        return ops, N * c + N * (c // qb) * 4 + c * d * 4 + N * d * es
+    raise ValueError(f"not a codec call: {call!r}")
 
 
 def flat_block_path(block: int, dtype: torch.dtype, *tensors) -> str:
@@ -102,14 +156,13 @@ def qdq_flat(x: torch.Tensor, block: int,
     harness reads them; the wire path does not."""
     if block < 1:
         raise ValueError(f"qdq_flat: block {block} must be at least 1")
-    if x.device.type == "cpu":
+    where = kernels.route(x, "qdq_flat")
+    if where == "cpu":
         if codes is not None or scales is not None:
             raise ValueError("qdq_flat: codes/scales are kernel outputs; "
                              "on the CPU use quant8.blockwise_quantize")
         from repro_torch.compression.quant8 import _roundtrip
         return _roundtrip(x, block)
-    if x.device.type != "cuda":
-        raise ValueError(f"qdq_flat: unsupported device {x.device}")
     from repro_torch.kernels import _lib
     if not x.is_contiguous():
         raise ValueError("qdq_flat: x must be contiguous")
@@ -128,6 +181,9 @@ def qdq_flat(x: torch.Tensor, block: int,
         raise ValueError("qdq_flat: codes and scales come together")
     out = torch.empty_like(x)
     path = flat_block_path(block, x.dtype, x, out, codes)
+    if where == "meta":
+        kernels.meta_call("qdq_flat", 5.0 * n, 2.0 * n * x.element_size())
+        return out
     rc = _lib.lib().repro_qdq_flat(
         x.data_ptr(), out.data_ptr(),
         None if codes is None else codes.data_ptr(),
@@ -150,11 +206,9 @@ def qdq(x: torch.Tensor, qb: int) -> torch.Tensor:
 # ----------------------------------------------------------- learned codecs
 def _codec_args(t: torch.Tensor, w: Optional[torch.Tensor], name: str,
                 dtype: Optional[torch.dtype] = None):
-    """Validate a codec call on the card; returns the code of ``dtype``
-    (default: ``t``'s)."""
+    """Validate a codec call on the card (or its meta route); returns the
+    code of ``dtype`` (default: ``t``'s)."""
     from repro_torch.kernels import _lib
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {t.device}")
     dtype = t.dtype if dtype is None else dtype
     if dtype not in _lib.DTYPE_CODES:
         raise TypeError(f"{name}: dtype {dtype} not supported (float32 "
@@ -174,6 +228,8 @@ def _ln_rows(x2: torch.Tensor, k: int, qb: int, code: int,
     rows, width = x2.shape
     _require_layout(name, x2, width, k, qb)
     out = torch.empty((rows, width // k), dtype=x2.dtype, device=x2.device)
+    if x2.device.type == "meta":
+        return out
     rc = _lib.lib().repro_codec_ln_rows(
         x2.data_ptr(), out.data_ptr(), rows, width, k, qb, code,
         _lib.stream_ptr(x2.device))
@@ -193,6 +249,8 @@ def _ln_rows_codes(x2: torch.Tensor, k: int, qb: int, code: int,
     c = width // k
     q = torch.empty((rows, c), dtype=torch.int8, device=x2.device)
     s = torch.empty((rows, c // qb), dtype=torch.float32, device=x2.device)
+    if x2.device.type == "meta":
+        return q, s
     rc = _lib.lib().repro_codec_ln_rows_codes(
         x2.data_ptr(), q.data_ptr(), s.data_ptr(), rows, width, k, qb, code,
         _lib.stream_ptr(x2.device))
@@ -208,6 +266,8 @@ def _dequant_rows(q2: torch.Tensor, s2: torch.Tensor, qb: int, ln: bool,
     rows, c = q2.shape
     _require_layout(name, q2, c, 1, qb)
     z = torch.empty((rows, c), dtype=dtype, device=q2.device)
+    if q2.device.type == "meta":
+        return z
     rc = _lib.lib().repro_codec_dequant_rows(
         q2.data_ptr(), s2.data_ptr(), z.data_ptr(), rows, c, qb, int(ln),
         _lib.DTYPE_CODES[dtype], _lib.stream_ptr(q2.device))
@@ -227,7 +287,8 @@ def _gemm(a2: torch.Tensor, w: torch.Tensor, code: int) -> torch.Tensor:
                          f"rows of width {kdim}")
     w = w.contiguous()           # held until the launch is queued
     m = w.shape[1]
-    lib = _lib.lib()
+    meta = a2.device.type == "meta"
+    lib = None if meta else _lib.lib()
     scratch = None
     if a2.dtype == torch.bfloat16:
         if kdim % 8 or m % 8:
@@ -236,15 +297,27 @@ def _gemm(a2: torch.Tensor, w: torch.Tensor, code: int) -> torch.Tensor:
         if a2.data_ptr() % 16 or w.data_ptr() % 16:
             raise ValueError("codec gemm: bf16 needs 16-byte-aligned a and "
                              "w")
-        scratch = torch.empty(lib.repro_codec_gemm_scratch(n, kdim, m, code),
-                              dtype=torch.uint8, device=a2.device)
+        size = (gemm_scratch_bytes(n, kdim, m, a2.dtype) if meta
+                else lib.repro_codec_gemm_scratch(n, kdim, m, code))
+        scratch = torch.empty(size, dtype=torch.uint8, device=a2.device)
     out = torch.empty((n, m), dtype=a2.dtype, device=a2.device)
+    if meta:
+        return out
     rc = lib.repro_codec_gemm(
         a2.data_ptr(), w.data_ptr(), out.data_ptr(),
         None if scratch is None else scratch.data_ptr(), n, kdim, m, code,
         _lib.stream_ptr(a2.device))
     _lib.check(rc, "codec gemm")
     return out
+
+
+def _count(t: torch.Tensor, name: str, work: tuple[float, float]) -> None:
+    """One call of a codec wrapper: a launch on the card, a meta call
+    (with its work) on meta."""
+    if t.device.type == "meta":
+        kernels.meta_call(name, *work)
+    else:
+        kernels.LAUNCHES[name] += 1
 
 
 def encode(x: torch.Tensor, w: Optional[torch.Tensor], mode: str, k: int,
@@ -254,7 +327,7 @@ def encode(x: torch.Tensor, w: Optional[torch.Tensor], mode: str, k: int,
     [d, c] (f32) for the bottleneck, None for maxout (pool width ``k``)."""
     if mode not in ("bottleneck", "maxout"):
         raise ValueError(f"not a learned codec: {mode!r}")
-    if x.device.type == "cpu":
+    if kernels.route(x, "encode") == "cpu":
         z = R.encode_ref(x, w, mode, k)
         return R.qdq_ref(z, qb) if quantize else z
     d = x.shape[-1]
@@ -272,7 +345,8 @@ def encode(x: torch.Tensor, w: Optional[torch.Tensor], mode: str, k: int,
                        1, q, code, "encode")
     else:
         out = _ln_rows(x2, k, q, code, "encode")
-    kernels.LAUNCHES["encode"] += 1
+    _count(x2, "encode", codec_work("encode", mode, x2.shape[0], d, c,
+                                    x.element_size(), quantize, qb))
     return out.reshape(*x.shape[:-1], c)
 
 
@@ -281,7 +355,7 @@ def decode(z: torch.Tensor, w: torch.Tensor, mode: str) -> torch.Tensor:
     LayerNorm first), in z's dtype.  ``w`` is ``w_d`` [c, d] (f32)."""
     if mode not in ("bottleneck", "maxout"):
         raise ValueError(f"not a learned codec: {mode!r}")
-    if z.device.type == "cpu":
+    if kernels.route(z, "decode") == "cpu":
         return R.decode_ref(z, w, mode)
     code = _codec_args(z, w, "decode")
     c = z.shape[-1]
@@ -289,7 +363,8 @@ def decode(z: torch.Tensor, w: torch.Tensor, mode: str) -> torch.Tensor:
     if mode == "maxout":
         z2 = _ln_rows(z2, 1, 0, code, "decode")
     out = _gemm(z2, w, code)
-    kernels.LAUNCHES["decode"] += 1
+    _count(z2, "decode", codec_work("decode", mode, z2.shape[0], w.shape[1],
+                                    c, z.element_size()))
     return out.reshape(*z.shape[:-1], w.shape[1])
 
 
@@ -302,7 +377,7 @@ def encode_quantize(x: torch.Tensor, w: Optional[torch.Tensor], mode: str,
     maxout (pool width ``k``)."""
     if mode not in ("bottleneck", "maxout"):
         raise ValueError(f"not a learned codec: {mode!r}")
-    if x.device.type == "cpu":
+    if kernels.route(x, "encode_quantize") == "cpu":
         return R.encode_quantize_ref(x, w, mode, k, qb)
     d = x.shape[-1]
     c = w.shape[1] if mode == "bottleneck" else d // k
@@ -321,7 +396,8 @@ def encode_quantize(x: torch.Tensor, w: Optional[torch.Tensor], mode: str,
     else:
         src, kk = x2, k
     q, s = _ln_rows_codes(src, kk, qb, code, "encode_quantize")
-    kernels.LAUNCHES["encode_quantize"] += 1
+    _count(x2, "encode_quantize", codec_work(
+        "encode_quantize", mode, x2.shape[0], d, c, x.element_size(), qb=qb))
     return (q.reshape(*x.shape[:-1], c),
             s.reshape(*x.shape[:-1], c // qb))
 
@@ -341,7 +417,7 @@ def dequantize_decode(q: torch.Tensor, s: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"dequantize_decode: want int8 codes [..., c] and "
                          f"f32 scales [..., c // {qb}], got {q.dtype} "
                          f"{tuple(q.shape)} and {s.dtype} {tuple(s.shape)}")
-    if q.device.type == "cpu":
+    if kernels.route(q, "dequantize_decode") == "cpu":
         return R.dequantize_decode_ref(q, s, w, mode, qb, dtype)
     if s.device != q.device:
         raise ValueError(f"dequantize_decode: codes on {q.device}, scales "
@@ -351,5 +427,7 @@ def dequantize_decode(q: torch.Tensor, s: torch.Tensor, w: torch.Tensor,
                        s.reshape(-1, c // qb).contiguous(), qb,
                        mode == "maxout", dtype, "dequantize_decode")
     out = _gemm(z2, w, code)
-    kernels.LAUNCHES["dequantize_decode"] += 1
+    _count(z2, "dequantize_decode", codec_work(
+        "dequantize_decode", mode, z2.shape[0], w.shape[1], c,
+        out.element_size(), qb=qb))
     return out.reshape(*q.shape[:-1], w.shape[1])

@@ -5,7 +5,12 @@
 
 On a CUDA tensor it launches the kernel or raises; on a CPU tensor it
 runs :func:`~repro_torch.kernels.flash_attention.ref.flash_fwd_ref` at
-the kernel's fixed query offset ``Sk - Sq``.  The kernel tiles queries
+the kernel's fixed query offset ``Sk - Sq``; on a meta tensor it takes
+the meta route of :mod:`repro_torch.kernels` (the CUDA route's checks and
+its ``out`` / ``lse`` on meta, :func:`flash_work` counted).  The meta
+route is not the plain version: that one materialises f32 score blocks
+``[B, KV, G, cq, ck]`` which the kernel keeps in registers and never
+writes to memory, so it would reckon memory the kernel never takes.  The kernel tiles queries
 and keys by 64 itself; ``block_q``/``block_k`` set the chunks of the
 plain version only.  bf16 runs on the tensor cores with 16-byte copies,
 so its q, k and v must meet :func:`bf16_layout_problem`'s rule; f32 runs
@@ -17,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch import kernels
@@ -46,6 +52,27 @@ def bf16_layout_problem(t: torch.Tensor):
     return None
 
 
+def attended_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs the kernel computes at query offset ``Sk -
+    Sq``: every pair the causal and window masks keep."""
+    p = np.arange(Sq, dtype=np.int64) + (Sk - Sq)
+    lo = np.maximum(p - window + 1, 0) if window > 0 else np.zeros_like(p)
+    hi = np.minimum(p, Sk - 1) if causal else np.full_like(p, Sk - 1)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_work(q, k, v, causal: bool, window: int) -> tuple[float, float]:
+    """(operations, bytes) of one forward: ``2 (Dqk + Dv)`` a pair and
+    head, q, k, v read once and ``out`` written once (the kernel table's
+    bound)."""
+    B, Sq, H, D = q.shape
+    Sk, Dv = k.shape[1], v.shape[-1]
+    flops = 2.0 * (D + Dv) * attended_pairs(Sq, Sk, causal, window) * B * H
+    nbytes = (q.numel() + k.numel() + v.numel() + B * Sq * H * Dv) * \
+        q.element_size()
+    return flops, nbytes
+
+
 def flash_attention_fwd(q, k, v, causal=True, window=0, scale=None,
                         block_q: int = DEFAULT_BQ,
                         block_k: int = DEFAULT_BK, with_lse: bool = False):
@@ -54,13 +81,11 @@ def flash_attention_fwd(q, k, v, causal=True, window=0, scale=None,
     B, Sq, H, D = q.shape
     Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[-1]
     scale = D ** -0.5 if scale is None else float(scale)
-    if q.device.type == "cpu":
+    where = kernels.route(q, "flash_attention_fwd")
+    if where == "cpu":
         out, lse = flash_fwd_ref(q, k, v, causal, window, Sk - Sq,
                                  block_q, block_k, scale)
         return (out, lse) if with_lse else out
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_fwd: unsupported device "
-                         f"{q.device}")
     from repro_torch.kernels import _lib
     if not (k.device == v.device == q.device):
         raise ValueError("flash_attention_fwd: q, k, v on different devices")
@@ -87,6 +112,20 @@ def flash_attention_fwd(q, k, v, causal=True, window=0, scale=None,
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    if where == "meta":
+        kernels.meta_call("flash_attention_fwd",
+                          *flash_work(q, k, v, causal, window))
+    else:
+        _launch(q, k, v, out, lse, scale, causal, window, code)
+    if with_lse:
+        return out, lse.reshape(B, KV, H // KV, Sq)
+    return out
+
+
+def _launch(q, k, v, out, lse, scale, causal, window, code) -> None:
+    from repro_torch.kernels import _lib
+    B, Sq, H, D = q.shape
+    Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[-1]
     strides = (ctypes.c_int64 * 9)(*q.stride()[:3], *k.stride()[:3],
                                    *v.stride()[:3])
     rc = _lib.lib().repro_flash_fwd(
@@ -96,6 +135,3 @@ def flash_attention_fwd(q, k, v, causal=True, window=0, scale=None,
         int(window), code, _lib.stream_ptr(q.device))
     _lib.check(rc, "flash_attention_fwd")
     kernels.LAUNCHES["flash_attention_fwd"] += 1
-    if with_lse:
-        return out, lse.reshape(B, KV, H // KV, Sq)
-    return out

@@ -6,7 +6,10 @@ Both take every block >= 1 and any start of their input: the rule
 ``repro_torch.kernels.boundary.kernel.flat_block_path`` picks the kernel
 of ``csrc/blockq.cuh`` (16-byte vectors on lane groups, vectors or
 scalars on thread groups).  On a CUDA tensor each launches its kernel or
-raises; on a CPU tensor it runs the plain version of :mod:`.ref`.
+raises; on a CPU tensor it runs the plain version of :mod:`.ref`; on a
+meta tensor it takes the meta route of :mod:`repro_torch.kernels` (the
+CUDA route's checks and allocations, the kernel's work counted: the
+plain version's padded f32 copies are not the kernel's memory).
 ``repro_torch.kernels.LAUNCHES`` counts one per kernel launch.
 """
 from __future__ import annotations
@@ -27,10 +30,9 @@ def quantize(x: torch.Tensor, block: int = 64):
     if x.dim() != 1 or x.shape[0] % block:
         raise ValueError(f"quant8.quantize: x must be flat with a length "
                          f"divisible by {block}, got {tuple(x.shape)}")
-    if x.device.type == "cpu":
+    where = kernels.route(x, "quant8.quantize")
+    if where == "cpu":
         return R.quantize_ref(x, block)
-    if x.device.type != "cuda":
-        raise ValueError(f"quant8.quantize: unsupported device {x.device}")
     from repro_torch.kernels import _lib
     code = _lib.dtype_code(x, "quant8.quantize")
     x = x.contiguous()
@@ -38,6 +40,11 @@ def quantize(x: torch.Tensor, block: int = 64):
     q = torch.empty((nb, block), dtype=torch.int8, device=x.device)
     s = torch.empty((nb, 1), dtype=torch.float32, device=x.device)
     path = flat_block_path(block, x.dtype, x, q)
+    if where == "meta":
+        m = x.shape[0]
+        kernels.meta_call("quant8_quantize", 5.0 * m,
+                          m * x.element_size() + m + nb * 4)
+        return q, s
     rc = _lib.lib().repro_quant8_quantize(
         x.data_ptr(), q.data_ptr(), s.data_ptr(), nb, block, code,
         FLAT_PATHS[path], _lib.stream_ptr(x.device))
@@ -55,9 +62,10 @@ def dequantize(q: torch.Tensor, s: torch.Tensor,
         raise ValueError(f"quant8.dequantize: want int8 codes [nb, block] "
                          f"and f32 scales [nb, 1], got {q.dtype} "
                          f"{tuple(q.shape)} and {s.dtype} {tuple(s.shape)}")
-    if q.device.type == "cpu":
+    where = kernels.route(q, "quant8.dequantize")
+    if where == "cpu":
         return R.dequantize_ref(q, s, dtype)
-    if q.device.type != "cuda" or s.device != q.device:
+    if s.device != q.device:
         raise ValueError(f"quant8.dequantize: codes on {q.device} and "
                          f"scales on {s.device}")
     from repro_torch.kernels import _lib
@@ -65,6 +73,11 @@ def dequantize(q: torch.Tensor, s: torch.Tensor,
     code = _lib.dtype_code(out, "quant8.dequantize")
     q, s = q.contiguous(), s.contiguous()
     path = flat_block_path(q.shape[1], dtype, q, out)
+    if where == "meta":
+        m = q.numel()
+        kernels.meta_call("quant8_dequantize", 2.0 * m,
+                          m + q.shape[0] * 4 + m * out.element_size())
+        return out
     rc = _lib.lib().repro_quant8_dequantize(
         q.data_ptr(), s.data_ptr(), out.data_ptr(), q.shape[0], q.shape[1],
         code, FLAT_PATHS[path], _lib.stream_ptr(q.device))

@@ -2,7 +2,10 @@
 the Pallas ``repro.kernels.rmsnorm.kernel.rmsnorm``.
 
 On a CUDA tensor it launches the kernel or raises; on a CPU tensor it
-runs :func:`~repro_torch.kernels.rmsnorm.ref.rmsnorm_ref`.  Which of the
+runs :func:`~repro_torch.kernels.rmsnorm.ref.rmsnorm_ref`; on a meta
+tensor it takes the meta route of :mod:`repro_torch.kernels` (the CUDA
+route's checks and output, :func:`rmsnorm_work` counted; the plain
+version's f32 intermediates are not the kernel's memory).  Which of the
 kernel's two paths a call takes is :func:`_plan`'s choice, by width, dtype
 and alignment alone.
 """
@@ -55,13 +58,19 @@ def plan_for(x: torch.Tensor, scale: torch.Tensor) -> Plan:
     return _plan(x.shape[-1], x.dtype, aligned)
 
 
+def rmsnorm_work(x: torch.Tensor) -> tuple[float, float]:
+    """(operations, bytes): 4 f32 operations an element, x read and the
+    output written once, the scale read once."""
+    return 4.0 * x.numel(), 2.0 * x.numel() * x.element_size() + \
+        x.shape[-1] * 4
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     """x [..., d] -> rmsnorm(x) * scale, in x's dtype."""
-    if x.device.type == "cpu":
+    where = kernels.route(x, "rmsnorm")
+    if where == "cpu":
         return rmsnorm_ref(x, scale, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"rmsnorm: unsupported device {x.device}")
     from repro_torch.kernels import _lib
     d = x.shape[-1]
     if scale.shape != (d,) or scale.device != x.device:
@@ -75,6 +84,9 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     code = _lib.dtype_code(x, "rmsnorm")
     plan = plan_for(x, scale)
     out = torch.empty_like(x)
+    if where == "meta":
+        kernels.meta_call("rmsnorm", *rmsnorm_work(x))
+        return out
     rc = _lib.lib().repro_rmsnorm(
         x.data_ptr(), scale.data_ptr(), out.data_ptr(), x.numel() // d, d,
         float(eps), code, plan.vectors, plan.warps,

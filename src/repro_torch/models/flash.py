@@ -129,9 +129,12 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
     it, as the JAX package's ``chunked_attention`` fallback).  Without
     gradients the forward runs alone (no ``lse`` residual)."""
     del impl
+    from repro_torch.models.probe import probe_enabled
     Sq, Dq = q.shape[1], q.shape[3]
     Sk = k.shape[1]
     scale = scale if scale is not None else Dq ** -0.5
+    if probe_enabled():            # the FLOP probe: one block
+        chunk_q, chunk_k = Sq, Sk
     cq, ck = min(chunk_q, Sq), min(chunk_k, Sk)
     if softcap > 0.0:
         out, _ = flash_fwd_ref(q, k, v, causal, window, q_offset, cq, ck,

@@ -146,6 +146,26 @@ def forward_flops_per_token(cfg: ArchConfig, seq: int) -> float:
     return total
 
 
+def decode_flops_per_token(cfg: ArchConfig, kv_len: int) -> float:
+    ctx = _ctx_for(cfg, kv_len, causal_avg=False)
+    total = sum(per_token_layer_flops(cfg, k, ctx) for k in cfg.block_kinds)
+    if cfg.encoder_layers:
+        total += cfg.n_layers * cross_attn_flops(
+            cfg, float(cfg.encoder_max_len))
+    total += 2 * cfg.d_model * cfg.vocab_size
+    return total
+
+
+def train_step_flops(cfg: ArchConfig, seq: int, global_batch: int) -> float:
+    """fwd + bwd (2x) for one optimizer step (no remat recompute)."""
+    return 3.0 * forward_flops_per_token(cfg, seq) * seq * global_batch
+
+
+def model_flops_6nd(n_active_params: float, tokens: float) -> float:
+    """The 6·N·D convention (MoE: N = activated params)."""
+    return 6.0 * n_active_params * tokens
+
+
 def boundary_bytes(cfg: ArchConfig, batch: int, seq: int,
                    compression: str = "none") -> float:
     """Bytes crossing one pipeline-stage boundary, one direction.
@@ -186,6 +206,31 @@ def wire_nbytes(n_elements: float, compression: str = "none") -> float:
     if compression == "int8":
         return float(quant8.compressed_nbytes(int(n_elements)))
     return 2.0 * n_elements
+
+
+def stage_flops_per_token(cfg: ArchConfig, n_stages: int, s: int,
+                          seq: int) -> float:
+    """Per-kind forward FLOPs/token for pipeline stage ``s`` under the
+    canonical ``StagePlan`` — summing over stages reproduces
+    ``forward_flops_per_token`` exactly."""
+    from repro_torch.models.stage_plan import get_stage_plan  # lazy
+    return get_stage_plan(cfg, n_stages).stage_flops(s, seq)
+
+
+def active_params(cfg: ArchConfig) -> float:
+    """Per-token activated parameter count (MoE counts top_k + shared),
+    over ``train.steps.model_specs``."""
+    from repro_torch.train.steps import model_specs
+    from repro_torch.models import params as P
+    total = P.n_params(model_specs(cfg))
+    if cfg.moe is None:
+        return float(total)
+    # subtract inactive experts
+    m = cfg.moe
+    per_expert = 3 * cfg.d_model * m.d_ff_expert
+    n_moe_layers = sum(1 for k in cfg.block_kinds if k in ("moe", "mla_moe"))
+    inactive = n_moe_layers * (m.num_experts - m.top_k) * per_expert
+    return float(total - inactive)
 
 
 def total_params(cfg: ArchConfig) -> float:

@@ -92,6 +92,10 @@ def abstract(specs: Tree) -> Tree:
                     specs, is_leaf=is_spec)
 
 
+def logical_axes(specs: Tree) -> Tree:
+    return tree_map(lambda s: s.axes, specs, is_leaf=is_spec)
+
+
 def n_params(specs: Tree) -> int:
     return sum(int(np.prod(s.shape))
                for s in tree_leaves(specs, is_leaf=is_spec))
@@ -100,6 +104,12 @@ def n_params(specs: Tree) -> int:
 def bytes_of(specs: Tree) -> int:
     return sum(int(np.prod(s.shape)) * s.dtype.itemsize
                for s in tree_leaves(specs, is_leaf=is_spec))
+
+
+def cast_tree(tree: Tree, dtype) -> Tree:
+    """Every floating leaf in ``dtype``; other leaves as they are."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x,
+                    tree)
 
 
 def resolve_device(device) -> torch.device:

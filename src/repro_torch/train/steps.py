@@ -98,6 +98,34 @@ def _value_and_grad(loss_fn, params: Tree, batch: Tree):
     return loss.detach(), ce.detach(), _grads_like(params, leaves, grads)
 
 
+def make_grad_fn(cfg: ArchConfig, remat: bool | str = True,
+                 accum: int = 1):
+    """``grad_fn(params, batch) -> (loss, ce, grads)``: the gradients of
+    :func:`make_train_step`, with its accumulation over ``accum``
+    microbatches."""
+    loss_fn = make_loss_fn(cfg, remat)
+
+    def grad_fn(params: Tree, batch: Tree):
+        if accum == 1:
+            return _value_and_grad(loss_fn, params, batch)
+        mbs = _split_microbatches(batch, accum)
+        grads = tree_map(lambda p: torch.zeros(
+            p.shape, dtype=torch.float32, device=p.device), params)
+        ls, cs = [], []
+        for j in range(accum):
+            l, c, g = _value_and_grad(
+                loss_fn, params, tree_map(lambda a: a[j], mbs))
+            tree_map(lambda a, g: a.add_(g), grads, g)
+            del g
+            ls.append(l)
+            cs.append(c)
+        for a in tree_leaves(grads):
+            a.div_(accum)
+        return torch.stack(ls).mean(), torch.stack(cs).mean(), grads
+
+    return grad_fn
+
+
 def make_train_step(cfg: ArchConfig, optimizer: Optimizer,
                     remat: bool | str = True, accum: int = 1):
     """``train_step(state, batch) -> (new_state, {"loss", "ce"})``.
@@ -109,27 +137,11 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer,
     with ``B / accum``.  The step is functional: the new state is new
     storage, and the input state is left as it was (a caller that drops
     it frees it)."""
-    loss_fn = make_loss_fn(cfg, remat)
+    grad_fn = make_grad_fn(cfg, remat, accum)
 
     def train_step(state: Tree, batch: Tree):
         params = state["params"]
-        if accum == 1:
-            loss, ce, grads = _value_and_grad(loss_fn, params, batch)
-        else:
-            mbs = _split_microbatches(batch, accum)
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
-            ls, cs = [], []
-            for j in range(accum):
-                l, c, g = _value_and_grad(
-                    loss_fn, params, tree_map(lambda a: a[j], mbs))
-                tree_map(lambda a, g: a.add_(g), grads, g)
-                del g
-                ls.append(l)
-                cs.append(c)
-            for a in tree_leaves(grads):
-                a.div_(accum)
-            loss, ce = torch.stack(ls).mean(), torch.stack(cs).mean()
+        loss, ce, grads = grad_fn(params, batch)
         updates, opt = optimizer.update(grads, state["opt"], params)
         del grads
         new_params = tree_map(lambda p, u: p + u.to(p.dtype),

@@ -1528,3 +1528,111 @@ def test_cuda_mesh_across_distinct_cards():
     for a, b in zip(tree_leaves(g2), tree_leaves(g1)):
         scale = float(b.abs().max()) or 1.0
         assert float((a - b).abs().max()) <= 1e-6 * scale
+
+
+def _wrapper_calls(dev: str, dt: torch.dtype) -> list:
+    """(kernel, call) of every wrapper at one shape a path on ``dev``
+    (random from a seed on the card, shapes alone on meta)."""
+    from repro_torch.kernels.boundary import kernel as BK
+    from repro_torch.kernels.quant8 import kernel as QK
+
+    def r(*shape, d=dt):
+        if dev == "meta":
+            return torch.empty(shape, dtype=d, device="meta")
+        return torch.randn(shape, generator=_gen(dev), device=dev).to(d)
+    x, s = r(1024, 4096), r(4096, d=torch.float32)
+    q, kv = r(2, 512, 8, 128), r(2, 512, 2, 128)
+    w_c, w_d = r(4096, 1024, d=torch.float32), r(1024, 4096,
+                                                 d=torch.float32)
+    codes = torch.zeros((1024, 1024), dtype=torch.int8, device=dev)
+    scales = torch.ones((1024, 16), dtype=torch.float32, device=dev)
+    return [
+        ("flash_attention_fwd", lambda: flash_attention_fwd(
+            q, kv, kv, with_lse=True)),
+        ("rmsnorm", lambda: rmsnorm(x, s)),
+        ("qdq_flat", lambda: qdq_flat(x, 64)),
+        ("encode", lambda: BK.encode(x, w_c, "bottleneck", 1, 64, True)),
+        ("decode", lambda: BK.decode(x[:, :1024], w_d, "bottleneck")),
+        ("encode_quantize", lambda: BK.encode_quantize(
+            x, w_c, "bottleneck", 1, 64)),
+        ("dequantize_decode", lambda: BK.dequantize_decode(
+            codes, scales, w_d, "bottleneck", 64, dt)),
+        ("quant8_quantize", lambda: QK.quantize(x.reshape(-1), 64)),
+        ("quant8_dequantize", lambda: QK.dequantize(
+            codes, scales[:, :1], dt)),
+    ]
+
+
+def _allocated(out) -> list:
+    if isinstance(out, torch.Tensor):
+        return [(tuple(out.shape), out.dtype)]
+    return [m for o in out for m in _allocated(o)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_meta_routes_allocate_what_the_card_allocates(dtype):
+    """Every wrapper's meta route gives the CUDA route's outputs (shapes,
+    dtypes), and the dry run's ledger sees the same live-bytes peak on
+    meta as on the card (the same tensors: outputs and, for the bf16
+    codec GEMM, its scratch)."""
+    from repro_torch.launch.hlo_analysis import DeviceLedger
+    dev = _card()
+    for (name, on_card), (_, on_meta) in zip(_wrapper_calls(dev, dtype),
+                                             _wrapper_calls("meta", dtype)):
+        meta_ledger, card_ledger = DeviceLedger(), DeviceLedger()
+        with meta_ledger:
+            meta_out = on_meta()
+        with card_ledger:
+            card_out = on_card()
+        assert _allocated(meta_out) == _allocated(card_out), name
+        assert meta_ledger.peak["meta"] == \
+            card_ledger.peak[f"cuda:{torch.cuda.current_device()}"], name
+
+
+@pytest.mark.cuda
+def test_cuda_meta_calls_equal_launches_on_a_yi6b_layer():
+    """One yi-6b attn layer (B 2, S 1,024), forward and backward: the
+    kernels' meta calls on meta equal their launches on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import params as P
+    from repro_torch.models.blocks import REGISTRY
+    from repro_torch.tree import tree_leaves
+    dev = _card()
+    cfg = get_config("yi-6b")
+
+    def run(device):
+        specs = REGISTRY["attn"][0](cfg)
+        p = P.abstract(specs) if device == "meta" else P.init(0, specs,
+                                                              device)
+        leaves = [a.requires_grad_() for a in tree_leaves(p)]
+        x = torch.zeros((2, 1024, cfg.d_model), dtype=cfg.compute_jdtype,
+                        device=device, requires_grad=True)
+        pos = model_lib.default_positions(cfg, 2, 1024, device=device)
+        y, _ = REGISTRY["attn"][1](cfg, p, x, pos)
+        torch.autograd.grad(y.to(torch.float32).sum(), [x] + leaves)
+
+    kernels.reset_meta_calls()
+    run("meta")
+    meta_calls = dict(kernels.META_CALLS)
+    before = dict(kernels.LAUNCHES)
+    run(dev)
+    launches = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    assert launches == meta_calls
+    assert launches["flash_attention_fwd"] > 0 and launches["rmsnorm"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_gemm_scratch_reckoning_equals_the_library():
+    """The meta route's scratch size equals ``repro_codec_gemm_scratch``
+    at the codec's shapes."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.boundary.kernel import gemm_scratch_bytes
+    _card()
+    lib = _lib.lib()
+    for n, k, m in ((1024, 4096, 1024), (1024, 1024, 4096), (8, 64, 512),
+                    (3000, 8192, 256)):
+        for dt, code in _lib.DTYPE_CODES.items():
+            assert gemm_scratch_bytes(n, k, m, dt) == \
+                lib.repro_codec_gemm_scratch(n, k, m, code), (n, k, m, dt)

@@ -127,13 +127,37 @@ def test_mesh_slice_modules_are_in_the_guard_and_import_without_jax():
     assert r.returncode == 0, r.stderr
 
 
+DRYRUN_SLICE = ("launch/dryrun.py", "launch/hlo_analysis.py",
+                "models/probe.py")
+
+
+def test_dryrun_slice_modules_are_in_the_guard_and_import_without_jax():
+    """The dry run's modules are guarded and import in a process where
+    ``jax`` and ``repro`` cannot be imported at all."""
+    import os
+    import subprocess
+    import sys
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
+             for p in PORT_FILES if "repro_torch" in str(p)}
+    assert all(mod in names for mod in DRYRUN_SLICE)
+    code = ("import sys\n"
+            "sys.modules['jax'] = sys.modules['repro'] = None\n"
+            "import repro_torch.launch.dryrun, repro_torch.models.probe\n"
+            "import repro_torch.launch.hlo_analysis\n"
+            "assert 'jaxlib' not in sys.modules\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=ROOT,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert r.returncode == 0, r.stderr
+
+
 @pytest.mark.parametrize("kernels_flag", ["jnp", "pallas"])
 def test_wrappers_route_by_device_not_by_config(kernels_flag):
     """``cfg.kernels`` selects nothing: a tensor on a device other than
     the CPU reaches the kernel wrapper whatever the flag says (here the
-    ``meta`` device, which the wrappers refuse, so the call raises
-    instead of quietly running the plain version), and a CPU tensor runs
-    the plain version and launches nothing."""
+    ``meta`` device: each call takes its wrapper's meta route, counted
+    in ``META_CALLS``, instead of quietly running the plain version),
+    and a CPU tensor runs the plain version and launches nothing."""
     from repro_torch import kernels
     from repro_torch.compression import codecs
     from repro_torch.models import layers
@@ -164,9 +188,14 @@ def test_wrappers_route_by_device_not_by_config(kernels_flag):
             lambda: codecs.decode_wire(cfg, "bottleneck", {"w_d": w_d},
                                        x[..., :32]),
         ]
+    kernels.reset_meta_calls()
     for call in calls("meta"):
-        with pytest.raises(ValueError, match="unsupported device meta"):
-            call()
+        assert call().device.type == "meta"
+    assert kernels.META_CALLS == {**dict.fromkeys(kernels.LAUNCHES, 0),
+                                  "rmsnorm": 1, "flash_attention_fwd": 1,
+                                  "qdq_flat": 1, "encode": 2, "decode": 1}
+    kernels.reset_meta_calls()
     for call in calls("cpu"):
         assert call().device.type == "cpu"
+    assert kernels.META_CALLS == dict.fromkeys(kernels.LAUNCHES, 0)
     assert kernels.LAUNCHES == before
