@@ -184,6 +184,26 @@ JSON line; any failure raises and exits non-zero):
              batch, reported in bf16 at full depth and bounded (1e-5 /
              1e-4) in f32 twins at wq / wk x 0.3 (swarm-1b at 2
              applications a group, qwen2-vl-2b at one layer a stage).
+13d. train_mesh_moe — llama4-scout-17b-a16e at full width (d 5120, 16
+             experts x 8192, 40 / 8 heads of 128, bf16), one layer a
+             stage over 2 stages: each stage as ``MeshExecutor`` s on
+             ``[cuda:0] x 2`` (a microbatch of 2 x 512 split 1 + 1, the
+             MoE layers in lockstep) and on one device, from the same
+             weights and inputs.  Per layer the split's routes equal the
+             whole-microbatch routing of the same router inputs exactly;
+             route and kept flips against the one-device run and the
+             pairs the shards' own capacity would have kept or dropped
+             otherwise (above zero: the check bites) are reported; the
+             bf16 losses within 2e-2, the gradients' gap per leaf
+             reported, peak memory per backward; an f32 twin of the MoE
+             layer alone, split against unsplit, within 1e-5 of each
+             leaf's largest entry.
+13e. train_pipeline_moe — ``make_pipeline_train_step``'s loss and
+             gradients for the same config over (``pod`` 2, ``data`` 2)
+             of the card, 2 microbatches of 2 x 512 each split 1 + 1,
+             against ``make_reference_loss_fn``: the loss within 2e-2,
+             the gradients' gap reported; flash, rmsnorm and the int8
+             wire's QDQ launch.
 14. train_overlap — ``train``'s setup under the async tick
              (``overlap=True, staleness=0``): boundary tensors in flight
              on the peers' links, stage programs through the executors'
@@ -227,6 +247,14 @@ JSON line; any failure raises and exits non-zero):
 21. train_profile — one training microbatch under ``torch.profiler``:
              device time per kernel, grouped, and the device's idle
              share.
+21b. examples — ``repro_torch.examples`` on the card: quickstart (the
+             loss falls through a preemption), serve_pipeline on yi-6b's
+             reduced config (heads widened to 64 for the flash kernel)
+             with tokens equal to ``reference_generate``'s, and
+             train_swarm_lm at ``--model 100m --steps 12`` (Fig. 4):
+             parity ``OK``, both curves falling, f32 flash and the int8
+             wire's QDQ launching; the JAX example's optimizer (a clip
+             of 1.0) reported beside it.
 22. dryrun — the dry run (``repro_torch.launch.dryrun``) against the
              card: yi-6b's attn layer at the train shape (forward and
              backward), swarm-1b-bottleneck's boundary (encode, decode)
@@ -4345,6 +4373,521 @@ def phase_train_pipeline(torch) -> dict:
     return rows
 
 
+# ------------------------------------------------------------ phase 13d
+# train_mesh_moe: llama4-scout-17b-a16e at full width (d 5120, 16 experts
+# x 8192, 40 / 8 heads of 128, bf16), depth cut to one layer a stage over
+# 2 stages, a microbatch of 2 x 512 split 1 + 1 over a [cuda:0] x 2 mesh,
+# against the same executor on a one-device mesh.  A layer is 4.42 GB,
+# the embedding and the head 2.07 GB each, so a stage holds 6.5 GB; its
+# 2-way run_bwd reaches about 72 GB (phase_train_mesh_moe's reckoning).
+# The f32 twin (the MoE layer alone) holds 8.6 GB of weights and two
+# gradient sets of it.
+MOE_ARCH = "llama4-scout-17b-a16e"
+MOE_SEQ, MOE_MB = 512, 2
+MOE_BF16_RTOL = 2e-2            # the families' bf16 MoE bound
+MOE_TWIN_RTOL = 1e-5            # the f32 twin, split against unsplit
+PIPE_MOE_M = 2                  # microbatches of 2 x 512, split 1 + 1
+# the pipeline's bounds against its reference, between the sound run's
+# reading (loss 0, gradients 1.55e-2 of a leaf's largest entry) and the
+# control's, which routes each shard on its own rows (loss 3.0e-5,
+# gradients 0.75): PERF.md PR 26, H100 80GB HBM3 at 700 W
+PIPE_MOE_LOSS_RTOL = 1e-5
+PIPE_MOE_GRAD_RTOL = 5e-2
+
+
+def moe_config():
+    """llama4-scout at full width, one layer a stage over 2 stages."""
+    from repro_torch.configs import get_config
+    return get_config(MOE_ARCH).with_overrides(n_layers=2)
+
+
+@contextlib.contextmanager
+def moe_calls():
+    """Record every ``apply_moe`` call's router, input and split rule
+    (the routes are recomputed from them afterwards)."""
+    from repro_torch.models import layers as L
+    calls: list = []
+    orig = L.apply_moe
+
+    def recorded(cfg, p, x, route=None):
+        calls.append((cfg, p["router"], x.detach(), L.split_provider()))
+        return orig(cfg, p, x, route=route)
+    L.apply_moe = recorded
+    try:
+        yield calls
+    finally:
+        L.apply_moe = orig
+
+
+def _routing(torch, call) -> dict:
+    """One recorded call's routes: each pair's expert, its kept flag as
+    the layer took it (the microbatch's capacity and slots where split),
+    the shard's route counts, and the kept flag under the shard's own
+    capacity and slots (what the port computed before the split
+    context)."""
+    from repro_torch.models import layers as L
+    cfg, router, x, provider = call
+    m = cfg.moe
+    _, _, sel, onehot = L.moe_route(cfg, {"router": router}, x)
+    T, k, E = x.shape[0] * x.shape[1], m.top_k, m.num_experts
+    pos = (torch.cumsum(onehot, dim=0) * onehot).sum(-1) - 1
+    e = sel.reshape(-1)
+    own = pos < max(1, int(m.capacity_factor * T * k / E))
+    keep = own
+    if provider is not None:
+        split = provider(T, onehot.sum(0))
+        C = max(1, int(m.capacity_factor * split.tokens * k / E))
+        keep = split.offsets[e] + pos < C
+    return {"sel": e, "keep": keep, "counts": onehot.sum(0), "own": own}
+
+
+def _route_checks(torch, whole: list, shards: list) -> dict:
+    """A layer's routes on the split mesh (``shards``: one call a shard)
+    against (a) the whole-microbatch routing of the same router inputs
+    joined, which the split must equal exactly, and (b) the one-device
+    run (``whole``: one call), whose router inputs may differ by
+    rounding: flips are reported.  Also the pairs the shards' own
+    capacity would have kept or dropped otherwise."""
+    parts = [_routing(torch, c) for c in shards]
+    sel = torch.cat([p["sel"] for p in parts])
+    keep = torch.cat([p["keep"] for p in parts])
+    own = torch.cat([p["own"] for p in parts])
+    cfg, router = shards[0][0], shards[0][1]
+    joined = _routing(torch, (cfg, router, torch.cat(
+        [c[2] for c in shards]), None))
+    one = _routing(torch, whole[0])
+    return {
+        "semantics_equal": bool(torch.equal(sel, joined["sel"])
+                                and torch.equal(keep, joined["keep"])),
+        "route_flips_vs_one_device": int((sel != one["sel"]).sum()),
+        "kept_flips_vs_one_device": int((keep != one["keep"]).sum()),
+        "counts_equal_one_device": bool(torch.equal(
+            sum(p["counts"] for p in parts), one["counts"])),
+        "dropped": int((~keep).sum()),
+        "old_capacity_differs": int((own != keep).sum())}
+
+
+def _moe_layer_split(torch, cfg, p, x, n: int = 2):
+    """``apply_moe`` over ``n`` row shards with the split context of the
+    whole microbatch: (outputs joined, aux shares summed)."""
+    from repro_torch.models import layers as L
+    ys, auxs = L.apply_moe_shards(cfg, [p] * n, list(x.chunk(n)))
+    return torch.cat(ys), torch.stack(auxs).sum()
+
+
+def _moe_twin(torch) -> dict:
+    """The MoE layer alone at full width in f32: the split context over 2
+    shards against the unsplit layer, output, aux and every gradient
+    (the weights' and the input's) within ``MOE_TWIN_RTOL`` of each
+    leaf's largest entry."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import params as P
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = moe_config().with_overrides(compute_dtype="float32",
+                                      param_dtype="float32")
+    p = P.init(7, L.moe_specs(cfg), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(MOE_MB, MOE_SEQ, cfg.d_model, generator=gen,
+                    device="cuda")
+    dy = torch.randn(x.shape, generator=gen, device="cuda")
+
+    def run(split: bool):
+        pl = tree_map(lambda a: a.detach().requires_grad_(), p)
+        xl = x.detach().requires_grad_()
+        with torch.enable_grad():
+            y, aux = (_moe_layer_split(torch, cfg, pl, xl) if split
+                      else L.apply_moe(cfg, pl, xl))
+            grads = torch.autograd.grad((y * dy).sum() + aux,
+                                        [xl] + tree_leaves(pl))
+        return y.detach(), float(aux.detach()), list(grads)
+
+    with plain_precision(torch):
+        y1, a1, g1 = run(False)
+        y2, a2, g2 = run(True)
+    row = {"output_max_gap": _max_gap(torch, [y2], [y1]),
+           "aux_rel_diff": abs(a2 - a1) / abs(a1),
+           "grad_max_gap": _leaf_gaps(torch, g2, g1)["grad_max_gap"]}
+    del p, x, dy, y1, y2, g1, g2
+    free(torch)
+    if max(row.values()) > MOE_TWIN_RTOL:
+        raise AssertionError(f"train_mesh_moe f32 twin: {row}")
+    return row
+
+
+def _leaf_paths(tree, prefix: str = "") -> list:
+    """``"a/b/0"`` paths of a tree's leaves, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _leaf_paths(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in _leaf_paths(v, f"{prefix}{i}/")]
+    return [] if tree is None else [prefix.rstrip("/")]
+
+
+def _leaf_gaps(torch, got: list, want: list, chunk: int = 1 << 24
+               ) -> dict:
+    """``_max_gap`` and ``_grad_gap`` in one pass, a leaf at a time in
+    chunks of ``chunk`` elements (f64 copies of a 1e9-element leaf would
+    take 25 GB of transients)."""
+    gap = num = den = 0.0
+    flips = above = 0
+    for a, b in zip(got, want):
+        a, b = a.reshape(-1), b.reshape(-1)
+        dmax = bmax = 0.0
+        for i in range(0, a.numel(), chunk):
+            x, y = a[i:i + chunk].double(), b[i:i + chunk].double()
+            d = x - y
+            dmax = max(dmax, float(d.abs().max()))
+            bmax = max(bmax, float(y.abs().max()))
+            num += float((d * d).sum())
+            den += float((y * y).sum())
+            m = (x.abs() > 1e-8) | (y.abs() > 1e-8)
+            above += int(m.sum())
+            flips += int(((torch.sign(x) != torch.sign(y)) & m).sum())
+            del x, y, d, m
+        gap = max(gap, dmax / max(bmax, 1e-30))
+    return {"grad_max_gap": gap, "grad_rel_l2": math.sqrt(num / den),
+            "grad_sign_flip_share": flips / max(above, 1)}
+
+
+def phase_train_mesh_moe(torch) -> dict:
+    """A MoE stage on a split mesh: each stage of ``moe_config`` as a
+    ``MeshExecutor`` on ``[cuda:0] x 2`` (the microbatch split 1 + 1,
+    its MoE layers in lockstep) and on one device, from the same
+    weights and inputs: routes per layer (identical to the
+    whole-microbatch routing of the same router inputs; flips against
+    the one-device run reported), the bf16 losses within
+    ``MOE_BF16_RTOL``, the gradients' gap reported; then the f32 twin.
+    One stage's weights live at a time (drawn again from their seed for
+    stage 0's backward), so the peak is a stage's: its weights (6.5
+    GB), the one-device gradients (6.5), the 2-way run's gathered copy
+    (6.5), a shard's bf16 gradients (6.5), their f64 sum (26.0) and a
+    fold's f64 block (up to 4.1)."""
+    from repro_torch import kernels
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.dist.mesh import gather
+    from repro_torch.models import params as P
+    from repro_torch.runtime import MeshExecutor, StageState
+    from repro_torch.runtime.numeric import get_stage_programs
+    from repro_torch.tree import tree_leaves
+    t0 = time.time()
+    free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = moe_config()
+    progs = get_stage_programs(cfg, 2, MOE_SEQ, "none")
+    meshes = {1: _card_mesh(torch, 1), 2: _card_mesh(torch, 2)}
+
+    def stage(s: int) -> dict:
+        """Stage ``s``'s executors on both meshes over one weight tree."""
+        params = P.init(11 + s, progs[s].specs, "cuda")
+        out = {}
+        for n, mesh in meshes.items():
+            ex = MeshExecutor(cfg, 2, MOE_SEQ, s, mesh, compress="none")
+            st = StageState()
+            ex.restore(st, {"params": params, "opt": None})
+            out[n] = (ex, st)
+        return out
+
+    b = SyntheticLM(cfg.vocab_size, MOE_SEQ, MOE_MB, seed=17).batch(0)
+    tok = torch.as_tensor(b["tokens"], device="cuda")
+    lab = torch.as_tensor(b["labels"], device="cuda")
+    before = dict(kernels.LAUNCHES)
+    routes, losses, secs, gaps, peaks = [], {}, {}, {}, {}
+
+    def forward(ex, inp, *extra):
+        with moe_calls() as calls:
+            out = {n: e.run_fwd(st, inp, *extra) for n, (e, st) in
+                   ex.items()}
+        one = [c for c in calls if c[2].shape[0] == MOE_MB]
+        two = [c for c in calls if c[2].shape[0] == 1]
+        routes.append(_route_checks(torch, one, two))
+        return out
+
+    def backward(ex, s: int, inp, **kw):
+        """Both meshes' run_bwd: the input cotangent of the one-device
+        run, and the 2-way run's gaps from it."""
+        ref = gx_ref = None
+        for n, (e, st) in ex.items():
+            torch.cuda.synchronize()
+            t1 = time.time()
+            _, gx, gp = e.run_bwd(st, inp, **kw)
+            torch.cuda.synchronize()
+            secs[f"stage{s}_{n}way"] = time.time() - t1
+            peaks[f"stage{s}_{n}way_bwd"] = \
+                torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+            if n == 1:
+                # one part's f64 "sum" is that part exactly: kept in the
+                # gradients' own dtypes (the params'), each f64 sum freed
+                # in turn
+                ref = []
+                for a, w in zip(tree_leaves(gp), tree_leaves(st.params)):
+                    ref.append(gather(a, a.mesh.devices.flat[0]).to(
+                        w.dtype))
+                    a.shards.fill(None)
+                gx_ref = gx
+            else:
+                got = {}
+                for path, a, r in zip(_leaf_paths(gp), tree_leaves(gp),
+                                      ref):
+                    g = gather(a, a.mesh.devices.flat[0])
+                    a.shards.fill(None)
+                    got[path] = _leaf_gaps(torch, [g], [r])["grad_max_gap"]
+                    del g
+                gaps[f"stage{s}"] = {"grad_max_gap": max(got.values()),
+                                     "per_leaf": got}
+                if gx is not None:
+                    gaps[f"stage{s}"]["cotangent_max_gap"] = _max_gap(
+                        torch, [gx], [gx_ref])
+            del gp
+            free(torch)
+        del ref
+        free(torch)
+        return gx_ref
+
+    if meshes[2].shape["data"] != 2 or \
+            MeshExecutor(cfg, 2, MOE_SEQ, 0, meshes[2],
+                         compress="none").dp_shards(MOE_MB) != 2:
+        raise AssertionError("train_mesh_moe: the microbatch did not split")
+    ex0 = stage(0)
+    w = forward(ex0, tok)
+    wire_gap = _max_gap(torch, [w[2]], [w[1]])
+    w = w[1]
+    del ex0
+    free(torch)
+    ex1 = stage(1)
+    out = forward(ex1, w, lab)
+    losses = {n: float(v) for n, v in out.items()}
+    dy = backward(ex1, 1, w, labels=lab)
+    del ex1
+    free(torch)
+    ex0 = stage(0)                    # the same weights, drawn again
+    backward(ex0, 0, tok, dy=dy)
+    del ex0, w, dy
+    free(torch)
+    launched = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES
+                if kernels.LAUNCHES[k] != before[k]}
+    row = {"phase": "train_mesh_moe", "arch": cfg.name,
+           "layers": cfg.n_layers, "stages": 2,
+           "microbatch": [MOE_MB, MOE_SEQ], "split": [1, 1],
+           "routes": routes, "loss_one_device": losses[1],
+           "loss_split": losses[2],
+           "loss_rel_diff": abs(losses[2] - losses[1]) / abs(losses[1]),
+           "stage0_output_max_gap": wire_gap, "grads": gaps,
+           "run_bwd_s": secs, "launches": launched,
+           "max_memory_allocated_gb": max(peaks.values())}
+    torch.cuda.reset_peak_memory_stats()
+    row["f32_twin"] = _moe_twin(torch)
+    row["f32_twin"]["max_memory_allocated_gb"] = \
+        torch.cuda.max_memory_allocated() / 1e9
+    row["peaks_gb"] = peaks
+    row["seconds"] = time.time() - t0
+    emit(row)
+    bad = [r for r in routes if not r["semantics_equal"]]
+    if bad or row["loss_rel_diff"] > MOE_BF16_RTOL:
+        raise AssertionError(f"train_mesh_moe: routes {routes}, losses "
+                             f"{losses}")
+    if sum(r["old_capacity_differs"] for r in routes) == 0:
+        raise AssertionError("train_mesh_moe: the shards' own capacity "
+                             "keeps the same pairs; the check does not "
+                             "bite")
+    if not launched.get("flash_attention_fwd") or \
+            not launched.get("rmsnorm"):
+        raise AssertionError(f"train_mesh_moe: launches {launched}")
+    return row
+
+
+def _pipeline_routes(torch, calls: list, ref_calls: list) -> list:
+    """The pipeline's recorded ``apply_moe`` calls as route checks: each
+    slot's two shard calls in turn (the forward's, then the ticks'
+    recompute), each pair against the reference's call of the same
+    layer and microbatch (the one with the pair's router whose input is
+    nearest the pair's joined input)."""
+    shard = [c for c in calls if c[2].shape[0] == MOE_MB // 2]
+    if not shard or len(shard) % 2:
+        raise AssertionError(f"train_pipeline_moe: {len(shard)} shard "
+                             "calls of apply_moe")
+    out = []
+    for i in range(0, len(shard), 2):
+        pair = shard[i:i + 2]
+        x = torch.cat([c[2] for c in pair]).float()
+        whole = min((c for c in ref_calls if torch.equal(c[1], pair[0][1])),
+                    key=lambda c: float((c[2].float() - x).abs().max()))
+        out.append(_route_checks(torch, [whole], pair))
+    return out
+
+
+def phase_train_pipeline_moe(torch) -> dict:
+    """The pipeline's MoE case: ``make_pipeline_train_step``'s loss and
+    gradients (no update) for ``moe_config`` over (``pod`` 2, ``data``
+    2) of the card, ``PIPE_MOE_M`` microbatches of 2 x 512 each split 1
+    + 1 (their MoE layers in lockstep), against
+    ``make_reference_loss_fn`` on the same card, params and batch.
+    Every layer's routes on the split must equal the whole-microbatch
+    routing of the same router inputs, and the shards' own capacity must
+    keep or drop some pairs otherwise.  A control routes each shard on
+    its own rows (the reference at ``2 * PIPE_MOE_M`` microbatches of
+    one row: the port's computation before the split context), and the
+    loss and gradient bounds sit between the sound run's reading and the
+    control's (``PIPE_MOE_LOSS_RTOL``, ``PIPE_MOE_GRAD_RTOL``); the
+    control must break one of them.  Reckoned: params 13.0 GB bf16, two
+    gradient sets of 13.0 GB each (the pipeline's is freed before the
+    control's), a tick's gathered stage blocks 8.8 GB: about 50 GB."""
+    from repro_torch import kernels
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.dist.pipeline import make_pipeline_train_step, \
+        make_reference_loss_fn
+    from repro_torch.models import params as P
+    from repro_torch.train.steps import _value_and_grad, model_specs
+    from repro_torch.tree import tree_leaves
+    t0 = time.time()
+    free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = moe_config()
+    mesh = _card_mesh(torch, 4, shape=(2, 2), axes=("pod", "data"))
+    params = P.init(0, model_specs(cfg), "cuda")
+    b = SyntheticLM(cfg.vocab_size, MOE_SEQ, MOE_MB * PIPE_MOE_M,
+                    seed=17).batch(0)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in b.items()}
+    step = make_pipeline_train_step(cfg, train_opt(), 2, PIPE_MOE_M)
+    before = dict(kernels.LAUNCHES)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    with mesh, plain_flash_calls() as pf, moe_calls() as calls:
+        loss_p, _, g_p = _value_and_grad(step.loss_fn, params, batch)
+    torch.cuda.synchronize()
+    pipe_s = time.time() - t1
+    launched = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES
+                if kernels.LAUNCHES[k] != before[k]}
+    ref = make_reference_loss_fn(cfg, 2, PIPE_MOE_M)
+    with moe_calls() as ref_calls:
+        loss_r, _, g_r = _counted(torch, lambda: _value_and_grad(
+            ref, params, batch))
+    routes = _pipeline_routes(torch, calls, ref_calls)
+    del calls, ref_calls
+    gr = tree_leaves(g_r)
+    sound = {"loss_rel_diff": abs(float(loss_p) - float(loss_r))
+             / abs(float(loss_r)), **_leaf_gaps(torch, tree_leaves(g_p),
+                                                gr)}
+    del g_p
+    free(torch)
+    own = make_reference_loss_fn(cfg, 2, 2 * PIPE_MOE_M)
+    loss_c, _, g_c = _counted(torch, lambda: _value_and_grad(
+        own, params, batch))
+    control = {"loss_rel_diff": abs(float(loss_c) - float(loss_r))
+               / abs(float(loss_r)), **_leaf_gaps(torch, tree_leaves(g_c),
+                                                  gr)}
+    row = {"phase": "train_pipeline_moe", "arch": cfg.name,
+           "layers": cfg.n_layers, "mesh": dict(mesh.shape),
+           "microbatches": PIPE_MOE_M, "microbatch": [MOE_MB, MOE_SEQ],
+           "loss": float(loss_p), "reference_loss": float(loss_r),
+           **sound, "control_loss": float(loss_c),
+           "control": control, "bounds": {
+               "loss_rel_diff": PIPE_MOE_LOSS_RTOL,
+               "grad_max_gap": PIPE_MOE_GRAD_RTOL},
+           "route_pairs": len(routes),
+           "routes_semantics_equal": all(r["semantics_equal"]
+                                         for r in routes),
+           "route_flips_vs_reference": sum(
+               r["route_flips_vs_one_device"] for r in routes),
+           "kept_flips_vs_reference": sum(
+               r["kept_flips_vs_one_device"] for r in routes),
+           "old_capacity_differs": [r["old_capacity_differs"]
+                                    for r in routes],
+           "pipeline_s": pipe_s, "launches": launched,
+           "plain_flash_calls": len(pf),
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated()
+           / 1e9}
+    del params, g_r, g_c, gr, step, ref, own
+    free(torch)
+    row["seconds"] = time.time() - t0
+    emit(row)
+
+    def within(r):
+        return (r["loss_rel_diff"] <= PIPE_MOE_LOSS_RTOL
+                and r["grad_max_gap"] <= PIPE_MOE_GRAD_RTOL)
+    if not row["routes_semantics_equal"] or \
+            not sum(row["old_capacity_differs"]) or not within(sound) or \
+            within(control) or pf or not all(
+                launched.get(k) for k in ("flash_attention_fwd", "rmsnorm",
+                                          "qdq_flat")):
+        raise AssertionError(f"train_pipeline_moe: {row}")
+    return row
+
+
+# ------------------------------------------------------------ phase 21b
+# the examples (repro_torch.examples) on the card: quickstart, the
+# serving demo on yi-6b's reduced config (head dims widened for the
+# flash kernel), and the Fig. 4 parity run at --model 100m with both
+# arms unclipped (the example's default clip of 1.0, JAX's, is per stage
+# in SWARM and of the whole model in make_train_step: ROADMAP queue 3)
+EXAMPLE_SERVE = ["--arch", "yi-6b", "--batch", "4", "--prompt-len", "32",
+                 "--new-tokens", "16"]
+EXAMPLE_TRAIN = ["--model", "100m", "--steps", "12", "--grad-clip", "0"]
+
+
+def phase_examples(torch) -> dict:
+    """Each example's ``main`` on the card (its default device):
+    quickstart's loss falls through its preemption; serve_pipeline's
+    tokens equal ``reference_generate``'s on the same weights and
+    prompts; train_swarm_lm at ``--model 100m --grad-clip 0`` prints
+    parity ``OK``, both curves fall, and its f32 flash and the int8
+    wire's QDQ launch."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_reduced
+    from repro_torch.examples import card_sized, quickstart, \
+        serve_pipeline, train_swarm_lm
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import params as P
+    from repro_torch.serve import reference_generate
+    t0 = time.time()
+    rows = {}
+    t1 = time.time()
+    out = quickstart.main([])
+    rows["quickstart"] = {"losses": out["losses"],
+                          "failures": out["failures"],
+                          "seconds": time.time() - t1}
+    cfg = card_sized(get_reduced("yi-6b"), torch.device("cuda"))
+    params = P.init(0, model_lib.lm_specs(cfg), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 32), generator=gen,
+                            device="cuda")
+    t1 = time.time()
+    got = serve_pipeline.main(EXAMPLE_SERVE, params=params, prompts=prompts)
+    rows["serve_pipeline"] = {"head_dim": cfg.hd,
+                              "seconds": time.time() - t1}
+    want = _counted(torch, lambda: reference_generate(
+        cfg, params, prompts.cpu().numpy(), 16))
+    rows["serve_pipeline"]["tokens_equal_reference"] = bool(
+        (got.cpu().numpy() == want).all())
+    del params
+    free(torch)
+    before = dict(kernels.LAUNCHES)
+    t1 = time.time()
+    with plain_flash_calls() as pf:
+        out = train_swarm_lm.main(EXAMPLE_TRAIN)
+    launched = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES
+                if kernels.LAUNCHES[k] != before[k]}
+    rows["train_swarm_lm"] = {
+        "argv": EXAMPLE_TRAIN, "swarm_losses": out["swarm_losses"],
+        "ref_losses": out["ref_losses"], "swarm_wall_s": out["swarm_s"],
+        "ref_wall_s": out["ref_s"], "parity": out["parity"],
+        "launches": launched, "plain_flash_calls": len(pf),
+        "seconds": time.time() - t1}
+    free(torch)
+    emit({"phase": "examples", **rows, "seconds": time.time() - t0})
+    tr = rows["train_swarm_lm"]
+    if not rows["serve_pipeline"]["tokens_equal_reference"] or \
+            tr["parity"] != "OK" or pf or \
+            not tr["swarm_losses"][-1] < tr["swarm_losses"][0] or \
+            not tr["ref_losses"][-1] < tr["ref_losses"][0] or \
+            not launched.get("flash_attention_fwd") or \
+            not launched.get("qdq_flat"):
+        raise AssertionError(f"examples: {rows}")
+    return rows
+
+
 # ------------------------------------------------------------ phase 22
 # the dry run's pipeline cell: make_pipeline_train_step over the multi-pod
 # mesh (pod 2 x data 16 x model 16, on meta), which the dry run takes for
@@ -4599,6 +5142,10 @@ def main() -> None:
     # shifting-buffer pipeline at full width and depth
     phase_train_mesh(torch, train, ref_losses)
     phase_train_pipeline(torch)
+    # a MoE stage over a data-split microbatch (llama4-scout at full
+    # width, one layer a stage): mesh peers, then the pipeline
+    phase_train_mesh_moe(torch)
+    phase_train_pipeline_moe(torch)
     # the async tick: in-flight edges (losses to train's bit), then
     # delayed parameter updates behind the bounded-staleness barrier
     t_new = time.time()
@@ -4613,6 +5160,7 @@ def main() -> None:
     phase_train_rollback(torch, ref_losses)
     launches.update(phase_wire_codes(torch)["launches"])
     phase_train_profile(torch)
+    phase_examples(torch)
     # the dry run's meta reckoning against the card, and one pipeline cell
     phase_dryrun(torch, dryrun_proc)
     replaces = {

@@ -16,8 +16,9 @@ kernels on a CUDA tensor and run the plain versions on a CPU tensor,
 whatever ``cfg.kernels`` says (it is kept for parity with the JAX
 configs).  ``pipeline_boundary_specs`` gives the GSPMD pipeline's
 stage-stacked codec specs, which the parameter counts of
-``models.flops`` read; the pipeline that trains them comes with the
-multi-GPU slice (ROADMAP queue 1 item 5).
+``models.flops`` read and which the shifting-buffer pipeline
+(``dist/pipeline.py::make_pipeline_train_step``) trains with the
+model.
 """
 from __future__ import annotations
 

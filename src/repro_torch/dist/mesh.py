@@ -172,7 +172,9 @@ class CollectiveRecorder:
         self.bytes: dict[tuple, dict[str, float]] = {}
         self.counts: dict[tuple, dict[str, int]] = {}
 
-    def log(self, kind: str, coord: tuple, nbytes: float) -> None:
+    def log(self, kind: str, coord: tuple, nbytes: float,
+            times: int = 1) -> None:
+        """``times`` moves of ``nbytes`` in all reaching ``coord``."""
         if kind not in COLLECTIVE_KINDS:
             raise ValueError(f"not a collective kind: {kind!r}")
         coord = tuple(coord)
@@ -180,7 +182,7 @@ class CollectiveRecorder:
                                                         0.0))
         n = self.counts.setdefault(coord, dict.fromkeys(COLLECTIVE_KINDS, 0))
         by[kind] += float(nbytes)
-        n[kind] += 1
+        n[kind] += int(times)
 
 
 @contextlib.contextmanager
@@ -571,6 +573,7 @@ def reduce_scatter_tree(parts: Iterable[Tree], shardings: Tree,
             acc = tree_map(first, part, shardings)
         else:
             tree_map(fold, acc, part)
+        del part                 # dropped before the next part is made
     if acc is None:
         raise ValueError("reduce_scatter_tree got no parts")
     return acc

@@ -21,9 +21,13 @@ output of it exists, so none reaches the loss and no cotangent flows
 back from it.  Within a stage the microbatch splits over ``data`` when
 it divides (else it runs whole, as ``resolve_spec`` replicates it), and
 the data shards' cross-entropies are averaged (they are equal-sized
-means).  Autograd through the tick loop gives the reverse schedule;
-``remat`` runs each tick under one non-reentrant checkpoint, so backward
-recomputes a tick from its inbound buffer.
+means).  A MoE stage's data shards run in lockstep, layer by layer, so
+each MoE layer routes over the whole microbatch as JAX's program does
+(its capacity, slots and route counts: ``models.layers.MoESplit``), and
+the shards' balance-loss shares add up to the microbatch's.  Autograd
+through the tick loop gives the reverse schedule; ``remat`` runs each
+tick under one non-reentrant checkpoint, so backward recomputes a tick
+from its inbound buffer.
 
 Parameters: the step places the state's params by
 ``state_shardings(cfg, mesh, pipeline=True)`` at its start (the stacked
@@ -61,7 +65,7 @@ from repro_torch.dist.constrain import current_mesh, resolve_spec
 from repro_torch.dist.mesh import Mesh, at, gather, gather_tree, \
     place_as, send
 from repro_torch.models import model as model_lib
-from repro_torch.models.blocks import REGISTRY
+from repro_torch.models.blocks import MOE_PRE, apply_lockstep, per_shard
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.stage_plan import get_stage_plan
 from repro_torch.optim.adamw import Optimizer
@@ -69,10 +73,6 @@ from repro_torch.tree import tree_leaves, tree_map
 
 Tree = Any
 Tensor = torch.Tensor
-
-# block kinds whose apply returns a balance loss: its statistics are
-# over the rows a call sees, so a data-split microbatch would change it
-_AUX_KINDS = ("moe", "mla_moe")
 
 
 def stage_periodic(cfg: ArchConfig, n_stages: int) -> bool:
@@ -133,33 +133,44 @@ def _stage_rows(cfg: ArchConfig, n_stages: int
 
 
 def make_block_core(cfg: ArchConfig, runs: list[tuple[str, int]],
-                    reps: int = 1, *, remat: bool = False) -> Callable:
-    """The stage core: walk ``runs`` of stacked layer params over ``(x,
-    aux)``; ``blocks_s`` is one stage's ``[tree-per-run]`` list (leaves
-    stacked ``[count, ...]``).  ``reps > 1`` re-applies each layer
-    (ALBERT sharing) with its weights cast to the activation dtype once
-    (``lm_apply``'s rule); ``remat`` checkpoints each application."""
-    def block_fn(blocks_s: Tree, x: torch.Tensor, aux: torch.Tensor,
-                 positions: torch.Tensor):
-        for (kind, _), seg in zip(runs, blocks_s):
-            apply_fn = REGISTRY[kind][1]
-            for p in model_lib.layers(seg):
-                p_low = model_lib.compute_cast(p, x.dtype) if reps > 1 \
-                    else None
-                step = model_lib._step(cfg, apply_fn, p, positions, p_low)
-                if remat:
-                    step = model_lib.checkpointed(step)
+                    reps: int = 1) -> Callable:
+    """The stage core: walk ``runs`` of stacked layer params over the data
+    shards of one microbatch, ``(blocks, xs, auxs, positions, scope=None)
+    -> (xs, auxs)`` (lists a shard, row order; one entry where the
+    microbatch runs whole).  A shard's ``blocks`` is one stage's
+    ``[tree-per-run]`` list (leaves stacked ``[count, ...]``).  The
+    shards go layer by layer in lockstep
+    (:func:`repro_torch.models.blocks.apply_lockstep`): each MoE layer
+    routes over all of them and adds each shard's share of its balance
+    loss to that shard's aux.  ``reps > 1`` re-applies each layer (ALBERT
+    sharing) with its weights cast to the activation dtype once
+    (``lm_apply``'s rule).  ``scope(j)`` is a context shard ``j``'s ops
+    run in."""
+    def block_fn(blocks: list, xs: list, auxs: list, positions: list,
+                 scope: Optional[Callable] = None):
+        for r, (kind, _) in enumerate(runs):
+            segs = per_shard(scope, lambda b: model_lib.layers(b[r]),
+                             blocks)
+            for ps in zip(*segs):
+                lows = per_shard(scope, lambda p, x: model_lib.compute_cast(
+                    p, x.dtype) if reps > 1 else None, ps, xs)
                 for _ in range(reps):
-                    x, aux = step(x, aux)
-        return x, aux
+                    ws = per_shard(scope, lambda p, low: p if low is None
+                                   else model_lib.shared_application(p, low),
+                                   ps, lows)
+                    xs, shares = apply_lockstep(cfg, kind, ws, xs,
+                                                positions, scope)
+                    auxs = per_shard(scope, lambda a, sh: a + sh, auxs,
+                                     shares)
+        return xs, auxs
 
     return block_fn
 
 
-def _make_stage_fn(cfg: ArchConfig, n_stages: int, remat: bool = False):
+def _make_stage_fn(cfg: ArchConfig, n_stages: int):
     """One (periodic) stage's core."""
     spec = get_stage_plan(cfg, n_stages).stages[0]
-    return make_block_core(cfg, list(spec.runs), spec.reps, remat=remat)
+    return make_block_core(cfg, list(spec.runs), spec.reps)
 
 
 def _resolve_codec(cfg: ArchConfig, n_stages: int,
@@ -270,7 +281,9 @@ def make_pipeline_train_step(cfg: ArchConfig, optimizer: Optimizer,
     ce)`` is the pipelined loss alone (a step's gradients without its
     update).  ``shards`` runs only the first ``shards`` data shards of
     every slot (None: all): the dry run's count of equal shards, once
-    each (the loss then averages the shards run)."""
+    each (the loss then averages the shards run; a MoE shard routes on
+    its own rows unless the caller sets a rule by
+    ``models.layers.moe_split``, as the dry run does)."""
     if not stage_periodic(cfg, n_stages):
         raise ValueError(f"{cfg.name}: layer stack is not periodic at "
                          f"{n_stages} stages (see stage_periodic)")
@@ -278,7 +291,7 @@ def make_pipeline_train_step(cfg: ArchConfig, optimizer: Optimizer,
     do_remat = (remat != "none") if isinstance(remat, str) else bool(remat)
     stage_fn = _make_stage_fn(cfg, n_stages)
     rows_of = _stage_rows(cfg, n_stages)
-    has_aux = any(k in _AUX_KINDS for k, _ in _period_runs(cfg, n_stages))
+    routes_whole = any(k in MOE_PRE for k, _ in _period_runs(cfg, n_stages))
     S_, M = n_stages, n_microbatches
 
     from repro_torch.dist.sharding import state_shardings
@@ -295,11 +308,12 @@ def make_pipeline_train_step(cfg: ArchConfig, optimizer: Optimizer,
         home = params["embed"].device
         mesh = current_mesh() or Mesh([home], ("data",))
         lay = _Layout(mesh, S_, mb)
-        if has_aux and lay.n_data > 1:
-            raise NotImplementedError(
-                f"{cfg.name}: a MoE balance loss over a data-split "
-                "microbatch is another function of the batch; run it on "
-                "a mesh whose data axis does not split the microbatch")
+        # a MoE slot routes over the whole microbatch: its data shards
+        # go in one lockstep call; where only some shards run (the dry
+        # run's equal shards), one call each
+        run = range(lay.n_data if shards is None else shards)
+        calls = [list(run)] if routes_whole and shards is None else \
+            [[j] for j in run]
         placed = tree_map(place_as, params,
                           state_shardings(cfg, mesh, pipeline=True)
                           ["params"])
@@ -328,25 +342,46 @@ def make_pipeline_train_step(cfg: ArchConfig, optimizer: Optimizer,
             return model_lib.default_positions(cfg, lay.rows, S,
                                                device=dev)
 
-        def slot(t: int, s: int, j: int, z: Optional[Tensor],
-                 aux: Optional[Tensor]):
-            """Slot ``s`` at tick ``t`` on data shard ``j``: the wire
-            tensor for slot ``s + 1`` and the aux so far, or (ce, aux)
-            on the last slot."""
-            with at(lay.coord(s, j)):
-                return slot_on(t, s, j, z, aux)
+        def slots(t: int, s: int, js: list, zs: list, auxs: list) -> list:
+            """Slot ``s`` at tick ``t`` on data shards ``js`` in one
+            lockstep call (shards on one device share one gathered copy
+            of the stage's blocks): each shard's wire tensor for slot ``s
+            + 1`` and aux so far, or (ce, aux) on the last slot, shard
+            after shard."""
+            scope = lambda i: at(lay.coord(s, js[i]))    # noqa: E731
+            devs = [lay.device(s, j) for j in js]
+            blocks: dict = {}
 
-        def slot_on(t: int, s: int, j: int, z: Optional[Tensor],
-                    aux: Optional[Tensor]):
+            def stage_in(j, dev, z, aux):
+                x, aux = slot_enter(t, s, j, z, aux)
+                if dev not in blocks:
+                    blocks[dev] = blocks_on(s, dev)
+                return x, aux, positions(t - s, j, dev)
+            ins = per_shard(scope, stage_in, js, devs, zs, auxs)
+            xs, outs = stage_fn([blocks[d] for d in devs],
+                                *map(list, zip(*ins)), scope)
+            # the stage's gathered blocks and inputs go before the head
+            del ins
+            blocks.clear()
+            return [v for pair in per_shard(
+                scope, lambda j, x, aux: slot_leave(t, s, j, x, aux), js,
+                xs, outs) for v in pair]
+
+        def slot_enter(t: int, s: int, j: int, z: Optional[Tensor],
+                       aux: Optional[Tensor]):
+            """The stage input and aux of slot ``s``, shard ``j``."""
             m, dev = t - s, lay.device(s, j)
             if s == 0:
                 x = model_lib.embed(cfg, {"embed": gather(
                     placed["embed"], dev)}, rows(tok_mb[m], j, dev))
                 aux = torch.zeros((), dtype=torch.float32, device=dev)
-            else:
-                x = _decode(cfg, comp, codec_on(s - 1, dev), z)
-            x, aux = stage_fn(blocks_on(s, dev), x, aux,
-                              positions(m, j, dev))
+                return x, aux
+            return _decode(cfg, comp, codec_on(s - 1, dev), z), aux
+
+        def slot_leave(t: int, s: int, j: int, x: Tensor, aux: Tensor):
+            """The stage output onward: the wire and aux sent to slot
+            ``s + 1``, or (ce, aux) on the last slot."""
+            m, dev = t - s, lay.device(s, j)
             if s < S_ - 1:
                 nxt = lay.coord(s + 1, j)
                 out = _encode(cfg, comp, codec_on(s, dev), x)
@@ -367,13 +402,16 @@ def make_pipeline_train_step(cfg: ArchConfig, optimizer: Optimizer,
                 if not 0 <= t - s < M:
                     out += [None, None] * lay.n_data
                     continue
+                got: dict = {}
+                for js in calls:
+                    ins = [carry[2 * i:2 * i + 2] if s else (None, None)
+                           for i in ((s - 1) * lay.n_data + j for j in js)]
+                    res = slots(t, s, js, [z for z, _ in ins],
+                                [a for _, a in ins])
+                    got.update((j, res[2 * i:2 * i + 2])
+                               for i, j in enumerate(js))
                 for j in range(lay.n_data):
-                    if shards is not None and j >= shards:
-                        out += [None, None]
-                        continue
-                    i = 2 * ((s - 1) * lay.n_data + j)
-                    z, aux = (None, None) if s == 0 else carry[i:i + 2]
-                    out += list(slot(t, s, j, z, aux))
+                    out += got.get(j, [None, None])
             return tuple(out)
 
         ces, auxs = [], []
@@ -394,9 +432,13 @@ def make_pipeline_train_step(cfg: ArchConfig, optimizer: Optimizer,
                 ces.append(torch.stack([c.to(home) for c in last[0::2]
                                         if c is not None]
                                        ).mean())
-                auxs.append(torch.stack([a.to(home) for a in last[1::2]
-                                         if a is not None]
-                                        ).mean())
+                # the shards' aux: a MoE microbatch's balance loss is the
+                # sum of its shards' shares (run alike: n_data times the
+                # one run), 0 for other kinds
+                shares = [a.to(home) for a in last[1::2] if a is not None]
+                auxs.append(torch.stack(shares).sum() *
+                            (lay.n_data / len(shares)) if routes_whole
+                            else torch.stack(shares).mean())
         ce = torch.stack(ces).mean()
         return ce + torch.stack(auxs).mean(), ce
 
@@ -520,7 +562,8 @@ def make_reference_loss_fn(cfg: ArchConfig, n_stages: int,
             x = model_lib.embed(cfg, params, tok)
             aux = torch.zeros((), dtype=torch.float32, device=dev)
             for s in range(n_stages):
-                x, aux = cores[s](stage_blocks[s], x, aux, pos)
+                (x,), (aux,) = cores[s]([stage_blocks[s]], [x], [aux],
+                                        [pos])
                 if s < n_stages - 1:
                     x = boundary_crossing(cfg, comp, bparams, s, x)
             logits = model_lib.head(cfg, params, x)

@@ -36,6 +36,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -58,6 +59,7 @@ from repro_torch.dist.mesh import Placed, at, gather, gather_tree, \
     log_collective, place_as, reduce_scatter_tree, scatter_block
 from repro_torch.launch import hlo_analysis
 from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 from repro_torch.optim.adamw import adamw
 from repro_torch.train import steps as steps_lib
@@ -136,22 +138,102 @@ def _rules(strategy: str) -> Optional[sh.ShardingRules]:
     return sh.ShardingRules(rules=rules)
 
 
+def _shard_grad_fn(cfg: ArchConfig, remat, accum: int, batch: int,
+                   n: int):
+    """``(grad_fn, alike)``: the gradients data shard 0 of ``n`` computes
+    from its rows of a ``batch``-row step, and how many shards alike
+    each of its MoE layers routes with (:func:`_alike`).  JAX splits
+    the whole batch into ``accum`` microbatches first (microbatch ``j``
+    the rows ``j * batch / accum`` on) and lays each over the mesh.  A
+    shard holding at least ``accum`` rows splits its own rows into
+    ``accum`` parts, part ``j`` in microbatch ``j``; a shard holding
+    fewer computes its rows whole, in the one microbatch they belong
+    to.  Either way a MoE layer sees one of the microbatch's equal parts
+    and takes the microbatch's capacity."""
+    rows = batch // n
+    parts = accum if rows >= accum else 1
+    if rows % parts or (batch // accum) % (rows // parts):
+        raise ValueError(f"{batch} rows over {n} data shards do not split "
+                         f"into {accum} microbatches")
+    alike = (batch // accum) // (rows // parts)
+    return steps_lib.make_grad_fn(cfg, remat, parts), alike
+
+
+def _alike(n: int):
+    """Route every MoE layer inside as data shard 0 of ``n`` shards that
+    route alike: C from ``n`` times the shard's tokens, the route counts
+    ``n`` times its own, its slots from 0.  The dry run computes one
+    shard for ``n`` equal ones, so the others' routing does not exist;
+    the layer takes the microbatch's capacity, as JAX's program does."""
+    if n == 1:
+        return contextlib.nullcontext()
+    return L.moe_split(lambda tokens, counts: L.MoESplit(
+        tokens * n, torch.zeros_like(counts), counts * n))
+
+
+def _reduce_scatter_alike(grads: Tree, shardings: Tree, coords: list
+                          ) -> Tree:
+    """``reduce_scatter_tree([grads] * n, shardings, sources=coords)``
+    on meta, where every data shard's gradients stand as shard 0's.
+    Folding one more equal part runs the same ops as the part before, so
+    the parts after the second are not run again: each adds the second
+    part's bytes moved, coordinate by coordinate, to the open ledgers
+    and its reduce-scatter moves to the recorder (``--strategy dp``'s
+    256 replicated parts took about five minutes of meta ops to fold).
+    Tensors off meta fold every part."""
+    n = len(coords)
+    if n <= 2 or any(t.device.type != "meta" for t in tree_leaves(grads)):
+        return reduce_scatter_tree([grads] * n, shardings, sources=coords)
+    ledgers = hlo_analysis.active_ledgers()
+    snaps: list = []
+
+    def parts():
+        yield grads
+        snaps.append([dict(led.bytes) for led in ledgers])
+        yield grads
+        snaps.append([dict(led.bytes) for led in ledgers])
+
+    gp = reduce_scatter_tree(parts(), shardings, sources=coords[:2])
+    for led, before, after in zip(ledgers, *snaps):
+        for c, b in after.items():
+            led.work_bytes[c] += (b - before.get(c, 0.0)) * (n - 2)
+    rec = mesh_lib._recorder()
+    if rec is not None:
+        later = [tuple(c) for c in coords[2:]]
+        leaves = list(zip(tree_leaves(grads), tree_leaves(
+            shardings,
+            is_leaf=lambda x: isinstance(x, mesh_lib.NamedSharding))))
+        mesh = leaves[0][1].mesh
+        for c in mesh.coords():
+            nbytes = 0
+            for t, s in leaves:
+                sl = mesh_lib.shard_slices(t.shape, s.mesh, tuple(s.spec), c)
+                nbytes += math.prod(len(range(*x.indices(d))) for x, d
+                                    in zip(sl, t.shape)) * t.element_size()
+            k = len(later) - later.count(tuple(c))
+            if k:
+                rec.log("reduce-scatter", c, nbytes * k,
+                        times=k * len(leaves))
+    return gp
+
+
 def _mesh_train_step(cfg: ArchConfig, optimizer, mesh, st_sh: Tree,
-                     b_sh: Tree, remat, accum: int):
+                     b_sh: Tree, remat, accum: int, batch: int):
     """The train step over ``mesh`` by MeshExecutor's scheme: data shard
-    0 computes on its coordinate with the params gathered; every other
+    0 computes on its coordinate with the params gathered, its rows split
+    into microbatches as ``_shard_grad_fn`` says; every other
     shard's gathers run and its gradients are shard 0's (equal shapes);
     the gradients are reduce-scattered into the state's layout (f64, as
     MeshExecutor sums them), the clip norm's partial sums all-reduced,
     and AdamW updates the busiest coordinate's shards."""
-    grad_fn = steps_lib.make_grad_fn(cfg, remat, accum)
     shards = _data_shards(mesh, b_sh["tokens"])
     coords = [mesh.coord(**w) for w in shards]
     c0 = coords[0]
+    grad_fn, alike = _shard_grad_fn(cfg, remat, accum, batch, len(coords))
 
     def step(state: Tree, batch: Tree):
         dev = mesh.devices[c0]
-        with at(c0):
+        with at(c0), _alike(alike):
             params = gather_tree(state["params"], dev)
             loss, ce, grads = grad_fn(params, _gather_where(batch, dev,
                                                            shards[0]))
@@ -159,8 +241,7 @@ def _mesh_train_step(cfg: ArchConfig, optimizer, mesh, st_sh: Tree,
         for c in coords[1:]:
             with at(c):
                 gather_tree(state["params"], mesh.devices[c])
-        gp = reduce_scatter_tree([grads] * len(coords), st_sh["params"],
-                                 sources=coords)
+        gp = _reduce_scatter_alike(grads, st_sh["params"], coords)
         del grads
         log_collective("all-reduce", mesh.coords(), 4)
         with at(c0):
@@ -220,7 +301,7 @@ def build_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, remat="block",
                 shape.global_batch // PIPELINE_MICROBATCHES).n_data
 
             def run():
-                with mesh:
+                with mesh, _alike(n_data):
                     return {home: list(step(state, batch))}, {}
             return Cell(run, {"state": state, "batch": batch}, mesh, True,
                         n_data, 1, home)
@@ -230,7 +311,7 @@ def build_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, remat="block",
         args = {"state": placed(state, st_sh),
                 "batch": placed(specs["batch"], b_sh)}
         step, n, c0 = _mesh_train_step(cfg, opt, mesh, st_sh, b_sh, remat,
-                                       accum)
+                                       accum, shape.global_batch)
         return Cell(lambda: ({c0: list(step(args["state"], args["batch"]))},
                              {}), args, mesh, False, n, 1, c0)
 

@@ -191,6 +191,12 @@ class DeviceLedger(TorchDispatchMode):
         return self.bytes.get(dev, 0.0) + self.work_bytes.get(dev, 0.0)
 
 
+def active_ledgers() -> list:
+    """The :class:`DeviceLedger` s whose block is open."""
+    return [fn.__self__ for fn in kernels.WORK_COUNTERS
+            if isinstance(getattr(fn, "__self__", None), DeviceLedger)]
+
+
 # -------------------------------------------------------------- FLOP probe
 def layer_flop_probe(cfg, shape) -> dict:
     """One layer of each distinct block kind on meta under

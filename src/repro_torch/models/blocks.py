@@ -17,7 +17,8 @@ their KV rows; hymba's is ``{"kv": ring-windowed attention cache,
 "ssm": mamba state}``."""
 from __future__ import annotations
 
-from typing import Any
+import contextlib
+from typing import Any, Callable, Optional
 
 from repro_torch.models import layers as L
 from repro_torch.models import mla as mla_lib
@@ -67,10 +68,14 @@ def _residual_moe(cfg, p, x):
     return x + y, aux
 
 
+def moe_pre(cfg, p, x, positions):
+    """The block up to its MoE: ``x + attn(ln1(x))``."""
+    return x + L.apply_attn(cfg, p["attn"], L.apply_norm(cfg, p["ln1"], x),
+                            positions)
+
+
 def moe_apply(cfg, p, x, positions):
-    x = x + L.apply_attn(cfg, p["attn"], L.apply_norm(cfg, p["ln1"], x),
-                         positions)
-    return _residual_moe(cfg, p, x)
+    return _residual_moe(cfg, p, moe_pre(cfg, p, x, positions))
 
 
 def moe_decode(cfg, p, x, cache, pos, positions):
@@ -113,10 +118,14 @@ def mla_moe_specs(cfg):
             "ln2": L.norm_specs(cfg), "moe": L.moe_specs(cfg)}
 
 
+def mla_moe_pre(cfg, p, x, positions):
+    """The block up to its MoE: ``x + mla(ln1(x))``."""
+    return x + mla_lib.apply_mla(cfg, p["mla"],
+                                 L.apply_norm(cfg, p["ln1"], x), positions)
+
+
 def mla_moe_apply(cfg, p, x, positions):
-    x = x + mla_lib.apply_mla(cfg, p["mla"], L.apply_norm(cfg, p["ln1"], x),
-                              positions)
-    return _residual_moe(cfg, p, x)
+    return _residual_moe(cfg, p, mla_moe_pre(cfg, p, x, positions))
 
 
 def mla_moe_decode(cfg, p, x, cache, pos, positions):
@@ -288,3 +297,44 @@ REGISTRY = {
     "mamba": (mamba_specs, mamba_apply, mamba_decode, mamba_cache,
               mamba_prefill),
 }
+
+
+# ------------------------------------------------ data shards in lockstep
+# the kinds whose apply routes over the whole microbatch (capacity, slots
+# and the balance loss), each with its block up to the MoE
+MOE_PRE = {"moe": moe_pre, "mla_moe": mla_moe_pre}
+
+
+def per_shard(scope: Optional[Callable], f: Callable, *cols) -> list:
+    """``f`` over the data shards' entries of ``cols`` (lists a shard),
+    shard ``j``'s call run in ``scope(j)`` (None: no scope)."""
+    out = []
+    for j, args in enumerate(zip(*cols)):
+        with scope(j) if scope else contextlib.nullcontext():
+            out.append(f(*args))
+    return out
+
+
+def apply_lockstep(cfg, kind: str, ps: list, xs: list, positions: list,
+                   scope: Optional[Callable] = None):
+    """One layer of ``kind`` over the data shards of one microbatch (row
+    order): ``ps`` / ``xs`` / ``positions`` per shard, each on its
+    shard's device.  Returns ``(ys, auxs)`` per shard.  A MoE kind runs
+    every shard up to its MoE, then the MoE over all shards
+    (:func:`~repro_torch.models.layers.apply_moe_shards`), so the shards
+    route as the microbatch would and their aux shares add up to its
+    balance loss; any other kind, or one shard, applies shard by shard.
+    ``scope(j)`` is a context each of shard ``j``'s ops run in (the
+    pipeline's ``dist.mesh.at``)."""
+    pre = MOE_PRE.get(kind)
+    if pre is None or len(xs) == 1:
+        apply_fn = REGISTRY[kind][1]
+        outs = per_shard(scope, lambda p, x, pos: apply_fn(cfg, p, x, pos),
+                         ps, xs, positions)
+        return [y for y, _ in outs], [a for _, a in outs]
+    hs = per_shard(scope, lambda p, x, pos: pre(cfg, p, x, pos), ps, xs,
+                   positions)
+    ns = per_shard(scope, lambda p, h: L.apply_norm(cfg, p["ln2"], h), ps,
+                   hs)
+    ys, auxs = L.apply_moe_shards(cfg, [p["moe"] for p in ps], ns, scope)
+    return per_shard(scope, lambda h, y: h + y, hs, ys), auxs

@@ -11,7 +11,10 @@ kernel.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+import contextlib
+import contextvars
+import dataclasses
+from typing import Any, Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -228,7 +231,102 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def apply_moe(cfg: ArchConfig, p: Tree, x: torch.Tensor):
+@dataclasses.dataclass
+class MoESplit:
+    """What one data shard of a split microbatch needs to route its rows
+    as the whole microbatch routes them: ``tokens`` the microbatch's
+    token count (a host integer: it sets the capacity C), ``offsets``
+    this shard's first slot in each expert (``[E]`` int, the earlier
+    shards' route counts summed: JAX's token-major order is row order),
+    ``counts`` the microbatch's route counts (``[E]`` int, for the
+    balance loss's ``f_e``)."""
+    tokens: int
+    offsets: torch.Tensor
+    counts: torch.Tensor
+
+
+def moe_route(cfg: ArchConfig, p: Tree, x: torch.Tensor):
+    """The router of :func:`apply_moe` over ``x [B, S, d]``: ``(probs [T,
+    E] f32, weights [T, k] renormalised, sel [T, k], onehot [T * k, E]
+    int)``; the route counts are ``onehot.sum(0)`` (``torch.bincount``
+    sizes its output on the host)."""
+    m = cfg.moe
+    xt = x.reshape(-1, x.shape[-1])
+    logits = xt.to(torch.float32) @ p["router"].to(torch.float32)  # [T, E]
+    probs = torch.softmax(logits, dim=-1)
+    weights, sel = _top_k(probs, m.top_k)                        # [T, k]
+    weights = weights / torch.clamp(weights.sum(-1, keepdim=True),
+                                    min=1e-9)
+    return probs, weights, sel, F.one_hot(sel.reshape(-1), m.num_experts)
+
+
+def split_contexts(counts: list, tokens: list) -> list:
+    """The :class:`MoESplit` of every data shard of one microbatch, in
+    row order, from each shard's route counts and token count.  Counts
+    cross to each shard's device as int tensors; nothing is read on the
+    host."""
+    total = sum(tokens)
+    out = []
+    for j, c in enumerate(counts):
+        dev = c.device
+        whole = sum(o.to(dev) for o in counts)
+        before = (sum(o.to(dev) for o in counts[:j]) if j
+                  else torch.zeros_like(c))
+        out.append(MoESplit(total, before, whole))
+    return out
+
+
+def apply_moe_shards(cfg: ArchConfig, ps: list, xs: list, scope=None):
+    """:func:`apply_moe` over the data shards of one microbatch (row
+    order; ``ps`` / ``xs`` per shard, on its device), each routed as
+    the whole microbatch routes it: every shard's router first, then
+    every shard's experts under its :class:`MoESplit`.  Returns ``(ys,
+    auxs)`` per shard; the aux shares add up to the microbatch's balance
+    loss.  ``scope(j)`` is a context shard ``j``'s ops run in."""
+    scope = scope or (lambda j: contextlib.nullcontext())
+    routes = []
+    for j, (p, x) in enumerate(zip(ps, xs)):
+        with scope(j):
+            routes.append(moe_route(cfg, p, x))
+    splits = split_contexts([r[3].sum(0) for r in routes],
+                            [x.shape[0] * x.shape[1] for x in xs])
+    ys, auxs = [], []
+    for j, (p, x) in enumerate(zip(ps, xs)):
+        with scope(j), moe_split(lambda tokens, counts, _s=splits[j]: _s):
+            y, aux = apply_moe(cfg, p, x, route=routes[j])
+        ys.append(y)
+        auxs.append(aux)
+    return ys, auxs
+
+
+# apply_moe's split context: None where x is the whole microbatch, else
+# a function (tokens, counts) -> MoESplit of the call's own token count
+# and route counts
+_SPLIT: contextvars.ContextVar = contextvars.ContextVar("moe_split",
+                                                       default=None)
+
+
+@contextlib.contextmanager
+def moe_split(provider: Callable):
+    """Every :func:`apply_moe` call inside routes its ``x`` as one data
+    shard of a larger microbatch, under the :class:`MoESplit` that
+    ``provider(tokens, counts)`` gives from the call's own token count
+    and route counts (``[E]`` int).  :func:`apply_moe_shards` sets each
+    shard's; a caller that computes one shard for several sets its own
+    rule."""
+    tok = _SPLIT.set(provider)
+    try:
+        yield
+    finally:
+        _SPLIT.reset(tok)
+
+
+def split_provider() -> Optional[Callable]:
+    """The provider :func:`moe_split` set here (None: no split)."""
+    return _SPLIT.get()
+
+
+def apply_moe(cfg: ArchConfig, p: Tree, x: torch.Tensor, route=None):
     """Capacity-bounded top-k MoE, the JAX package's routing exactly.
     x [B, S, d] -> (y [B, S, d], aux loss).
 
@@ -242,7 +340,16 @@ def apply_moe(cfg: ArchConfig, p: Tree, x: torch.Tensor):
     no kept row's value depends on the order rows land in), the experts
     run as batched matmuls, and each kept pair gathers its expert's row
     back, weighted.  Capacity couples the rows of a batch: the same
-    token can be kept in one batch and dropped in another."""
+    token can be kept in one batch and dropped in another.
+
+    Under :func:`moe_split` ``x`` is one data shard of a larger
+    microbatch, routed by its :class:`MoESplit`: T in C is the
+    microbatch's, a pair's slot is the shard's offset plus its local
+    rank, and the aux is this shard's share ``E * sum_e f_e * (sum_{t
+    in shard} p_te) / T`` with the microbatch's ``f_e`` — the shards'
+    shares add up to the microbatch's loss.  The shard's buffer holds its kept rows at their
+    local ranks, ``[E, min(C, T_shard * k), d]``.  ``route`` is
+    :func:`moe_route`'s output where the caller has it."""
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
@@ -250,33 +357,37 @@ def apply_moe(cfg: ArchConfig, p: Tree, x: torch.Tensor):
     E, k = m.num_experts, m.top_k
     cd = xt.dtype
 
-    logits = xt.to(torch.float32) @ p["router"].to(torch.float32)  # [T, E]
-    probs = torch.softmax(logits, dim=-1)
-    weights, sel = _top_k(probs, k)                              # [T, k]
-    weights = weights / torch.clamp(weights.sum(-1, keepdim=True),
-                                    min=1e-9)
-
+    probs, weights, sel, onehot = route or moe_route(cfg, p, x)
     e_flat = sel.reshape(T * k)                                  # [T*k]
-    # the counts from the one-hot (bincount sizes its output on the host)
-    onehot = torch.nn.functional.one_hot(e_flat, E)              # [T*k, E]
-    dispatch_frac = onehot.sum(0).to(torch.float32) / (T * k)
-    aux = E * torch.sum(dispatch_frac * probs.mean(0))
-
-    C = max(1, int(m.capacity_factor * T * k / E))
+    counts = onehot.sum(0)                                       # [E]
+    provider = _SPLIT.get()
+    split = None if provider is None else provider(T, counts)
     pos_in_e = (torch.cumsum(onehot, dim=0) * onehot).sum(-1) - 1  # [T*k]
-    keep = pos_in_e < C
-    # kept pairs to their own rows of the [E * C, d] buffers, dropped ones
-    # to one spare row past them (never read): no host sync for a count
-    rows = torch.where(keep, e_flat * C + pos_in_e, E * C)
-    buf = xt.new_zeros((E * C + 1, d))
+    if split is None:
+        dispatch_frac = counts.to(torch.float32) / (T * k)
+        aux = E * torch.sum(dispatch_frac * probs.mean(0))
+        C = Cb = max(1, int(m.capacity_factor * T * k / E))
+        keep = pos_in_e < C
+    else:
+        Tg = split.tokens
+        dispatch_frac = split.counts.to(torch.float32) / (Tg * k)
+        aux = E * torch.sum(dispatch_frac * (probs.sum(0) / Tg))
+        C = max(1, int(m.capacity_factor * Tg * k / E))
+        Cb = min(C, T * k)
+        keep = split.offsets[e_flat] + pos_in_e < C
+    # kept pairs to their own rows of the [E * Cb, d] buffers, dropped
+    # ones to one spare row past them (never read): no host sync for a
+    # count
+    rows = torch.where(keep, e_flat * Cb + pos_in_e, E * Cb)
+    buf = xt.new_zeros((E * Cb + 1, d))
     buf[rows] = xt.repeat_interleave(k, dim=0)
-    buf = buf[:E * C].view(E, C, d)
+    buf = buf[:E * Cb].view(E, Cb, d)
     g = torch.bmm(buf, p["wi_gate"].to(cd))
     u = torch.bmm(buf, p["wi_up"].to(cd))
-    eo = torch.bmm(F.silu(g) * u, p["wo"].to(cd))                # [E, C, d]
+    eo = torch.bmm(F.silu(g) * u, p["wo"].to(cd))                # [E, Cb, d]
 
     w = weights.reshape(T * k, 1).to(cd) * keep[:, None].to(cd)
-    gathered = eo[e_flat, torch.clamp(pos_in_e, max=C - 1)] * w  # [T*k, d]
+    gathered = eo[e_flat, torch.clamp(pos_in_e, max=Cb - 1)] * w  # [T*k, d]
     y = gathered.reshape(T, k, d).sum(1)
 
     if m.num_shared:

@@ -24,7 +24,14 @@ single-device peer.  One process drives the mesh (see
   runs whole, as ``resolve_spec``'s fallback replicates it.  Data shard
   ``i`` runs on the device at ``batch_axis`` index ``i`` (index 0 on the
   other axes) with the params gathered there: the ``model`` axis shards
-  storage only, a weight is gathered before it is computed with.
+  storage only, a weight is gathered before it is computed with.  A
+  stage with a MoE block routes over the whole microbatch, as JAX's
+  jitted program does with the batch sharded over ``data``: its data
+  shards go to the program in one call and run in lockstep, layer by
+  layer, each MoE layer taking the microbatch's capacity, slot offsets
+  and route counts (``models.layers.MoESplit``); shards on one device
+  share one gathered copy of the params.  Any other stage takes its
+  shards one call each, so one shard's activations live at a time.
 * **Combining shards.**  The stage programs' loss is a token *sum* (so
   microbatch gradients add, App. E), so the shards combine with weight
   one: losses add (in f64), input cotangents and outputs concatenate
@@ -139,6 +146,51 @@ class _MeshBacked:
         return [(dev, piece(inp, i, dev), *(piece(e, i, dev)
                                             for e in extra))
                 for i, dev in enumerate(devs)]
+
+    def _calls(self, shards: list) -> list:
+        """The program calls a microbatch's data shards take: all in one
+        where the program routes over the whole microbatch (MoE), else
+        one shard a call."""
+        return [shards] if self.prog.routes_whole else [[sh]
+                                                        for sh in shards]
+
+    def _run_fwd(self, state: StageState, inp: Tree,
+                 labels: Optional[torch.Tensor], last: bool) -> Tree:
+        outs = []
+        for group in self._calls(self._shards_of(inp, labels)):
+            ps = self._params(state, group)
+            outs += self.prog.fwd_shards(ps, [sh[1] for sh in group],
+                                         [sh[2] for sh in group])
+            del ps
+        return self._sum(outs) if last else self._cat(outs)
+
+    def _bwd_parts(self, state: StageState, shards: list, last: bool,
+                   losses: list, gxs: list):
+        """Each shard's gradients in row order (its loss and input
+        cotangent appended to ``losses`` / ``gxs``), a shard's dropped
+        once the consumer has folded them."""
+        for group in self._calls(shards):
+            for out in self.prog.bwd_shards(
+                    self._params(state, group), [sh[1] for sh in group],
+                    [sh[2] for sh in group]):
+                if last:
+                    loss, gx, gp = out
+                else:
+                    (gx, gp), loss = out, None
+                losses.append(loss)
+                gxs.append(gx)
+                del out
+                yield gp
+                del gp
+
+    def _params(self, state: StageState, shards: list) -> list:
+        """Each shard's params, gathered on its device once a distinct
+        device (shards of a virtual mesh share one gathered copy)."""
+        got: dict = {}
+        for dev, *_ in shards:
+            if dev not in got:
+                got[dev] = self._gathered(state, dev)
+        return [got[dev] for dev, *_ in shards]
 
     def _cat(self, outs: list) -> Tree:
         """Per-shard outputs or cotangents joined along dim 0 on
@@ -275,35 +327,20 @@ class MeshExecutor(_MeshBacked):
     def _last(self) -> bool:
         return self.stage == self.n_stages - 1
 
+    def _gathered(self, state: StageState, dev: torch.device) -> Tree:
+        return gather_tree(state.params, dev)
+
     def run_fwd(self, state: StageState, inp: Tree,
                 labels: Optional[torch.Tensor] = None) -> Tree:
-        outs = []
-        for dev, x, lab in self._shards_of(inp, labels):
-            p = gather_tree(state.params, dev)
-            outs.append(self.prog.fwd(p, x, lab) if self._last()
-                        else self.prog.fwd(p, x))
-            del p
-        return self._sum(outs) if self._last() else self._cat(outs)
+        return self._run_fwd(state, inp, labels, self._last())
 
     def run_bwd(self, state: StageState, inp: Tree,
                 dy: Optional[Tree] = None,
                 labels: Optional[torch.Tensor] = None):
         losses, gxs = [], []
-
-        def parts():
-            for dev, x, d in self._shards_of(
-                    inp, labels if self._last() else dy):
-                p = gather_tree(state.params, dev)
-                if self._last():
-                    loss, gx, gp = self.prog.bwd(p, x, d)
-                else:
-                    (gx, gp), loss = self.prog.bwd(p, x, d), None
-                del p
-                losses.append(loss)
-                gxs.append(gx)
-                yield gp
-
-        gp = reduce_scatter_tree(parts(), self.param_shardings)
+        parts = self._bwd_parts(state, self._shards_of(
+            inp, labels if self._last() else dy), self._last(), losses, gxs)
+        gp = reduce_scatter_tree(parts, self.param_shardings)
         loss = self._sum(losses) if self._last() else None
         return loss, self._cat(gxs), gp
 
@@ -428,40 +465,24 @@ class MeshSpanExecutor(_MeshBacked):
         return self.for_span(range(stage, stage + 1))
 
     # ---------------------------------------------------------- execution
-    def _params_on(self, state: StageState, dev: torch.device) -> tuple:
+    def _gathered(self, state: StageState, dev: torch.device) -> tuple:
         return tuple(gather_tree(state.per_stage[s].params, dev)
                      for s in self.stages)
 
     def run_fwd(self, state: StageState, inp: Tree,
                 labels: Optional[torch.Tensor] = None) -> Tree:
-        outs = []
-        for dev, x, lab in self._shards_of(inp, labels):
-            ps = self._params_on(state, dev)
-            outs.append(self.prog.fwd(ps, x, lab) if self._covers_last()
-                        else self.prog.fwd(ps, x))
-            del ps
-        return self._sum(outs) if self._covers_last() else self._cat(outs)
+        return self._run_fwd(state, inp, labels, self._covers_last())
 
     def run_bwd(self, state: StageState, inp: Tree,
                 dy: Optional[Tree] = None,
                 labels: Optional[torch.Tensor] = None):
         losses, gxs = [], []
-
-        def parts():
-            for dev, x, d in self._shards_of(
-                    inp, labels if self._covers_last() else dy):
-                ps = self._params_on(state, dev)
-                if self._covers_last():
-                    loss, gx, gps = self.prog.bwd(ps, x, d)
-                else:
-                    (gx, gps), loss = self.prog.bwd(ps, x, d), None
-                del ps
-                losses.append(loss)
-                gxs.append(gx)
-                yield gps
-
+        parts = self._bwd_parts(
+            state, self._shards_of(inp, labels if self._covers_last()
+                                   else dy), self._covers_last(), losses,
+            gxs)
         shardings = tuple(self.param_shardings[s] for s in self.stages)
-        gps = reduce_scatter_tree(parts(), shardings)
+        gps = reduce_scatter_tree(parts, shardings)
         loss = self._sum(losses) if self._covers_last() else None
         # per-stage gradients keyed by global stage id, as
         # PipelineExecutor keys them

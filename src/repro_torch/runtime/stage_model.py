@@ -21,6 +21,16 @@ layer (ALBERT-style sharing), with the layer's weights cast to the
 compute dtype once per stage call, outside the ``reps`` loop — under
 autograd a cast inside it would save one copy per application.
 
+Every program takes the data shards of one microbatch as lists, a shard
+an entry (``fwd_shards`` / ``bwd_shards``; ``fwd`` / ``bwd`` are the
+one-shard call, the microbatch whole).  The shards run layer by layer
+in lockstep, so a MoE layer routes over the whole microbatch as JAX's
+jitted program does with the batch sharded over ``data`` (its capacity,
+slots and route counts: ``models.layers.MoESplit``); such a program has
+``routes_whole`` set, and a caller hands it all of a microbatch's shards
+in one call.  Any other program's shards are independent, and a caller
+hands it one at a time.
+
 :func:`build_span_program` fuses a contiguous span ``[lo, hi)`` of
 stages into one program (the
 :class:`repro_torch.runtime.pipeline.PipelineExecutor` backend): the
@@ -53,40 +63,59 @@ from repro_torch.models.stage_plan import get_stage_plan
 from repro_torch.models import params as P
 from repro_torch.models import layers as L
 from repro_torch.models import model as model_lib
-from repro_torch.models.blocks import REGISTRY
+from repro_torch.models.blocks import MOE_PRE, REGISTRY, apply_lockstep
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten_like
 
 Tree = Any
 
 
+class _OneShard:
+    """``fwd`` / ``bwd``: a program's call on one data shard."""
+
+    def fwd(self, params, inp, labels=None):
+        return self.fwd_shards([params], [inp], [labels])[0]
+
+    def bwd(self, params, inp, dy_or_labels):
+        return next(self.bwd_shards([params], [inp], [dy_or_labels]))
+
+
 @dataclasses.dataclass
-class StageProgram:
+class StageProgram(_OneShard):
+    """``fwd_shards(ps, inps, labels=None)`` runs under
+    ``torch.no_grad()`` and returns each shard's output (the token-sum
+    loss on the last stage); ``bwd_shards(ps, inps, dys_or_labels)``
+    recomputes the shards under autograd and yields each shard's ``(gx,
+    gp)`` in row order (``(loss, gx, gp)`` on the last stage), dropping
+    its entries of ``ps`` once they are used."""
     stage: int
     n_stages: int
     specs: Tree
-    fwd: Callable                 # no_grad forward
-    bwd: Callable                 # recompute + autograd backward
+    fwd_shards: Callable          # no_grad forward
+    bwd_shards: Callable          # recompute + autograd backward
     fwd_flops_per_token: float
     bwd_flops_per_token: float    # includes checkpoint recompute
+    routes_whole: bool = False    # MoE: a microbatch's shards in one call
 
 
 @dataclasses.dataclass
-class SpanProgram:
+class SpanProgram(_OneShard):
     """A contiguous span ``[lo, hi)`` of stages fused into one program.
 
-    ``fwd``/``bwd`` take a tuple of per-stage param trees (ordered
+    A shard's params are a tuple of per-stage param trees (ordered
     ``lo..hi-1``, each shaped like that stage's :class:`StageProgram`
     specs), so a span peer's state stays per-stage-keyed: checkpoint
     cuts, downloads and span split/merge hand-offs move single-stage
-    snapshots.  ``bwd`` returns the per-stage gradients as a tuple in
-    the same order."""
+    snapshots.  ``bwd_shards`` yields the per-stage gradients as a
+    tuple in the same order; otherwise the calls are
+    :class:`StageProgram`'s."""
     span: tuple[int, int]
     n_stages: int
     specs: dict[int, Tree]        # per covered stage, keyed by global id
-    fwd: Callable                 # no_grad forward
-    bwd: Callable                 # recompute + autograd backward
+    fwd_shards: Callable          # no_grad forward
+    bwd_shards: Callable          # recompute + autograd backward
     fwd_flops_per_token: float    # whole-span totals
     bwd_flops_per_token: float
+    routes_whole: bool = False    # as StageProgram's
 
     @property
     def stages(self) -> range:
@@ -133,41 +162,53 @@ def _stage_specs(cfg: ArchConfig, s: int, n_stages: int,
 
 def make_block_core(cfg: ArchConfig, runs: list[tuple[str, int]],
                     reps: int = 1) -> Callable:
-    """The stage core: walk ``runs`` of stacked layer params over ``x``.
-    ``blocks_s`` is one stage's ``[tree-per-run]`` list (leaves stacked
-    ``[count, ...]``); ``reps > 1`` re-applies each layer (ALBERT-style
-    sharing, paper §4.3).  Each layer's weights are cast to the compute
-    dtype once, outside the ``reps`` loop: under autograd one cast copy
-    per application would be saved for backward (16 x 537 MB per
-    swarm-1b stage); the applications share one copy and add their
-    weight cotangents in f32 (:class:`repro_torch.models.model.SharedCast`,
-    as ``lm_apply`` does)."""
-    def block_fn(blocks_s: Tree, x: torch.Tensor,
-                 positions: torch.Tensor) -> torch.Tensor:
-        for (kind, _), seg in zip(runs, blocks_s):
-            apply_fn = REGISTRY[kind][1]
-            for p32 in model_lib.layers(seg):
-                p_low = model_lib.compute_cast(p32, x.dtype)
+    """The stage core: walk ``runs`` of stacked layer params over the data
+    shards of one microbatch, ``(blocks, xs, positions) -> xs`` (lists a
+    shard, row order; one entry where the microbatch runs whole).  A
+    shard's ``blocks`` is one stage's ``[tree-per-run]`` list (leaves
+    stacked ``[count, ...]``).  The shards go layer by layer in lockstep
+    (:func:`repro_torch.models.blocks.apply_lockstep`: a MoE layer
+    routes over all of them).  ``reps > 1`` re-applies each layer
+    (ALBERT-style sharing, paper §4.3).  Each layer's weights are cast
+    to the compute dtype once, outside the ``reps`` loop: under autograd
+    one cast copy per application would be saved for backward (16 x 537
+    MB per swarm-1b stage); the applications share one copy and add
+    their weight cotangents in f32
+    (:class:`repro_torch.models.model.SharedCast`, as ``lm_apply``
+    does)."""
+    def block_fn(blocks: list, xs: list, positions: list) -> list:
+        for r, (kind, _) in enumerate(runs):
+            for ps in zip(*(model_lib.layers(b[r]) for b in blocks)):
+                lows = [model_lib.compute_cast(p32, x.dtype)
+                        for p32, x in zip(ps, xs)]
                 for _ in range(reps):
-                    x, _aux = apply_fn(
-                        cfg, model_lib.shared_application(p32, p_low), x,
-                        positions)
-        return x
+                    xs, _auxs = apply_lockstep(
+                        cfg, kind, [model_lib.shared_application(p32, low)
+                                    for p32, low in zip(ps, lows)],
+                        xs, positions)
+        return xs
 
     return block_fn
 
 
+def _routes_whole(cfg: ArchConfig, n_stages: int, stages) -> bool:
+    """Does one of these stages route over the whole microbatch (MoE)?"""
+    return any(k in MOE_PRE for s in stages
+               for k in _stage_runs(cfg, s, n_stages)[0])
+
+
 def _make_stage_fwd(cfg: ArchConfig, s: int, n_stages: int, comp: str,
                     learned: bool) -> Callable:
-    """Stage ``s``'s wire-to-wire forward: decode the inbound wire tensor
-    (embed for stage 0), run the stage's layers through the block core,
-    emit the outbound wire tensor (hidden for the last stage — the
-    head/loss is applied by the caller)."""
+    """Stage ``s``'s wire-to-wire forward over the data shards of one
+    microbatch, ``(ps, inps) -> ys`` (lists a shard): decode each
+    inbound wire tensor (embed for stage 0), run the stage's layers
+    through the block core, emit the outbound wire tensors (hidden for
+    the last stage — the head/loss is applied by the caller)."""
     _, runs, reps = _stage_runs(cfg, s, n_stages)
     core = make_block_core(cfg, runs, reps)
     is_first, is_last = s == 0, s == n_stages - 1
 
-    def stage_fwd(params: Tree, inp: torch.Tensor) -> torch.Tensor:
+    def enter(params: Tree, inp: torch.Tensor) -> torch.Tensor:
         if cfg.rope == "mrope":
             raise NotImplementedError(
                 f"{cfg.name}: M-RoPE stage programs are refused.  The JAX "
@@ -176,17 +217,22 @@ def _make_stage_fwd(cfg: ArchConfig, s: int, n_stages: int, comp: str,
                 "reference trains no M-RoPE config through SWARM stages "
                 "(ROADMAP queue 3); serve it through ServeRunner instead")
         if is_first:
-            x = model_lib.embed(cfg, params, inp)
-        else:
-            x = inp.to(cfg.compute_jdtype)
-            if learned:          # wire tensor arrives c-dim: restore
-                x = codecs.decode_wire(cfg, comp,
-                                       params.get("boundary"), x)
-        positions = torch.arange(x.shape[1], device=x.device)
-        x = core(params["blocks"], x, positions)
+            return model_lib.embed(cfg, params, inp)
+        x = inp.to(cfg.compute_jdtype)
+        if learned:          # wire tensor arrives c-dim: restore
+            x = codecs.decode_wire(cfg, comp, params.get("boundary"), x)
+        return x
+
+    def leave(params: Tree, x: torch.Tensor) -> torch.Tensor:
         if learned and not is_last:    # emit the c-dim wire tensor
             x = codecs.encode_wire(cfg, comp, params.get("boundary"), x)
         return x
+
+    def stage_fwd(ps: list, inps: list) -> list:
+        xs = [enter(p, i) for p, i in zip(ps, inps)]
+        pos = [torch.arange(x.shape[1], device=x.device) for x in xs]
+        xs = core([p["blocks"] for p in ps], xs, pos)
+        return [leave(p, x) for p, x in zip(ps, xs)]
 
     return stage_fwd
 
@@ -380,9 +426,23 @@ def _build_stage_programs_encdec(cfg: ArchConfig, n_stages: int,
 
         fwd_f = _stage_fwd_flops(cfg, s, n_stages, seq_len, "none", False)
         programs.append(StageProgram(
-            stage=s, n_stages=n_stages, specs=specs, fwd=fwd, bwd=bwd,
+            s, n_stages, specs, *_shard_by_shard(fwd, bwd),
             fwd_flops_per_token=fwd_f, bwd_flops_per_token=3.0 * fwd_f))
     return programs
+
+
+def _shard_by_shard(fwd: Callable, bwd: Callable) -> tuple:
+    """``(fwd_shards, bwd_shards)`` of a program whose shards are
+    independent (no MoE), from its one-shard ``fwd`` / ``bwd``."""
+    def fwd_shards(ps, inps, labels=None):
+        labels = labels or [None] * len(inps)
+        return [fwd(p, x, lab) for p, x, lab in zip(ps, inps, labels)]
+
+    def bwd_shards(ps, inps, dys_or_labels):
+        for j, (x, d) in enumerate(zip(inps, dys_or_labels)):
+            p, ps[j] = ps[j], None
+            yield bwd(p, x, d)
+    return fwd_shards, bwd_shards
 
 
 def _build_span_encdec(cfg: ArchConfig, n_stages: int, seq_len: int,
@@ -437,19 +497,21 @@ def _build_span_encdec(cfg: ArchConfig, n_stages: int, seq_len: int,
 
     fwd_f = sum(_stage_fwd_flops(cfg, s, n_stages, seq_len, "none", False)
                 for s in stages)
-    return SpanProgram(span=(lo, hi), n_stages=n_stages, specs=specs,
-                       fwd=fwd, bwd=bwd, fwd_flops_per_token=fwd_f,
+    return SpanProgram((lo, hi), n_stages, specs,
+                       *_shard_by_shard(fwd, bwd),
+                       fwd_flops_per_token=fwd_f,
                        bwd_flops_per_token=3.0 * fwd_f)
 
 
 def build_stage_programs(cfg: ArchConfig, n_stages: int, seq_len: int,
                          compress: Optional[str] = None
                          ) -> list[StageProgram]:
-    """Per-stage ``fwd``/``bwd`` for the elastic path.  ``fwd`` runs
-    under ``torch.no_grad()`` (the last stage's returns the token-sum
-    loss); ``bwd`` recomputes the stage from its boundary input under
-    autograd and returns ``(gx, gp)`` as ``jax.vjp`` does (``(loss, gx,
-    gp)`` on the last stage; ``gx`` is None on stage 0)."""
+    """Per-stage programs for the elastic path.  ``fwd`` runs under
+    ``torch.no_grad()`` (the last stage's returns the token-sum loss);
+    ``bwd`` recomputes the stage from its boundary input under autograd
+    and returns ``(gx, gp)`` as ``jax.vjp`` does (``(loss, gx, gp)`` on
+    the last stage; ``gx`` is None on stage 0); ``fwd_shards`` /
+    ``bwd_shards`` do the same over a microbatch's data shards."""
     get_stage_plan(cfg, n_stages)      # validates the split (ValueError)
     comp = codecs.resolve_mode(cfg, compress)
     learned = comp in codecs.LEARNED and n_stages > 1
@@ -465,37 +527,61 @@ def build_stage_programs(cfg: ArchConfig, n_stages: int, seq_len: int,
         stage_fwd = _make_stage_fwd(cfg, s, n_stages, comp, learned)
         is_first, is_last = s == 0, s == n_stages - 1
 
-        def fwd(params, inp, labels=None, _sf=stage_fwd, _last=is_last):
+        def fwd_shards(ps, inps, labels=None, _sf=stage_fwd,
+                       _last=is_last):
             with torch.no_grad():
-                y = _sf(params, inp)
-                return _head_loss(cfg, params, y, labels) if _last else y
-
-        def bwd(params, inp, dy_or_labels, _sf=stage_fwd, _first=is_first,
-                _last=is_last):
-            leaves = _grad_leaves(params)
-            with torch.enable_grad():
-                p = tree_unflatten_like(params, leaves)
-                x = inp if _first else inp.detach().requires_grad_()
-                ins = leaves if _first else leaves + [x]
-                y = _sf(p, x)
+                ys = _sf(ps, inps)
                 if _last:
-                    out, seed = _head_loss(cfg, p, y, dy_or_labels), None
-                else:
-                    out, seed = y, dy_or_labels.to(y.dtype)
-                grads = torch.autograd.grad(out, ins, seed,
-                                            allow_unused=True)
-            gp = _grads_like(params, leaves, grads[:len(leaves)])
-            gx = None if _first else grads[-1]
-            if _last:
-                return out.detach(), gx, gp
-            return gx, gp
+                    return [_head_loss(cfg, p, y, lab)
+                            for p, y, lab in zip(ps, ys, labels)]
+                return ys
+
+        def bwd_shards(ps, inps, dys_or_labels, _sf=stage_fwd,
+                       _first=is_first, _last=is_last):
+            leaves = [_grad_leaves(p) for p in ps]
+            trees = [tree_unflatten_like(p, lv)
+                     for p, lv in zip(ps, leaves)]
+            with torch.enable_grad():
+                xs = [i if _first else i.detach().requires_grad_()
+                      for i in inps]
+                ys = _sf(trees, xs)
+            for j in range(len(ps)):
+                with torch.enable_grad():
+                    out = _stage_grads(cfg, ps[j], trees[j], leaves[j],
+                                       xs[j], ys[j], dys_or_labels[j],
+                                       _first, _last)
+                # shard j's recompute and params go before its consumer
+                # folds the result
+                ps[j] = ys[j] = xs[j] = trees[j] = leaves[j] = None
+                yield out
+                del out
 
         fwd_f = _stage_fwd_flops(cfg, s, n_stages, seq_len, comp, learned)
         programs.append(StageProgram(
-            stage=s, n_stages=n_stages, specs=specs, fwd=fwd, bwd=bwd,
-            fwd_flops_per_token=fwd_f,
-            bwd_flops_per_token=3.0 * fwd_f))  # recompute + 2x backward
+            stage=s, n_stages=n_stages, specs=specs, fwd_shards=fwd_shards,
+            bwd_shards=bwd_shards, fwd_flops_per_token=fwd_f,
+            bwd_flops_per_token=3.0 * fwd_f,   # recompute + 2x backward
+            routes_whole=_routes_whole(cfg, n_stages, [s])))
     return programs
+
+
+def _stage_grads(cfg: ArchConfig, params: Tree, p: Tree, leaves: list,
+                 x: torch.Tensor, y: torch.Tensor, dy_or_labels,
+                 first: bool, last: bool):
+    """One stage's backward from its recomputed output ``y`` (``p`` the
+    tree over the fresh ``leaves``, ``x`` the input leaf): ``(gx, gp)``,
+    ``(loss, gx, gp)`` on the last stage, ``gx`` None on stage 0."""
+    ins = leaves if first else leaves + [x]
+    if last:
+        out, seed = _head_loss(cfg, p, y, dy_or_labels), None
+    else:
+        out, seed = y, dy_or_labels.to(y.dtype)
+    grads = torch.autograd.grad(out, ins, seed, allow_unused=True)
+    gp = _grads_like(params, leaves, grads[:len(leaves)])
+    gx = None if first else grads[-1]
+    if last:
+        return out.detach(), gx, gp
+    return gx, gp
 
 
 def build_span_program(cfg: ArchConfig, n_stages: int, seq_len: int,
@@ -514,7 +600,9 @@ def build_span_program(cfg: ArchConfig, n_stages: int, seq_len: int,
     gradient the chain of single-stage programs gives it, bit for bit on
     one device.  ``bwd`` returns ``(gx, gps)``, ``(loss, gx, gps)`` when
     the span covers the last stage, with ``gx`` None when ``lo == 0``
-    and ``gps`` one tree per covered stage in span order."""
+    and ``gps`` one tree per covered stage in span order.
+    ``fwd_shards`` / ``bwd_shards`` do the same over a microbatch's data
+    shards, the covered layers in lockstep."""
     lo, hi = span
     if not (0 <= lo < hi <= n_stages):
         raise ValueError(f"span [{lo}, {hi}) outside [0, {n_stages})")
@@ -534,51 +622,72 @@ def build_span_program(cfg: ArchConfig, n_stages: int, seq_len: int,
             for s in stages]
     covers_last = hi == n_stages
 
-    def fwd(ps, inp, labels=None):
+    def fwd_shards(pss, inps, labels=None):
         with torch.no_grad():
-            x = inp
-            for f, p in zip(fwds, ps):
-                x = f(p, x)
-            return _head_loss(cfg, ps[-1], x, labels) if covers_last else x
-
-    def bwd(ps, inp, dy_or_labels):
-        leaves = [_grad_leaves(p) for p in ps]
-        trees = [tree_unflatten_like(p, lv) for p, lv in zip(ps, leaves)]
-        ins, outs = [], []
-        loss = None
-        with torch.enable_grad():
-            x = inp
-            for s, f, p in zip(stages, fwds, trees):
-                if s > 0:          # the boundary input: a fresh leaf
-                    x = x.detach().requires_grad_()
-                ins.append(x)
-                x = f(p, x)
-                outs.append(x)
+            xs = inps
+            for i, f in enumerate(fwds):
+                xs = f([ps[i] for ps in pss], xs)
             if covers_last:
-                loss = _head_loss(cfg, trees[-1], outs[-1], dy_or_labels)
-            gps: list = [None] * len(ps)
-            gx = None if covers_last else dy_or_labels
-            for i in reversed(range(len(ps))):
-                if covers_last and i == len(ps) - 1:
-                    out, seed = loss, None
-                else:
-                    out, seed = outs[i], gx.to(outs[i].dtype)
-                first = stages[i] == 0
-                wrt = leaves[i] if first else leaves[i] + [ins[i]]
-                grads = torch.autograd.grad(out, wrt, seed,
-                                            allow_unused=True)
-                gps[i] = _grads_like(ps[i], leaves[i],
-                                     grads[:len(leaves[i])])
-                gx = None if first else grads[-1]
+                return [_head_loss(cfg, ps[-1], x, lab)
+                        for ps, x, lab in zip(pss, xs, labels)]
+            return xs
+
+    def walk_back(ps, leaves, trees, ins, outs, dy_or_labels):
+        """One shard's walk: each covered stage's own
+        ``torch.autograd.grad``, last to first, from the recomputed
+        chain's inputs ``ins`` and outputs ``outs``."""
+        loss = None
+        if covers_last:
+            loss = _head_loss(cfg, trees[-1], outs[-1], dy_or_labels)
+        gps: list = [None] * len(ps)
+        gx = None if covers_last else dy_or_labels
+        for i in reversed(range(len(ps))):
+            if covers_last and i == len(ps) - 1:
+                out, seed = loss, None
+            else:
+                out, seed = outs[i], gx.to(outs[i].dtype)
+            first = stages[i] == 0
+            wrt = leaves[i] if first else leaves[i] + [ins[i]]
+            grads = torch.autograd.grad(out, wrt, seed, allow_unused=True)
+            gps[i] = _grads_like(ps[i], leaves[i], grads[:len(leaves[i])])
+            gx = None if first else grads[-1]
         if covers_last:
             return loss.detach(), gx, tuple(gps)
         return gx, tuple(gps)
 
+    def bwd_shards(pss, inps, dys_or_labels):
+        n = len(pss)
+        leaves = [[_grad_leaves(p) for p in ps] for ps in pss]
+        trees = [[tree_unflatten_like(p, lv) for p, lv in zip(ps, lvs)]
+                 for ps, lvs in zip(pss, leaves)]
+        ins = [[] for _ in range(n)]
+        outs = [[] for _ in range(n)]
+        with torch.enable_grad():
+            xs = list(inps)
+            for i, (s, f) in enumerate(zip(stages, fwds)):
+                if s > 0:          # the boundary input: a fresh leaf
+                    xs = [x.detach().requires_grad_() for x in xs]
+                for j in range(n):
+                    ins[j].append(xs[j])
+                xs = f([trees[j][i] for j in range(n)], xs)
+                for j in range(n):
+                    outs[j].append(xs[j])
+        del xs
+        for j in range(n):
+            with torch.enable_grad():
+                out = walk_back(pss[j], leaves[j], trees[j], ins[j],
+                                outs[j], dys_or_labels[j])
+            pss[j] = leaves[j] = trees[j] = ins[j] = outs[j] = None
+            yield out
+            del out
+
     fwd_f = sum(_stage_fwd_flops(cfg, s, n_stages, seq_len, comp, learned)
                 for s in stages)
     return SpanProgram(span=(lo, hi), n_stages=n_stages, specs=specs,
-                       fwd=fwd, bwd=bwd, fwd_flops_per_token=fwd_f,
-                       bwd_flops_per_token=3.0 * fwd_f)
+                       fwd_shards=fwd_shards, bwd_shards=bwd_shards,
+                       fwd_flops_per_token=fwd_f,
+                       bwd_flops_per_token=3.0 * fwd_f,
+                       routes_whole=_routes_whole(cfg, n_stages, stages))
 
 
 def init_stage_params(programs: list[StageProgram], seed: int,

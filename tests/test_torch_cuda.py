@@ -1085,6 +1085,46 @@ def test_cuda_moe_never_syncs_the_host():
         finally:
             torch.cuda.set_sync_debug_mode("default")
         assert y.shape == x.shape and bool(torch.isfinite(aux))
+    # a microbatch split over two data shards: the shards' route counts
+    # cross as int tensors and the capacity comes from host integers
+    x = torch.randn(2, 300, cfg.d_model, generator=_gen(dev),
+                    device=dev).to(cfg.compute_jdtype)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ys, auxs = _moe_split(cfg, p, x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ys.shape == x.shape and bool(torch.isfinite(auxs))
+
+
+def _moe_split(cfg, p, x, n: int = 2):
+    """``apply_moe`` over ``n`` row shards of ``x`` with the split context
+    of the whole microbatch: (outputs joined, aux shares summed)."""
+    from repro_torch.models import layers as L
+    ys, auxs = L.apply_moe_shards(cfg, [p] * n, list(x.chunk(n)))
+    return torch.cat(ys), torch.stack(auxs).sum()
+
+
+@pytest.mark.cuda
+def test_cuda_moe_split_is_bit_equal_on_repeat_and_near_whole():
+    """The split MoE on the card: bit-equal on repeat, and within the
+    families' bf16 bound (2e-2) of the whole microbatch's layer; the aux
+    shares add up to the whole layer's aux."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import params as P
+    dev = _card()
+    cfg = _family_cfg("moe", "bfloat16")
+    p = P.init(0, L.moe_specs(cfg), dev)
+    x = torch.randn(4, 64, cfg.d_model, generator=_gen(dev),
+                    device=dev).to(cfg.compute_jdtype)
+    y1, a1 = _moe_split(cfg, p, x)
+    y2, a2 = _moe_split(cfg, p, x)
+    assert _same_bits(y1, y2) and _same_bits(a1, a2)
+    y, a = L.apply_moe(cfg, p, x)
+    scale = float(y.float().abs().max())
+    assert float((y1.float() - y.float()).abs().max()) <= 2e-2 * scale
+    assert abs(float(a1) - float(a)) <= 1e-5 * abs(float(a))
 
 
 @pytest.mark.cuda

@@ -41,6 +41,13 @@ def test_no_jax_or_repro_imports(path):
     assert _forbidden(path) == []
 
 
+def test_examples_are_guarded():
+    """The examples sub-package is among the guarded files."""
+    names = {p.name for p in PORT_FILES if p.parent.name == "examples"}
+    assert names == {"__init__.py", "quickstart.py", "elastic_failures.py",
+                     "serve_pipeline.py", "train_swarm_lm.py"}
+
+
 def test_guard_catches_forbidden_imports(tmp_path):
     f = tmp_path / "m.py"
     f.write_text("import jax.numpy as jnp\nfrom repro.models import x\n"

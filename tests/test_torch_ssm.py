@@ -264,7 +264,7 @@ def test_compute_cast_keeps_mamba_leaves_f32(kind):
     with torch.no_grad():
         want, _ = tblocks.REGISTRY[kind][1](tcfg, tparams, x, pos)
         stacked = tree_map(lambda a: a[None], tparams)
-        got = make_block_core(tcfg, [(kind, 1)])([stacked], x, pos)
+        (got,) = make_block_core(tcfg, [(kind, 1)])([[stacked]], [x], [pos])
     assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 

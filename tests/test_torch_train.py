@@ -387,7 +387,7 @@ def test_shared_layer_grads_accumulate_in_f32():
         return torch.autograd.grad(out, leaves, g)
 
     shared = grads(lambda b: make_block_core(tcfg, [("attn", 1)], 2)(
-        b, x, pos))
+        [b], [x], [pos])[0])
 
     def cast_at(sub_key, w):
         return w if sub_key in ("ln1", "ln2") else w.to(torch.bfloat16)
