@@ -105,9 +105,9 @@ JSON line; any failure raises and exits non-zero):
              rmsnorm launches a step per remat mode against their
              reckoning, no plain flash call, tokens/s and peak memory;
              ``none``, ``block`` and ``2level`` two steps each, losses
-             and params equal to the bit; a run cut after step 2 and
-             resumed from its checkpoint equal to the uninterrupted run
-             to the bit; ``--accum 1`` against ``--accum 4``: step 1
+             and params equal to the bit; cut to 4 layers, a run cut
+             after step 2 and resumed from its checkpoint equal to the
+             uninterrupted run to the bit; ``--accum 1`` against ``--accum 4``: step 1
              within 1e-6, step 2 reported beside an ``--accum 2``
              witness, both steps within 1e-6 / 1e-4 in an f32 twin at 2
              layers; then swarm-1b (3 groups x 16 applications) through
@@ -171,6 +171,21 @@ JSON line; any failure raises and exits non-zero):
              stage 1, two QDQ launches of its own a microbatch.  Launches
              made inside the mesh executors are counted apart (flash,
              encode, decode above zero); no plain flash or codec call.
+13b'. train_mesh_tp — tensor-parallel compute over the ``model`` axis
+             of virtual ("data", "model") meshes of the card: swarm-1b-
+             bottleneck in ``train``'s layout, stage 1 held by a mesh
+             peer on (1, 2) and a span peer on [0, 2) over (2, 2), 2
+             steps, losses against the staged reference
+             (``MESH_BOUNDS``), and an f32 twin of the three stages at 2
+             applications a group against one-device mesh peers within
+             1e-5 of each leaf's largest entry; yi-6b at full width, one
+             layer a stage over 3 stages (reduced from 32 layers), on
+             (1, 8): one microbatch's forward and backward, f32 bounded
+             so, bf16 reported.  The path each peer ran; flash (and
+             rmsnorm for yi-6b) launched on every model shard; no plain
+             flash or codec call; each coordinate's gathered parameter
+             bytes equal to the reckoned block bytes; the layers'
+             all-reduces against the plan (two a layer forward).
 13c. train_pipeline — ``make_pipeline_train_step`` at full width and
              depth over a (``pod`` S, ``data`` 1) virtual mesh of the
              card, 8 microbatches of 1 x 512 a step, AdamW, 2 steps:
@@ -3493,6 +3508,22 @@ SINGLE_ARCH, SINGLE_BATCH, SINGLE_SEQ = "qwen2-vl-2b", 8, 512
 SINGLE_ARGS = ["--arch", SINGLE_ARCH, "--batch", str(SINGLE_BATCH),
                "--seq", str(SINGLE_SEQ), "--lr", "1e-4"]
 SINGLE_ACCUM, SINGLE_STEPS = 4, 4
+# the checkpoint cut and resume run at this depth (of 28 layers): the
+# equal-to-the-bit check does not need the full model's 18.5 GB cut
+SINGLE_CUT_LAYERS = 4
+
+
+@contextlib.contextmanager
+def _depth(n: int):
+    """``launch.train``'s architectures cut to their first ``n``
+    layers."""
+    from repro_torch.launch import train as launch_train
+    orig = launch_train.get_config
+    launch_train.get_config = lambda a: orig(a).with_overrides(n_layers=n)
+    try:
+        yield
+    finally:
+        launch_train.get_config = orig
 # accum 1 against accum 4.  At full depth in bf16 the step-1 losses are
 # equal to the bit and held at the first bound; step 2 is reported: the
 # microbatches' weight gradients round to bf16 apart (the accumulated
@@ -3741,10 +3772,10 @@ def phase_train_single(torch) -> dict:
     positions), seq 512, global batch 8, ``--accum 4``, lr 1e-4:
     four steps with finite losses, flash and rmsnorm launches a step
     against ``remat_launches``, no plain flash call; two steps under each
-    remat mode with losses and params after step 2 equal to the bit; a
-    run cut after step 2 and resumed from its checkpoint equal to the
-    uninterrupted one to the bit (the cuts under ``build/``, removed at
-    the end); ``--accum 1`` (and ``--accum 2``, a witness) against
+    remat mode with losses and params after step 2 equal to the bit; at
+    ``SINGLE_CUT_LAYERS`` layers, a run cut after step 2 and resumed
+    from its checkpoint equal to the uninterrupted one to the bit (the
+    cuts under ``build/``, removed at the end); ``--accum 1`` (and ``--accum 2``, a witness) against
     ``--accum 4``, step 1 bounded, and both steps bounded in an f32 twin
     at 2 layers (``ACCUM_STEP1_RTOL``'s comment says why); then swarm-1b
     against the staged reference, bounded at ``SWARM_ATTN_SCALE`` and
@@ -3759,7 +3790,8 @@ def phase_train_single(torch) -> dict:
                         "build")
     os.makedirs(root, exist_ok=True)
     # a cut: f32 params and AdamW's two f32 moments
-    cut = 12.0 * F.total_params(cfg)
+    cut = 12.0 * F.total_params(cfg.with_overrides(
+        n_layers=SINGLE_CUT_LAYERS))
     disk, host = shutil.disk_usage(root).free, _mem_available()
     emit({"phase": "train_single_resources", "cut_gb": cut / 1e9,
           "free_disk_gb": disk / 1e9, "mem_available_gb": host / 1e9})
@@ -3775,46 +3807,60 @@ def phase_train_single(torch) -> dict:
         "train_single", cfg)
     full = main_row["losses"]
     emit(main_row)
+    block_row, state2 = _single_run(torch, base + [
+        "--steps", "2", "--remat", "block"], "train_single_block", cfg,
+        keep_state=True)
+    params2 = state2["params"]
+    del state2
+    if block_row["losses"] != full[:2]:
+        raise AssertionError(f"train_single_block: losses "
+                             f"{block_row['losses']} vs {full[:2]}")
+    # the checkpoint cut and resume, at SINGLE_CUT_LAYERS layers
+    cut_cfg = cfg.with_overrides(n_layers=SINGLE_CUT_LAYERS)
     ckpt = tempfile.mkdtemp(prefix="ckpt_single_", dir=root)
     try:
-        cut_row, state2 = _single_run(torch, base + [
-            "--steps", "2", "--remat", "block", "--ckpt-dir", ckpt],
-            "train_single_cut", cfg, keep_state=True)
-        params2 = state2["params"]
-        del state2
-        cut_bytes = sum(os.path.getsize(os.path.join(ckpt, "step_00000002",
-                                                     f))
-                        for f in os.listdir(os.path.join(
-                            ckpt, "step_00000002")))
-        if cut_row["losses"] != full[:2]:
-            raise AssertionError(f"train_single_cut: losses "
-                                 f"{cut_row['losses']} vs {full[:2]}")
-        resumed, _ = _single_run(torch, base + [
-            "--steps", str(SINGLE_STEPS), "--remat", "block",
-            "--ckpt-dir", ckpt], "train_single_resume", cfg)
-        if resumed["losses"] != full[2:]:
-            raise AssertionError(f"train_single_resume: losses "
-                                 f"{resumed['losses']} vs {full[2:]}")
+        with _depth(SINGLE_CUT_LAYERS):
+            short, _ = _single_run(torch, base + [
+                "--steps", str(SINGLE_STEPS), "--remat", "block"],
+                "train_single_short", cut_cfg)
+            cut_row, _ = _single_run(torch, base + [
+                "--steps", "2", "--remat", "block", "--ckpt-dir", ckpt],
+                "train_single_cut", cut_cfg)
+            cut_bytes = sum(os.path.getsize(os.path.join(
+                ckpt, "step_00000002", f)) for f in os.listdir(
+                    os.path.join(ckpt, "step_00000002")))
+            if cut_row["losses"] != short["losses"][:2]:
+                raise AssertionError(f"train_single_cut: losses "
+                                     f"{cut_row['losses']} vs "
+                                     f"{short['losses'][:2]}")
+            resumed, _ = _single_run(torch, base + [
+                "--steps", str(SINGLE_STEPS), "--remat", "block",
+                "--ckpt-dir", ckpt], "train_single_resume", cut_cfg)
+            if resumed["losses"] != short["losses"][2:]:
+                raise AssertionError(f"train_single_resume: losses "
+                                     f"{resumed['losses']} vs "
+                                     f"{short['losses'][2:]}")
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     emit({**resumed, "cut_losses": cut_row["losses"],
           "cut_bytes": cut_bytes, "cut_wall_s": cut_row["wall_s"],
-          "uninterrupted_losses": full[2:]})
-    modes = {"block": {"losses": cut_row["losses"],
-                       "launches_per_step": cut_row["launches_per_step"],
+          "uninterrupted_losses": short["losses"][2:],
+          "reduced": {"n_layers": [cfg.n_layers, SINGLE_CUT_LAYERS]}})
+    modes = {"block": {"losses": block_row["losses"],
+                       "launches_per_step": block_row["launches_per_step"],
                        "max_memory_allocated_gb":
-                           cut_row["max_memory_allocated_gb"],
-                       "tokens_per_s": cut_row["tokens_per_s"]}}
+                           block_row["max_memory_allocated_gb"],
+                       "tokens_per_s": block_row["tokens_per_s"]}}
     for mode in ("none", "2level"):
         row, state = _single_run(torch, base + [
             "--steps", "2", "--remat", mode], f"train_single_{mode}", cfg,
             keep_state=True)
         differ = _bits_differ(torch, state["params"], params2)
         del state
-        if row["losses"] != cut_row["losses"] or differ:
+        if row["losses"] != block_row["losses"] or differ:
             raise AssertionError(f"train_single_{mode}: losses "
                                  f"{row['losses']} vs block's "
-                                 f"{cut_row['losses']}, params differ at "
+                                 f"{block_row['losses']}, params differ at "
                                  f"leaves {differ[:8]}")
         modes[mode] = {k: row[k] for k in modes["block"]}
     del params2
@@ -4183,6 +4229,288 @@ def phase_train_mesh(torch, train: dict, ref_losses: list) -> dict:
                                    must=("flash_attention_fwd", "qdq_flat"),
                                    codec="int8")
     emit({"phase": "train_mesh_done", "seconds": time.time() - t0})
+    return rows
+
+
+# ------------------------------------------------------ train_mesh_tp
+# tensor-parallel compute over a virtual mesh's ``model`` axis: swarm-1b
+# trained TP_STEPS steps (stage 1 on (data 1, model 2), a span peer on
+# (2, 2)); yi-6b at full width, one layer a stage over 3 stages, on
+# (1, 8).  Splitting a product over heads or FFN columns changes the
+# order of its f32 sums (the all-reduce adds the shards' f32 partials),
+# as splitting the microbatch changes cuBLAS's (train_mesh's twin): at
+# full width, random weights amplify that rounding.  A first probe (H100
+# 80GB HBM3, 700.00 W) read, against one-device mesh peers on the same
+# state: f32 twins' loss 8.1e-6 (swarm-1b, 2 applications a group) and
+# 5.8e-7 (yi-6b) relative, their gradients 5.5e-3 and 1.1e-3 of a leaf's
+# largest entry (the CPU tests' 1e-5 holds at their widths; at d 1024 on
+# the CPU, 2.8e-4); bf16 training's step-1 loss 1.9e-4 relative to the
+# staged reference (the data split's 1e-5 bound holds there because rows
+# keep their sums).  Bounds: the f32 twins' loss at the CPU tests' 1e-5,
+# their gradients and cotangents at 1e-2; training at 1e-3 on step 1,
+# MESH_BOUNDS' 5e-2 later
+TP_STEPS = 2
+TP_TWIN_LOSS_RTOL, TP_TWIN_GRAD_RTOL = 1e-5, 1e-2
+TP_BOUNDS = (1e-3, MESH_BOUNDS[1])
+TP_YI_LAYERS, TP_YI_MODEL = 3, 8
+
+
+@contextlib.contextmanager
+def coord_launches():
+    """Kernel launches by the mesh coordinate they ran as
+    (``dist.mesh.at``; the tensor-parallel shards' scopes), while the
+    global counters go on as before."""
+    import collections
+    from repro_torch import kernels
+    from repro_torch.dist.mesh import current_coord
+    per: dict = collections.defaultdict(collections.Counter)
+
+    class ByCoord(dict):
+        def __setitem__(self, k, v):
+            c = current_coord()
+            if c is not None:
+                per[c][k] += v - self.get(k, 0)
+            super().__setitem__(k, v)
+    orig = kernels.LAUNCHES
+    kernels.LAUNCHES = ByCoord(orig)
+    try:
+        yield per
+    finally:
+        orig.update(kernels.LAUNCHES)
+        kernels.LAUNCHES = orig
+
+
+def _tp_mesh(torch, shape):
+    return _card_mesh(torch, shape[0] * shape[1], shape, ("data", "model"))
+
+
+def _tp_bytes(ex, state) -> list:
+    """Each model coordinate of data shard 0: the bytes of the params it
+    gathered beside those ``block_bytes`` reckons; raises unless equal."""
+    from repro_torch.dist import tensor_parallel as tp
+    from repro_torch.tree import tree_leaves
+    ms = ex._model_shards(state, 0)
+    specs = ex.prog.specs
+    stages = list(ex.stages) if isinstance(ex.param_shardings, dict) \
+        and all(isinstance(k, int) for k in ex.param_shardings) else None
+    rows = []
+    for j, tree in enumerate(ms.trees):
+        got = sum(a.numel() * a.element_size() for a in tree_leaves(tree))
+        want = (sum(tp.block_bytes(specs[s], ex.param_shardings[s], j)
+                    for s in stages) if stages else
+                tp.block_bytes(specs, ex.param_shardings, j))
+        rows.append({"coord": list(ms.group.coords[j]),
+                     "gathered_bytes": got, "reckoned_bytes": want})
+    del ms
+    if any(r["gathered_bytes"] != r["reckoned_bytes"] for r in rows):
+        raise AssertionError(f"train_mesh_tp: gathered bytes {rows}")
+    return rows
+
+
+def _tp_require(name: str, per: dict, coords: list, kernels_: tuple,
+                plain: list) -> dict:
+    """Every one of ``kernels_`` launched on each coordinate, no plain
+    call; returns the launches by coordinate."""
+    bad = [(c, k) for c in coords for k in kernels_ if per[c][k] <= 0]
+    if bad or plain:
+        raise AssertionError(f"{name}: no launch of {bad[:6]} on those "
+                             f"model shards; plain calls {plain[:4]}")
+    return {str(list(c)): dict(per[c]) for c in coords}
+
+
+def _tp_chain(torch, ex, st, tok, lab):
+    """One microbatch through a chain of stage executors: every stage's
+    forward, then every backward; ``(loss, cotangents, grads)``."""
+    from repro_torch.dist.mesh import gather
+    from repro_torch.tree import tree_leaves
+    xs = [tok]
+    for s in range(len(ex) - 1):
+        xs.append(ex[s].wire_fwd(ex[s].run_fwd(st[s], xs[-1])))
+    loss, gx, g = ex[-1].run_bwd(st[-1], xs[-1], labels=lab)
+    gxs, grads = [gx], [tree_leaves(g)]
+    for s in reversed(range(len(ex) - 1)):
+        _, gx, g = ex[s].run_bwd(st[s], xs[s], dy=ex[s + 1].wire_bwd(gxs[-1]))
+        gxs.append(gx)
+        grads.insert(0, tree_leaves(g))
+    flat = [gather(a, a.mesh.devices.flat[0]) for g in grads for a in g]
+    return float(loss), [g for g in gxs if g is not None], flat
+
+
+def _tp_pair(torch, cfg, n_stages: int, shape, tok, lab, codec="none",
+             scale=True):
+    """Every stage of ``cfg`` on a one-device mesh and on a ``shape``
+    ("data", "model") mesh of the card, from one state (``wq`` / ``wk``
+    scaled by ``SWARM_ATTN_SCALE`` where ``scale``): one microbatch
+    through each chain, the tensor-parallel one under launch and
+    all-reduce counters.  Returns (row, one-device result,
+    tensor-parallel result), each ``(loss, cotangents, grads)``."""
+    from repro_torch.dist import tensor_parallel as tp
+    from repro_torch.runtime import MeshExecutor, StageState
+    one = [MeshExecutor(cfg, n_stages, TRAIN_SEQ, s, _card_mesh(torch, 1),
+                        compress=codec) for s in range(n_stages)]
+    mesh = _tp_mesh(torch, shape)
+    tpx = [MeshExecutor(cfg, n_stages, TRAIN_SEQ, s, mesh, compress=codec)
+           for s in range(n_stages)]
+    st1 = [e.init_state(s) for s, e in enumerate(one)]
+    if scale:
+        from repro_torch.dist.mesh import Placed
+        with torch.no_grad():
+            for st in st1:
+                for seg in st.params["blocks"]:
+                    for key in ("wq", "wk"):
+                        p = seg["attn"][key]
+                        for t in p.shards.flat if isinstance(p, Placed) \
+                                else [p]:
+                            t.mul_(SWARM_ATTN_SCALE)
+    stp = []
+    for s in range(n_stages):
+        st = StageState()
+        tpx[s].restore(st, one[s].snapshot(st1[s]))
+        stp.append(st)
+    if {e.compute_path for e in tpx} != {"tensor_parallel"}:
+        raise AssertionError(f"train_mesh_tp: paths "
+                             f"{[e.compute_path for e in tpx]}")
+    bytes_rows = [_tp_bytes(e, st) for e, st in zip(tpx, stp)]
+    got_one = _counted(torch, lambda: _tp_chain(torch, one, st1, tok, lab))
+    tp.ALL_REDUCES.clear()
+    with coord_launches() as per, plain_flash_calls() as pf, \
+            plain_codec_calls() as pc:
+        got_tp = _counted(torch, lambda: _tp_chain(torch, tpx, stp, tok,
+                                                    lab))
+    apps = [sum(n * sp.reps for _, n in sp.runs)
+            for sp in one[0].plan.stages]
+    row = {"mesh": list(shape), "paths": [e.compute_path for e in tpx],
+           "gathered_bytes_by_stage": bytes_rows,
+           "all_reduces": dict(tp.ALL_REDUCES),
+           # two a layer application forward: in every stage's forward
+           # but the last's (the chain's last stage runs its backward
+           # only) and again in every backward's recompute
+           "activation_all_reduces_planned": 2 * (2 * sum(apps)
+                                                  - apps[-1]),
+           "launches_by_coord": _tp_require(
+               "train_mesh_tp", per, mesh.coords(),
+               ("flash_attention_fwd",)
+               + (("rmsnorm",) if cfg.norm == "rmsnorm" else ()), pf + pc)}
+    if row["all_reduces"].get("activation") != \
+            row["activation_all_reduces_planned"]:
+        raise AssertionError(f"train_mesh_tp: all-reduces {row}")
+    del one, tpx, st1, stp
+    return row, got_one, got_tp
+
+
+def _tp_gaps(torch, a, b) -> dict:
+    """The tensor-parallel result ``b`` against the one-device ``a``."""
+    return {"loss_rel_diff": abs(a[0] - b[0]) / abs(a[0]),
+            "cotangent_max_gap": _max_gap(torch, b[1], a[1]),
+            "grad_max_gap": _max_gap(torch, b[2], a[2])}
+
+
+def _tp_bounded(name: str, row: dict) -> None:
+    if row["loss_rel_diff"] > TP_TWIN_LOSS_RTOL or max(
+            row["cotangent_max_gap"], row["grad_max_gap"]) > \
+            TP_TWIN_GRAD_RTOL:
+        raise AssertionError(f"{name}: {row}")
+
+
+def phase_train_mesh_tp(torch, ref_losses: list) -> dict:
+    """Tensor-parallel compute over the ``model`` axis of virtual meshes
+    of the card (``dist.tensor_parallel``): (i) swarm-1b-bottleneck in
+    ``train``'s layout, stage 1 held by a mesh peer on (data 1, model
+    2) and a span peer on [0, 2) over (2, 2), TP_STEPS steps, the losses
+    held to the staged reference within ``TP_BOUNDS``, and an f32 twin
+    of the three stages (2 applications a group) held to one-device
+    mesh peers (``TP_TWIN_*``, whose comment gives the measurements
+    behind them); (ii) yi-6b at full width, one layer a stage over 3
+    stages, on (1, 8): one microbatch's forward and backward, the f32
+    twin bounded so, bf16 reported.  In
+    each: the path every peer ran, flash (and rmsnorm where the model
+    has it) launched on every model shard, no plain flash or codec
+    call, each coordinate's gathered parameter bytes equal to the
+    reckoned block bytes, and the layers' all-reduces against the plan
+    (two a layer forward)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.dist import tensor_parallel as tp
+    from repro_torch.models.params import to_numpy_tree
+    t0 = time.time()
+    cfg = swarm1b()
+    rows: dict = {}
+    names: dict = {}
+    meshes = {"stage1": (1, 2), "span": (2, 2)}
+
+    def setup(runner):
+        names["stage1"] = runner.add_peer(1, executor=_mesh_exec(
+            cfg, 1, _tp_mesh(torch, meshes["stage1"]))).id
+        names["span"] = runner.add_peer(range(0, 2), executor=_mesh_exec(
+            cfg, (0, 2), _tp_mesh(torch, meshes["span"]))).id
+        runner._ref_params = [to_numpy_tree(p) for p in runner._ref_params]
+        runner._ref_opt = [to_numpy_tree(o) for o in runner._ref_opt]
+
+    tp.ALL_REDUCES.clear()
+    with mesh_launches() as counts, coord_launches() as per, \
+            plain_flash_calls() as pf, plain_codec_calls() as pc:
+        def check(runner, m):
+            peers = {k: runner.peers[v] for k, v in names.items()}
+            paths = {k: p.executor.compute_path for k, p in peers.items()}
+            if set(paths.values()) != {"tensor_parallel"}:
+                raise AssertionError(f"train_mesh_tp: paths {paths}")
+            coords = sorted({c for p in peers.values()
+                             for c in p.executor.mesh.coords()})
+            by = _tp_require("train_mesh_tp", per, coords,
+                             ("flash_attention_fwd",), pf + pc)
+            nbytes = {k: _tp_bytes(p.executor, p.state)
+                      for k, p in peers.items()}
+            return {"paths": paths, "meshes": meshes,
+                    "mesh_launches": dict(counts), "launches_by_coord": by,
+                    "plain_calls": 0, "all_reduces": dict(tp.ALL_REDUCES),
+                    "gathered_bytes": nbytes, "bounds": list(TP_BOUNDS)}
+        rows["train"] = phase_train(torch, "train_mesh_tp", cfg, TP_STEPS,
+                                    ref_losses[:TP_STEPS], peers=[0, 0, 1],
+                                    setup=setup, check=check,
+                                    bounds=TP_BOUNDS)
+    free(torch)
+    twin_cfg = swarm1b().with_overrides(n_layers=6, compute_dtype="float32")
+    b = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_MB, seed=17).batch(0)
+    tok = torch.as_tensor(b["tokens"], device="cuda")
+    lab = torch.as_tensor(b["labels"], device="cuda")
+    with plain_precision(torch):
+        row, one, par = _tp_pair(torch, twin_cfg, 3, meshes["stage1"], tok,
+                                 lab, codec="bottleneck")
+    row.update(_tp_gaps(torch, one, par), twin="swarm-1b-bottleneck f32, "
+               "2 applications a group, wq / wk x 0.3",
+               bounds=[TP_TWIN_LOSS_RTOL, TP_TWIN_GRAD_RTOL])
+    emit({"phase": "train_mesh_tp_twin", **row})
+    _tp_bounded("train_mesh_tp twin", row)
+    rows["twin"] = row
+    del one, par
+    free(torch)
+    yi = get_config("yi-6b").with_overrides(n_layers=TP_YI_LAYERS)
+    yb = SyntheticLM(yi.vocab_size, TRAIN_SEQ, TRAIN_MB, seed=17).batch(0)
+    tok = torch.as_tensor(yb["tokens"], device="cuda")
+    lab = torch.as_tensor(yb["labels"], device="cuda")
+    for dt in ("float32", "bfloat16"):
+        c = yi.with_overrides(compute_dtype=dt)
+        ctx = plain_precision(torch) if dt == "float32" else \
+            contextlib.nullcontext()
+        torch.cuda.reset_peak_memory_stats()
+        with ctx:
+            row, one, par = _tp_pair(torch, c, 3, (1, TP_YI_MODEL), tok,
+                                     lab)
+        row.update(_tp_gaps(torch, one, par), arch=yi.name,
+                   compute_dtype=dt, reduced={"n_layers": [32,
+                                                           TP_YI_LAYERS]},
+                   losses=[one[0], par[0]],
+                   max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+                   / 1e9, bounded=dt == "float32")
+        emit({"phase": f"train_mesh_tp_yi6b_{dt}", **row})
+        if dt == "float32":
+            _tp_bounded("train_mesh_tp yi-6b", row)
+        if not math.isfinite(par[0]):
+            raise AssertionError(f"train_mesh_tp yi-6b {dt}: loss {par[0]}")
+        rows[f"yi6b_{dt}"] = row
+        del one, par
+        free(torch)
+    emit({"phase": "train_mesh_tp_done", "seconds": time.time() - t0})
     return rows
 
 
@@ -5141,6 +5469,8 @@ def main() -> None:
     # mesh-backed peers (virtual meshes of the card), then the compiled
     # shifting-buffer pipeline at full width and depth
     phase_train_mesh(torch, train, ref_losses)
+    # tensor-parallel compute over the model axis of virtual meshes
+    phase_train_mesh_tp(torch, ref_losses)
     phase_train_pipeline(torch)
     # a MoE stage over a data-split microbatch (llama4-scout at full
     # width, one layer a stage): mesh peers, then the pipeline

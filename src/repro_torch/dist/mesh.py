@@ -58,7 +58,7 @@ from typing import Any, Iterable, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten_like
 
 Tree = Any
 AxisSpec = Union[None, str, Sequence[str]]
@@ -423,6 +423,24 @@ def place_as(x, sharding: NamedSharding) -> Placed:
     return place(x, sharding.mesh, sharding.spec)
 
 
+def _assemble(chosen: dict, src: dict, ndim: int, prefix: tuple,
+              device: torch.device, rec, dst) -> torch.Tensor:
+    """The blocks of ``chosen`` under ``prefix`` joined into one tensor
+    on ``device`` (a module-level function, not a closure over
+    ``chosen``: a closure that calls itself is a reference cycle, which
+    keeps the gathered blocks alive until the garbage collector runs)."""
+    d = len(prefix)
+    if d == ndim:
+        t = chosen[prefix]
+        if rec is not None and src[prefix] != dst:
+            rec.log("all-gather", dst, _nbytes(t))
+        return t if t.device == device else t.to(device)
+    idx = sorted({k[d] for k in chosen if k[:d] == prefix})
+    parts = [_assemble(chosen, src, ndim, prefix + (i,), device, rec, dst)
+             for i in idx]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=d)
+
+
 def gather(p: Placed, device, rows: Optional[tuple[int, int]] = None,
            where: Optional[dict[str, int]] = None) -> torch.Tensor:
     """The full tensor on ``device``, or only rows ``[lo, hi)`` of dim 0,
@@ -457,18 +475,7 @@ def gather(p: Placed, device, rows: Optional[tuple[int, int]] = None,
         if better:
             chosen[b], src[b] = t, c
 
-    def build(prefix: tuple[int, ...]) -> torch.Tensor:
-        d = len(prefix)
-        if d == p.ndim:
-            t = chosen[prefix]
-            if rec is not None and src[prefix] != dst:
-                rec.log("all-gather", dst, _nbytes(t))
-            return t if t.device == device else t.to(device)
-        idx = sorted({k[d] for k in chosen if k[:d] == prefix})
-        parts = [build(prefix + (i,)) for i in idx]
-        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=d)
-
-    out = build(())
+    out = _assemble(chosen, src, p.ndim, (), device, rec, dst)
     if rows is not None:
         origin = min(k[0] for k in chosen) * step0
         if (lo - origin, hi - origin) != (0, out.shape[0]):
@@ -528,16 +535,30 @@ def gather_tree(tree: Tree, device) -> Tree:
 
 def reduce_scatter_tree(parts: Iterable[Tree], shardings: Tree,
                         dtype: torch.dtype = torch.float64,
-                        sources: Optional[Sequence[tuple]] = None) -> Tree:
-    """Sum full-shape partial trees (one a device that computed a part,
-    e.g. a data shard's gradients) into placed trees laid out by
-    ``shardings``: shard ``c`` of a leaf is the sum of every part's
-    block ``c``, added in ``dtype`` in the order the parts come.  The
-    default f64 holds the sum of a few f32 parts exactly, so the order
-    of the parts does not matter.  ``parts`` may be a generator: each
-    part is folded in and dropped before the next is made.  ``sources``
-    (for the recorder) names the coordinate each part was computed on: a
-    block a part holds for its own coordinate is not a move."""
+                        sources: Optional[Sequence[tuple]] = None,
+                        wheres: Optional[Sequence[dict]] = None,
+                        shapes: Optional[Tree] = None) -> Tree:
+    """Sum partial trees (one a device that computed a part, e.g. a data
+    shard's gradients) into placed trees laid out by ``shardings``:
+    shard ``c`` of a leaf is the sum of every part's block ``c``, added
+    in ``dtype`` in the order the parts come.  The default f64 holds the
+    sum of a few f32 parts exactly, so the order of the parts does not
+    matter.  ``parts`` may be a generator: each part is folded in and
+    dropped before the next is made.  ``sources`` (for the recorder)
+    names the coordinate each part was computed on: a block a part
+    holds for its own coordinate is not a move.
+
+    Parts are full-shape, unless ``wheres`` names the block each part
+    holds (a model shard's gradients, tensor-parallel): part ``k``'s
+    leaf is then either the whole leaf or the block that the
+    coordinates with ``wheres[k]``'s axis indices hold together, told
+    apart by ``shapes`` (a tree of the leaves' global ``torch.Size``),
+    or None (a leaf the part's coordinate did not compute with, or a
+    subtree it does not hold).  Each coordinate whose shard lies inside
+    a part's block adds its piece of it; the sums start at zero."""
+    if wheres is not None:
+        return _reduce_scatter_blocks(parts, shardings, dtype, sources,
+                                      wheres, shapes)
     acc: Optional[Tree] = None
     rec = _recorder()
     src = None
@@ -577,6 +598,83 @@ def reduce_scatter_tree(parts: Iterable[Tree], shardings: Tree,
     if acc is None:
         raise ValueError("reduce_scatter_tree got no parts")
     return acc
+
+
+def _is_sharding(x) -> bool:
+    return isinstance(x, NamedSharding)
+
+
+def _leaves_like(tree: Tree, template: Tree, is_leaf,
+                 out: Optional[list] = None) -> list:
+    """``tree``'s leaves at ``template``'s leaf positions, None where
+    ``tree`` holds no such subtree."""
+    out = [] if out is None else out
+    if is_leaf(template):
+        out.append(tree)
+    elif isinstance(template, dict):
+        for k in sorted(template):
+            _leaves_like(None if tree is None else tree.get(k),
+                         template[k], is_leaf, out)
+    elif isinstance(template, (list, tuple)):
+        for i, v in enumerate(template):
+            _leaves_like(None if tree is None else tree[i], v, is_leaf,
+                         out)
+    return out
+
+
+def _block_region(shape: Sequence[int], mesh: Mesh, spec: tuple,
+                 where: dict[str, int]) -> tuple[slice, ...]:
+    """The global slices of the block that the coordinates with
+    ``where``'s axis indices hold together (what :func:`gather` with
+    ``where`` returns)."""
+    pos = {a: i for i, a in enumerate(mesh.axis_names)}
+    sls = [shard_slices(shape, mesh, spec, c) for c in mesh.coords()
+           if all(c[pos[a]] == i for a, i in where.items())]
+    return tuple(slice(min(s[d].start for s in sls),
+                       max(s[d].stop for s in sls))
+                 for d in range(len(shape)))
+
+
+def _reduce_scatter_blocks(parts, shardings, dtype, sources, wheres,
+                           shapes) -> Tree:
+    """:func:`reduce_scatter_tree` over parts that hold blocks."""
+    rec = _recorder()
+    shs = tree_leaves(shardings, is_leaf=_is_sharding)
+    sizes = tree_leaves(shapes, is_leaf=lambda x: isinstance(x, torch.Size))
+    acc = []
+    for s, shape in zip(shs, sizes):
+        out = np.empty(s.mesh.devices.shape, dtype=object)
+        for c in s.mesh.coords():
+            sl = shard_slices(shape, s.mesh, tuple(s.spec), c)
+            with at(c) if rec is not None else contextlib.nullcontext():
+                out[c] = torch.zeros([x.stop - x.start for x in sl],
+                                     dtype=dtype, device=s.mesh.devices[c])
+        acc.append(Placed(s.mesh, tuple(s.spec), shape, dtype, out))
+    n = 0
+    for k, part in enumerate(parts):
+        n += 1
+        src = None if sources is None else tuple(sources[k])
+        for t, a in zip(_leaves_like(part, shardings, _is_sharding), acc):
+            if t is None:
+                continue
+            region = (tuple(slice(0, d) for d in a.shape)
+                      if tuple(t.shape) == tuple(a.shape) else
+                      _block_region(a.shape, a.mesh, a.spec, wheres[k]))
+            for c in a.mesh.coords():
+                sl = shard_slices(a.shape, a.mesh, a.spec, c)
+                if any(x.start < r.start or x.stop > r.stop
+                       for x, r in zip(sl, region)):
+                    continue
+                piece = t[tuple(slice(x.start - r.start, x.stop - r.start)
+                                for x, r in zip(sl, region))]
+                if rec is not None and c != src:
+                    rec.log("reduce-scatter", c, _nbytes(piece))
+                with at(c) if rec is not None else contextlib.nullcontext():
+                    a.shards[c].add_(piece.to(a.mesh.devices[c], dtype))
+        del part                 # dropped before the next part is made
+    if not n:
+        raise ValueError("reduce_scatter_tree got no parts")
+    return tree_unflatten_like(shardings, acc, is_leaf=_is_sharding)
 
 
 def _check_tree(part: Tree, shardings: Tree) -> None:

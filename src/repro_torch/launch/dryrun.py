@@ -10,7 +10,9 @@ own step instead, on ``meta`` tensors laid out over
 mesh scheme (``runtime.mesh.MeshExecutor``'s): the arguments laid out by
 the ``dist.sharding`` rules, data shard ``i`` computing on ``batch_axis``
 index ``i`` (index 0 on the other axes) with the parameters gathered
-there, gradients reduce-scattered into the state's layout.  Every
+there, or, for a dense attention stack's train step, over its ``model``
+coordinates with each leaf's model block (``dist.tensor_parallel``),
+gradients reduce-scattered into the state's layout.  Every
 coordinate's gathers, reductions and placements run (free on meta) and
 are logged (``dist.mesh.record_collectives``); data shards of equal
 shapes are computed once (``computed_shards``) and stand for the others.
@@ -49,12 +51,19 @@ from pathlib import Path
 from typing import Any, Callable, Optional
 
 import torch
+# imported before any step: torch imports it lazily inside the first op
+# that reaches a ``torch._disable_dynamo`` wrapper, and that import leaves
+# a reference cycle through the caller's frames (a traceback), which keeps
+# whatever those frames hold (a gathered weight) until the garbage
+# collector runs
+import torch._dynamo  # noqa: F401
 
 from repro_torch.configs import (ASSIGNED, REGISTRY, SHAPES, ShapeSpec,
                                  cell_supported, get_config)
 from repro_torch.dist import mesh as mesh_lib
 from repro_torch.dist import pipeline as pipe_lib
 from repro_torch.dist import sharding as sh
+from repro_torch.dist import tensor_parallel as tp
 from repro_torch.dist.mesh import Placed, at, gather, gather_tree, \
     log_collective, place_as, reduce_scatter_tree, scatter_block
 from repro_torch.launch import hlo_analysis
@@ -139,7 +148,7 @@ def _rules(strategy: str) -> Optional[sh.ShardingRules]:
 
 
 def _shard_grad_fn(cfg: ArchConfig, remat, accum: int, batch: int,
-                   n: int):
+                   n: int, group=None):
     """``(grad_fn, alike)``: the gradients data shard 0 of ``n`` computes
     from its rows of a ``batch``-row step, and how many shards alike
     each of its MoE layers routes with (:func:`_alike`).  JAX splits
@@ -156,7 +165,9 @@ def _shard_grad_fn(cfg: ArchConfig, remat, accum: int, batch: int,
         raise ValueError(f"{batch} rows over {n} data shards do not split "
                          f"into {accum} microbatches")
     alike = (batch // accum) // (rows // parts)
-    return steps_lib.make_grad_fn(cfg, remat, parts), alike
+    if group is None:
+        return steps_lib.make_grad_fn(cfg, remat, parts), alike
+    return steps_lib.make_grad_fn(cfg, remat, parts, group=group), alike
 
 
 def _alike(n: int):
@@ -217,18 +228,92 @@ def _reduce_scatter_alike(grads: Tree, shardings: Tree, coords: list
     return gp
 
 
+def _tensor_parallel(cfg: ArchConfig, mesh, batch_axes) -> bool:
+    """Does the train step compute tensor-parallel over ``model`` (the
+    dense attention stack, ``model`` not folded into the batch)?"""
+    return tp.MODEL_AXIS not in mesh_lib.axis_names_of(batch_axes) and \
+        tp.runs_tensor_parallel(cfg, set(cfg.block_kinds), mesh)
+
+
+def _reduce_scatter_blocks_alike(grads: list, shardings: Tree,
+                                 groups: list, shapes: Tree) -> Tree:
+    """The tensor-parallel counterpart of :func:`_reduce_scatter_alike`:
+    ``grads[j]`` is model shard ``j``'s gradient blocks, and every data
+    shard's (``groups[i]``) stand as data shard 0's.  The first two data
+    shards' parts are folded; each later one adds the second one's
+    bytes moved to the open ledgers, and its reduce-scatter moves (the
+    blocks each coordinate receives from the other coordinates) to the
+    recorder."""
+    m, n = len(grads), len(groups)
+    wheres = [{tp.MODEL_AXIS: j} for j in range(m)]
+    meta = all(t.device.type == "meta" for t in tree_leaves(grads))
+    k = n if n <= 2 or not meta else 2
+    ledgers = hlo_analysis.active_ledgers()
+    snaps: list = []
+
+    def parts():
+        for _ in range(k):
+            yield from grads
+            snaps.append([dict(led.bytes) for led in ledgers])
+    gp = reduce_scatter_tree(parts(), shardings,
+                             sources=[c for g in groups[:k]
+                                      for c in g.coords],
+                             wheres=wheres * k, shapes=shapes)
+    if k == n:
+        return gp
+    for led, before, after in zip(ledgers, *snaps):
+        for c, b in after.items():
+            led.work_bytes[c] += (b - before.get(c, 0.0)) * (n - 2)
+    rec = mesh_lib._recorder()
+    if rec is None:
+        return gp
+    shs = tree_leaves(shardings,
+                      is_leaf=lambda x: isinstance(x, mesh_lib.NamedSharding))
+    parts_j = [mesh_lib._leaves_like(g, shardings, lambda x: isinstance(
+        x, mesh_lib.NamedSharding)) for g in grads]
+    mesh = shs[0].mesh
+    for j in range(m):
+        got: dict = {}                  # coord -> (bytes, moves)
+        for t, s, shape in zip(parts_j[j], shs, tree_leaves(
+                shapes, is_leaf=lambda x: isinstance(x, torch.Size))):
+            if t is None:
+                continue
+            whole = tuple(t.shape) == tuple(shape)
+            for c in mesh.coords():
+                if not whole and c[mesh.axis_names.index(tp.MODEL_AXIS)] \
+                        != j and tp.split_dim(s) is not None:
+                    continue
+                sl = mesh_lib.shard_slices(shape, mesh, tuple(s.spec), c)
+                b, nm = got.get(c, (0, 0))
+                got[c] = (b + math.prod(x.stop - x.start for x in sl)
+                          * t.element_size(), nm + 1)
+        for g in groups[2:]:
+            for c, (b, nm) in got.items():
+                if c != g.coords[j]:
+                    rec.log("reduce-scatter", c, b, times=nm)
+    return gp
+
+
 def _mesh_train_step(cfg: ArchConfig, optimizer, mesh, st_sh: Tree,
                      b_sh: Tree, remat, accum: int, batch: int):
     """The train step over ``mesh`` by MeshExecutor's scheme: data shard
-    0 computes on its coordinate with the params gathered, its rows split
-    into microbatches as ``_shard_grad_fn`` says; every other
-    shard's gathers run and its gradients are shard 0's (equal shapes);
-    the gradients are reduce-scattered into the state's layout (f64, as
-    MeshExecutor sums them), the clip norm's partial sums all-reduced,
-    and AdamW updates the busiest coordinate's shards."""
+    0 computes with its rows split into microbatches as
+    ``_shard_grad_fn`` says; every other shard's gathers run and its
+    gradients are shard 0's (equal shapes); the gradients are
+    reduce-scattered into the state's layout (f64, as MeshExecutor sums
+    them), the clip norm's partial sums all-reduced, and AdamW updates
+    the busiest coordinate's shards.  A dense attention stack computes
+    tensor-parallel over ``model`` (``dist.tensor_parallel``): data
+    shard 0's model shard ``j`` gathers model block ``j`` of each leaf
+    and computes with it, and each model shard's gradients are
+    reduce-scattered as its blocks; any other model gathers every leaf
+    whole onto data shard 0's coordinate, which computes alone."""
     shards = _data_shards(mesh, b_sh["tokens"])
     coords = [mesh.coord(**w) for w in shards]
     c0 = coords[0]
+    if _tensor_parallel(cfg, mesh, b_sh["tokens"].spec[0]):
+        return _mesh_train_step_tp(cfg, optimizer, mesh, st_sh, shards,
+                                   remat, accum, batch)
     grad_fn, alike = _shard_grad_fn(cfg, remat, accum, batch, len(coords))
 
     def step(state: Tree, batch: Tree):
@@ -243,20 +328,61 @@ def _mesh_train_step(cfg: ArchConfig, optimizer, mesh, st_sh: Tree,
                 gather_tree(state["params"], mesh.devices[c])
         gp = _reduce_scatter_alike(grads, st_sh["params"], coords)
         del grads
-        log_collective("all-reduce", mesh.coords(), 4)
-        with at(c0):
-            local = lambda t: tree_map(
-                lambda p: p.shards[c0] if isinstance(p, Placed) else p, t)
-            params = local(state["params"])
-            updates, opt = optimizer.update(local(gp), local(state["opt"]),
-                                            params)
-            del gp
-            new_params = tree_map(lambda p, u: p + u.to(p.dtype), params,
-                                  updates)
-        return {"params": new_params, "opt": opt,
-                "step": local(state["step"]) + 1}, {"loss": loss, "ce": ce}
+        return _update(optimizer, mesh, c0, state, gp, loss, ce)
 
     return step, len(coords), c0
+
+
+def _mesh_train_step_tp(cfg: ArchConfig, optimizer, mesh, st_sh: Tree,
+                        shards: list, remat, accum: int, batch: int):
+    """:func:`_mesh_train_step`'s tensor-parallel step."""
+    groups = [tp.Group.of(mesh, **w) for w in shards]
+    c0 = groups[0].coords[0]
+    grad_fn, alike = _shard_grad_fn(cfg, remat, accum, batch, len(groups),
+                                    groups[0])
+
+    def blocks(state: Tree, group: tp.Group) -> list:
+        out = []
+        for j, c in enumerate(group.coords):
+            with at(c):
+                out.append(tp.gather_block(state["params"],
+                                           mesh.devices[c], j))
+        return out
+
+    def step(state: Tree, batch: Tree):
+        with _alike(alike):
+            trees = blocks(state, groups[0])
+            with at(c0):
+                b = _gather_where(batch, mesh.devices[c0], shards[0])
+            # outside any coordinate: each shard's ops run in its own
+            # scope, and the backward pass is owned by its inputs' shards
+            loss, ce, grads = grad_fn(trees, b)
+            del trees, b
+        for g in groups[1:]:
+            blocks(state, g)
+        gp = _reduce_scatter_blocks_alike(
+            grads, st_sh["params"], groups,
+            tree_map(lambda p: p.shape, state["params"]))
+        del grads
+        return _update(optimizer, mesh, c0, state, gp, loss, ce)
+
+    return step, len(groups), c0
+
+
+def _update(optimizer, mesh, c0: tuple, state: Tree, gp: Tree, loss, ce):
+    """The clip norm's all-reduce and AdamW on ``c0``'s shards."""
+    log_collective("all-reduce", mesh.coords(), 4)
+    with at(c0):
+        local = lambda t: tree_map(
+            lambda p: p.shards[c0] if isinstance(p, Placed) else p, t)
+        params = local(state["params"])
+        updates, opt = optimizer.update(local(gp), local(state["opt"]),
+                                        params)
+        del gp
+        new_params = tree_map(lambda p, u: p + u.to(p.dtype), params,
+                              updates)
+    return {"params": new_params, "opt": opt,
+            "step": local(state["step"]) + 1}, {"loss": loss, "ce": ce}
 
 
 def build_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, remat="block",
@@ -338,8 +464,9 @@ def build_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, remat="block",
                 with at(c):
                     p = gather_tree(args["params"], dev)
                     if i == 0:    # equal shards: shard 0 stands for all
-                        nxt, caches = step(p, _gather_where(
-                            args["batch"], dev, w))
+                        with _alike(len(shards)):
+                            nxt, caches = step(p, _gather_where(
+                                args["batch"], dev, w))
                     del p
                     held.setdefault(c, []).append(nxt)
                     for blocks in tree_leaves(_scatter_all(
@@ -372,7 +499,8 @@ def build_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, remat="block",
                 local = _gather_where(args["caches"], dev, w)
                 if i == 0:        # equal shards: shard 0 stands for all
                     tok = gather(args["token"], dev, where=w)
-                    nxt, computed = step(p, local, tok, pos)
+                    with _alike(len(shards)):
+                        nxt, computed = step(p, local, tok, pos)
                 del p, local
                 held.setdefault(c, []).append(nxt)
                 # the new cache rows back onto the shard's coordinates,

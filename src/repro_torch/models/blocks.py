@@ -299,6 +299,45 @@ REGISTRY = {
 }
 
 
+# ------------------------------------------- over a data shard's model shards
+def attn_apply_tp(cfg, ps: list, x, positions, group):
+    """One ``attn`` layer over a data shard's model shards
+    (``dist.tensor_parallel``): ``ps[j]`` shard ``j``'s block of the
+    layer, ``x`` the residual stream at home.  Each half (attention,
+    FFN) whose weights split over ``model`` runs on every shard from its
+    copy of ``x`` (norm, its heads or columns, its rows of ``wo``) and
+    the f32 partials are all-reduced, rounded once to the stream's
+    dtype, before the residual add; a half whose weights replicate runs
+    whole at home."""
+    from repro_torch.dist import tensor_parallel as tp
+    p0 = ps[0]
+    if L.heads_split(cfg, p0["attn"]):
+        xs = tp.fanout(x, group)
+        pos = tp.on_shards(positions, group)
+        y = tp.all_reduce(group.per_shard(
+            lambda j, p, xj, pj: L.attn_part(
+                cfg, p["attn"], L.apply_norm(cfg, p["ln1"], xj), pj, j),
+            ps, xs, pos), group, dtype=x.dtype)
+    else:
+        with group.scope(0):
+            y = L.apply_attn(cfg, p0["attn"], L.apply_norm(cfg, p0["ln1"], x),
+                             positions)
+    x = x + y
+    if L.ffn_split(p0["mlp"], cfg.d_ff):
+        xs = tp.fanout(x, group)
+        y = tp.all_reduce(group.per_shard(
+            lambda j, p, xj: L.apply_ffn(cfg, p["mlp"],
+                                         L.apply_norm(cfg, p["ln2"], xj),
+                                         partial=True),
+            ps, xs), group, dtype=x.dtype)
+        return x + y, 0.0
+    with group.scope(0):
+        return _residual_ffn(cfg, p0, x), 0.0
+
+
+TP_APPLY = {"attn": attn_apply_tp}
+
+
 # ------------------------------------------------ data shards in lockstep
 # the kinds whose apply routes over the whole microbatch (capacity, slots
 # and the balance loss), each with its block up to the MoE

@@ -73,15 +73,52 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")       # jax.nn.gelu's default
 
 
-def apply_ffn(cfg: ArchConfig, p: Tree, x: torch.Tensor) -> torch.Tensor:
+class _RowPartial(torch.autograd.Function):
+    """``x @ w`` (``x [..., k]``, ``w [k, n]``) with the product left in
+    f32: a row-parallel partial, rounded to the compute dtype only once
+    the shards' partials are summed (``dist.tensor_parallel.all_reduce``).
+    Products of bf16 operands are exact in f32 and a bf16 GEMM
+    accumulates in f32, so, as on one device, the product is rounded
+    once.  The backward runs in the operands' dtype, as the one-device
+    product's does."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        x2 = x.reshape(-1, x.shape[-1])
+        if x.dtype == torch.float32:
+            out = x2 @ w
+        elif x.device.type == "cpu":
+            out = x2.float() @ w.float()
+        else:                                   # cuBLAS, f32 output
+            out = torch.mm(x2, w, out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        gw = x.reshape(-1, x.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+        return g @ w.T, gw
+
+
+def _product(x: torch.Tensor, w: torch.Tensor, partial: bool
+             ) -> torch.Tensor:
+    return _RowPartial.apply(x, w) if partial else x @ w
+
+
+def apply_ffn(cfg: ArchConfig, p: Tree, x: torch.Tensor,
+              partial: bool = False) -> torch.Tensor:
+    """The FFN; ``partial``: a model shard's block of its columns, the
+    output a row-parallel partial in f32 (:class:`_RowPartial`)."""
     cd = x.dtype
     if cfg.act in ("swiglu", "geglu"):
         g = x @ p["wi_gate"].to(cd)
         u = x @ p["wi_up"].to(cd)
         act = F.silu(g) if cfg.act == "swiglu" else _gelu(g)
-        return (act * u) @ p["wo"].to(cd)
+        return _product(act * u, p["wo"].to(cd), partial)
     h = _gelu(x @ p["wi"].to(cd))
-    return h @ p["wo"].to(cd)
+    return _product(h, p["wo"].to(cd), partial)
 
 
 # ---------------------------------------------------------------- attention
@@ -128,17 +165,22 @@ def _pos_embed(cfg: ArchConfig, q, k, positions):
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor,
-              dtype: torch.dtype) -> torch.Tensor:
-    """einsum("bshk,hkd->bsd") as one matmul over the flattened heads."""
+              dtype: torch.dtype, partial: bool = False) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd") as one matmul over the flattened heads
+    (``partial``: a row-parallel partial in f32)."""
     h, k, d = wo.shape
-    return out.flatten(-2) @ wo.to(dtype).reshape(h * k, d)
+    return _product(out.flatten(-2), wo.to(dtype).reshape(h * k, d),
+                    partial)
 
 
 def apply_attn(cfg: ArchConfig, p: Tree, x: torch.Tensor,
                positions: torch.Tensor, *, causal: Optional[bool] = None,
                window: Optional[int] = None, chunk_q: int = 512,
-               chunk_k: int = 1024, return_kv: bool = False):
-    """Full-sequence (prefill) attention. x [B, S, d]."""
+               chunk_k: int = 1024, return_kv: bool = False,
+               partial: bool = False):
+    """Full-sequence (prefill) attention. x [B, S, d].  ``partial``: a
+    model shard's block of the heads, the output a row-parallel partial
+    in f32 (:class:`_RowPartial`)."""
     q, k, v = _project_qkv(cfg, p, x)
     q, k = _pos_embed(cfg, q, k, positions)
     out = flash_lib.flash_attention(
@@ -147,10 +189,59 @@ def apply_attn(cfg: ArchConfig, p: Tree, x: torch.Tensor,
         window=cfg.sliding_window if window is None else window,
         softcap=cfg.attn_logit_softcap,
         chunk_q=chunk_q, chunk_k=chunk_k)
-    y = _out_proj(out, p["wo"], x.dtype)
+    y = _out_proj(out, p["wo"], x.dtype, partial)
     if return_kv:
         return y, (k, v)
     return y
+
+
+# ------------------------------------------- over a data shard's model shards
+def kv_heads_of(n_heads: int, n_kv: int, j: int, h_j: int) -> list[int]:
+    """The kv head each of model shard ``j``'s ``h_j`` q heads (heads
+    ``j * h_j`` on) reads under GQA, counted globally."""
+    g = n_heads // n_kv
+    return [(j * h_j + t) // g for t in range(h_j)]
+
+
+def _kv_block(p: Tree, idx: list[int]) -> Tree:
+    """``p``'s ``wk`` / ``wv`` (and biases) narrowed to the kv heads
+    ``idx`` a shard's q heads read: a slice where each kv head serves
+    an equal run of them (``H_j % KV_j == 0``, the flash kernel's GQA),
+    else one kv head a q head."""
+    uniq = sorted(set(idx))
+    even = len(idx) % len(uniq) == 0 and idx == [
+        u for u in uniq for _ in range(len(idx) // len(uniq))]
+    sel = slice(uniq[0], uniq[-1] + 1) if even else torch.tensor(idx)
+    out = dict(p)
+    for key in ("wk", "wv"):
+        out[key] = p[key][:, sel]
+    for key in ("bk", "bv"):
+        if key in p:
+            out[key] = p[key][sel]
+    return out
+
+
+def attn_part(cfg: ArchConfig, p: Tree, x: torch.Tensor,
+              positions: torch.Tensor, j: int) -> torch.Tensor:
+    """Model shard ``j``'s partial of :func:`apply_attn` (``x`` already
+    normed), in f32: its q heads (its block of a head-split ``wq`` /
+    ``bq``), the kv heads they read (its block of a split ``wk`` /
+    ``wv``, or those heads of a replicated one), and its rows of
+    ``wo``; the shards' partials sum to the attention's output."""
+    h_j, kv_j = p["wq"].shape[-2], p["wk"].shape[-2]
+    if kv_j == cfg.n_kv_heads and h_j < cfg.n_heads:
+        p = _kv_block(p, kv_heads_of(cfg.n_heads, cfg.n_kv_heads, j, h_j))
+    return apply_attn(cfg, p, x, positions, partial=True)
+
+
+def heads_split(cfg: ArchConfig, p: Tree) -> bool:
+    """Does this shard hold a block of the attention's heads?"""
+    return p["wq"].shape[-2] < cfg.n_heads
+
+
+def ffn_split(p: Tree, d_ff: int) -> bool:
+    """Does this shard hold a block of the FFN's columns?"""
+    return p["wo"].shape[-2] < d_ff
 
 
 def ring_place(x_seq: torch.Tensor, cache_len: int) -> torch.Tensor:

@@ -301,6 +301,88 @@ def lm_apply(cfg: ArchConfig, params: Tree, tokens: torch.Tensor,
     return head(cfg, params, x), aux
 
 
+# ------------------------------------------- over a data shard's model shards
+def vocab_split(cfg: ArchConfig, table: torch.Tensor, dim: int) -> bool:
+    """Does this shard hold a block of the vocabulary (``table``'s
+    ``dim``)?"""
+    return table.shape[dim] < cfg.vocab_size
+
+
+def embed_tp(cfg: ArchConfig, ps: list, tokens: torch.Tensor, group
+             ) -> torch.Tensor:
+    """:func:`embed` over a data shard's model shards (``ps[j]`` shard
+    ``j``'s tree): vocab-parallel where the table splits
+    (``dist.tensor_parallel.vocab_parallel_embed``, then
+    ``scale_embed`` on the sum), else the one-device lookup at home."""
+    from repro_torch.dist import tensor_parallel as tp
+    if not vocab_split(cfg, ps[0]["embed"], 0):
+        with group.scope(0):
+            return embed(cfg, ps[0], tokens)
+    x = tp.vocab_parallel_embed([p["embed"] for p in ps], tokens, group)
+    x = x.to(cfg.compute_jdtype)
+    if cfg.scale_embed:
+        x = x * (cfg.d_model ** 0.5)
+    return x
+
+
+def head_weight(cfg: ArchConfig, params: Tree) -> torch.Tensor:
+    """The LM head ``[d, V]``: the tied embedding's transpose where the
+    tree has no head of its own."""
+    if cfg.tie_embeddings and "head" not in params:
+        return params["embed"].T
+    return params["head"]
+
+
+def head_tp(cfg: ArchConfig, ps: list, x: torch.Tensor, group):
+    """:func:`head` over a data shard's model shards: ``[B, S, V / m]``
+    logits on each shard (final norm on the shard's copy of ``x``, its
+    block of the head or of the tied table), or None where the vocab
+    does not split (the caller runs the one-device head at home)."""
+    from repro_torch.dist import tensor_parallel as tp
+    if not vocab_split(cfg, head_weight(cfg, ps[0]), 1):
+        return None
+    xs = tp.fanout(x, group)
+    return group.per_shard(
+        lambda j, p, xj: L.apply_norm(cfg, p["final_norm"], xj)
+        @ head_weight(cfg, p).to(xj.dtype), ps, xs)
+
+
+def lm_apply_tp(cfg: ArchConfig, ps: list, group, tokens: torch.Tensor,
+                positions: Optional[torch.Tensor] = None,
+                *, remat: bool | str = True):
+    """:func:`lm_apply` over a data shard's model shards, up to the
+    final hidden state (the head and loss are vocab-parallel:
+    :func:`head_tp`): ``(x [B, S, d] at home, aux)``.  Every layer kind
+    must be in ``models.blocks.TP_APPLY``; ``remat`` checkpoints as
+    :func:`lm_apply` does, each checkpoint spanning the layer's work on
+    every shard."""
+    from repro_torch.models.blocks import TP_APPLY
+    mode = remat_mode(remat)
+    B, S = tokens.shape
+    if positions is None:
+        positions = default_positions(cfg, B, S, device=tokens.device)
+    x = embed_tp(cfg, ps, tokens, group)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    runs, reps = model_runs(cfg)
+    for r, (kind, _) in enumerate(runs):
+        apply_fn = TP_APPLY[kind]
+        steps = []
+        for lp in zip(*(layers(p["blocks"][r]) for p in ps)):
+            lows = [compute_cast(p, x.dtype) if reps > 1 else None
+                    for p in lp]
+
+            def step(x, aux, _lp=lp, _lows=lows):
+                w = [p if low is None else shared_application(p, low)
+                     for p, low in zip(_lp, _lows)]
+                y, a = apply_fn(cfg, w, x, positions, group)
+                return y, aux + a
+            if mode != "none":
+                step = checkpointed(step)
+            steps += [step] * reps
+        x, aux = remat_scan(steps, x, aux, "block" if reps > 1 else mode)
+    return x, aux
+
+
 def prefill_runs(cfg: ArchConfig, runs, blocks: list, x: torch.Tensor,
                  positions: torch.Tensor, cache_len: int, reps: int = 1):
     """Walk ``runs`` of stacked blocks over ``x`` (each layer applied

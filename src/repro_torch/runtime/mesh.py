@@ -22,10 +22,27 @@ single-device peer.  One process drives the mesh (see
   compute the same function.  The microbatch is split along dim 0 over
   ``batch_axis`` when it divides evenly (``dp_shards``), otherwise it
   runs whole, as ``resolve_spec``'s fallback replicates it.  Data shard
-  ``i`` runs on the device at ``batch_axis`` index ``i`` (index 0 on the
-  other axes) with the params gathered there: the ``model`` axis shards
-  storage only, a weight is gathered before it is computed with.  A
-  stage with a MoE block routes over the whole microbatch, as JAX's
+  ``i``'s home is the device at ``batch_axis`` index ``i`` (index 0 on
+  the other axes).  Which of two paths a stage takes is set by the mesh
+  and the stage's layers (``compute_path``; no option selects it):
+
+  - ``"tensor_parallel"``: with more than one ``model`` shard and only
+    the dense ``attn`` kind (``dist.tensor_parallel``), the model shards
+    of data shard ``i`` compute together, as JAX's GSPMD program does:
+    the device at ``model`` index ``j`` gets model block ``j`` of each
+    leaf, gathered over ``data`` (a leaf the rules split over ``model``
+    as its block, any other leaf whole), heads, FFN columns and the
+    vocabulary are split by each leaf's resolved spec, and activation
+    partials are all-reduced at home.  The learned codec's ``w_c`` /
+    ``w_d`` are gathered whole at home, where the wire runs, as on the
+    other path.  Each model shard's gradients come back as its blocks,
+    reduce-scattered into the shards that hold them.
+  - ``"gathered"``: otherwise (one model shard; a MoE, MLA, SSM, hymba
+    or whisper stage) every leaf is gathered whole onto the data shard's
+    home, which computes alone: there the ``model`` axis shards storage
+    only.
+
+  A stage with a MoE block routes over the whole microbatch, as JAX's
   jitted program does with the batch sharded over ``data``: its data
   shards go to the program in one call and run in lockstep, layer by
   layer, each MoE layer taking the microbatch's capacity, slot offsets
@@ -58,7 +75,8 @@ import numpy as np
 import torch
 
 from repro_torch.compression import codecs
-from repro_torch.dist.mesh import Mesh, NamedSharding, Placed, \
+from repro_torch.dist import tensor_parallel as tp
+from repro_torch.dist.mesh import Mesh, NamedSharding, Placed, at, \
     gather_tree, place_as, reduce_scatter_tree
 from repro_torch.dist.sharding import DEFAULT_RULES, ShardingRules, \
     stage_param_shardings
@@ -110,6 +128,16 @@ class _MeshBacked:
         self.device = mesh.devices.flat[0]
         self._repl = NamedSharding(mesh, ())
 
+    def _set_path(self, stages) -> None:
+        kinds = {k for s in stages for k in self.plan.stages[s].kinds}
+        self.tensor_parallel = not self.prog.routes_whole and \
+            tp.runs_tensor_parallel(self.cfg, kinds, self.mesh)
+
+    @property
+    def compute_path(self) -> str:
+        """``"tensor_parallel"`` or ``"gathered"`` (module docstring)."""
+        return "tensor_parallel" if self.tensor_parallel else "gathered"
+
     def _args(self) -> tuple:
         return (self.mesh, self.compress_mode, self.quant_block, self.rules,
                 self.batch_axis)
@@ -129,9 +157,9 @@ class _MeshBacked:
                 for i in range(n)]
 
     def _shards_of(self, inp: Tree, *extra: Tree):
-        """``(device, inp_i, *extra_i)`` per data shard: every leaf split
-        along dim 0 and put on its shard's device (a leaf already there
-        unsplit is used as it is)."""
+        """``(device, inp_i, *extra_i, i)`` per data shard ``i``: every
+        leaf split along dim 0 and put on its shard's device (a leaf
+        already there unsplit is used as it is)."""
         batch = tree_leaves(inp)[0].shape[0]
         n = self.dp_shards(batch)
         devs = self._data_devices(n)
@@ -144,7 +172,7 @@ class _MeshBacked:
                                             a[i * rows:(i + 1) * rows],
                                             dev), t)
         return [(dev, piece(inp, i, dev), *(piece(e, i, dev)
-                                            for e in extra))
+                                            for e in extra), i)
                 for i, dev in enumerate(devs)]
 
     def _calls(self, shards: list) -> list:
@@ -180,17 +208,56 @@ class _MeshBacked:
                 losses.append(loss)
                 gxs.append(gx)
                 del out
-                yield gp
+                if self.tensor_parallel:
+                    yield from self._per_model_shard(gp)
+                else:
+                    yield gp
                 del gp
 
     def _params(self, state: StageState, shards: list) -> list:
         """Each shard's params, gathered on its device once a distinct
-        device (shards of a virtual mesh share one gathered copy)."""
+        device (shards of a virtual mesh share one gathered copy); on
+        the tensor-parallel path each data shard's
+        :class:`~repro_torch.dist.tensor_parallel.ModelShards`, model
+        block ``j`` on the device at ``model`` index ``j``, gathered once
+        a distinct list of devices."""
         got: dict = {}
+        if self.tensor_parallel:
+            out = []
+            for sh in shards:
+                group = tp.Group.of(self.mesh, **{self.batch_axis: sh[-1]})
+                key = tuple(group.devs)
+                if key not in got:
+                    got[key] = self._model_shards(state, sh[-1]).trees
+                out.append(tp.ModelShards(got[key], group))
+            return out
         for dev, *_ in shards:
             if dev not in got:
                 got[dev] = self._gathered(state, dev)
         return [got[dev] for dev, *_ in shards]
+
+    def _model_shards(self, state: StageState, i: int) -> tp.ModelShards:
+        """Data shard ``i``'s model shards and their blocks."""
+        group = tp.Group.of(self.mesh, **{self.batch_axis: i})
+        trees = []
+        for j, (d, c) in enumerate(zip(group.devs, group.coords)):
+            with at(c):
+                trees.append(self._blocks(state, d, j))
+        return tp.ModelShards(trees, group)
+
+    def _reduce_grads(self, parts, shardings, shapes):
+        """Reduce-scatter the gradient parts ``_bwd_parts`` yields: one
+        a data shard, or on the tensor-parallel path one a model shard
+        of each data shard (its blocks)."""
+        if not self.tensor_parallel:
+            return reduce_scatter_tree(parts, shardings)
+        groups = [tp.Group.of(self.mesh, **{self.batch_axis: i})
+                  for i in range(int(self.mesh.shape.get(self.batch_axis,
+                                                         1)))]
+        return reduce_scatter_tree(
+            parts, shardings, sources=[c for g in groups for c in g.coords],
+            wheres=[{tp.MODEL_AXIS: j} for g in groups
+                    for j in range(g.m)], shapes=shapes)
 
     def _cat(self, outs: list) -> Tree:
         """Per-shard outputs or cotangents joined along dim 0 on
@@ -298,6 +365,7 @@ class MeshExecutor(_MeshBacked):
         self.bwd_flops_per_token = self.prog.bwd_flops_per_token
         self.param_shardings = stage_param_shardings(self.prog.specs, mesh,
                                                      self.rules)
+        self._set_path(self.stages)
 
     @property
     def stages(self) -> range:
@@ -330,6 +398,12 @@ class MeshExecutor(_MeshBacked):
     def _gathered(self, state: StageState, dev: torch.device) -> Tree:
         return gather_tree(state.params, dev)
 
+    def _blocks(self, state: StageState, dev, j: int) -> Tree:
+        return tp.gather_block(state.params, dev, j)
+
+    def _per_model_shard(self, gp: list):
+        yield from gp
+
     def run_fwd(self, state: StageState, inp: Tree,
                 labels: Optional[torch.Tensor] = None) -> Tree:
         return self._run_fwd(state, inp, labels, self._last())
@@ -340,7 +414,8 @@ class MeshExecutor(_MeshBacked):
         losses, gxs = [], []
         parts = self._bwd_parts(state, self._shards_of(
             inp, labels if self._last() else dy), self._last(), losses, gxs)
-        gp = reduce_scatter_tree(parts, self.param_shardings)
+        gp = self._reduce_grads(parts, self.param_shardings,
+                                tree_map(lambda p: p.shape, state.params))
         loss = self._sum(losses) if self._last() else None
         return loss, self._cat(gxs), gp
 
@@ -424,6 +499,7 @@ class MeshSpanExecutor(_MeshBacked):
         self.param_shardings = {
             s: stage_param_shardings(self.prog.specs[s], mesh, self.rules)
             for s in self.stages}
+        self._set_path(self.stages)
 
     @property
     def stages(self) -> range:
@@ -469,6 +545,16 @@ class MeshSpanExecutor(_MeshBacked):
         return tuple(gather_tree(state.per_stage[s].params, dev)
                      for s in self.stages)
 
+    def _blocks(self, state: StageState, dev, j: int) -> tuple:
+        return tuple(tp.gather_block(state.per_stage[s].params, dev, j)
+                     for s in self.stages)
+
+    def _per_model_shard(self, gps: tuple):
+        """A data shard's per-stage gradients (each a list over model
+        shards) as one tuple over the stages a model shard."""
+        for j in range(len(gps[0])):
+            yield tuple(g[j] for g in gps)
+
     def run_fwd(self, state: StageState, inp: Tree,
                 labels: Optional[torch.Tensor] = None) -> Tree:
         return self._run_fwd(state, inp, labels, self._covers_last())
@@ -482,7 +568,9 @@ class MeshSpanExecutor(_MeshBacked):
                                    else dy), self._covers_last(), losses,
             gxs)
         shardings = tuple(self.param_shardings[s] for s in self.stages)
-        gps = reduce_scatter_tree(parts, shardings)
+        gps = self._reduce_grads(parts, shardings, tuple(
+            tree_map(lambda p: p.shape, state.per_stage[s].params)
+            for s in self.stages))
         loss = self._sum(losses) if self._covers_last() else None
         # per-stage gradients keyed by global stage id, as
         # PipelineExecutor keys them

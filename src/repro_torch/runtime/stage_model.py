@@ -63,7 +63,9 @@ from repro_torch.models.stage_plan import get_stage_plan
 from repro_torch.models import params as P
 from repro_torch.models import layers as L
 from repro_torch.models import model as model_lib
-from repro_torch.models.blocks import MOE_PRE, REGISTRY, apply_lockstep
+from repro_torch.models.blocks import MOE_PRE, REGISTRY, TP_APPLY, \
+    apply_lockstep
+from repro_torch.dist.tensor_parallel import ModelShards
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten_like
 
 Tree = Any
@@ -191,6 +193,30 @@ def make_block_core(cfg: ArchConfig, runs: list[tuple[str, int]],
     return block_fn
 
 
+def make_block_core_tp(cfg: ArchConfig, runs: list[tuple[str, int]],
+                       reps: int = 1) -> Callable:
+    """:func:`make_block_core` over one data shard's model shards,
+    ``(blocks, x, positions, group) -> x``: ``blocks[j]`` model shard
+    ``j``'s ``[tree-per-run]`` list, ``x`` the residual stream at home
+    (``models.blocks.TP_APPLY``).  Each shard casts its block of a layer
+    once a call, outside the ``reps`` loop, as :func:`make_block_core`
+    does."""
+    def block_fn(blocks: list, x, positions, group):
+        for r, (kind, _) in enumerate(runs):
+            apply_fn = TP_APPLY[kind]
+            for ps in zip(*(model_lib.layers(b[r]) for b in blocks)):
+                lows = group.per_shard(
+                    lambda j, p: model_lib.compute_cast(p, x.dtype), ps)
+                for _ in range(reps):
+                    x, _aux = apply_fn(
+                        cfg, [model_lib.shared_application(p32, low)
+                              for p32, low in zip(ps, lows)],
+                        x, positions, group)
+        return x
+
+    return block_fn
+
+
 def _routes_whole(cfg: ArchConfig, n_stages: int, stages) -> bool:
     """Does one of these stages route over the whole microbatch (MoE)?"""
     return any(k in MOE_PRE for s in stages
@@ -208,7 +234,7 @@ def _make_stage_fwd(cfg: ArchConfig, s: int, n_stages: int, comp: str,
     core = make_block_core(cfg, runs, reps)
     is_first, is_last = s == 0, s == n_stages - 1
 
-    def enter(params: Tree, inp: torch.Tensor) -> torch.Tensor:
+    def enter(params: Tree, inp: torch.Tensor, ms=None) -> torch.Tensor:
         if cfg.rope == "mrope":
             raise NotImplementedError(
                 f"{cfg.name}: M-RoPE stage programs are refused.  The JAX "
@@ -217,6 +243,8 @@ def _make_stage_fwd(cfg: ArchConfig, s: int, n_stages: int, comp: str,
                 "reference trains no M-RoPE config through SWARM stages "
                 "(ROADMAP queue 3); serve it through ServeRunner instead")
         if is_first:
+            if ms is not None:
+                return model_lib.embed_tp(cfg, ms.trees, inp, ms.group)
             return model_lib.embed(cfg, params, inp)
         x = inp.to(cfg.compute_jdtype)
         if learned:          # wire tensor arrives c-dim: restore
@@ -228,7 +256,23 @@ def _make_stage_fwd(cfg: ArchConfig, s: int, n_stages: int, comp: str,
             x = codecs.encode_wire(cfg, comp, params.get("boundary"), x)
         return x
 
+    core_tp = make_block_core_tp(cfg, runs, reps) if \
+        set(k for k, _ in runs) <= set(TP_APPLY) else None
+
+    def tp_fwd(ms: ModelShards, inp: torch.Tensor) -> torch.Tensor:
+        """One data shard over its model shards: the learned codec at
+        home, on its whole weights."""
+        home = ms.trees[0]
+        with ms.group.scope(0):
+            x = enter(home, inp, ms)
+        x = core_tp([t["blocks"] for t in ms.trees], x,
+                    torch.arange(x.shape[1], device=x.device), ms.group)
+        with ms.group.scope(0):
+            return leave(home, x)
+
     def stage_fwd(ps: list, inps: list) -> list:
+        if isinstance(ps[0], ModelShards):
+            return [tp_fwd(ms, i) for ms, i in zip(ps, inps)]
         xs = [enter(p, i) for p, i in zip(ps, inps)]
         pos = [torch.arange(x.shape[1], device=x.device) for x in xs]
         xs = core([p["blocks"] for p in ps], xs, pos)
@@ -251,7 +295,16 @@ def _head_logits(cfg: ArchConfig, params: Tree, x: torch.Tensor
 def _head_loss(cfg: ArchConfig, params: Tree, x: torch.Tensor,
                labels: torch.Tensor) -> torch.Tensor:
     """Logits + token-sum CE (so microbatch gradients add exactly,
-    App. E)."""
+    App. E); over a data shard's model shards (:class:`ModelShards`)
+    vocab-parallel where the head splits, else the one-device head at
+    home."""
+    if isinstance(params, ModelShards):
+        from repro_torch.dist import tensor_parallel as tp
+        parts = model_lib.head_tp(cfg, params.trees, x, params.group)
+        if parts is not None:
+            return tp.vocab_parallel_nll(parts, labels, params.group).sum()
+        with params.group.scope(0):
+            return _head_loss(cfg, params.trees[0], x, labels)
     logits = _head_logits(cfg, params, x)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
@@ -267,18 +320,41 @@ def _stage_fwd_flops(cfg: ArchConfig, s: int, n_stages: int, seq_len: int,
     return get_stage_plan(cfg, n_stages).stage_flops(s, seq_len) + codec_f
 
 
+def _tree_of(params) -> Tree:
+    """A param tree; a :class:`ModelShards`' list of shard trees."""
+    return params.trees if isinstance(params, ModelShards) else params
+
+
 def _grad_leaves(params: Tree) -> list[torch.Tensor]:
     """The floating leaves of ``params`` as fresh autograd leaves
     (detached views: no copy)."""
-    return [a.detach().requires_grad_() for a in tree_leaves(params)]
+    return [a.detach().requires_grad_() for a in tree_leaves(
+        _tree_of(params))]
+
+
+def _fresh_params(params, leaves: list):
+    """``params`` rebuilt over its fresh ``leaves``."""
+    tree = tree_unflatten_like(_tree_of(params), leaves)
+    if isinstance(params, ModelShards):
+        return ModelShards(tree, params.group)
+    return tree
 
 
 def _grads_like(params: Tree, leaves: list, grads) -> Tree:
     """Rebuild the gradient tree; a leaf the loss does not reach gets
-    zeros (JAX's vjp returns zeros there too)."""
-    return tree_unflatten_like(params, [
+    zeros (JAX's vjp returns zeros there too).  Over model shards: the
+    list of each shard's gradient tree, on its own device."""
+    return tree_unflatten_like(_tree_of(params), [
         torch.zeros_like(a) if g is None else g
         for a, g in zip(leaves, grads)])
+
+
+def _per_stage(ps, n: int):
+    """A span shard's per-stage params: its tuple, or over model shards
+    one :class:`ModelShards` a stage."""
+    if isinstance(ps, ModelShards):
+        return [ps.sub(i) for i in range(n)]
+    return ps
 
 
 # --------------------------------------------------- encoder-decoder stages
@@ -539,8 +615,7 @@ def build_stage_programs(cfg: ArchConfig, n_stages: int, seq_len: int,
         def bwd_shards(ps, inps, dys_or_labels, _sf=stage_fwd,
                        _first=is_first, _last=is_last):
             leaves = [_grad_leaves(p) for p in ps]
-            trees = [tree_unflatten_like(p, lv)
-                     for p, lv in zip(ps, leaves)]
+            trees = [_fresh_params(p, lv) for p, lv in zip(ps, leaves)]
             with torch.enable_grad():
                 xs = [i if _first else i.detach().requires_grad_()
                       for i in inps]
@@ -623,6 +698,7 @@ def build_span_program(cfg: ArchConfig, n_stages: int, seq_len: int,
     covers_last = hi == n_stages
 
     def fwd_shards(pss, inps, labels=None):
+        pss = [_per_stage(ps, len(stages)) for ps in pss]
         with torch.no_grad():
             xs = inps
             for i, f in enumerate(fwds):
@@ -657,8 +733,9 @@ def build_span_program(cfg: ArchConfig, n_stages: int, seq_len: int,
 
     def bwd_shards(pss, inps, dys_or_labels):
         n = len(pss)
+        pss[:] = [_per_stage(ps, len(stages)) for ps in pss]
         leaves = [[_grad_leaves(p) for p in ps] for ps in pss]
-        trees = [[tree_unflatten_like(p, lv) for p, lv in zip(ps, lvs)]
+        trees = [[_fresh_params(p, lv) for p, lv in zip(ps, lvs)]
                  for ps, lvs in zip(pss, leaves)]
         ins = [[] for _ in range(n)]
         outs = [[] for _ in range(n)]

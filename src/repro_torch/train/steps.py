@@ -56,9 +56,32 @@ def model_specs(cfg: ArchConfig) -> Tree:
     return specs
 
 
-def make_loss_fn(cfg: ArchConfig, remat: bool | str = True):
-    """``loss_fn(params, batch) -> (ce + aux, ce)``."""
+def cross_entropy_tp(cfg: ArchConfig, ps: list, x: torch.Tensor,
+                     labels: torch.Tensor, group) -> torch.Tensor:
+    """:func:`cross_entropy` of the head over a data shard's model shards
+    (``ps[j]`` shard ``j``'s tree, ``x`` the final hidden state at
+    home): vocab-parallel where the head splits
+    (``dist.tensor_parallel.vocab_parallel_nll``: no shard holds the
+    whole ``[B, S, V]``), else the one-device head and loss at home."""
+    from repro_torch.dist import tensor_parallel as tp
+    parts = model_lib.head_tp(cfg, ps, x, group)
+    if parts is None:
+        with group.scope(0):
+            return cross_entropy(model_lib.head(cfg, ps[0], x), labels)
+    return tp.vocab_parallel_nll(parts, labels, group).mean()
+
+
+def make_loss_fn(cfg: ArchConfig, remat: bool | str = True, group=None):
+    """``loss_fn(params, batch) -> (ce + aux, ce)``; with a
+    ``dist.tensor_parallel.Group``, ``params`` is the list of its model
+    shards' trees and the step computes tensor-parallel."""
     def loss_fn(params: Tree, batch: Tree):
+        if group is not None:
+            x, aux = model_lib.lm_apply_tp(
+                cfg, params, group, batch["tokens"], batch.get("positions"),
+                remat=remat)
+            ce = cross_entropy_tp(cfg, params, x, batch["labels"], group)
+            return ce + aux, ce
         if cfg.family == "audio":
             logits, aux = whisper_lib.whisper_apply(cfg, params, batch, remat)
         else:
@@ -99,11 +122,13 @@ def _value_and_grad(loss_fn, params: Tree, batch: Tree):
 
 
 def make_grad_fn(cfg: ArchConfig, remat: bool | str = True,
-                 accum: int = 1):
+                 accum: int = 1, group=None):
     """``grad_fn(params, batch) -> (loss, ce, grads)``: the gradients of
     :func:`make_train_step`, with its accumulation over ``accum``
-    microbatches."""
-    loss_fn = make_loss_fn(cfg, remat)
+    microbatches.  With a ``dist.tensor_parallel.Group`` the params and
+    gradients are lists of its model shards' trees (each shard's
+    gradients on its own device)."""
+    loss_fn = make_loss_fn(cfg, remat, group)
 
     def grad_fn(params: Tree, batch: Tree):
         if accum == 1:

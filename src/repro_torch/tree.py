@@ -19,24 +19,27 @@ def _is_node(x: Any) -> bool:
     return isinstance(x, (dict, list, tuple)) or x is None
 
 
+def _collect(t, is_leaf, out: list) -> None:
+    # a module-level walk, not a closure that calls itself: such a
+    # closure is a reference cycle holding ``out`` (every leaf) until the
+    # garbage collector runs
+    if is_leaf is not None and is_leaf(t):
+        out.append(t)
+    elif t is None:
+        return
+    elif isinstance(t, dict):
+        for k in sorted(t):
+            _collect(t[k], is_leaf, out)
+    elif isinstance(t, (list, tuple)):
+        for v in t:
+            _collect(v, is_leaf, out)
+    else:
+        out.append(t)
+
+
 def tree_leaves(tree: Tree, is_leaf: Callable[[Any], bool] = None) -> list:
     out: list = []
-
-    def walk(t):
-        if is_leaf is not None and is_leaf(t):
-            out.append(t)
-        elif t is None:
-            return
-        elif isinstance(t, dict):
-            for k in sorted(t):
-                walk(t[k])
-        elif isinstance(t, (list, tuple)):
-            for v in t:
-                walk(v)
-        else:
-            out.append(t)
-
-    walk(tree)
+    _collect(tree, is_leaf, out)
     return out
 
 
@@ -61,19 +64,19 @@ def tree_unflatten_like(template: Tree, leaves: list,
                         is_leaf: Callable[[Any], bool] = None) -> Tree:
     """Rebuild ``template``'s structure from ``leaves`` (in
     :func:`tree_leaves` order)."""
-    it = iter(leaves)
+    return _build(template, iter(leaves), is_leaf)
 
-    def build(t):
-        if is_leaf is not None and is_leaf(t):
-            return next(it)
-        if t is None:
-            return None
-        if isinstance(t, dict):
-            vals = {k: build(t[k]) for k in sorted(t)}
-            return {k: vals[k] for k in t}
-        if isinstance(t, (list, tuple)):
-            out = [build(v) for v in t]
-            return tuple(out) if isinstance(t, tuple) else out
+
+def _build(t, it, is_leaf):
+    # module-level for the reason :func:`_collect` gives
+    if is_leaf is not None and is_leaf(t):
         return next(it)
-
-    return build(template)
+    if t is None:
+        return None
+    if isinstance(t, dict):
+        vals = {k: _build(t[k], it, is_leaf) for k in sorted(t)}
+        return {k: vals[k] for k in t}
+    if isinstance(t, (list, tuple)):
+        out = [_build(v, it, is_leaf) for v in t]
+        return tuple(out) if isinstance(t, tuple) else out
+    return next(it)

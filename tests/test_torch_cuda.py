@@ -1457,6 +1457,63 @@ def test_cuda_mesh_executor_launches_the_kernels(n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)])
+def test_cuda_tensor_parallel_mesh_executor(shape):
+    """Mesh peers computing tensor-parallel over the ``model`` axis of a
+    virtual ``("data", "model")`` mesh of the card (RMSNorm, heads and
+    FFN split, vocab split): flash and rmsnorm launch on every model
+    shard, the loss within bf16 rounding of one device's, the
+    gradients finite."""
+    from repro_torch.dist.mesh import current_coord, gather
+    from repro_torch.launch.mesh import make_debug_mesh, make_peer_mesh
+    from repro_torch.runtime import MeshExecutor
+    from repro_torch.tree import tree_leaves
+    dev = torch.device(_card(), 0)
+    cfg = ArchConfig(name="tiny-tp", family="dense", n_layers=4,
+                     d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
+                     vocab_size=512, head_dim=64, boundary_compression="none")
+    one = [MeshExecutor(cfg, 2, 64, s, make_peer_mesh(devices=[dev]))
+           for s in range(2)]
+    mesh = make_debug_mesh(shape, ("data", "model"),
+                           devices=[dev] * (shape[0] * shape[1]))
+    tpx = [MeshExecutor(cfg, 2, 64, s, mesh) for s in range(2)]
+    assert [e.compute_path for e in tpx] == ["tensor_parallel"] * 2
+    st1 = [e.init_state(s) for s, e in enumerate(one)]
+    stp = [e.init_state(9) for e in tpx]
+    for s in range(2):
+        tpx[s].restore(stp[s], one[s].snapshot(st1[s]))
+    g = _gen("cuda")
+    tok = torch.randint(0, 512, (2, 64), generator=g, device="cuda")
+    lab = torch.randint(0, 512, (2, 64), generator=g, device="cuda")
+    per: dict = {}
+    orig = kernels.LAUNCHES
+
+    class ByCoord(dict):
+        def __setitem__(self, k, v):
+            c = current_coord()
+            if c is not None:
+                per.setdefault(c, dict.fromkeys(orig, 0))[k] += \
+                    v - self.get(k, 0)
+            super().__setitem__(k, v)
+    kernels.LAUNCHES = ByCoord(orig)
+    try:
+        w = tpx[0].run_fwd(stp[0], tok)
+        loss, gx, gp = tpx[1].run_bwd(stp[1], w, labels=lab)
+        _, _, gp0 = tpx[0].run_bwd(stp[0], tok, dy=gx)
+        torch.cuda.synchronize()
+    finally:
+        orig.update(kernels.LAUNCHES)
+        kernels.LAUNCHES = orig
+    for c in mesh.coords():
+        assert per[c]["flash_attention_fwd"] > 0 and per[c]["rmsnorm"] > 0
+    w1 = one[0].run_fwd(st1[0], tok)
+    loss1 = one[1].run_bwd(st1[1], w1, labels=lab)[0]
+    assert abs(float(loss) - float(loss1)) < 1e-2 * abs(float(loss1))
+    assert all(torch.isfinite(gather(a, dev)).all()
+               for a in tree_leaves(gp) + tree_leaves(gp0))
+
+
+@pytest.mark.cuda
 def test_cuda_pipeline_step_launches_match_reckoning():
     """``make_pipeline_train_step`` over (``pod`` 2, ``data`` 1) of the
     card, M-RoPE + RMSNorm + tied embeddings on the int8 wire, 4
