@@ -203,16 +203,24 @@ JSON line; any failure raises and exits non-zero):
              experts x 8192, 40 / 8 heads of 128, bf16), one layer a
              stage over 2 stages: each stage as ``MeshExecutor`` s on
              ``[cuda:0] x 2`` (a microbatch of 2 x 512 split 1 + 1, the
-             MoE layers in lockstep) and on one device, from the same
-             weights and inputs.  Per layer the split's routes equal the
-             whole-microbatch routing of the same router inputs exactly;
-             route and kept flips against the one-device run and the
-             pairs the shards' own capacity would have kept or dropped
-             otherwise (above zero: the check bites) are reported; the
-             bf16 losses within 2e-2, the gradients' gap per leaf
-             reported, peak memory per backward; an f32 twin of the MoE
-             layer alone, split against unsplit, within 1e-5 of each
-             leaf's largest entry.
+             MoE layers in lockstep), expert-parallel on ("data",
+             "model") (1, 2) and (2, 2), and on one device, from the
+             same weights and inputs.  Per layer every split's routes
+             equal the whole-microbatch routing of the same router
+             inputs exactly; route and kept flips against the one-device
+             run and the pairs the shards' own capacity would have kept
+             or dropped otherwise (above zero: the check bites) are
+             reported; the bf16 losses within 2e-2, the gradients' gap
+             per leaf reported, peak memory per backward beside its meta
+             reckoning, tokens/s; on the expert-parallel meshes each
+             coordinate's gathered bytes equal to the reckoned blocks,
+             flash and rmsnorm launched on every coordinate, no plain
+             flash call, the MoE collectives (router gather, rows back,
+             shared expert) and the rest against the plan; an f32 twin
+             of the MoE layer alone, split against unsplit, within 1e-5
+             of each leaf's largest entry, and one of the last stage
+             expert-parallel against one device (loss 1e-5, gradients
+             1e-2).
 13e. train_pipeline_moe — ``make_pipeline_train_step``'s loss and
              gradients for the same config over (``pod`` 2, ``data`` 2)
              of the card, 2 microbatches of 2 x 512 each split 1 + 1,
@@ -4284,26 +4292,29 @@ def _tp_mesh(torch, shape):
     return _card_mesh(torch, shape[0] * shape[1], shape, ("data", "model"))
 
 
-def _tp_bytes(ex, state) -> list:
-    """Each model coordinate of data shard 0: the bytes of the params it
-    gathered beside those ``block_bytes`` reckons; raises unless equal."""
+def _tp_bytes(ex, state, name: str = "train_mesh_tp") -> list:
+    """Each model coordinate of every data shard: the bytes of the params
+    it gathered beside those ``block_bytes`` reckons; raises unless
+    equal."""
     from repro_torch.dist import tensor_parallel as tp
     from repro_torch.tree import tree_leaves
-    ms = ex._model_shards(state, 0)
     specs = ex.prog.specs
     stages = list(ex.stages) if isinstance(ex.param_shardings, dict) \
         and all(isinstance(k, int) for k in ex.param_shardings) else None
     rows = []
-    for j, tree in enumerate(ms.trees):
-        got = sum(a.numel() * a.element_size() for a in tree_leaves(tree))
-        want = (sum(tp.block_bytes(specs[s], ex.param_shardings[s], j)
-                    for s in stages) if stages else
-                tp.block_bytes(specs, ex.param_shardings, j))
-        rows.append({"coord": list(ms.group.coords[j]),
-                     "gathered_bytes": got, "reckoned_bytes": want})
-    del ms
+    for i in range(int(ex.mesh.shape.get("data", 1))):
+        ms = ex._model_shards(state, i)
+        for j, tree in enumerate(ms.trees):
+            got = sum(a.numel() * a.element_size()
+                      for a in tree_leaves(tree))
+            want = (sum(tp.block_bytes(specs[s], ex.param_shardings[s], j)
+                        for s in stages) if stages else
+                    tp.block_bytes(specs, ex.param_shardings, j))
+            rows.append({"coord": list(ms.group.coords[j]),
+                         "gathered_bytes": got, "reckoned_bytes": want})
+        del ms
     if any(r["gathered_bytes"] != r["reckoned_bytes"] for r in rows):
-        raise AssertionError(f"train_mesh_tp: gathered bytes {rows}")
+        raise AssertionError(f"{name}: gathered bytes {rows}")
     return rows
 
 
@@ -4704,12 +4715,14 @@ def phase_train_pipeline(torch) -> dict:
 # ------------------------------------------------------------ phase 13d
 # train_mesh_moe: llama4-scout-17b-a16e at full width (d 5120, 16 experts
 # x 8192, 40 / 8 heads of 128, bf16), depth cut to one layer a stage over
-# 2 stages, a microbatch of 2 x 512 split 1 + 1 over a [cuda:0] x 2 mesh,
-# against the same executor on a one-device mesh.  A layer is 4.42 GB,
-# the embedding and the head 2.07 GB each, so a stage holds 6.5 GB; its
-# 2-way run_bwd reaches about 72 GB (phase_train_mesh_moe's reckoning).
-# The f32 twin (the MoE layer alone) holds 8.6 GB of weights and two
-# gradient sets of it.
+# 2 stages, a microbatch of 2 x 512 split 1 + 1 over a [cuda:0] x 2 mesh
+# and expert-parallel over (1, 2) and (2, 2), against the same executor
+# on a one-device mesh.  A layer is 4.42 GB, the embedding and the head
+# 2.07 GB each, so a stage holds 6.5 GB; its 2-way run_bwd reaches about
+# 72 GB (phase_train_mesh_moe's reckoning).  The f32 twin (the MoE layer
+# alone) holds 8.6 GB of weights and two gradient sets of it; the f32
+# expert-parallel twin a 13 GB last stage, its model blocks, its
+# gradients and their f64 sum (72.6 GB on (2, 2), reckoned on meta).
 MOE_ARCH = "llama4-scout-17b-a16e"
 MOE_SEQ, MOE_MB = 512, 2
 MOE_BF16_RTOL = 2e-2            # the families' bf16 MoE bound
@@ -4731,20 +4744,29 @@ def moe_config():
 
 @contextlib.contextmanager
 def moe_calls():
-    """Record every ``apply_moe`` call's router, input and split rule
-    (the routes are recomputed from them afterwards)."""
+    """Record every ``apply_moe`` and ``apply_moe_tp`` call's router (the
+    model shards' blocks joined at home), input and split rule (the
+    routes are recomputed from them afterwards)."""
+    import torch
     from repro_torch.models import layers as L
     calls: list = []
-    orig = L.apply_moe
+    orig, orig_tp = L.apply_moe, L.apply_moe_tp
 
     def recorded(cfg, p, x, route=None):
         calls.append((cfg, p["router"], x.detach(), L.split_provider()))
         return orig(cfg, p, x, route=route)
-    L.apply_moe = recorded
+
+    def recorded_tp(cfg, ps, x, group, route=None):
+        router = ps[0]["router"].detach() if not L.experts_split(
+            cfg, ps[0]) else torch.cat([p["router"].detach().to(x.device)
+                                        for p in ps], dim=-1)
+        calls.append((cfg, router, x.detach(), L.split_provider()))
+        return orig_tp(cfg, ps, x, group, route=route)
+    L.apply_moe, L.apply_moe_tp = recorded, recorded_tp
     try:
         yield calls
     finally:
-        L.apply_moe = orig
+        L.apply_moe, L.apply_moe_tp = orig, orig_tp
 
 
 def _routing(torch, call) -> dict:
@@ -4879,21 +4901,90 @@ def _leaf_gaps(torch, got: list, want: list, chunk: int = 1 << 24
             "grad_sign_flip_share": flips / max(above, 1)}
 
 
+# the mesh peers of train_mesh_moe, by name: one device; the microbatch
+# split 1 + 1 over [cuda:0] x 2 (the gathered path); expert-parallel over
+# ("data", "model") (1, 2) and (2, 2)
+MOE_MESHES = {"one": None, "data2": None, "tp1x2": (1, 2), "tp2x2": (2, 2)}
+MOE_TP = ("tp1x2", "tp2x2")
+# the f32 expert-parallel twin's floor under a leaf's largest gradient
+# entry, as a share of the stage's largest: the top-1 router's gradient
+# is rounding noise (1e-8 against entries of 0.1-10 on the CPU)
+MOE_NOISE_FLOOR = 1e-6
+
+
+def _moe_meshes(torch) -> dict:
+    return {name: (_card_mesh(torch, 1) if name == "one" else
+                   _card_mesh(torch, 2) if shape is None else
+                   _tp_mesh(torch, shape))
+            for name, shape in MOE_MESHES.items()}
+
+
+def moe_all_reduces_planned(n: int) -> dict:
+    """``ALL_REDUCES`` a microbatch of ``n`` data shards adds on a
+    tensor-parallel mesh in train_mesh_moe's sequence (stage 0's and
+    stage 1's forward, stage 1's then stage 0's backward; a layer a
+    stage): a layer application (forward or recompute) makes one
+    attention all-reduce, one router gather, one return of expert rows
+    and one shared-expert all-reduce a data shard; stage 0's embedding
+    one; the head's loss three; the backward one cotangent all-reduce a
+    fanout (the attention's and the MoE's a layer, the head's)."""
+    return {"activation": 4 * n, "router": 4 * n, "expert_rows": 4 * n,
+            "shared_expert": 4 * n, "embedding": 2 * n, "loss": 6 * n,
+            "cotangent": 5 * n}
+
+
+def _moe_meta_peak(torch, cfg, s: int, shape, inp_shape, last: bool
+                   ) -> int:
+    """The bytes stage ``s``'s ``run_bwd`` on a ``shape`` ("data",
+    "model") mesh allocates at its peak, every coordinate's together
+    (the card holds them all), reckoned on meta by the dry run's ledger
+    (``DeviceLedger.peak_total``)."""
+    from repro_torch.launch import hlo_analysis as H
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import params as P
+    from repro_torch.runtime import MeshExecutor, StageState
+    meta = torch.device("meta")
+    mesh = make_debug_mesh(shape, ("data", "model"),
+                           devices=[meta] * (shape[0] * shape[1]))
+    ex = MeshExecutor(cfg, 2, MOE_SEQ, s, mesh, compress="none")
+    st = StageState(params=ex._place(P.abstract(ex.prog.specs),
+                                     ex.param_shardings))
+    tok = torch.empty(inp_shape[:2], dtype=torch.int64, device=meta)
+    x = torch.empty(inp_shape, dtype=cfg.compute_jdtype, device=meta)
+    with H.DeviceLedger() as led:
+        if last:
+            out = ex.run_bwd(st, x, labels=tok)
+        else:
+            out = ex.run_bwd(st, tok, dy=x)
+    del out
+    return led.peak_total
+
+
 def phase_train_mesh_moe(torch) -> dict:
-    """A MoE stage on a split mesh: each stage of ``moe_config`` as a
-    ``MeshExecutor`` on ``[cuda:0] x 2`` (the microbatch split 1 + 1,
-    its MoE layers in lockstep) and on one device, from the same
-    weights and inputs: routes per layer (identical to the
-    whole-microbatch routing of the same router inputs; flips against
-    the one-device run reported), the bf16 losses within
-    ``MOE_BF16_RTOL``, the gradients' gap reported; then the f32 twin.
-    One stage's weights live at a time (drawn again from their seed for
-    stage 0's backward), so the peak is a stage's: its weights (6.5
-    GB), the one-device gradients (6.5), the 2-way run's gathered copy
-    (6.5), a shard's bf16 gradients (6.5), their f64 sum (26.0) and a
-    fold's f64 block (up to 4.1)."""
+    """A MoE stage on split meshes: each stage of ``moe_config`` as a
+    ``MeshExecutor`` on the meshes of ``MOE_MESHES`` (one device; the
+    microbatch split 1 + 1 over ``[cuda:0] x 2``, its MoE layers in
+    lockstep; expert-parallel over ("data", "model") (1, 2) and (2, 2),
+    the data shards in lockstep there too) from the same weights and
+    inputs: each run's path; routes per layer (every split's identical
+    to the whole-microbatch routing of the same router inputs; flips
+    against the one-device run reported); the bf16 losses within
+    ``MOE_BF16_RTOL``, the gradients' gap reported; on the
+    expert-parallel meshes each coordinate's gathered bytes against
+    ``block_bytes``, flash and rmsnorm launched on every coordinate, no
+    plain flash call, ``ALL_REDUCES`` equal to
+    ``moe_all_reduces_planned``, each backward's peak beside its meta
+    reckoning, tokens/s (a microbatch's forward and backward over both
+    stages, host clock); then the f32 twins.  One stage's weights live
+    at a time (drawn again from their seed for stage 0's backward), and
+    no mesh's state holds a gradient accumulator, so the peak is a
+    stage's: its weights (6.5 GB), the one-device gradients (6.5), a
+    run's gathered copy or model blocks (6.5), a shard's bf16 gradients
+    (6.5), their f64 sum (26.0) and a fold's f64 block (up to 4.1)."""
+    import collections
     from repro_torch import kernels
     from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.dist import tensor_parallel as tp
     from repro_torch.dist.mesh import gather
     from repro_torch.models import params as P
     from repro_torch.runtime import MeshExecutor, StageState
@@ -4904,48 +4995,85 @@ def phase_train_mesh_moe(torch) -> dict:
     torch.cuda.reset_peak_memory_stats()
     cfg = moe_config()
     progs = get_stage_programs(cfg, 2, MOE_SEQ, "none")
-    meshes = {1: _card_mesh(torch, 1), 2: _card_mesh(torch, 2)}
+    meshes = _moe_meshes(torch)
 
     def stage(s: int) -> dict:
-        """Stage ``s``'s executors on both meshes over one weight tree."""
+        """Stage ``s``'s executors on every mesh over one weight tree."""
         params = P.init(11 + s, progs[s].specs, "cuda")
         out = {}
-        for n, mesh in meshes.items():
+        for name, mesh in meshes.items():
             ex = MeshExecutor(cfg, 2, MOE_SEQ, s, mesh, compress="none")
             st = StageState()
             ex.restore(st, {"params": params, "opt": None})
-            out[n] = (ex, st)
+            # the phase never accumulates: no zeroed 6.5 GB copy a mesh
+            st.grad_acc = None
+            out[name] = (ex, st)
         return out
 
     b = SyntheticLM(cfg.vocab_size, MOE_SEQ, MOE_MB, seed=17).batch(0)
     tok = torch.as_tensor(b["tokens"], device="cuda")
     lab = torch.as_tensor(b["labels"], device="cuda")
     before = dict(kernels.LAUNCHES)
-    routes, losses, secs, gaps, peaks = [], {}, {}, {}, {}
+    routes = {name: [] for name in meshes if name != "one"}
+    losses, gaps, peaks, reckoned, card_bytes = {}, {}, {}, {}, {}
+    secs = collections.Counter()
+    reduces = {name: collections.Counter() for name in MOE_TP}
+    per = {name: collections.defaultdict(collections.Counter)
+           for name in MOE_TP}
+    paths, nbytes, plain = {}, {}, []
 
-    def forward(ex, inp, *extra):
-        with moe_calls() as calls:
-            out = {n: e.run_fwd(st, inp, *extra) for n, (e, st) in
-                   ex.items()}
-        one = [c for c in calls if c[2].shape[0] == MOE_MB]
-        two = [c for c in calls if c[2].shape[0] == 1]
-        routes.append(_route_checks(torch, one, two))
+    def run(name: str, fn):
+        """``fn`` (a run of mesh ``name``'s executor), timed, its MoE
+        calls recorded, its launches by coordinate and its
+        ``ALL_REDUCES`` kept under ``name``."""
+        was = collections.Counter(tp.ALL_REDUCES)
+        with moe_calls() as calls, coord_launches() as by, \
+                plain_flash_calls() as pf:
+            torch.cuda.synchronize()
+            t1 = time.time()
+            out = fn()
+            torch.cuda.synchronize()
+            secs[name] += time.time() - t1
+        plain.extend(pf)
+        if name in reduces:
+            reduces[name].update(collections.Counter(tp.ALL_REDUCES) - was)
+            for c, n in by.items():
+                per[name][c].update(n)
+        return out, calls
+
+    def forward(ex, s: int, inp, *extra):
+        out, calls = {}, {}
+        for name, (e, st) in ex.items():
+            paths[f"stage{s}_{name}"] = e.compute_path
+            if name in MOE_TP:
+                nbytes[f"stage{s}_{name}"] = _tp_bytes(e, st,
+                                                       "train_mesh_moe")
+            out[name], calls[name] = run(
+                name, lambda e=e, st=st: e.run_fwd(st, inp, *extra))
+        for name in routes:
+            routes[name].append(_route_checks(torch, calls["one"],
+                                              calls[name]))
         return out
 
     def backward(ex, s: int, inp, **kw):
-        """Both meshes' run_bwd: the input cotangent of the one-device
-        run, and the 2-way run's gaps from it."""
+        """Every mesh's run_bwd: the input cotangent of the one-device
+        run, and the other runs' gaps from it."""
         ref = gx_ref = None
-        for n, (e, st) in ex.items():
+        for name, (e, st) in ex.items():
+            if name in MOE_TP:
+                reckoned[f"stage{s}_{name}"] = _moe_meta_peak(
+                    torch, cfg, s, MOE_MESHES[name],
+                    (MOE_MB, MOE_SEQ, cfg.d_model), s == 1)
             torch.cuda.synchronize()
-            t1 = time.time()
-            _, gx, gp = e.run_bwd(st, inp, **kw)
-            torch.cuda.synchronize()
-            secs[f"stage{s}_{n}way"] = time.time() - t1
-            peaks[f"stage{s}_{n}way_bwd"] = \
-                torch.cuda.max_memory_allocated() / 1e9
+            base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
-            if n == 1:
+            (_, gx, gp), _ = run(name, lambda e=e, st=st: e.run_bwd(
+                st, inp, **kw))
+            key = f"stage{s}_{name}"
+            peaks[key] = torch.cuda.max_memory_allocated() / 1e9
+            if name in MOE_TP:
+                card_bytes[key] = torch.cuda.max_memory_allocated() - base
+            if name == "one":
                 # one part's f64 "sum" is that part exactly: kept in the
                 # gradients' own dtypes (the params'), each f64 sum freed
                 # in turn
@@ -4963,10 +5091,16 @@ def phase_train_mesh_moe(torch) -> dict:
                     a.shards.fill(None)
                     got[path] = _leaf_gaps(torch, [g], [r])["grad_max_gap"]
                     del g
-                gaps[f"stage{s}"] = {"grad_max_gap": max(got.values()),
-                                     "per_leaf": got}
+                # the top-1 router's gradient is rounding noise in both
+                # runs (a token's renormalised gate is exactly 1), so its
+                # gap is read apart
+                gaps[key] = {"grad_max_gap": max(got.values()),
+                             "grad_max_gap_but_router": max(
+                                 v for p, v in got.items()
+                                 if not p.endswith("router")),
+                             "per_leaf": got}
                 if gx is not None:
-                    gaps[f"stage{s}"]["cotangent_max_gap"] = _max_gap(
+                    gaps[key]["cotangent_max_gap"] = _max_gap(
                         torch, [gx], [gx_ref])
             del gp
             free(torch)
@@ -4974,19 +5108,21 @@ def phase_train_mesh_moe(torch) -> dict:
         free(torch)
         return gx_ref
 
-    if meshes[2].shape["data"] != 2 or \
-            MeshExecutor(cfg, 2, MOE_SEQ, 0, meshes[2],
-                         compress="none").dp_shards(MOE_MB) != 2:
+    probe = MeshExecutor(cfg, 2, MOE_SEQ, 0, meshes["data2"],
+                         compress="none")
+    if meshes["data2"].shape["data"] != 2 or \
+            probe.dp_shards(MOE_MB) != 2:
         raise AssertionError("train_mesh_moe: the microbatch did not split")
     ex0 = stage(0)
-    w = forward(ex0, tok)
-    wire_gap = _max_gap(torch, [w[2]], [w[1]])
-    w = w[1]
+    w = forward(ex0, 0, tok)
+    wire_gap = {name: _max_gap(torch, [w[name]], [w["one"]])
+                for name in routes}
+    w = w["one"]
     del ex0
     free(torch)
     ex1 = stage(1)
-    out = forward(ex1, w, lab)
-    losses = {n: float(v) for n, v in out.items()}
+    out = forward(ex1, 1, w, lab)
+    losses = {name: float(v) for name, v in out.items()}
     dy = backward(ex1, 1, w, labels=lab)
     del ex1
     free(torch)
@@ -4996,33 +5132,136 @@ def phase_train_mesh_moe(torch) -> dict:
     free(torch)
     launched = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES
                 if kernels.LAUNCHES[k] != before[k]}
+    tokens = MOE_MB * MOE_SEQ
     row = {"phase": "train_mesh_moe", "arch": cfg.name,
            "layers": cfg.n_layers, "stages": 2,
-           "microbatch": [MOE_MB, MOE_SEQ], "split": [1, 1],
-           "routes": routes, "loss_one_device": losses[1],
-           "loss_split": losses[2],
-           "loss_rel_diff": abs(losses[2] - losses[1]) / abs(losses[1]),
+           "microbatch": [MOE_MB, MOE_SEQ],
+           "meshes": {k: v for k, v in MOE_MESHES.items() if v},
+           "paths": paths, "routes": routes, "losses": losses,
+           "loss_rel_diff": {n: abs(v - losses["one"]) / abs(losses["one"])
+                             for n, v in losses.items() if n != "one"},
            "stage0_output_max_gap": wire_gap, "grads": gaps,
-           "run_bwd_s": secs, "launches": launched,
+           "seconds_by_mesh": dict(secs),
+           "tokens_per_s": {n: tokens / v for n, v in secs.items()},
+           "launches": launched,
+           "launches_by_coord": {n: _tp_require(
+               "train_mesh_moe", per[n], meshes[n].coords(),
+               ("flash_attention_fwd", "rmsnorm"), plain)
+               for n in MOE_TP},
+           "all_reduces": {n: dict(v) for n, v in reduces.items()},
+           "all_reduces_planned": {n: moe_all_reduces_planned(
+               MOE_MESHES[n][0]) for n in MOE_TP},
+           "gathered_bytes": nbytes, "peaks_gb": peaks,
+           # a backward's peak above what was allocated before it, on the
+           # card and reckoned on meta
+           "card_peak_bytes": card_bytes, "reckoned_peak_bytes": reckoned,
            "max_memory_allocated_gb": max(peaks.values())}
-    torch.cuda.reset_peak_memory_stats()
-    row["f32_twin"] = _moe_twin(torch)
-    row["f32_twin"]["max_memory_allocated_gb"] = \
-        torch.cuda.max_memory_allocated() / 1e9
-    row["peaks_gb"] = peaks
+    row["checks_s"] = time.time() - t0
+    for key, twin in (("f32_twin", _moe_twin), ("f32_tp_twin", _moe_tp_twin)):
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.time()
+        row[key] = twin(torch)
+        row[key]["max_memory_allocated_gb"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+        row[key]["seconds"] = time.time() - t1
     row["seconds"] = time.time() - t0
     emit(row)
-    bad = [r for r in routes if not r["semantics_equal"]]
-    if bad or row["loss_rel_diff"] > MOE_BF16_RTOL:
+    bad = [r for rs in routes.values() for r in rs
+           if not r["semantics_equal"]]
+    if bad or max(row["loss_rel_diff"].values()) > MOE_BF16_RTOL:
         raise AssertionError(f"train_mesh_moe: routes {routes}, losses "
                              f"{losses}")
-    if sum(r["old_capacity_differs"] for r in routes) == 0:
+    if sum(r["old_capacity_differs"] for r in routes["data2"]) == 0:
         raise AssertionError("train_mesh_moe: the shards' own capacity "
                              "keeps the same pairs; the check does not "
                              "bite")
+    if any(p != ("tensor_parallel" if k.split("_")[1] in MOE_TP
+                 else "gathered") for k, p in paths.items()):
+        raise AssertionError(f"train_mesh_moe: paths {paths}")
+    if row["all_reduces"] != row["all_reduces_planned"]:
+        raise AssertionError(f"train_mesh_moe: all-reduces {row}")
     if not launched.get("flash_attention_fwd") or \
             not launched.get("rmsnorm"):
         raise AssertionError(f"train_mesh_moe: launches {launched}")
+    if row["max_memory_allocated_gb"] >= 80:
+        raise AssertionError(f"train_mesh_moe: peak {peaks}")
+    return row
+
+
+def _moe_tp_twin(torch) -> dict:
+    """The last stage (``moe_config``'s MoE layer, the final norm and
+    the head) at full width in f32 on the expert-parallel meshes of
+    ``MOE_TP`` against one device, on one batch: the loss within
+    ``TP_TWIN_LOSS_RTOL``, the input cotangent and every gradient within
+    ``TP_TWIN_GRAD_RTOL`` of each leaf's largest entry (train_mesh_tp's
+    bounds for rounding amplified at full width), a leaf's entry floored
+    at ``MOE_NOISE_FLOOR`` of the stage's largest (the top-1 router's
+    gradient is zero but for rounding: a token's renormalised gate is
+    exactly 1, and the stage programs leave the aux loss out, as JAX's
+    do).  The one-device gradients wait on the host: a (2, 2) run_bwd
+    of the 13 GB stage reckons 59.6 GB above its weights on meta."""
+    from repro_torch.dist.mesh import gather
+    from repro_torch.models import params as P
+    from repro_torch.runtime import MeshExecutor, StageState
+    from repro_torch.runtime.numeric import get_stage_programs
+    from repro_torch.tree import tree_leaves
+    cfg = moe_config().with_overrides(compute_dtype="float32",
+                                      param_dtype="float32")
+    prog = get_stage_programs(cfg, 2, MOE_SEQ, "none")[1]
+    params = P.init(12, prog.specs, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn(MOE_MB, MOE_SEQ, cfg.d_model, generator=gen,
+                    device="cuda")
+    lab = torch.randint(0, cfg.vocab_size, (MOE_MB, MOE_SEQ),
+                        generator=gen, device="cuda")
+    meshes = _moe_meshes(torch)
+
+    def grads(name: str):
+        ex = MeshExecutor(cfg, 2, MOE_SEQ, 1, meshes[name], compress="none")
+        st = StageState()
+        ex.restore(st, {"params": params, "opt": None})
+        st.grad_acc = None               # never accumulated into
+        loss, gx, gp = ex.run_bwd(st, x, labels=lab)
+        return ex.compute_path, float(loss), gx, gp
+
+    row = {}
+    with plain_precision(torch):
+        _, loss1, gx1, gp = grads("one")
+        ref = []
+        for a in tree_leaves(gp):
+            ref.append(gather(a, a.mesh.devices.flat[0]).float().cpu())
+            a.shards.fill(None)
+        del gp
+        free(torch)
+        scales = [float(r.abs().max()) for r in ref]
+        floor = MOE_NOISE_FLOOR * max(scales)
+        for name in MOE_TP:
+            path, loss, gx, gp = grads(name)
+            gaps = {}
+            for path_, a, r, bmax in zip(_leaf_paths(gp), tree_leaves(gp),
+                                         ref, scales):
+                g = gather(a, a.mesh.devices.flat[0])
+                a.shards.fill(None)
+                gap = _leaf_gaps(torch, [g], [r.to(g.device)])[
+                    "grad_max_gap"]
+                gaps[path_] = gap * bmax / max(bmax, floor)
+                del g
+            row[name] = {"path": path,
+                         "loss_rel_diff": abs(loss - loss1) / abs(loss1),
+                         "cotangent_max_gap": _max_gap(torch, [gx], [gx1]),
+                         "grad_max_gap": max(gaps.values()),
+                         "per_leaf": gaps}
+            del gp, gx
+            free(torch)
+    del params, ref, x
+    free(torch)
+    bad = {n: r for n, r in row.items() if r["path"] != "tensor_parallel"
+           or r["loss_rel_diff"] > TP_TWIN_LOSS_RTOL
+           or max(r["cotangent_max_gap"], r["grad_max_gap"])
+           > TP_TWIN_GRAD_RTOL}
+    if bad:
+        raise AssertionError(f"train_mesh_moe f32 expert-parallel twin: "
+                             f"{row}")
     return row
 
 

@@ -1,7 +1,8 @@
 """Tensor-parallel compute over a mesh's ``model`` axis for the dense
-attention stack: the per-leaf plan, the model shards of one data shard,
-the all-reduces of activation partials and of cotangents, and the
-vocab-parallel embedding and cross-entropy.
+attention stack and the ``moe`` kind (expert parallelism): the per-leaf
+plan, the model shards of one data shard, the all-reduces of activation
+partials and of cotangents, the gathers a MoE layer makes at home, and
+the vocab-parallel embedding and cross-entropy.
 
 The JAX package has no counterpart file.  There GSPMD partitions each
 product of the jitted step by its operands' layouts
@@ -33,8 +34,18 @@ tensor parallelism, where its residual stream lives.
   compute dtype, as one device rounds the whole product once.
 * Work whose weights replicate and whose output is used once (attention
   whose heads do not divide ``model``, an FFN whose width does not, an
-  embedding or head whose vocab does not) runs whole at home, as one
-  device runs it: no shard repeats it.
+  embedding or head whose vocab does not, routed experts whose count
+  does not) runs whole at home, as one device runs it: no shard repeats
+  it.
+* Routed experts split over ``model`` (``"experts": "model"``, expert
+  parallelism sharing the axis, as JAX's rules say): home gathers the
+  router's column blocks (:func:`gather_home`) and routes as one device
+  does; each shard runs its experts over the pairs routed to them from
+  its copy of the stream, and home takes each pair's row from its
+  expert's shard by selection (:func:`select_home`), then weights and
+  sums: the routed output is the one-device one.  The data shards of a
+  microbatch route in lockstep, as on the gathered path
+  (``models.layers.apply_moe_tp``, ``models.blocks.apply_lockstep_tp``).
 * One autograd graph spans the shards.  :func:`fanout`'s backward is the
   all-reduce of the shards' cotangents (f32, rounded once), so the
   stage's input cotangent is their sum; a replicated leaf used on
@@ -42,9 +53,10 @@ tensor parallelism, where its residual stream lives.
   gets one partial gradient a shard, which the caller's reduce-scatter
   adds, as JAX's all-reduce of those partials does.
 
-Every collective here is logged (``dist.mesh.log_collective``) as an
-``all-reduce`` received by each shard of the group, and counted in
-:data:`ALL_REDUCES` by what it sums.  With one model shard none of this
+Every collective here is logged (``dist.mesh.log_collective``): an
+all-reduce as received by each shard of the group, a gather to home
+(``all-gather``, ``all-to-all``) as received by home; and counted in
+:data:`ALL_REDUCES` by what it carries.  With one model shard none of this
 runs: the one-device functions are the ``m = 1`` case.
 """
 from __future__ import annotations
@@ -64,16 +76,20 @@ Tree = Any
 
 MODEL_AXIS = "model"
 # the block kinds whose layers compute tensor-parallel (the dense
-# attention stack); a stage holding any other kind keeps the gathered path
-SUPPORTED_KINDS = frozenset({"attn"})
+# attention stack, and attention + routed experts); a stage holding any
+# other kind keeps the gathered path
+SUPPORTED_KINDS = frozenset({"attn", "moe"})
 # stage subtrees gathered whole at home and absent on the other shards:
 # the learned codec, whose ``bottleneck`` split is not computed on
 WHOLE_AT_HOME = ("boundary",)
 
-# all-reduces made, by what they sum: "activation" (a layer's attention or
-# FFN partials, forward and recompute), "cotangent" (fanout's backward),
-# "embedding" (the vocab-parallel rows), "loss" (the cross-entropy's max,
-# exponential sum and gold logit)
+# collectives made, by what they carry: "activation" (a layer's attention
+# or FFN partials, forward and recompute), "cotangent" (fanout's
+# backward), "embedding" (the vocab-parallel rows), "loss" (the
+# cross-entropy's max, exponential sum and gold logit), and a MoE layer's
+# "router" (its column blocks gathered at home), "expert_rows" (each
+# pair's row taken at home from its expert's shard) and "shared_expert"
+# (the shared expert's partials)
 ALL_REDUCES: collections.Counter = collections.Counter()
 
 
@@ -217,7 +233,7 @@ class _Fanout(torch.autograd.Function):
             for g in live[1:]:
                 total = total + g.to(group.home, torch.float32)
             total = total.to(ctx.dtype)
-        _logged(group, "cotangent", total)
+        _logged(group, "cotangent", _nbytes(total))
         return None, total
 
 
@@ -245,9 +261,16 @@ class _AllReduce(torch.autograd.Function):
         return (None, None, *outs)
 
 
-def _logged(group: Group, what: str, t: torch.Tensor) -> None:
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _logged(group: Group, what: str, nbytes: int, kind: str = "all-reduce",
+            coords: Optional[list] = None) -> None:
+    """Count a collective under ``what`` and log it as ``kind`` received
+    by ``coords`` (default: every shard of the group)."""
     ALL_REDUCES[what] += 1
-    log_collective("all-reduce", group.coords, t.numel() * t.element_size())
+    log_collective(kind, group.coords if coords is None else coords, nbytes)
 
 
 def fanout(x: torch.Tensor, group: Group) -> list:
@@ -265,7 +288,7 @@ def all_reduce(parts: Sequence[torch.Tensor], group: Group,
     compute dtype once, after the sum, as one device rounds its whole
     product once."""
     out = _AllReduce.apply(group, dtype or parts[0].dtype, *parts)
-    _logged(group, what, out)
+    _logged(group, what, _nbytes(out))
     return out
 
 
@@ -277,7 +300,46 @@ def all_reduce_max(parts: Sequence[torch.Tensor], group: Group
         out = parts[0].to(group.home)
         for p in parts[1:]:
             out = torch.maximum(out, p.to(group.home))
-    _logged(group, "loss", out)
+    _logged(group, "loss", _nbytes(out))
+    return out
+
+
+def _at_home(x: torch.Tensor, group: Group, j: int) -> torch.Tensor:
+    """Shard ``j``'s ``x`` on home's device, as :func:`_move` moves the
+    other way (differentiable: the cotangent goes back to shard
+    ``j``)."""
+    copy = group.home.type == "meta" and group.coords[j] != group.coords[0]
+    return x.to(group.home, copy=copy)
+
+
+def gather_home(parts: Sequence[torch.Tensor], group: Group, what: str,
+                dim: int = -1) -> torch.Tensor:
+    """The shards' ``parts`` joined along ``dim`` at home (an all-gather
+    received by home; differentiable: each shard's cotangent is its
+    slice of home's)."""
+    with group.scope(0):
+        out = torch.cat([_at_home(p, group, j) for j, p in enumerate(parts)],
+                        dim)
+    _logged(group, what, sum(_nbytes(p) for p in parts[1:]), "all-gather",
+            group.coords[:1])
+    return out
+
+
+def select_home(parts: Sequence[torch.Tensor], owner: torch.Tensor,
+                group: Group, what: str) -> torch.Tensor:
+    """Row ``r`` of shard ``owner[r]``'s part, for every row, at home
+    (``parts[j]`` ``[R, ...]`` on shard ``j``, ``owner`` ``[R]`` int at
+    home): taken by selection, never summed, so each row is its owner's
+    to the bit.  Logged as an all-to-all received by home;
+    differentiable: shard ``j``'s cotangent is home's on its rows,
+    zeros elsewhere."""
+    with group.scope(0):
+        out = parts[0]
+        for j in range(1, group.m):
+            mine = (owner == j).reshape((-1,) + (1,) * (out.dim() - 1))
+            out = torch.where(mine, _at_home(parts[j], group, j), out)
+    _logged(group, what, sum(_nbytes(p) for p in parts[1:]), "all-to-all",
+            group.coords[:1])
     return out
 
 

@@ -10,8 +10,9 @@ own step instead, on ``meta`` tensors laid out over
 mesh scheme (``runtime.mesh.MeshExecutor``'s): the arguments laid out by
 the ``dist.sharding`` rules, data shard ``i`` computing on ``batch_axis``
 index ``i`` (index 0 on the other axes) with the parameters gathered
-there, or, for a dense attention stack's train step, over its ``model``
-coordinates with each leaf's model block (``dist.tensor_parallel``),
+there, or, for a dense attention stack's train step and llama4-scout's
+(``moe``), over its ``model`` coordinates with each leaf's model block
+(``dist.tensor_parallel``: experts split over ``model``),
 gradients reduce-scattered into the state's layout.  Every
 coordinate's gathers, reductions and placements run (free on meta) and
 are logged (``dist.mesh.record_collectives``); data shards of equal
@@ -230,7 +231,9 @@ def _reduce_scatter_alike(grads: Tree, shardings: Tree, coords: list
 
 def _tensor_parallel(cfg: ArchConfig, mesh, batch_axes) -> bool:
     """Does the train step compute tensor-parallel over ``model`` (the
-    dense attention stack, ``model`` not folded into the batch)?"""
+    kinds of ``tensor_parallel.SUPPORTED_KINDS``, ``model`` not folded
+    into the batch)?  A MoE model's data shard 0 then routes under
+    :func:`_alike`, on its model shards as on the gathered path."""
     return tp.MODEL_AXIS not in mesh_lib.axis_names_of(batch_axes) and \
         tp.runs_tensor_parallel(cfg, set(cfg.block_kinds), mesh)
 
@@ -302,8 +305,9 @@ def _mesh_train_step(cfg: ArchConfig, optimizer, mesh, st_sh: Tree,
     gradients are shard 0's (equal shapes); the gradients are
     reduce-scattered into the state's layout (f64, as MeshExecutor sums
     them), the clip norm's partial sums all-reduced, and AdamW updates
-    the busiest coordinate's shards.  A dense attention stack computes
-    tensor-parallel over ``model`` (``dist.tensor_parallel``): data
+    the busiest coordinate's shards.  A dense attention stack, or
+    llama4-scout's ``moe`` layers, computes tensor-parallel over
+    ``model`` (``dist.tensor_parallel``): data
     shard 0's model shard ``j`` gathers model block ``j`` of each leaf
     and computes with it, and each model shard's gradients are
     reduce-scattered as its blocks; any other model gathers every leaf

@@ -102,6 +102,9 @@ class DeviceLedger(TorchDispatchMode):
         self.home = home
         self.live: dict = defaultdict(int)
         self.peak: dict = defaultdict(int)
+        # every device's live bytes together, and their peak: what one
+        # card holds where a virtual mesh lists it for every coordinate
+        self.live_total = self.peak_total = 0
         self.flops: dict = defaultdict(float)
         self.bytes: dict = defaultdict(float)
         self.kernel_flops: dict = defaultdict(float)
@@ -136,6 +139,7 @@ class DeviceLedger(TorchDispatchMode):
     def _free(self, key: int, dev, nbytes: int) -> None:
         self._owner.pop(key, None)
         self.live[dev] -= nbytes
+        self.live_total -= nbytes
 
     def _track(self, t: torch.Tensor, dev, seen: set) -> None:
         st = _storage(t)
@@ -145,6 +149,8 @@ class DeviceLedger(TorchDispatchMode):
         self._owner[st._cdata] = dev
         self.live[dev] += nbytes
         self.peak[dev] = max(self.peak[dev], self.live[dev])
+        self.live_total += nbytes
+        self.peak_total = max(self.peak_total, self.live_total)
         weakref.finalize(st, self._free, st._cdata, dev, nbytes)
 
     def _work(self, name: str, flops: float, nbytes: float) -> None:

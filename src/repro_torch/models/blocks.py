@@ -300,15 +300,11 @@ REGISTRY = {
 
 
 # ------------------------------------------- over a data shard's model shards
-def attn_apply_tp(cfg, ps: list, x, positions, group):
-    """One ``attn`` layer over a data shard's model shards
-    (``dist.tensor_parallel``): ``ps[j]`` shard ``j``'s block of the
-    layer, ``x`` the residual stream at home.  Each half (attention,
-    FFN) whose weights split over ``model`` runs on every shard from its
-    copy of ``x`` (norm, its heads or columns, its rows of ``wo``) and
-    the f32 partials are all-reduced, rounded once to the stream's
-    dtype, before the residual add; a half whose weights replicate runs
-    whole at home."""
+def _attn_half_tp(cfg, ps: list, x, positions, group):
+    """``x + attn(ln1(x))`` over a data shard's model shards: where the
+    heads split, each shard norms its copy of ``x`` and computes its
+    heads' partial, all-reduced at home; else the attention runs whole
+    at home."""
     from repro_torch.dist import tensor_parallel as tp
     p0 = ps[0]
     if L.heads_split(cfg, p0["attn"]):
@@ -322,7 +318,21 @@ def attn_apply_tp(cfg, ps: list, x, positions, group):
         with group.scope(0):
             y = L.apply_attn(cfg, p0["attn"], L.apply_norm(cfg, p0["ln1"], x),
                              positions)
-    x = x + y
+    return x + y
+
+
+def attn_apply_tp(cfg, ps: list, x, positions, group):
+    """One ``attn`` layer over a data shard's model shards
+    (``dist.tensor_parallel``): ``ps[j]`` shard ``j``'s block of the
+    layer, ``x`` the residual stream at home.  Each half (attention,
+    FFN) whose weights split over ``model`` runs on every shard from its
+    copy of ``x`` (norm, its heads or columns, its rows of ``wo``) and
+    the f32 partials are all-reduced, rounded once to the stream's
+    dtype, before the residual add; a half whose weights replicate runs
+    whole at home."""
+    from repro_torch.dist import tensor_parallel as tp
+    p0 = ps[0]
+    x = _attn_half_tp(cfg, ps, x, positions, group)
     if L.ffn_split(p0["mlp"], cfg.d_ff):
         xs = tp.fanout(x, group)
         y = tp.all_reduce(group.per_shard(
@@ -335,7 +345,25 @@ def attn_apply_tp(cfg, ps: list, x, positions, group):
         return _residual_ffn(cfg, p0, x), 0.0
 
 
-TP_APPLY = {"attn": attn_apply_tp}
+def _moe_norm(cfg, ps: list, h, group):
+    """``ln2(h)`` at home: the MoE's router input and its experts'."""
+    with group.scope(0):
+        return L.apply_norm(cfg, ps[0]["ln2"], h)
+
+
+def moe_apply_tp(cfg, ps: list, x, positions, group):
+    """One ``moe`` layer over a data shard's model shards: the attention
+    half as :func:`attn_apply_tp`'s, then the MoE expert-parallel
+    (:func:`~repro_torch.models.layers.apply_moe_tp`) on ``ln2`` of the
+    stream, normed at home."""
+    h = _attn_half_tp(cfg, ps, x, positions, group)
+    y, aux = L.apply_moe_tp(cfg, [p["moe"] for p in ps],
+                            _moe_norm(cfg, ps, h, group), group)
+    with group.scope(0):
+        return h + y, aux
+
+
+TP_APPLY = {"attn": attn_apply_tp, "moe": moe_apply_tp}
 
 
 # ------------------------------------------------ data shards in lockstep
@@ -377,3 +405,37 @@ def apply_lockstep(cfg, kind: str, ps: list, xs: list, positions: list,
                    hs)
     ys, auxs = L.apply_moe_shards(cfg, [p["moe"] for p in ps], ns, scope)
     return per_shard(scope, lambda h, y: h + y, hs, ys), auxs
+
+
+# the tensor-parallel kinds that route over the whole microbatch, each
+# with its block up to the MoE over a data shard's model shards
+MOE_PRE_TP = {"moe": _attn_half_tp}
+
+
+def apply_lockstep_tp(cfg, kind: str, pss: list, xs: list, positions: list,
+                      groups: list):
+    """:func:`apply_lockstep` over each data shard's model shards:
+    ``pss[i]`` data shard ``i``'s list of model shard blocks of the
+    layer, ``xs[i]`` its residual stream at its home, ``groups[i]`` its
+    :class:`~repro_torch.dist.tensor_parallel.Group`.  A MoE kind runs
+    every data shard's block up to its MoE, then every shard's route at
+    its home, the split contexts, and every shard's expert-parallel MoE
+    under its own (:func:`~repro_torch.models.layers.apply_moe_shards_tp`):
+    the shards route as the microbatch would and their aux shares add up
+    to its balance loss.  Any other kind, or one data shard, applies
+    shard by shard (``TP_APPLY``)."""
+    pre = MOE_PRE_TP.get(kind)
+    if pre is None or len(xs) == 1:
+        outs = [TP_APPLY[kind](cfg, ps, x, pos, g)
+                for ps, x, pos, g in zip(pss, xs, positions, groups)]
+        return [y for y, _ in outs], [a for _, a in outs]
+    hs = [pre(cfg, ps, x, pos, g)
+          for ps, x, pos, g in zip(pss, xs, positions, groups)]
+    ns = [_moe_norm(cfg, ps, h, g) for ps, h, g in zip(pss, hs, groups)]
+    ys, auxs = L.apply_moe_shards_tp(
+        cfg, [[p["moe"] for p in ps] for ps in pss], ns, groups)
+    out = []
+    for h, y, g in zip(hs, ys, groups):
+        with g.scope(0):
+            out.append(h + y)
+    return out, auxs

@@ -417,6 +417,68 @@ def split_provider() -> Optional[Callable]:
     return _SPLIT.get()
 
 
+def _moe_plan(cfg: ArchConfig, route, T: int):
+    """:func:`apply_moe`'s routing past the router, under the
+    :func:`moe_split` context where one is set: ``(e_flat [T * k], pos
+    [T * k] the pair's rank in its expert, keep [T * k], Cb the buffer's
+    slots an expert, aux share)``."""
+    m = cfg.moe
+    E, k = m.num_experts, m.top_k
+    probs, _, sel, onehot = route
+    e_flat = sel.reshape(T * k)                                  # [T*k]
+    counts = onehot.sum(0)                                       # [E]
+    provider = _SPLIT.get()
+    split = None if provider is None else provider(T, counts)
+    pos_in_e = (torch.cumsum(onehot, dim=0) * onehot).sum(-1) - 1  # [T*k]
+    if split is None:
+        dispatch_frac = counts.to(torch.float32) / (T * k)
+        aux = E * torch.sum(dispatch_frac * probs.mean(0))
+        C = Cb = max(1, int(m.capacity_factor * T * k / E))
+        keep = pos_in_e < C
+    else:
+        Tg = split.tokens
+        dispatch_frac = split.counts.to(torch.float32) / (Tg * k)
+        aux = E * torch.sum(dispatch_frac * (probs.sum(0) / Tg))
+        C = max(1, int(m.capacity_factor * Tg * k / E))
+        Cb = min(C, T * k)
+        keep = split.offsets[e_flat] + pos_in_e < C
+    return e_flat, pos_in_e, keep, Cb, aux
+
+
+def expert_outputs(p: Tree, xt: torch.Tensor, e_flat: torch.Tensor,
+                   pos_in_e: torch.Tensor, keep: torch.Tensor, Cb: int,
+                   k: int, lo: Optional[int] = None) -> torch.Tensor:
+    """The experts ``p`` holds over the kept pairs routed to them:
+    ``[E_p, Cb, d]``, ``p``'s stacks ``[E_p, ...]`` every expert (``lo``
+    None) or a model shard's block, experts ``lo`` to ``lo + E_p``.
+    Each such pair's row of ``xt`` goes to its own slot of the ``[E_p *
+    Cb, d]`` buffer, every other pair to one spare row past them (never
+    read): no host sync for a count."""
+    Ep, d, cd = p["wi_gate"].shape[0], xt.shape[-1], xt.dtype
+    if lo is None:
+        local, mine = e_flat, keep
+    else:
+        local = e_flat - lo
+        mine = keep & (local >= 0) & (local < Ep)
+    rows = torch.where(mine, local * Cb + pos_in_e, Ep * Cb)
+    buf = xt.new_zeros((Ep * Cb + 1, d))
+    buf[rows] = xt.repeat_interleave(k, dim=0)
+    buf = buf[:Ep * Cb].view(Ep, Cb, d)
+    g = torch.bmm(buf, p["wi_gate"].to(cd))
+    u = torch.bmm(buf, p["wi_up"].to(cd))
+    return torch.bmm(F.silu(g) * u, p["wo"].to(cd))              # [E_p, Cb, d]
+
+
+def _combine(weights: torch.Tensor, keep: torch.Tensor,
+             rows: torch.Tensor, T: int, k: int) -> torch.Tensor:
+    """Each pair's expert row ``rows [T * k, d]`` weighted by its
+    renormalised gate (0 where dropped), summed over a token's k
+    choices: ``[T, d]``."""
+    cd, d = rows.dtype, rows.shape[-1]
+    w = weights.reshape(T * k, 1).to(cd) * keep[:, None].to(cd)
+    return (rows * w).reshape(T, k, d).sum(1)
+
+
 def apply_moe(cfg: ArchConfig, p: Tree, x: torch.Tensor, route=None):
     """Capacity-bounded top-k MoE, the JAX package's routing exactly.
     x [B, S, d] -> (y [B, S, d], aux loss).
@@ -445,42 +507,116 @@ def apply_moe(cfg: ArchConfig, p: Tree, x: torch.Tensor, route=None):
     B, S, d = x.shape
     T = B * S
     xt = x.reshape(T, d)
-    E, k = m.num_experts, m.top_k
-    cd = xt.dtype
-
-    probs, weights, sel, onehot = route or moe_route(cfg, p, x)
-    e_flat = sel.reshape(T * k)                                  # [T*k]
-    counts = onehot.sum(0)                                       # [E]
-    provider = _SPLIT.get()
-    split = None if provider is None else provider(T, counts)
-    pos_in_e = (torch.cumsum(onehot, dim=0) * onehot).sum(-1) - 1  # [T*k]
-    if split is None:
-        dispatch_frac = counts.to(torch.float32) / (T * k)
-        aux = E * torch.sum(dispatch_frac * probs.mean(0))
-        C = Cb = max(1, int(m.capacity_factor * T * k / E))
-        keep = pos_in_e < C
-    else:
-        Tg = split.tokens
-        dispatch_frac = split.counts.to(torch.float32) / (Tg * k)
-        aux = E * torch.sum(dispatch_frac * (probs.sum(0) / Tg))
-        C = max(1, int(m.capacity_factor * Tg * k / E))
-        Cb = min(C, T * k)
-        keep = split.offsets[e_flat] + pos_in_e < C
-    # kept pairs to their own rows of the [E * Cb, d] buffers, dropped
-    # ones to one spare row past them (never read): no host sync for a
-    # count
-    rows = torch.where(keep, e_flat * Cb + pos_in_e, E * Cb)
-    buf = xt.new_zeros((E * Cb + 1, d))
-    buf[rows] = xt.repeat_interleave(k, dim=0)
-    buf = buf[:E * Cb].view(E, Cb, d)
-    g = torch.bmm(buf, p["wi_gate"].to(cd))
-    u = torch.bmm(buf, p["wi_up"].to(cd))
-    eo = torch.bmm(F.silu(g) * u, p["wo"].to(cd))                # [E, Cb, d]
-
-    w = weights.reshape(T * k, 1).to(cd) * keep[:, None].to(cd)
-    gathered = eo[e_flat, torch.clamp(pos_in_e, max=Cb - 1)] * w  # [T*k, d]
-    y = gathered.reshape(T, k, d).sum(1)
-
+    route = route or moe_route(cfg, p, x)
+    e_flat, pos_in_e, keep, Cb, aux = _moe_plan(cfg, route, T)
+    eo = expert_outputs(p, xt, e_flat, pos_in_e, keep, Cb, m.top_k)
+    y = _combine(route[1], keep, eo[e_flat, torch.clamp(pos_in_e,
+                                                       max=Cb - 1)],
+                 T, m.top_k)
     if m.num_shared:
         y = y + apply_ffn(cfg, p["shared"], xt)
     return y.reshape(B, S, d), aux * m.aux_loss_coef
+
+
+# ------------------------------------- MoE over a data shard's model shards
+def experts_split(cfg: ArchConfig, p: Tree) -> bool:
+    """Does this shard hold a block of the routed experts?"""
+    return p["wi_gate"].shape[0] < cfg.moe.num_experts
+
+
+def moe_route_tp(cfg: ArchConfig, ps: list, x: torch.Tensor, group):
+    """:func:`moe_route` over a data shard's model shards (``ps[j]``
+    shard ``j``'s block of the MoE tree, ``x`` the normed stream at
+    home): the router's column blocks gathered whole at home
+    (``ALL_REDUCES["router"]``) and the route taken there, as one
+    device takes it.  Top-k is discontinuous: a column-split product
+    may round otherwise and flip a route."""
+    from repro_torch.dist import tensor_parallel as tp
+    routers = [p["router"] for p in ps]
+    router = (tp.gather_home(routers, group, "router")
+              if routers[0].shape[-1] < cfg.moe.num_experts else routers[0])
+    with group.scope(0):
+        return moe_route(cfg, {"router": router}, x)
+
+
+def apply_moe_tp(cfg: ArchConfig, ps: list, x: torch.Tensor, group,
+                 route=None):
+    """:func:`apply_moe` over a data shard's model shards
+    (``dist.tensor_parallel``): ``ps[j]`` shard ``j``'s block of the MoE
+    tree, ``x [B, S, d]`` the normed stream at home; under
+    :func:`moe_split` as :func:`apply_moe` is.  Where the experts split
+    over ``model`` (expert parallelism):
+
+    * home routes (:func:`moe_route_tp`, then the capacity, slots and
+      aux of :func:`apply_moe`); only the integer route (each pair's
+      expert, slot and kept flag) goes to the shards, beside their copy
+      of the stream;
+    * shard ``j`` runs its experts over the pairs routed to them
+      (:func:`expert_outputs`) and reads back each of its pairs' rows,
+      unweighted, zeros for the pairs it does not own;
+    * home takes each pair's row from its expert's owner by selection
+      (``ALL_REDUCES["expert_rows"]``), then weights and sums as
+      :func:`apply_moe` does: the routed output is the one-device one
+      wherever each expert's products are.
+
+    No coordinate holds an ``[E, Cb, .]`` tensor.  The shared expert runs
+    column- then row-parallel where its width splits
+    (``ALL_REDUCES["shared_expert"]``), else whole at home, and is added
+    at home in the stream's dtype.  Experts that do not split run
+    :func:`apply_moe` whole at home."""
+    from repro_torch.dist import tensor_parallel as tp
+    m = cfg.moe
+    route = route or moe_route_tp(cfg, ps, x, group)
+    if not experts_split(cfg, ps[0]):
+        with group.scope(0):
+            return apply_moe(cfg, ps[0], x, route=route)
+    B, S, d = x.shape
+    T, k, Ep = B * S, m.top_k, ps[0]["wi_gate"].shape[0]
+    with group.scope(0):
+        xt = x.reshape(T, d)
+        e_flat, pos, keep, Cb, aux = _moe_plan(cfg, route, T)
+        owner = e_flat // Ep
+    xs = tp.fanout(xt, group)
+
+    def rows(j, p, xj, e, pj, kj):
+        local = e - j * Ep
+        eo = expert_outputs(p, xj, e, pj, kj, Cb, k, lo=j * Ep)
+        r = eo[local.clamp(0, Ep - 1), pj.clamp(max=Cb - 1)]
+        return torch.where(((local >= 0) & (local < Ep))[:, None], r, 0.0)
+    got = tp.select_home(group.per_shard(
+        rows, ps, xs, *(tp.on_shards(t, group) for t in (e_flat, pos, keep))),
+        owner, group, "expert_rows")
+    with group.scope(0):
+        y = _combine(route[1], keep, got, T, k)
+    if m.num_shared:
+        if ffn_split(ps[0]["shared"], m.num_shared * m.d_ff_expert):
+            shared = tp.all_reduce(group.per_shard(
+                lambda j, p, xj: apply_ffn(cfg, p["shared"], xj,
+                                           partial=True), ps, xs),
+                group, "shared_expert", dtype=xt.dtype)
+        else:
+            with group.scope(0):
+                shared = apply_ffn(cfg, ps[0]["shared"], xt)
+        with group.scope(0):
+            y = y + shared
+    return y.reshape(B, S, d), aux * m.aux_loss_coef
+
+
+def apply_moe_shards_tp(cfg: ArchConfig, pss: list, xs: list,
+                        groups: list):
+    """:func:`apply_moe_shards` over the data shards' model shards
+    (``pss[i]`` / ``xs[i]`` / ``groups[i]`` data shard ``i``'s, row
+    order): every shard's route at its home first, then every shard's
+    :func:`apply_moe_tp` under its :class:`MoESplit`.  Returns ``(ys,
+    auxs)``; the aux shares add up to the microbatch's balance loss."""
+    routes = [moe_route_tp(cfg, ps, x, g) for ps, x, g in zip(pss, xs,
+                                                              groups)]
+    splits = split_contexts([r[3].sum(0) for r in routes],
+                            [x.shape[0] * x.shape[1] for x in xs])
+    ys, auxs = [], []
+    for ps, x, g, r, s in zip(pss, xs, groups, routes, splits):
+        with moe_split(lambda tokens, counts, _s=s: _s):
+            y, aux = apply_moe_tp(cfg, ps, x, g, route=r)
+        ys.append(y)
+        auxs.append(aux)
+    return ys, auxs

@@ -27,28 +27,31 @@ single-device peer.  One process drives the mesh (see
   and the stage's layers (``compute_path``; no option selects it):
 
   - ``"tensor_parallel"``: with more than one ``model`` shard and only
-    the dense ``attn`` kind (``dist.tensor_parallel``), the model shards
-    of data shard ``i`` compute together, as JAX's GSPMD program does:
-    the device at ``model`` index ``j`` gets model block ``j`` of each
-    leaf, gathered over ``data`` (a leaf the rules split over ``model``
-    as its block, any other leaf whole), heads, FFN columns and the
-    vocabulary are split by each leaf's resolved spec, and activation
-    partials are all-reduced at home.  The learned codec's ``w_c`` /
-    ``w_d`` are gathered whole at home, where the wire runs, as on the
-    other path.  Each model shard's gradients come back as its blocks,
-    reduce-scattered into the shards that hold them.
-  - ``"gathered"``: otherwise (one model shard; a MoE, MLA, SSM, hymba
-    or whisper stage) every leaf is gathered whole onto the data shard's
-    home, which computes alone: there the ``model`` axis shards storage
-    only.
+    the kinds of ``dist.tensor_parallel.SUPPORTED_KINDS`` (the dense
+    ``attn`` stack and llama4-scout's ``moe``), the model shards of data
+    shard ``i`` compute together, as JAX's GSPMD program does: the
+    device at ``model`` index ``j`` gets model block ``j`` of each leaf,
+    gathered over ``data`` (a leaf the rules split over ``model`` as its
+    block, any other leaf whole), heads, FFN columns, routed experts and
+    the vocabulary are split by each leaf's resolved spec, activation
+    partials are all-reduced at home, and a MoE layer routes at home and
+    takes each routed row back from its expert's shard.  The learned
+    codec's ``w_c`` / ``w_d`` are gathered whole at home, where the wire
+    runs, as on the other path.  Each model shard's gradients come back
+    as its blocks, reduce-scattered into the shards that hold them.
+  - ``"gathered"``: otherwise (one model shard; an MLA, ``mla_moe``,
+    SSM, hymba or whisper stage) every leaf is gathered whole onto the
+    data shard's home, which computes alone: there the ``model`` axis
+    shards storage only.
 
   A stage with a MoE block routes over the whole microbatch, as JAX's
   jitted program does with the batch sharded over ``data``: its data
   shards go to the program in one call and run in lockstep, layer by
   layer, each MoE layer taking the microbatch's capacity, slot offsets
-  and route counts (``models.layers.MoESplit``); shards on one device
-  share one gathered copy of the params.  Any other stage takes its
-  shards one call each, so one shard's activations live at a time.
+  and route counts (``models.layers.MoESplit``), on either path; shards
+  on one device (one list of devices) share one gathered copy of the
+  params.  Any other stage takes its shards one call each, so one
+  shard's activations live at a time.
 * **Combining shards.**  The stage programs' loss is a token *sum* (so
   microbatch gradients add, App. E), so the shards combine with weight
   one: losses add (in f64), input cotangents and outputs concatenate
@@ -130,8 +133,8 @@ class _MeshBacked:
 
     def _set_path(self, stages) -> None:
         kinds = {k for s in stages for k in self.plan.stages[s].kinds}
-        self.tensor_parallel = not self.prog.routes_whole and \
-            tp.runs_tensor_parallel(self.cfg, kinds, self.mesh)
+        self.tensor_parallel = tp.runs_tensor_parallel(self.cfg, kinds,
+                                                       self.mesh)
 
     @property
     def compute_path(self) -> str:

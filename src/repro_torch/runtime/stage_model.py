@@ -64,7 +64,7 @@ from repro_torch.models import params as P
 from repro_torch.models import layers as L
 from repro_torch.models import model as model_lib
 from repro_torch.models.blocks import MOE_PRE, REGISTRY, TP_APPLY, \
-    apply_lockstep
+    apply_lockstep, apply_lockstep_tp
 from repro_torch.dist.tensor_parallel import ModelShards
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten_like
 
@@ -195,24 +195,31 @@ def make_block_core(cfg: ArchConfig, runs: list[tuple[str, int]],
 
 def make_block_core_tp(cfg: ArchConfig, runs: list[tuple[str, int]],
                        reps: int = 1) -> Callable:
-    """:func:`make_block_core` over one data shard's model shards,
-    ``(blocks, x, positions, group) -> x``: ``blocks[j]`` model shard
-    ``j``'s ``[tree-per-run]`` list, ``x`` the residual stream at home
-    (``models.blocks.TP_APPLY``).  Each shard casts its block of a layer
-    once a call, outside the ``reps`` loop, as :func:`make_block_core`
-    does."""
-    def block_fn(blocks: list, x, positions, group):
+    """:func:`make_block_core` over the model shards of a microbatch's
+    data shards, ``(blocks, xs, positions, groups) -> xs``:
+    ``blocks[i][j]`` data shard ``i``'s model shard ``j``'s
+    ``[tree-per-run]`` list, ``xs[i]`` its residual stream at home,
+    ``groups[i]`` its group.  The data shards go layer by layer in
+    lockstep (:func:`repro_torch.models.blocks.apply_lockstep_tp`: a MoE
+    layer routes over all of them).  Each shard casts its block of a
+    layer once a call, outside the ``reps`` loop, as
+    :func:`make_block_core` does."""
+    def block_fn(blocks: list, xs: list, positions: list,
+                 groups: list) -> list:
         for r, (kind, _) in enumerate(runs):
-            apply_fn = TP_APPLY[kind]
-            for ps in zip(*(model_lib.layers(b[r]) for b in blocks)):
-                lows = group.per_shard(
-                    lambda j, p: model_lib.compute_cast(p, x.dtype), ps)
+            per_data = [list(zip(*(model_lib.layers(b[r]) for b in bs)))
+                        for bs in blocks]
+            for lps in zip(*per_data):
+                lows = [g.per_shard(
+                    lambda j, p, _dt=x.dtype: model_lib.compute_cast(p, _dt),
+                    ps) for ps, g, x in zip(lps, groups, xs)]
                 for _ in range(reps):
-                    x, _aux = apply_fn(
-                        cfg, [model_lib.shared_application(p32, low)
-                              for p32, low in zip(ps, lows)],
-                        x, positions, group)
-        return x
+                    xs, _auxs = apply_lockstep_tp(
+                        cfg, kind, [[model_lib.shared_application(p32, low)
+                                     for p32, low in zip(ps, lw)]
+                                    for ps, lw in zip(lps, lows)],
+                        xs, positions, groups)
+        return xs
 
     return block_fn
 
@@ -259,20 +266,25 @@ def _make_stage_fwd(cfg: ArchConfig, s: int, n_stages: int, comp: str,
     core_tp = make_block_core_tp(cfg, runs, reps) if \
         set(k for k, _ in runs) <= set(TP_APPLY) else None
 
-    def tp_fwd(ms: ModelShards, inp: torch.Tensor) -> torch.Tensor:
-        """One data shard over its model shards: the learned codec at
-        home, on its whole weights."""
-        home = ms.trees[0]
-        with ms.group.scope(0):
-            x = enter(home, inp, ms)
-        x = core_tp([t["blocks"] for t in ms.trees], x,
-                    torch.arange(x.shape[1], device=x.device), ms.group)
-        with ms.group.scope(0):
-            return leave(home, x)
+    def tp_fwd(mss: list, inps: list) -> list:
+        """The data shards over their model shards: the learned codec at
+        each home, on its whole weights."""
+        xs = []
+        for ms, inp in zip(mss, inps):
+            with ms.group.scope(0):
+                xs.append(enter(ms.trees[0], inp, ms))
+        xs = core_tp([[t["blocks"] for t in ms.trees] for ms in mss], xs,
+                     [torch.arange(x.shape[1], device=x.device) for x in xs],
+                     [ms.group for ms in mss])
+        out = []
+        for ms, x in zip(mss, xs):
+            with ms.group.scope(0):
+                out.append(leave(ms.trees[0], x))
+        return out
 
     def stage_fwd(ps: list, inps: list) -> list:
         if isinstance(ps[0], ModelShards):
-            return [tp_fwd(ms, i) for ms, i in zip(ps, inps)]
+            return tp_fwd(ps, inps)
         xs = [enter(p, i) for p, i in zip(ps, inps)]
         pos = [torch.arange(x.shape[1], device=x.device) for x in xs]
         xs = core([p["blocks"] for p in ps], xs, pos)

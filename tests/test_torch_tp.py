@@ -1,5 +1,6 @@
 """Tensor-parallel compute over the mesh's ``model`` axis
-(``repro_torch.dist.tensor_parallel``) for the dense attention stack,
+(``repro_torch.dist.tensor_parallel``) for the dense attention stack
+(the ``moe`` kind's expert parallelism: ``test_torch_moe_tp.py``),
 against the one-device step and the JAX package, on virtual CPU meshes
 (one device listed 2 or 4 times: the placement, splitting, gathering and
 reduction code of distinct devices, without their copies).  Also the
@@ -195,20 +196,25 @@ def test_plan_reads_the_resolved_specs(arch, m, want):
 
 
 def test_supported_kinds_and_paths():
-    """Only the dense ``attn`` kind computes tensor-parallel; a MoE
-    stage, whisper and a mesh without a second model shard keep the
-    gathered path, and each executor says which path it runs."""
+    """The dense ``attn`` kind and llama4-scout's ``moe`` compute
+    tensor-parallel; whisper, deepseek-v2's ``mla_moe`` and a mesh
+    without a second model shard keep the gathered path, and each
+    executor says which path it runs."""
     from repro_torch.configs import get_config
-    assert set(TP_APPLY) == set(tp.SUPPORTED_KINDS) == {"attn"}
+    assert set(TP_APPLY) == set(tp.SUPPORTED_KINDS) == {"attn", "moe"}
     tcfg = _cfg()
     assert MeshExecutor(tcfg, 2, SEQ, 1, _mesh((1, 2))).compute_path == \
         "tensor_parallel"
     assert MeshExecutor(tcfg, 2, SEQ, 1, _mesh((2, 1))).compute_path == \
         "gathered"
     moe = get_config("llama4-scout-17b-a16e")
+    mla = get_config("deepseek-v2-236b")
     whisper = get_config("whisper-large-v3")
     duck = _DuckMesh({"data": 2, "model": 2})
-    assert not tp.runs_tensor_parallel(moe, set(moe.block_kinds), duck)
+    assert tp.runs_tensor_parallel(moe, set(moe.block_kinds), duck)
+    assert not tp.runs_tensor_parallel(
+        moe, set(moe.block_kinds), _DuckMesh({"data": 4, "model": 1}))
+    assert not tp.runs_tensor_parallel(mla, set(mla.block_kinds), duck)
     assert not tp.runs_tensor_parallel(whisper, {"attn"}, duck)
 
 
@@ -476,7 +482,8 @@ def test_stage_matches_jax_mesh_executor(tmp_path):
 # ----------------------------------------------------------- bytes on meta
 @pytest.mark.parametrize("arch,shape,stage", [
     ("yi-6b", (2, 8), 1), ("yi-6b", (2, 8), 0),
-    ("swarm-1b-bottleneck", (2, 2), 1), ("gemma-2b", (1, 16), 0)])
+    ("swarm-1b-bottleneck", (2, 2), 1), ("gemma-2b", (1, 16), 0),
+    ("llama4-scout-17b-a16e", (2, 8), 1)])
 def test_meta_gathered_bytes_equal_the_blocks(arch, shape, stage):
     """On a meta mesh at full width, every coordinate's gathered params
     (``MeshExecutor``'s model blocks) hold exactly the bytes
@@ -634,6 +641,8 @@ _GC_CELL = textwrap.dedent("""
     if sys.argv[2] == "off":
         gc.disable()
     from repro_torch.launch import dryrun as d
+    if sys.argv[3] == "gathered":
+        d._tensor_parallel = lambda *a: False
     full = d.get_config(sys.argv[1])
     d.get_config = lambda a: full.with_overrides(n_layers=1)
     rec = d.run_cell(sys.argv[1], "train_4k", "single", skip_probe=True)
@@ -641,15 +650,19 @@ _GC_CELL = textwrap.dedent("""
 """)
 
 
-@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "gemma-2b"],
-                         ids=["gathered", "tensor-parallel"])
-def test_dryrun_peak_does_not_follow_the_collector(arch):
-    """F5: a one-layer ``train_4k`` cell (the gathered path and the
-    tensor-parallel path) reckons the same memory, to the byte, with the
-    garbage collector off as with it on (each in a fresh process)."""
+@pytest.mark.parametrize("arch,path", [
+    ("llama4-scout-17b-a16e", "gathered"), ("gemma-2b", "tensor-parallel"),
+    ("llama4-scout-17b-a16e", "expert-parallel")],
+    ids=["gathered", "tensor-parallel", "expert-parallel"])
+def test_dryrun_peak_does_not_follow_the_collector(arch, path):
+    """F5: a one-layer ``train_4k`` cell (llama4-scout on the gathered
+    path, gemma-2b tensor-parallel, llama4-scout expert-parallel)
+    reckons the same memory, to the byte, with the garbage collector off
+    as with it on (each in a fresh process)."""
     out = {}
     for mode in ("on", "off"):
-        r = subprocess.run([sys.executable, "-c", _GC_CELL, arch, mode],
+        r = subprocess.run([sys.executable, "-c", _GC_CELL, arch, mode,
+                            path],
                            capture_output=True, text=True, cwd=ROOT,
                            timeout=600)
         assert r.returncode == 0, r.stderr[-3000:]
