@@ -61,10 +61,11 @@ JSON line; any failure raises and exits non-zero):
 6. serve_families — ``ServeRunner`` serving the families at full width
              with random weights from a seed, yi-6b's requests, one
              decode chain each, tokens identical to the single-process
-             reference: gemma-2b (18 layers, 3 stages), qwen1.5-4b (40),
-             h2o-danube-3-4b (24; also one 4,608-token prompt past its
-             4,096-token window at batch 1), qwen2-vl-2b (28, M-RoPE),
-             hymba-1.5b (32, attention beside mamba heads; also the
+             reference: gemma-2b (6 of 18 layers, 3 stages), qwen1.5-4b
+             (8 of 40), h2o-danube-3-4b (8 of 24; also one 4,608-token
+             prompt past its 4,096-token window at batch 1), qwen2-vl-2b
+             (8 of 28, M-RoPE), hymba-1.5b (32, attention beside mamba
+             heads; also the
              4,608-token prompt past its 2,048-token window), each over
              4 stages; xlstm-125m (12 mLSTM / sLSTM layers, 2 stages);
              llama4-scout (4 of 48 layers, 4 stages) and deepseek-v2 (2
@@ -214,13 +215,18 @@ JSON line; any failure raises and exits non-zero):
              per leaf reported, peak memory per backward beside its meta
              reckoning, tokens/s; on the expert-parallel meshes each
              coordinate's gathered bytes equal to the reckoned blocks,
-             flash and rmsnorm launched on every coordinate, no plain
-             flash call, the MoE collectives (router gather, rows back,
-             shared expert) and the rest against the plan; an f32 twin
-             of the MoE layer alone, split against unsplit, within 1e-5
-             of each leaf's largest entry, and one of the last stage
-             expert-parallel against one device (loss 1e-5, gradients
-             1e-2).
+             flash and rmsnorm launches and flash's head dims on every
+             coordinate against the plan, no plain flash call, the MoE
+             collectives (router gather, rows back, shared expert) and
+             the rest against the plan; an f32 twin of the MoE layer
+             alone, split against unsplit, within 1e-5 of each leaf's
+             largest entry, and one of the last stage expert-parallel
+             against one device (loss 1e-5, gradients 1e-2).  Then the
+             same for deepseek-v2-236b at full width (128 heads of (192,
+             128), 160 experts x 1536 top-6, 2 shared), one mla_moe
+             layer a stage, tensor-parallel over (1, 2) and (2, 2) (MLA
+             by heads, flash at (64, 192, 128) on every coordinate), and
+             an f32 twin of its mla kind's last stage.
 13e. train_pipeline_moe — ``make_pipeline_train_step``'s loss and
              gradients for the same config over (``pod`` 2, ``data`` 2)
              of the card, 2 microbatches of 2 x 512 each split 1 + 1,
@@ -255,11 +261,13 @@ JSON line; any failure raises and exits non-zero):
              twin, each bound shown to see two planted cache faults;
              reported in bf16 at full depth, beside the f32 rounding
              spread of the full depth's logits.
-19. train_rollback — checkpoints every 2 steps under ``build/``; stage
+19. train_rollback — swarm-1b-bottleneck's three shared groups applied
+             twice each (6 of 48 layers; the cuts keep their full
+             size); checkpoints every 2 steps under ``build/``; stage
              1's only peer dies during step 4 and its replacement finds
              no donor: global rollback to the step-2 cut and replay; a
              new runner cold-starts on the directory and trains step 5.
-             Losses equal to the staged reference's to the bit; bytes and
+             Losses equal to its staged reference's to the bit; bytes and
              seconds per save and for the resume's restore.  Fails early
              when the disk or the host memory is short of two cuts.
 20. wire_codes — the true wire format (int8 codes + f32 scales) through
@@ -632,12 +640,18 @@ def _ulps(torch, a, b):
 # The families served at full width (ROADMAP queue 1 items 6a and 6b):
 # (name, layers served (None: the full depth), n_stages, chain split).
 # The two MoE models fit the card only at a cut depth: llama4-scout's 48
-# layers are 211 GB of bf16 weights, deepseek-v2's 60 are 470 GB.
+# layers are 211 GB of bf16 weights, deepseek-v2's 60 are 470 GB.  The
+# four dense attention families are cut to two layers a stage to keep the
+# script inside its time limit: their serving is host-bound, so its time
+# grows with the layers, while the check (tokens equal to the
+# single-process model's) reads the same code at any depth; yi-6b is
+# served at its full 32 layers, and the recurrent families stay whole,
+# their carries' bounds being set at full depth.
 FAMILY_SERVING = (
-    ("gemma-2b", None, 3, 2),
-    ("qwen1.5-4b", None, 4, 2),
-    ("h2o-danube-3-4b", None, 4, 2),
-    ("qwen2-vl-2b", None, 4, 2),
+    ("gemma-2b", 6, 3, 2),
+    ("qwen1.5-4b", 8, 4, 2),
+    ("h2o-danube-3-4b", 8, 4, 2),
+    ("qwen2-vl-2b", 8, 4, 2),
     ("llama4-scout-17b-a16e", 4, 4, 2),
     ("deepseek-v2-236b", 2, 2, 1),
     ("xlstm-125m", None, 2, 1),
@@ -2902,17 +2916,26 @@ def _mem_available() -> int:
     raise RuntimeError("no MemAvailable in /proc/meminfo")
 
 
-def phase_train_rollback(torch, ref: list) -> dict:
+# train_rollback's depth: swarm-1b-bottleneck's three shared groups
+# applied twice each, not 16 times.  The groups hold every parameter, so
+# the checkpoint cuts keep their full size (14.8 GB); only the compute
+# between them shrinks, to keep chip_smoke.py inside its time limit.
+ROLLBACK_LAYERS = 6
+
+
+def phase_train_rollback(torch) -> dict:
     """Checkpoints every 2 steps, 4 steps: during step 4 stage 1's only
     peer dies and its replacement finds no donor, so the whole pipeline
     rolls back to the step-2 cut and replays steps 3 and 4; then a new
     runner cold-starts on the same directory (step 4) and trains step 5.
-    Losses equal the staged reference's, bit for bit.  The directory is
-    a fresh one under ``build/`` (gitignored), removed at the end."""
+    Losses equal the staged reference's (five steps of the same config),
+    bit for bit.  The directory is a fresh one under ``build/``
+    (gitignored), removed at the end."""
     import shutil
     import tempfile
     from repro_torch.models import flops as F
-    cfg = swarm1b()
+    cfg = swarm1b().with_overrides(n_layers=ROLLBACK_LAYERS)
+    ref = train_reference(torch, cfg, 5)
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "build")
     os.makedirs(root, exist_ok=True)
@@ -2979,7 +3002,8 @@ def phase_train_rollback(torch, ref: list) -> dict:
         if resumed_loss != ref[4:5]:
             raise AssertionError(f"cold resume: loss {resumed_loss} vs the "
                                  f"reference {ref[4:5]}")
-        row = {"phase": "train_rollback", "arch": cfg.name, "steps": 4,
+        row = {"phase": "train_rollback", "arch": cfg.name,
+               "layers": cfg.n_layers, "steps": 4,
                "ckpt_period": 2, "losses": got, "reference_losses": ref[:4],
                "rollbacks": [(3, 2)], "ckpt_restores": restores,
                "cold_resume": {"step": 4, "loss": resumed_loss,
@@ -4723,7 +4747,15 @@ def phase_train_pipeline(torch) -> dict:
 # alone) holds 8.6 GB of weights and two gradient sets of it; the f32
 # expert-parallel twin a 13 GB last stage, its model blocks, its
 # gradients and their f64 sum (72.6 GB on (2, 2), reckoned on meta).
+# deepseek-v2-236b takes the same meshes at full width (d 5120, 128 heads
+# of (192, 128), kv_lora 512, q_lora 1536, 160 experts x 1536 top-6, 2
+# shared), one mla_moe layer a stage: a layer holds 3.97 G parameters,
+# 7.95 GB in bf16, so a stage 9.0 GB; a (2, 2) run_bwd reckons 60.2 GB
+# above it on meta, so the one-device gradients wait on the host.  Its
+# f32 twin is the last stage of the dense mla kind (0.69 GB a layer, the
+# head 2.1 GB).
 MOE_ARCH = "llama4-scout-17b-a16e"
+MLA_ARCH = "deepseek-v2-236b"
 MOE_SEQ, MOE_MB = 512, 2
 MOE_BF16_RTOL = 2e-2            # the families' bf16 MoE bound
 MOE_TWIN_RTOL = 1e-5            # the f32 twin, split against unsplit
@@ -4736,10 +4768,14 @@ PIPE_MOE_LOSS_RTOL = 1e-5
 PIPE_MOE_GRAD_RTOL = 5e-2
 
 
-def moe_config():
-    """llama4-scout at full width, one layer a stage over 2 stages."""
+def moe_config(arch: str = MOE_ARCH, kind: str = None):
+    """``arch`` at full width, one layer a stage over 2 stages (its
+    layers of ``kind`` where given)."""
     from repro_torch.configs import get_config
-    return get_config(MOE_ARCH).with_overrides(n_layers=2)
+    cfg = get_config(arch)
+    pattern = (kind,) * 2 if kind else \
+        cfg.block_pattern[:2] if cfg.block_pattern else None
+    return cfg.with_overrides(n_layers=2, block_pattern=pattern)
 
 
 @contextlib.contextmanager
@@ -4960,27 +4996,89 @@ def _moe_meta_peak(torch, cfg, s: int, shape, inp_shape, last: bool
     return led.peak_total
 
 
+def moe_launches_planned(mesh) -> dict:
+    """Flash and rmsnorm launches on each coordinate of a
+    tensor-parallel mesh in train_mesh_moe's sequence (a layer a stage;
+    stage 0's and stage 1's forward, then both backwards, each
+    recomputing its layer): the attention's flash and ``ln1`` on every
+    model shard a layer application, ``ln2`` at each home (the MoE's
+    input, normed there), the final norm on every shard in stage 1's
+    forward and its backward (the vocab-parallel head)."""
+    return {c: {"flash_attention_fwd": 4,
+                "rmsnorm": 4 + 2 + (4 if c[-1] == 0 else 0)}
+            for c in mesh.coords()}
+
+
+@contextlib.contextmanager
+def flash_dims_by_coord():
+    """The ``(heads, Dqk, Dv)`` of every flash kernel call, by the mesh
+    coordinate it ran as."""
+    import collections
+    from repro_torch.dist.mesh import current_coord
+    from repro_torch.kernels.flash_attention import kernel as fk
+    seen: dict = collections.defaultdict(set)
+    orig = fk.flash_attention_fwd
+
+    def recorded(q, k, v, *args, **kw):
+        seen[current_coord()].add((q.shape[2], q.shape[3], v.shape[3]))
+        return orig(q, k, v, *args, **kw)
+    fk.flash_attention_fwd = recorded
+    try:
+        yield seen
+    finally:
+        fk.flash_attention_fwd = orig
+
+
 def phase_train_mesh_moe(torch) -> dict:
-    """A MoE stage on split meshes: each stage of ``moe_config`` as a
-    ``MeshExecutor`` on the meshes of ``MOE_MESHES`` (one device; the
-    microbatch split 1 + 1 over ``[cuda:0] x 2``, its MoE layers in
-    lockstep; expert-parallel over ("data", "model") (1, 2) and (2, 2),
-    the data shards in lockstep there too) from the same weights and
-    inputs: each run's path; routes per layer (every split's identical
-    to the whole-microbatch routing of the same router inputs; flips
-    against the one-device run reported); the bf16 losses within
-    ``MOE_BF16_RTOL``, the gradients' gap reported; on the
-    expert-parallel meshes each coordinate's gathered bytes against
-    ``block_bytes``, flash and rmsnorm launched on every coordinate, no
-    plain flash call, ``ALL_REDUCES`` equal to
-    ``moe_all_reduces_planned``, each backward's peak beside its meta
-    reckoning, tokens/s (a microbatch's forward and backward over both
-    stages, host clock); then the f32 twins.  One stage's weights live
-    at a time (drawn again from their seed for stage 0's backward), and
-    no mesh's state holds a gradient accumulator, so the peak is a
-    stage's: its weights (6.5 GB), the one-device gradients (6.5), a
-    run's gathered copy or model blocks (6.5), a shard's bf16 gradients
-    (6.5), their f64 sum (26.0) and a fold's f64 block (up to 4.1)."""
+    """A MoE stage on split meshes, for ``MOE_ARCH`` (llama4-scout's
+    ``moe`` kind) and ``MLA_ARCH`` (deepseek-v2's ``mla_moe``): each stage
+    of ``moe_config(arch)`` as a ``MeshExecutor`` on the meshes of
+    ``MOE_MESHES`` (:func:`_mesh_moe`), then the f32 twins:
+    llama4-scout's MoE layer split against unsplit, and the last stage
+    tensor-parallel against one device (llama4-scout's, and deepseek-v2's
+    of the dense ``mla`` kind)."""
+    t0 = time.time()
+    row = _mesh_moe(torch, MOE_ARCH)
+    row[MLA_ARCH] = _mesh_moe(torch, MLA_ARCH)
+    twins = ((row, "f32_twin", _moe_twin),
+             (row, "f32_tp_twin", lambda t: _moe_tp_twin(t, moe_config())),
+             (row[MLA_ARCH], "f32_tp_twin", lambda t: _moe_tp_twin(
+                 t, moe_config(MLA_ARCH, "mla"))))
+    for r, key, twin in twins:
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.time()
+        r[key] = twin(torch)
+        r[key]["max_memory_allocated_gb"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+        r[key]["seconds"] = time.time() - t1
+    row["seconds"] = time.time() - t0
+    emit(row)
+    for r in (row, row[MLA_ARCH]):
+        _mesh_moe_checks(r)
+    return row
+
+
+def _mesh_moe(torch, arch: str) -> dict:
+    """``moe_config(arch)``'s stages as ``MeshExecutor`` s on the meshes
+    of ``MOE_MESHES`` (one device; the microbatch split 1 + 1 over
+    ``[cuda:0] x 2``, its MoE layers in lockstep; tensor-parallel over
+    ("data", "model") (1, 2) and (2, 2), the data shards in lockstep
+    there too) from the same weights and inputs: each run's path; routes
+    per layer (every split's identical to the whole-microbatch routing of
+    the same router inputs; flips against the one-device run reported);
+    the bf16 losses, the gradients' gap reported; on the tensor-parallel
+    meshes each coordinate's gathered bytes against ``block_bytes``,
+    flash and rmsnorm launches on each coordinate against
+    ``moe_launches_planned`` and flash's head dims, no plain flash call,
+    ``ALL_REDUCES`` against ``moe_all_reduces_planned``, each backward's
+    peak beside its meta reckoning, tokens/s (a microbatch's forward and
+    backward over both stages, host clock).  One stage's weights live at
+    a time (drawn again from their seed for stage 0's backward), no
+    mesh's state holds a gradient accumulator, and the one-device
+    gradients wait on the host, so the peak is a stage's weights (6.5 GB
+    llama4-scout, 9.0 GB deepseek-v2) and a tensor-parallel run_bwd (a
+    model block set, a shard's bf16 gradients, their f64 sum and a fold's
+    f64 block).  Checked by :func:`_mesh_moe_checks`."""
     import collections
     from repro_torch import kernels
     from repro_torch.data.synthetic import SyntheticLM
@@ -4993,7 +5091,7 @@ def phase_train_mesh_moe(torch) -> dict:
     t0 = time.time()
     free(torch)
     torch.cuda.reset_peak_memory_stats()
-    cfg = moe_config()
+    cfg = moe_config(arch)
     progs = get_stage_programs(cfg, 2, MOE_SEQ, "none")
     meshes = _moe_meshes(torch)
 
@@ -5005,7 +5103,8 @@ def phase_train_mesh_moe(torch) -> dict:
             ex = MeshExecutor(cfg, 2, MOE_SEQ, s, mesh, compress="none")
             st = StageState()
             ex.restore(st, {"params": params, "opt": None})
-            # the phase never accumulates: no zeroed 6.5 GB copy a mesh
+            # the phase never accumulates: no zeroed copy of the stage a
+            # mesh
             st.grad_acc = None
             out[name] = (ex, st)
         return out
@@ -5020,15 +5119,16 @@ def phase_train_mesh_moe(torch) -> dict:
     reduces = {name: collections.Counter() for name in MOE_TP}
     per = {name: collections.defaultdict(collections.Counter)
            for name in MOE_TP}
+    dims = {name: collections.defaultdict(set) for name in MOE_TP}
     paths, nbytes, plain = {}, {}, []
 
     def run(name: str, fn):
         """``fn`` (a run of mesh ``name``'s executor), timed, its MoE
-        calls recorded, its launches by coordinate and its
+        calls recorded, its launches and flash dims by coordinate and its
         ``ALL_REDUCES`` kept under ``name``."""
         was = collections.Counter(tp.ALL_REDUCES)
         with moe_calls() as calls, coord_launches() as by, \
-                plain_flash_calls() as pf:
+                plain_flash_calls() as pf, flash_dims_by_coord() as fd:
             torch.cuda.synchronize()
             t1 = time.time()
             out = fn()
@@ -5039,6 +5139,8 @@ def phase_train_mesh_moe(torch) -> dict:
             reduces[name].update(collections.Counter(tp.ALL_REDUCES) - was)
             for c, n in by.items():
                 per[name][c].update(n)
+            for c, d in fd.items():
+                dims[name][c] |= d
         return out, calls
 
     def forward(ex, s: int, inp, *extra):
@@ -5075,13 +5177,17 @@ def phase_train_mesh_moe(torch) -> dict:
                 card_bytes[key] = torch.cuda.max_memory_allocated() - base
             if name == "one":
                 # one part's f64 "sum" is that part exactly: kept in the
-                # gradients' own dtypes (the params'), each f64 sum freed
-                # in turn
+                # host's page-locked memory (pageable copies of a stage's
+                # gradients, out and back to each mesh, took ~20 s a
+                # model) in the gradients' own dtypes (the params'), each
+                # f64 sum freed in turn
                 ref = []
                 for a, w in zip(tree_leaves(gp), tree_leaves(st.params)):
-                    ref.append(gather(a, a.mesh.devices.flat[0]).to(
-                        w.dtype))
+                    g = gather(a, a.mesh.devices.flat[0]).to(w.dtype)
+                    ref.append(torch.empty(g.shape, dtype=g.dtype,
+                                           pin_memory=True).copy_(g))
                     a.shards.fill(None)
+                    del g
                 gx_ref = gx
             else:
                 got = {}
@@ -5089,9 +5195,10 @@ def phase_train_mesh_moe(torch) -> dict:
                                       ref):
                     g = gather(a, a.mesh.devices.flat[0])
                     a.shards.fill(None)
-                    got[path] = _leaf_gaps(torch, [g], [r])["grad_max_gap"]
+                    got[path] = _leaf_gaps(torch, [g], [r.to(g.device)])[
+                        "grad_max_gap"]
                     del g
-                # the top-1 router's gradient is rounding noise in both
+                # a top-1 router's gradient is rounding noise in both
                 # runs (a token's renormalised gate is exactly 1), so its
                 # gap is read apart
                 gaps[key] = {"grad_max_gap": max(got.values()),
@@ -5133,7 +5240,9 @@ def phase_train_mesh_moe(torch) -> dict:
     launched = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES
                 if kernels.LAUNCHES[k] != before[k]}
     tokens = MOE_MB * MOE_SEQ
+    a = cfg.mla
     row = {"phase": "train_mesh_moe", "arch": cfg.name,
+           "kinds": sorted(set(cfg.block_kinds)),
            "layers": cfg.n_layers, "stages": 2,
            "microbatch": [MOE_MB, MOE_SEQ],
            "meshes": {k: v for k, v in MOE_MESHES.items() if v},
@@ -5148,6 +5257,20 @@ def phase_train_mesh_moe(torch) -> dict:
                "train_mesh_moe", per[n], meshes[n].coords(),
                ("flash_attention_fwd", "rmsnorm"), plain)
                for n in MOE_TP},
+           "launches_by_coord_planned": {
+               n: {str(list(c)): v for c, v in moe_launches_planned(
+                   meshes[n]).items()} for n in MOE_TP},
+           # every flash call's (heads, Dqk, Dv) on each coordinate, and
+           # the plan's: the config's heads over the model shards
+           "flash_dims_by_coord": {n: {str(list(c)): [list(d) for d in
+                                                      sorted(v)]
+                                       for c, v in dims[n].items()}
+                                   for n in MOE_TP},
+           "flash_dims_planned": {n: {str(list(c)): [[
+               cfg.n_heads // MOE_MESHES[n][1],
+               a.qk_nope_dim + a.qk_rope_dim if a else cfg.hd,
+               a.v_head_dim if a else cfg.hd]] for c in meshes[n].coords()}
+               for n in MOE_TP},
            "all_reduces": {n: dict(v) for n, v in reduces.items()},
            "all_reduces_planned": {n: moe_all_reduces_planned(
                MOE_MESHES[n][0]) for n in MOE_TP},
@@ -5157,41 +5280,45 @@ def phase_train_mesh_moe(torch) -> dict:
            "card_peak_bytes": card_bytes, "reckoned_peak_bytes": reckoned,
            "max_memory_allocated_gb": max(peaks.values())}
     row["checks_s"] = time.time() - t0
-    for key, twin in (("f32_twin", _moe_twin), ("f32_tp_twin", _moe_tp_twin)):
-        torch.cuda.reset_peak_memory_stats()
-        t1 = time.time()
-        row[key] = twin(torch)
-        row[key]["max_memory_allocated_gb"] = \
-            torch.cuda.max_memory_allocated() / 1e9
-        row[key]["seconds"] = time.time() - t1
-    row["seconds"] = time.time() - t0
-    emit(row)
-    bad = [r for rs in routes.values() for r in rs
-           if not r["semantics_equal"]]
-    if bad or max(row["loss_rel_diff"].values()) > MOE_BF16_RTOL:
-        raise AssertionError(f"train_mesh_moe: routes {routes}, losses "
-                             f"{losses}")
-    if sum(r["old_capacity_differs"] for r in routes["data2"]) == 0:
-        raise AssertionError("train_mesh_moe: the shards' own capacity "
-                             "keeps the same pairs; the check does not "
-                             "bite")
-    if any(p != ("tensor_parallel" if k.split("_")[1] in MOE_TP
-                 else "gathered") for k, p in paths.items()):
-        raise AssertionError(f"train_mesh_moe: paths {paths}")
-    if row["all_reduces"] != row["all_reduces_planned"]:
-        raise AssertionError(f"train_mesh_moe: all-reduces {row}")
-    if not launched.get("flash_attention_fwd") or \
-            not launched.get("rmsnorm"):
-        raise AssertionError(f"train_mesh_moe: launches {launched}")
-    if row["max_memory_allocated_gb"] >= 80:
-        raise AssertionError(f"train_mesh_moe: peak {peaks}")
     return row
 
 
-def _moe_tp_twin(torch) -> dict:
-    """The last stage (``moe_config``'s MoE layer, the final norm and
-    the head) at full width in f32 on the expert-parallel meshes of
-    ``MOE_TP`` against one device, on one batch: the loss within
+def _mesh_moe_checks(row: dict) -> None:
+    """:func:`_mesh_moe`'s row: routes, losses, paths, collectives,
+    launches and flash dims by coordinate, peak."""
+    routes, losses, paths = row["routes"], row["losses"], row["paths"]
+    name = f"train_mesh_moe {row['arch']}"
+    bad = [r for rs in routes.values() for r in rs
+           if not r["semantics_equal"]]
+    if bad or max(row["loss_rel_diff"].values()) > MOE_BF16_RTOL:
+        raise AssertionError(f"{name}: routes {routes}, losses {losses}")
+    if sum(r["old_capacity_differs"] for r in routes["data2"]) == 0:
+        raise AssertionError(f"{name}: the shards' own capacity keeps the "
+                             "same pairs; the check does not bite")
+    if any(p != ("tensor_parallel" if k.split("_")[1] in MOE_TP
+                 else "gathered") for k, p in paths.items()):
+        raise AssertionError(f"{name}: paths {paths}")
+    if row["all_reduces"] != row["all_reduces_planned"]:
+        raise AssertionError(f"{name}: all-reduces {row}")
+    if row["launches_by_coord"] != row["launches_by_coord_planned"]:
+        raise AssertionError(f"{name}: launches by coordinate "
+                             f"{row['launches_by_coord']}")
+    if row["flash_dims_by_coord"] != row["flash_dims_planned"]:
+        raise AssertionError(f"{name}: flash dims "
+                             f"{row['flash_dims_by_coord']}")
+    launched = row["launches"]
+    if not launched.get("flash_attention_fwd") or \
+            not launched.get("rmsnorm"):
+        raise AssertionError(f"{name}: launches {launched}")
+    if row["max_memory_allocated_gb"] >= 80:
+        raise AssertionError(f"{name}: peak {row['peaks_gb']}")
+
+
+def _moe_tp_twin(torch, cfg) -> dict:
+    """The last stage of ``cfg`` (``moe_config``'s MoE layer, or the
+    dense ``mla`` layer of deepseek-v2, the final norm and the head) at
+    full width in f32 on the tensor-parallel meshes of ``MOE_TP``
+    against one device, on one batch: the loss within
     ``TP_TWIN_LOSS_RTOL``, the input cotangent and every gradient within
     ``TP_TWIN_GRAD_RTOL`` of each leaf's largest entry (train_mesh_tp's
     bounds for rounding amplified at full width), a leaf's entry floored
@@ -5205,8 +5332,7 @@ def _moe_tp_twin(torch) -> dict:
     from repro_torch.runtime import MeshExecutor, StageState
     from repro_torch.runtime.numeric import get_stage_programs
     from repro_torch.tree import tree_leaves
-    cfg = moe_config().with_overrides(compute_dtype="float32",
-                                      param_dtype="float32")
+    cfg = cfg.with_overrides(compute_dtype="float32", param_dtype="float32")
     prog = get_stage_programs(cfg, 2, MOE_SEQ, "none")[1]
     params = P.init(12, prog.specs, "cuda")
     gen = torch.Generator(device="cuda").manual_seed(12)
@@ -5229,8 +5355,11 @@ def _moe_tp_twin(torch) -> dict:
         _, loss1, gx1, gp = grads("one")
         ref = []
         for a in tree_leaves(gp):
-            ref.append(gather(a, a.mesh.devices.flat[0]).float().cpu())
+            g = gather(a, a.mesh.devices.flat[0]).float()
+            ref.append(torch.empty(g.shape, dtype=g.dtype,
+                                   pin_memory=True).copy_(g))
             a.shards.fill(None)
+            del g
         del gp
         free(torch)
         scales = [float(r.abs().max()) for r in ref]
@@ -5260,8 +5389,8 @@ def _moe_tp_twin(torch) -> dict:
            or max(r["cotangent_max_gap"], r["grad_max_gap"])
            > TP_TWIN_GRAD_RTOL}
     if bad:
-        raise AssertionError(f"train_mesh_moe f32 expert-parallel twin: "
-                             f"{row}")
+        raise AssertionError(f"train_mesh_moe {cfg.name} f32 "
+                             f"tensor-parallel twin: {row}")
     return row
 
 
@@ -5678,9 +5807,8 @@ def main() -> None:
     # one-process training through the launcher, and swarm-1b's staged
     # reference against it
     phase_train_single(torch)
-    # five reference steps: train holds the first three, train_rollback
-    # four and its cold resume the fifth
-    ref_losses = train_reference(torch, swarm1b(), 5)
+    # the reference steps train holds (the mesh phases hold a prefix)
+    ref_losses = train_reference(torch, swarm1b(), TRAIN_STEPS)
     train = phase_train(torch, "train", swarm1b(), TRAIN_STEPS,
                         ref_losses[:TRAIN_STEPS])
     for k in ("encode", "decode"):
@@ -5726,7 +5854,7 @@ def main() -> None:
     phase_serve_codec(torch)
     emit({"phase": "async_and_shared_serving_done",
           "seconds": time.time() - t_new})
-    phase_train_rollback(torch, ref_losses)
+    phase_train_rollback(torch)
     launches.update(phase_wire_codes(torch)["launches"])
     phase_train_profile(torch)
     phase_examples(torch)

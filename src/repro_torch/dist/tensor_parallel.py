@@ -1,5 +1,6 @@
 """Tensor-parallel compute over a mesh's ``model`` axis for the dense
-attention stack and the ``moe`` kind (expert parallelism): the per-leaf
+attention stack, the ``moe`` kind (expert parallelism) and the ``mla``
+and ``mla_moe`` kinds (DeepSeek-V2's latent attention): the per-leaf
 plan, the model shards of one data shard, the all-reduces of activation
 partials and of cotangents, the gathers a MoE layer makes at home, and
 the vocab-parallel embedding and cross-entropy.
@@ -27,7 +28,10 @@ tensor parallelism, where its residual stream lives.
 
 * Column-parallel inputs: the input is sent to every shard
   (:func:`fanout`), each projects onto its own heads or FFN columns (the
-  norm before it runs on every shard, on the shard's copy).
+  norm before it runs on every shard, on the shard's copy).  MLA's
+  down-projections (``w_dq``, ``w_dkv``, ``w_krope``) replicate over
+  ``model``: every shard computes the latents from its copy, then its
+  heads' up-projections (``models.mla.mla_part``).
 * Row-parallel outputs: each shard's partial ``[rows, S, d]``, left in
   f32 by its product, is summed at home (:func:`all_reduce`) before the
   residual add: added in f32 in shard order and rounded once to the
@@ -49,9 +53,10 @@ tensor parallelism, where its residual stream lives.
 * One autograd graph spans the shards.  :func:`fanout`'s backward is the
   all-reduce of the shards' cotangents (f32, rounded once), so the
   stage's input cotangent is their sum; a replicated leaf used on
-  several shards (a norm scale, ``wk``/``wv`` where only ``wq`` splits)
-  gets one partial gradient a shard, which the caller's reduce-scatter
-  adds, as JAX's all-reduce of those partials does.
+  several shards (a norm scale, ``wk``/``wv`` where only ``wq`` splits,
+  or MLA's down-projections) gets one partial gradient a shard, which
+  the caller's reduce-scatter adds, as JAX's all-reduce of those
+  partials does.
 
 Every collective here is logged (``dist.mesh.log_collective``): an
 all-reduce as received by each shard of the group, a gather to home
@@ -76,9 +81,10 @@ Tree = Any
 
 MODEL_AXIS = "model"
 # the block kinds whose layers compute tensor-parallel (the dense
-# attention stack, and attention + routed experts); a stage holding any
-# other kind keeps the gathered path
-SUPPORTED_KINDS = frozenset({"attn", "moe"})
+# attention stack, attention + routed experts, and latent attention with
+# a dense FFN or routed experts); a stage holding any other kind keeps
+# the gathered path
+SUPPORTED_KINDS = frozenset({"attn", "moe", "mla", "mla_moe"})
 # stage subtrees gathered whole at home and absent on the other shards:
 # the learned codec, whose ``bottleneck`` split is not computed on
 WHOLE_AT_HOME = ("boundary",)

@@ -305,11 +305,11 @@ def _mesh_train_step(cfg: ArchConfig, optimizer, mesh, st_sh: Tree,
     gradients are shard 0's (equal shapes); the gradients are
     reduce-scattered into the state's layout (f64, as MeshExecutor sums
     them), the clip norm's partial sums all-reduced, and AdamW updates
-    the busiest coordinate's shards.  A dense attention stack, or
-    llama4-scout's ``moe`` layers, computes tensor-parallel over
-    ``model`` (``dist.tensor_parallel``): data
-    shard 0's model shard ``j`` gathers model block ``j`` of each leaf
-    and computes with it, and each model shard's gradients are
+    the busiest coordinate's shards.  A dense attention stack,
+    llama4-scout's ``moe`` layers or deepseek-v2's ``mla_moe`` layers
+    compute tensor-parallel over ``model`` (``dist.tensor_parallel``):
+    data shard 0's model shard ``j`` gathers model block ``j`` of each
+    leaf and computes with it, and each model shard's gradients are
     reduce-scattered as its blocks; any other model gathers every leaf
     whole onto data shard 0's coordinate, which computes alone."""
     shards = _data_shards(mesh, b_sh["tokens"])

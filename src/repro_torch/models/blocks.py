@@ -300,25 +300,60 @@ REGISTRY = {
 
 
 # ------------------------------------------- over a data shard's model shards
-def _attn_half_tp(cfg, ps: list, x, positions, group):
-    """``x + attn(ln1(x))`` over a data shard's model shards: where the
-    heads split, each shard norms its copy of ``x`` and computes its
-    heads' partial, all-reduced at home; else the attention runs whole
-    at home."""
+def _mixer_half_tp(cfg, ps: list, x, positions, group, key: str,
+                   split: Callable, part: Callable, whole: Callable):
+    """``x + mixer(ln1(x))`` over a data shard's model shards, the mixer
+    ``p[key]``: where ``split`` says its heads split, each shard norms
+    its copy of ``x`` and computes its heads' partial ``part(cfg, p, x,
+    positions, j)``, all-reduced at home; else ``whole`` runs at home."""
     from repro_torch.dist import tensor_parallel as tp
     p0 = ps[0]
-    if L.heads_split(cfg, p0["attn"]):
+    if split(cfg, p0[key]):
         xs = tp.fanout(x, group)
         pos = tp.on_shards(positions, group)
         y = tp.all_reduce(group.per_shard(
-            lambda j, p, xj, pj: L.attn_part(
-                cfg, p["attn"], L.apply_norm(cfg, p["ln1"], xj), pj, j),
+            lambda j, p, xj, pj: part(
+                cfg, p[key], L.apply_norm(cfg, p["ln1"], xj), pj, j),
             ps, xs, pos), group, dtype=x.dtype)
     else:
         with group.scope(0):
-            y = L.apply_attn(cfg, p0["attn"], L.apply_norm(cfg, p0["ln1"], x),
-                             positions)
+            y = whole(cfg, p0[key], L.apply_norm(cfg, p0["ln1"], x),
+                      positions)
     return x + y
+
+
+def _attn_half_tp(cfg, ps: list, x, positions, group):
+    """``x + attn(ln1(x))`` over a data shard's model shards."""
+    return _mixer_half_tp(cfg, ps, x, positions, group, "attn",
+                          L.heads_split, L.attn_part, L.apply_attn)
+
+
+def _mla_half_tp(cfg, ps: list, x, positions, group):
+    """``x + mla(ln1(x))`` over a data shard's model shards: the heads
+    split, the down-projections replicate
+    (:func:`~repro_torch.models.mla.mla_part`)."""
+    return _mixer_half_tp(
+        cfg, ps, x, positions, group, "mla", mla_lib.mla_heads_split,
+        lambda cfg, p, x, pos, j: mla_lib.mla_part(cfg, p, x, pos),
+        mla_lib.apply_mla)
+
+
+def _ffn_half_tp(cfg, ps: list, x, group):
+    """``x + ffn(ln2(x))`` over a data shard's model shards: where the
+    FFN's columns split, each shard norms its copy of ``x`` and computes
+    its columns' partial, all-reduced at home; else it runs whole at
+    home."""
+    from repro_torch.dist import tensor_parallel as tp
+    if L.ffn_split(ps[0]["mlp"], cfg.d_ff):
+        xs = tp.fanout(x, group)
+        y = tp.all_reduce(group.per_shard(
+            lambda j, p, xj: L.apply_ffn(cfg, p["mlp"],
+                                         L.apply_norm(cfg, p["ln2"], xj),
+                                         partial=True),
+            ps, xs), group, dtype=x.dtype)
+        return x + y, 0.0
+    with group.scope(0):
+        return _residual_ffn(cfg, ps[0], x), 0.0
 
 
 def attn_apply_tp(cfg, ps: list, x, positions, group):
@@ -330,19 +365,16 @@ def attn_apply_tp(cfg, ps: list, x, positions, group):
     the f32 partials are all-reduced, rounded once to the stream's
     dtype, before the residual add; a half whose weights replicate runs
     whole at home."""
-    from repro_torch.dist import tensor_parallel as tp
-    p0 = ps[0]
-    x = _attn_half_tp(cfg, ps, x, positions, group)
-    if L.ffn_split(p0["mlp"], cfg.d_ff):
-        xs = tp.fanout(x, group)
-        y = tp.all_reduce(group.per_shard(
-            lambda j, p, xj: L.apply_ffn(cfg, p["mlp"],
-                                         L.apply_norm(cfg, p["ln2"], xj),
-                                         partial=True),
-            ps, xs), group, dtype=x.dtype)
-        return x + y, 0.0
-    with group.scope(0):
-        return _residual_ffn(cfg, p0, x), 0.0
+    return _ffn_half_tp(cfg, ps, _attn_half_tp(cfg, ps, x, positions,
+                                               group), group)
+
+
+def mla_apply_tp(cfg, ps: list, x, positions, group):
+    """One ``mla`` layer over a data shard's model shards: the MLA half
+    (:func:`_mla_half_tp`), then the FFN half as :func:`attn_apply_tp`
+    runs it."""
+    return _ffn_half_tp(cfg, ps, _mla_half_tp(cfg, ps, x, positions,
+                                              group), group)
 
 
 def _moe_norm(cfg, ps: list, h, group):
@@ -351,19 +383,32 @@ def _moe_norm(cfg, ps: list, h, group):
         return L.apply_norm(cfg, ps[0]["ln2"], h)
 
 
-def moe_apply_tp(cfg, ps: list, x, positions, group):
-    """One ``moe`` layer over a data shard's model shards: the attention
-    half as :func:`attn_apply_tp`'s, then the MoE expert-parallel
+def _moe_half_tp(cfg, ps: list, h, group):
+    """``h + moe(ln2(h))``: the MoE expert-parallel
     (:func:`~repro_torch.models.layers.apply_moe_tp`) on ``ln2`` of the
     stream, normed at home."""
-    h = _attn_half_tp(cfg, ps, x, positions, group)
     y, aux = L.apply_moe_tp(cfg, [p["moe"] for p in ps],
                             _moe_norm(cfg, ps, h, group), group)
     with group.scope(0):
         return h + y, aux
 
 
-TP_APPLY = {"attn": attn_apply_tp, "moe": moe_apply_tp}
+def moe_apply_tp(cfg, ps: list, x, positions, group):
+    """One ``moe`` layer over a data shard's model shards: the attention
+    half as :func:`attn_apply_tp`'s, then the MoE half."""
+    return _moe_half_tp(cfg, ps, _attn_half_tp(cfg, ps, x, positions,
+                                               group), group)
+
+
+def mla_moe_apply_tp(cfg, ps: list, x, positions, group):
+    """One ``mla_moe`` layer over a data shard's model shards: the MLA
+    half, then the MoE half as :func:`moe_apply_tp` runs it."""
+    return _moe_half_tp(cfg, ps, _mla_half_tp(cfg, ps, x, positions,
+                                              group), group)
+
+
+TP_APPLY = {"attn": attn_apply_tp, "moe": moe_apply_tp,
+            "mla": mla_apply_tp, "mla_moe": mla_moe_apply_tp}
 
 
 # ------------------------------------------------ data shards in lockstep
@@ -409,7 +454,7 @@ def apply_lockstep(cfg, kind: str, ps: list, xs: list, positions: list,
 
 # the tensor-parallel kinds that route over the whole microbatch, each
 # with its block up to the MoE over a data shard's model shards
-MOE_PRE_TP = {"moe": _attn_half_tp}
+MOE_PRE_TP = {"moe": _attn_half_tp, "mla_moe": _mla_half_tp}
 
 
 def apply_lockstep_tp(cfg, kind: str, pss: list, xs: list, positions: list,

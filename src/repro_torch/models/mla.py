@@ -13,6 +13,12 @@ runs directly against the cached latent ``c_kv [B, S, r]`` and the
 shared rope key ``k_rope [B, S, dr]``.  The new latent row is written
 into the cache in place (as the attention caches are,
 :func:`repro_torch.models.layers.apply_attn_decode`).
+
+Over a data shard's model shards (``dist.tensor_parallel``) the heads
+split and the down-projections (``w_dq``, ``w_dkv``, ``w_krope``)
+replicate, as the JAX package's sharding rules lay them out:
+:func:`mla_part` is model shard ``j``'s f32 partial of
+:func:`apply_mla`, computed from the shard's copy of the stream.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.models.params import ParamSpec
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import flash as flash_lib
+from repro_torch.models import layers as L
 from repro_torch.models import rope as rope_lib
 
 Tree = Any
@@ -83,13 +90,16 @@ def _rope_key(cfg: ArchConfig, p: Tree, x: torch.Tensor,
 
 def apply_mla(cfg: ArchConfig, p: Tree, x: torch.Tensor,
               positions: torch.Tensor, *, chunk_q: int = 512,
-              chunk_k: int = 1024, return_cache: bool = False):
+              chunk_k: int = 1024, return_cache: bool = False,
+              partial: bool = False):
     """Full-sequence (prefill / training) MLA. x [B, S, d]; with
     ``return_cache`` also the decode cache rows ``(c_kv [B, S, r],
-    k_rope [B, S, dr])``."""
+    k_rope [B, S, dr])``.  The heads are those ``p`` holds;
+    ``partial``: the output a row-parallel partial in f32
+    (``layers._RowPartial``)."""
     a, cd = cfg.mla, x.dtype
     B, S, _ = x.shape
-    H = cfg.n_heads
+    H = p["wo"].shape[0]
     q_nope, q_rope = _queries(cfg, p, x)
     q_rope = rope_lib.apply_rope(q_rope, positions, cfg.rope_theta)
     c_kv = x @ p["w_dkv"].to(cd)                             # [B, S, r]
@@ -102,11 +112,27 @@ def apply_mla(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     out = flash_lib.flash_attention(
         q, k, v, causal=cfg.causal, softcap=cfg.attn_logit_softcap,
         chunk_q=chunk_q, chunk_k=chunk_k, scale=_scale(cfg))
-    h, dv, d = p["wo"].shape
-    y = out.flatten(-2) @ p["wo"].to(cd).reshape(h * dv, d)
+    y = L._out_proj(out, p["wo"], cd, partial)
     if return_cache:
         return y, (c_kv, k_rope[:, :, 0, :])
     return y
+
+
+def mla_part(cfg: ArchConfig, p: Tree, x: torch.Tensor,
+             positions: torch.Tensor) -> torch.Tensor:
+    """Model shard ``j``'s partial of :func:`apply_mla` (``x`` already
+    normed), in f32: the down-projections whole, on the shard's copy of
+    the stream (they replicate over ``model``, as in GSPMD's program),
+    its block of the heads' up-projections (``w_uq`` or ``wq``,
+    ``w_uk``, ``w_uv``), the flash kernel over those heads at the
+    config's scale, and its rows of ``wo``; the shards' partials sum to
+    the attention's output."""
+    return apply_mla(cfg, p, x, positions, partial=True)
+
+
+def mla_heads_split(cfg: ArchConfig, p: Tree) -> bool:
+    """Does this shard hold a block of MLA's heads?"""
+    return p["wo"].shape[0] < cfg.n_heads
 
 
 def mla_cache_specs(cfg: ArchConfig, batch: int, seq: int) -> Tree:

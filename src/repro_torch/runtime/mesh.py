@@ -28,20 +28,22 @@ single-device peer.  One process drives the mesh (see
 
   - ``"tensor_parallel"``: with more than one ``model`` shard and only
     the kinds of ``dist.tensor_parallel.SUPPORTED_KINDS`` (the dense
-    ``attn`` stack and llama4-scout's ``moe``), the model shards of data
-    shard ``i`` compute together, as JAX's GSPMD program does: the
-    device at ``model`` index ``j`` gets model block ``j`` of each leaf,
-    gathered over ``data`` (a leaf the rules split over ``model`` as its
-    block, any other leaf whole), heads, FFN columns, routed experts and
-    the vocabulary are split by each leaf's resolved spec, activation
-    partials are all-reduced at home, and a MoE layer routes at home and
+    ``attn`` stack, llama4-scout's ``moe``, DeepSeek-V2's ``mla`` and
+    ``mla_moe``), the model shards of data shard ``i`` compute
+    together, as JAX's GSPMD program does: the device at ``model`` index
+    ``j`` gets model block ``j`` of each leaf, gathered over ``data`` (a
+    leaf the rules split over ``model`` as its block, any other leaf
+    whole), heads, FFN columns, routed experts and the vocabulary are
+    split by each leaf's resolved spec (MLA's down-projections
+    replicate: every shard computes the latents), activation partials
+    are all-reduced at home, and a MoE layer routes at home and
     takes each routed row back from its expert's shard.  The learned
     codec's ``w_c`` / ``w_d`` are gathered whole at home, where the wire
     runs, as on the other path.  Each model shard's gradients come back
     as its blocks, reduce-scattered into the shards that hold them.
-  - ``"gathered"``: otherwise (one model shard; an MLA, ``mla_moe``,
-    SSM, hymba or whisper stage) every leaf is gathered whole onto the
-    data shard's home, which computes alone: there the ``model`` axis
+  - ``"gathered"``: otherwise (one model shard; an SSM, hymba or
+    whisper stage) every leaf is gathered whole onto the data shard's
+    home, which computes alone: there the ``model`` axis
     shards storage only.
 
   A stage with a MoE block routes over the whole microbatch, as JAX's

@@ -196,12 +196,13 @@ def test_plan_reads_the_resolved_specs(arch, m, want):
 
 
 def test_supported_kinds_and_paths():
-    """The dense ``attn`` kind and llama4-scout's ``moe`` compute
-    tensor-parallel; whisper, deepseek-v2's ``mla_moe`` and a mesh
+    """The dense ``attn`` kind, llama4-scout's ``moe`` and deepseek-v2's
+    ``mla`` / ``mla_moe`` compute tensor-parallel; whisper and a mesh
     without a second model shard keep the gathered path, and each
     executor says which path it runs."""
     from repro_torch.configs import get_config
-    assert set(TP_APPLY) == set(tp.SUPPORTED_KINDS) == {"attn", "moe"}
+    assert set(TP_APPLY) == set(tp.SUPPORTED_KINDS) == {"attn", "moe",
+                                                        "mla", "mla_moe"}
     tcfg = _cfg()
     assert MeshExecutor(tcfg, 2, SEQ, 1, _mesh((1, 2))).compute_path == \
         "tensor_parallel"
@@ -214,7 +215,9 @@ def test_supported_kinds_and_paths():
     assert tp.runs_tensor_parallel(moe, set(moe.block_kinds), duck)
     assert not tp.runs_tensor_parallel(
         moe, set(moe.block_kinds), _DuckMesh({"data": 4, "model": 1}))
-    assert not tp.runs_tensor_parallel(mla, set(mla.block_kinds), duck)
+    assert tp.runs_tensor_parallel(mla, set(mla.block_kinds), duck)
+    assert not tp.runs_tensor_parallel(
+        mla, set(mla.block_kinds), _DuckMesh({"data": 4, "model": 1}))
     assert not tp.runs_tensor_parallel(whisper, {"attn"}, duck)
 
 
@@ -483,7 +486,7 @@ def test_stage_matches_jax_mesh_executor(tmp_path):
 @pytest.mark.parametrize("arch,shape,stage", [
     ("yi-6b", (2, 8), 1), ("yi-6b", (2, 8), 0),
     ("swarm-1b-bottleneck", (2, 2), 1), ("gemma-2b", (1, 16), 0),
-    ("llama4-scout-17b-a16e", (2, 8), 1)])
+    ("llama4-scout-17b-a16e", (2, 8), 1), ("deepseek-v2-236b", (2, 8), 1)])
 def test_meta_gathered_bytes_equal_the_blocks(arch, shape, stage):
     """On a meta mesh at full width, every coordinate's gathered params
     (``MeshExecutor``'s model blocks) hold exactly the bytes
@@ -491,7 +494,9 @@ def test_meta_gathered_bytes_equal_the_blocks(arch, shape, stage):
     model shard ``j > 0`` holds no codec."""
     from repro_torch.configs import get_config
     from repro_torch.launch import hlo_analysis as H
-    cfg = get_config(arch).with_overrides(n_layers=3)
+    cfg = get_config(arch)
+    cfg = cfg.with_overrides(n_layers=3, block_pattern=(
+        cfg.block_pattern[:3] if cfg.block_pattern else None))
     meta = torch.device("meta")
     mesh = _mesh(shape, [meta] * (shape[0] * shape[1]))
     ex = MeshExecutor(cfg, 3, SEQ, stage, mesh)
