@@ -5512,6 +5512,287 @@ def phase_train_pipeline_moe(torch) -> dict:
     return row
 
 
+# ------------------------------------------------------- serve_mesh_tp
+# tensor-parallel serving at full width, depth cut: (arch, layers, the
+# ("data", "model") meshes); batch 2, prompt 512, then 16 greedy decode
+# steps, f32 twins bounded, bf16 reported
+SERVE_TP_ARCHS = (("yi-6b", 2, ((1, 8),)),
+                  (MOE_ARCH, 1, ((1, 2), (2, 2))),
+                  (MLA_ARCH, 1, ((1, 2), (2, 2))))
+SERVE_TP_BATCH, SERVE_TP_PROMPT, SERVE_TP_NEW = 2, 512, 16
+SERVE_TP_LOGIT_RTOL = 1e-5      # the f32 twins, of the largest entry
+# wq / wk scaled so that attention logits have a trained model's scale:
+# the random init reads the heads axis as fan-in (as the JAX package's
+# does), which saturates every softmax (logits of std ~280 at yi-6b's
+# widths) and amplifies f32 rounding past the bound: unscaled, the f32
+# twin's logits lay 1.2e-3 (yi-6b, 2 layers) and 4.9e-5 (llama4-scout)
+# off one device with every token equal (PERF.md); on the CPU,
+# yi-6b at 512 tokens gives 1.0e-4 unscaled, 1.4e-5 at 0.3 and 3.2e-6
+# at 0.1 (logits of std 2.8).  MLA's init is not saturated (1.6e-6 /
+# 3.1e-6 unscaled): it is left as drawn
+SERVE_TP_ATTN_SCALE = 0.1
+
+
+def serve_tp_config(arch: str, layers: int, dt: str):
+    """``arch`` at full width, its first ``layers`` layers, computing in
+    ``dt`` (the parameters keep their dtype)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg.with_overrides(
+        n_layers=layers, compute_dtype=dt,
+        block_pattern=cfg.block_pattern[:layers] if cfg.block_pattern
+        else None)
+
+
+@contextlib.contextmanager
+def _returns(module, name: str):
+    """Every value ``module.name`` returns while the block runs."""
+    seen: list = []
+    orig = getattr(module, name)
+
+    def recorded(*args, **kw):
+        out = orig(*args, **kw)
+        seen.append(out)
+        return out
+    setattr(module, name, recorded)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, orig)
+
+
+def _serve_session(torch, cfg, params, tok, group=None, after=None):
+    """``make_prefill_step`` then ``SERVE_TP_NEW`` greedy
+    ``make_serve_step`` calls, on one device (``group`` None) or over
+    ``group``'s model shards (a list of groups: the data shards, the
+    rows split in order); ``after(caches)`` after each step.  Returns
+    ``(tokens [B, 1 + NEW], logits [steps, B, V] f32)``."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.train import steps as S
+    many = isinstance(group, list)
+    pre = S.make_prefill_step(cfg, cache_len=SERVE_TP_PROMPT + SERVE_TP_NEW,
+                              group=group)
+    dec = S.make_serve_step(cfg, group=group)
+    rows = [{"tokens": t} for t in tok.chunk(len(group))] if many else \
+        {"tokens": tok}
+    toks, logits = [], []
+    with _returns(model_lib, "head" if group is None else
+                  "head_blocks_tp") as heads:
+        with torch.no_grad():
+            nxt, caches = pre(params, rows)
+            for i in range(SERVE_TP_NEW + 1):
+                if after is not None:
+                    after(caches)
+                toks.append(torch.cat(nxt) if many else nxt)
+                if i < SERVE_TP_NEW:
+                    nxt, caches = dec(params, caches, nxt,
+                                      SERVE_TP_PROMPT + i)
+    n = len(group) if many else 1
+    for k in range(0, len(heads), n):
+        parts = [h if group is None else torch.cat(h, -1)
+                 for h in heads[k:k + n]]
+        logits.append(torch.cat(parts)[:, -1].float())
+    del caches
+    return torch.cat(toks, 1), torch.stack(logits)
+
+
+def serve_tp_launches_planned(cfg, mesh) -> dict:
+    """Flash and rmsnorm launches on each coordinate in a session
+    (prefill, ``SERVE_TP_NEW`` decode steps) where the heads, the FFN
+    and the vocab split: flash a layer on every shard in the prefill
+    (decode attends in plain PyTorch, as the JAX package does); a step
+    norms ``ln1`` on every shard (each writes its cache block or copy),
+    ``ln2`` on every shard for a dense FFN, at home for a MoE, and the
+    final norm on every shard (the vocab-parallel head)."""
+    steps, L = 1 + SERVE_TP_NEW, cfg.n_layers
+    moe = bool({"moe", "mla_moe"} & set(cfg.block_kinds))
+    return {c: {"flash_attention_fwd": L,
+                "rmsnorm": steps * (L * (1 if moe and c[-1] else 2) + 1)}
+            for c in mesh.coords()}
+
+
+def _copies_equal(torch, rows: list, shardings) -> bool:
+    """Every data shard's copies of a replicated cache (a leaf whose
+    layout does not split it over ``model``: each model shard holds it
+    whole) equal to the bit; ``rows[i][j]`` data shard ``i``'s model
+    shard ``j``'s caches."""
+    from repro_torch.dist import tensor_parallel as tp
+    from repro_torch.dist.mesh import NamedSharding
+    from repro_torch.tree import tree_leaves
+    whole = [tp.split_dim(s) is None for s in tree_leaves(
+        shardings, is_leaf=lambda x: isinstance(x, NamedSharding))]
+    for row in rows:
+        for copy, col in zip(whole, zip(*(tree_leaves(c) for c in row))):
+            if copy and not all(torch.equal(t, col[0]) for t in col[1:]):
+                return False
+    return True
+
+
+def _serve_tp_arch(torch, arch: str, layers: int, shapes) -> dict:
+    """One arch of :func:`phase_serve_mesh_tp`."""
+    from repro_torch.dist import sharding as sh
+    from repro_torch.dist import tensor_parallel as tp
+    from repro_torch.dist.mesh import place_as
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import params as P
+    from repro_torch.models.params import is_spec
+    from repro_torch.train import steps as S
+    from repro_torch.tree import tree_leaves, tree_map
+    rows: dict = {"arch": arch, "reduced": {"n_layers": layers}}
+    base = serve_tp_config(arch, layers, "bfloat16")
+    params = P.init(31, S.model_specs(base), "cuda")
+    with torch.no_grad():
+        for seg in params["blocks"]:
+            for key in ("wq", "wk") if "attn" in seg else ():
+                seg["attn"][key].mul_(SERVE_TP_ATTN_SCALE)
+    rows["attn_scale"] = SERVE_TP_ATTN_SCALE if any(
+        "attn" in seg for seg in params["blocks"]) else None
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    tok = torch.randint(0, base.vocab_size, (SERVE_TP_BATCH,
+                                             SERVE_TP_PROMPT),
+                        generator=gen, device="cuda")
+    for dt in ("float32", "bfloat16"):
+        cfg = serve_tp_config(arch, layers, dt)
+        def ctx():
+            return plain_precision(torch) if dt == "float32" else \
+                contextlib.nullcontext()
+        with ctx(), moe_calls() as one_calls:
+            t1, l1 = _counted(torch, lambda: _serve_session(
+                torch, cfg, params, tok))
+        for shape in shapes:
+            mesh = _tp_mesh(torch, shape)
+            groups = [tp.Group.of(mesh, data=i) for i in range(shape[0])]
+            placed = tree_map(place_as, params,
+                              sh.param_shardings(cfg, mesh))
+            trees = [[tp.gather_block(placed, mesh.devices[c], j)
+                      for j, c in enumerate(g.coords)] for g in groups]
+            specs = model_lib.lm_cache_specs(
+                cfg, SERVE_TP_BATCH, SERVE_TP_PROMPT + SERVE_TP_NEW)
+            cache_sh = sh.cache_shardings_from_specs(cfg, mesh, specs,
+                                                     batch_axis="data")
+            shapes_ = tree_map(lambda s: torch.Size(s.shape), specs,
+                               is_leaf=is_spec)
+            copies, blocks = [], {}
+
+            def after(caches):
+                rows_ = caches if len(groups) > 1 else [caches]
+                copies.append(_copies_equal(torch, rows_, cache_sh))
+                if blocks:
+                    return
+                for g, row in zip(groups, rows_):
+                    for c, cj in zip(g.coords, row):
+                        tp.check_cache_blocks(cj, shapes_, cache_sh, c)
+                        blocks[str(list(c))] = sum(
+                            t.numel() * t.element_size()
+                            for t in tree_leaves(cj))
+            group = groups if len(groups) > 1 else groups[0]
+            t0 = time.time()
+            with ctx(), moe_calls() as calls, coord_launches() as per, \
+                    flash_dims_by_coord() as dims, plain_flash_calls() as pf:
+                t2, l2 = _serve_session(
+                    torch, cfg, trees if len(groups) > 1 else trees[0], tok,
+                    group, after)
+            secs = time.time() - t0
+            n = len(groups)
+            routes = [_route_checks(torch, one_calls[k:k + 1],
+                                    calls[k * n:(k + 1) * n])
+                      for k in range(len(one_calls))]
+            gap = float((l2 - l1).abs().max() / l1.abs().max())
+            key = f"{dt}_{shape[0]}x{shape[1]}"
+            rows[key] = {
+                "mesh": list(shape), "seconds": secs,
+                "token_flips": int((t1 != t2).sum()),
+                "tokens": int(t1.numel()),
+                "logits_max_gap": gap,
+                "bounded": dt == "float32",
+                "copies_equal_every_step": all(copies),
+                "steps_checked": len(copies),
+                "cache_bytes_by_coord": blocks,
+                "routes_semantics_equal": all(r["semantics_equal"]
+                                              for r in routes),
+                "route_flips_vs_one_device": sum(
+                    r["route_flips_vs_one_device"] for r in routes),
+                "plain_flash_calls": len(pf),
+                "launches_by_coord": {str(list(c)): {
+                    k: per[c][k] for k in ("flash_attention_fwd",
+                                           "rmsnorm")}
+                    for c in mesh.coords()},
+                "launches_by_coord_planned": {
+                    str(list(c)): v for c, v in
+                    serve_tp_launches_planned(cfg, mesh).items()},
+                "flash_dims_by_coord": {str(list(c)): sorted(
+                    list(x) for x in dims[c]) for c in mesh.coords()},
+                "flash_dims_planned": {str(list(c)): [[
+                    cfg.n_heads // shape[1], *_head_dims(cfg)]]
+                    for c in mesh.coords()}}
+            emit({"phase": "serve_mesh_tp", "arch": arch, "run": key,
+                  **rows[key]})
+            del placed, trees, calls, t2, l2
+            free(torch)
+        del one_calls, t1, l1
+        free(torch)
+    del params
+    free(torch)
+    return rows
+
+
+def _serve_tp_checks(row: dict) -> None:
+    """:func:`_serve_tp_arch`'s gates."""
+    name = f"serve_mesh_tp {row['arch']}"
+    for key, r in row.items():
+        if not isinstance(r, dict) or "mesh" not in r:
+            continue
+        bad = []
+        if r["bounded"] and (r["token_flips"] or
+                             r["logits_max_gap"] > SERVE_TP_LOGIT_RTOL):
+            bad.append("f32 twin")
+        if not r["copies_equal_every_step"] or \
+                r["steps_checked"] != SERVE_TP_NEW + 1:
+            bad.append("cache copies")
+        if not r["routes_semantics_equal"]:
+            bad.append("routes")
+        if r["plain_flash_calls"] or \
+                r["launches_by_coord"] != r["launches_by_coord_planned"]:
+            bad.append("launches")
+        if r["flash_dims_by_coord"] != r["flash_dims_planned"]:
+            bad.append("flash heads")
+        if bad:
+            raise AssertionError(f"{name} {key}: {bad}: {r}")
+
+
+def phase_serve_mesh_tp(torch) -> dict:
+    """Tensor-parallel serving (``make_prefill_step`` /
+    ``make_serve_step`` with model-shard groups) at full width on
+    virtual ("data", "model") meshes of the card, for each of
+    ``SERVE_TP_ARCHS`` against the one-device steps on the same weights
+    and prompts: an f32 twin's tokens equal and its logits within
+    ``SERVE_TP_LOGIT_RTOL`` of the largest entry, bf16 token flips
+    reported; MoE routes equal to the whole batch's routing of the same
+    router inputs; every replicated cache copy equal to the bit after
+    every step; each coordinate's cache blocks those of JAX's layout
+    (``cache_shardings_from_specs``), their bytes reported; flash and
+    rmsnorm launches and flash's head count by coordinate against the
+    plan, no plain flash call; the phase's peak under the card's 80
+    GB."""
+    t0 = time.time()
+    free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    rows = {}
+    for arch, layers, shapes in SERVE_TP_ARCHS:
+        t1 = time.time()
+        rows[arch] = _serve_tp_arch(torch, arch, layers, shapes)
+        rows[arch]["seconds"] = time.time() - t1
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    emit({"phase": "serve_mesh_tp_done", "seconds": time.time() - t0,
+          "max_memory_allocated_gb": peak,
+          "archs": {a: r["seconds"] for a, r in rows.items()}})
+    for r in rows.values():
+        _serve_tp_checks(r)
+    if peak >= 80:
+        raise AssertionError(f"serve_mesh_tp: peak {peak} GB")
+    return rows
+
+
 # ------------------------------------------------------------ phase 21b
 # the examples (repro_torch.examples) on the card: quickstart, the
 # serving demo on yi-6b's reduced config (head dims widened for the
@@ -5596,16 +5877,18 @@ DRYRUN_CELL = ("yi-6b", "train_4k", "multi")
 # allocator blocks, CUDA ops' own workspaces)
 DRYRUN_REL, DRYRUN_ABS = 0.05, 64 * 2 ** 20
 TRAIN_SEQ_DRYRUN = 4096         # the train_4k cell's sequence
+DRYRUN_TP_LAYERS, DRYRUN_TP_SEQ = 2, 512    # the tensor-parallel calls
 DRYRUN_WAIT = 600               # seconds the last phase waits for the cell
 
 
 def _dryrun_calls(torch, dev: str) -> dict:
-    """Phase dryrun's three calls on ``dev`` (``"meta"`` or ``"cuda"``),
+    """Phase dryrun's calls on ``dev`` (``"meta"`` or ``"cuda"``),
     their inputs made there (random from a seed on the card, shapes alone
     on meta): yi-6b's attn layer at the train shape (B 2, S 4,096),
     forward and backward (flash, rmsnorm); swarm-1b-bottleneck's
     boundary at its training microbatch (2 x 512), encode then decode;
-    the same boundary on swarm-1b's int8 wire (qdq_flat)."""
+    the same boundary on swarm-1b's int8 wire (qdq_flat); and the
+    tensor-parallel prefill and decode (:func:`_dryrun_tp_calls`)."""
     from repro_torch.compression import codecs
     from repro_torch.configs import get_config
     from repro_torch.models import model as model_lib
@@ -5650,7 +5933,53 @@ def _dryrun_calls(torch, dev: str) -> dict:
             return codecs.int8_boundary(int8, z)
 
     return {"attn_layer": attn_layer, "boundary": boundary,
-            "int8_wire": int8_wire}
+            "int8_wire": int8_wire, **_dryrun_tp_calls(torch, dev)}
+
+
+def _dryrun_tp_calls(torch, dev: str) -> dict:
+    """Phase dryrun's tensor-parallel serving calls on ``dev``: yi-6b cut
+    to ``DRYRUN_TP_LAYERS`` layers over a (1, 2) ("data", "model") mesh
+    of ``dev`` (virtual on the card), a prefill of 2 x ``DRYRUN_TP_SEQ``
+    tokens and one decode step on the caches a prefill made beforehand
+    (``make_prefill_step`` / ``make_serve_step`` with the group)."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding as sh
+    from repro_torch.dist import tensor_parallel as tp
+    from repro_torch.dist.mesh import place_as
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import params as P
+    from repro_torch.train import steps as S
+    from repro_torch.tree import tree_map
+    meta = dev == "meta"
+    cfg = get_config("yi-6b").with_overrides(n_layers=DRYRUN_TP_LAYERS)
+    d = torch.device("meta") if meta else torch.device("cuda", 0)
+    mesh = make_debug_mesh((1, 2), ("data", "model"), devices=[d] * 2)
+    group = tp.Group.of(mesh, data=0)
+    specs = S.model_specs(cfg)
+    params = P.abstract(specs) if meta else P.init(33, specs, dev)
+    placed = tree_map(place_as, params, sh.param_shardings(cfg, mesh))
+    trees = [tp.gather_block(placed, d, j) for j in range(2)]
+    shape = (2, DRYRUN_TP_SEQ)
+    if meta:
+        tok = torch.empty(shape, dtype=torch.int64, device=d)
+    else:
+        g = torch.Generator(device=dev).manual_seed(34)
+        tok = torch.randint(0, cfg.vocab_size, shape, generator=g,
+                            device=dev)
+    pre = S.make_prefill_step(cfg, cache_len=DRYRUN_TP_SEQ + 1,
+                              group=group)
+    dec = S.make_serve_step(cfg, group=group)
+    with torch.no_grad():
+        nxt, caches = _counted(torch, lambda: pre(trees, {"tokens": tok}))
+
+    def tp_prefill():
+        with torch.no_grad():
+            return pre(trees, {"tokens": tok})
+
+    def tp_decode():
+        with torch.no_grad():
+            return dec(trees, caches, nxt, DRYRUN_TP_SEQ)
+    return {"tp_prefill": tp_prefill, "tp_decode": tp_decode}
 
 
 
@@ -5704,8 +6033,9 @@ def phase_dryrun(torch, proc) -> dict:
         with ledger:
             out = fn()
         del out
-        meta_calls, meta_peak = dict(kernels.META_CALLS), \
-            ledger.peak.get("meta", 0)
+        # every coordinate's bytes together (the tensor-parallel calls
+        # run as the mesh's coordinates; the card holds them all)
+        meta_calls, meta_peak = dict(kernels.META_CALLS), ledger.peak_total
         card = on_card[name]
         _counted(torch, card)                 # warm: cuBLAS workspaces
         torch.cuda.synchronize()
@@ -5719,8 +6049,7 @@ def phase_dryrun(torch, proc) -> dict:
         card_peak = torch.cuda.max_memory_allocated() - base
         launches = dict(kernels.LAUNCHES)
         del out
-        on_card_peak = tracked.peak.get(f"cuda:{torch.cuda.current_device()}",
-                                        0)
+        on_card_peak = tracked.peak_total
         row = {"launches": launches, "meta_calls": meta_calls,
                "meta_peak_bytes": meta_peak, "card_peak_bytes": card_peak,
                "tracked_card_peak_bytes": on_card_peak,
@@ -5843,6 +6172,8 @@ def main() -> None:
     # width, one layer a stage): mesh peers, then the pipeline
     phase_train_mesh_moe(torch)
     phase_train_pipeline_moe(torch)
+    # serving over the model axis (prefill and decode), full width
+    phase_serve_mesh_tp(torch)
     # the async tick: in-flight edges (losses to train's bit), then
     # delayed parameter updates behind the bounded-staleness barrier
     t_new = time.time()

@@ -58,6 +58,17 @@ tensor parallelism, where its residual stream lives.
   the caller's reduce-scatter adds, as JAX's all-reduce of those
   partials does.
 
+Serving (``models.blocks``' serving halves, ``models.model.
+lm_prefill_tp`` / ``lm_decode_step_tp``): each decode cache is held by
+the model shards as JAX's layout holds it (``dist.sharding.
+cache_shardings_from_specs``: a block a shard where the kv heads split
+``model``, else a copy a shard, MLA's latent cache always a copy).
+Every shard writes its own block or copy from its copy of the stream,
+by the same ops on the same bits as any other shard, so the copies are
+equal to the bit and no cache crosses a shard.  The greedy token is
+taken from vocab-split logits without gathering them
+(:func:`vocab_parallel_argmax`).
+
 Every collective here is logged (``dist.mesh.log_collective``): an
 all-reduce as received by each shard of the group, a gather to home
 (``all-gather``, ``all-to-all``) as received by home; and counted in
@@ -95,7 +106,8 @@ WHOLE_AT_HOME = ("boundary",)
 # cross-entropy's max, exponential sum and gold logit), and a MoE layer's
 # "router" (its column blocks gathered at home), "expert_rows" (each
 # pair's row taken at home from its expert's shard) and "shared_expert"
-# (the shared expert's partials)
+# (the shared expert's partials), and serving's "argmax" (each vocab
+# block's largest logit and its index, gathered at home)
 ALL_REDUCES: collections.Counter = collections.Counter()
 
 
@@ -407,3 +419,61 @@ def vocab_parallel_nll(logits: Sequence[torch.Tensor], labels: torch.Tensor,
     with group.scope(0):
         return mx + torch.log(se) - gl
 
+
+
+def vocab_parallel_argmax(parts: Sequence[torch.Tensor], group: Group
+                          ) -> torch.Tensor:
+    """``torch.argmax(dim=-1)`` of the rows the shards' vocab blocks form
+    (``parts[j]`` shard ``j``'s ``[..., V / m]``, block ``j`` of the
+    vocab), at home, without gathering them: each shard's largest logit
+    and its first index there, then at home the largest, the lowest
+    global index among equals (the earlier shard's where two blocks
+    tie), NaN above every number, as ``torch.argmax`` takes them.  One
+    part is the whole row at home."""
+    if len(parts) == 1:
+        with group.scope(0):
+            return parts[0].argmax(-1)
+    vj = parts[0].shape[-1]
+
+    def local(j, x):
+        i = x.argmax(-1)
+        return x.gather(-1, i[..., None])[..., 0], i + j * vj
+    loc = group.per_shard(local, parts)
+    with torch.no_grad(), group.scope(0):
+        val, idx = loc[0]
+        for j, (v, i) in enumerate(loc[1:], 1):
+            v, i = _at_home(v, group, j), _at_home(i, group, j)
+            better = (v > val) | (v.isnan() & ~val.isnan())
+            val = torch.where(better, v, val)
+            idx = torch.where(better, i, idx)
+    _logged(group, "argmax", sum(_nbytes(v) + _nbytes(i)
+                                 for v, i in loc[1:]),
+            "all-gather", group.coords[:1])
+    return idx
+
+
+# ----------------------------------------------------------------- caches
+def cache_shards(tree: Tree, coord: tuple) -> Tree:
+    """A placed cache tree's blocks at mesh coordinate ``coord``: the
+    block or copy that coordinate reads and writes in place."""
+    return tree_map(lambda p: p.shards[coord] if isinstance(p, Placed)
+                    else p, tree)
+
+
+def check_cache_blocks(caches: Tree, shapes: Tree, shardings: Tree,
+                       coord: tuple) -> None:
+    """Raise unless every leaf of ``caches`` (a model shard's serving
+    caches) has the shape of its block at ``coord`` by ``shardings``
+    (JAX's cache layout for the whole batch; ``shapes`` a tree of the
+    leaves' global ``torch.Size``)."""
+    from repro_torch.dist.mesh import shard_slices
+    sizes = tree_leaves(shapes, is_leaf=lambda x: isinstance(x,
+                                                              torch.Size))
+    shs = tree_leaves(shardings, is_leaf=lambda x: isinstance(
+        x, NamedSharding))
+    want = [torch.Size(x.stop - x.start for x in shard_slices(
+        n, s.mesh, tuple(s.spec), coord)) for n, s in zip(sizes, shs)]
+    got = [t.shape for t in tree_leaves(caches)]
+    if got != want:
+        raise ValueError(f"caches at {coord}: blocks {got} where the "
+                         f"layout gives {want}")

@@ -10,10 +10,12 @@ own step instead, on ``meta`` tensors laid out over
 mesh scheme (``runtime.mesh.MeshExecutor``'s): the arguments laid out by
 the ``dist.sharding`` rules, data shard ``i`` computing on ``batch_axis``
 index ``i`` (index 0 on the other axes) with the parameters gathered
-there, or, for a dense attention stack's train step and llama4-scout's
-(``moe``), over its ``model`` coordinates with each leaf's model block
-(``dist.tensor_parallel``: experts split over ``model``),
-gradients reduce-scattered into the state's layout.  Every
+there, or, for the block kinds of ``dist.tensor_parallel.SUPPORTED_KINDS``
+(the dense attention stack, llama4-scout's ``moe``, deepseek-v2's
+``mla_moe``), over its ``model`` coordinates with each leaf's model
+block: the train step's gradients reduce-scattered into the state's
+layout, the prefill and decode steps' caches held where JAX's layout
+holds them, each coordinate reading and writing its own.  Every
 coordinate's gathers, reductions and placements run (free on meta) and
 are logged (``dist.mesh.record_collectives``); data shards of equal
 shapes are computed once (``computed_shards``) and stand for the others.
@@ -230,9 +232,10 @@ def _reduce_scatter_alike(grads: Tree, shardings: Tree, coords: list
 
 
 def _tensor_parallel(cfg: ArchConfig, mesh, batch_axes) -> bool:
-    """Does the train step compute tensor-parallel over ``model`` (the
-    kinds of ``tensor_parallel.SUPPORTED_KINDS``, ``model`` not folded
-    into the batch)?  A MoE model's data shard 0 then routes under
+    """Does the cell's step (train, prefill or decode) compute
+    tensor-parallel over ``model`` (the kinds of
+    ``tensor_parallel.SUPPORTED_KINDS``, ``model`` not folded into the
+    batch)?  A MoE model's data shard 0 then routes under
     :func:`_alike`, on its model shards as on the gathered path."""
     return tp.MODEL_AXIS not in mesh_lib.axis_names_of(batch_axes) and \
         tp.runs_tensor_parallel(cfg, set(cfg.block_kinds), mesh)
@@ -345,17 +348,9 @@ def _mesh_train_step_tp(cfg: ArchConfig, optimizer, mesh, st_sh: Tree,
     grad_fn, alike = _shard_grad_fn(cfg, remat, accum, batch, len(groups),
                                     groups[0])
 
-    def blocks(state: Tree, group: tp.Group) -> list:
-        out = []
-        for j, c in enumerate(group.coords):
-            with at(c):
-                out.append(tp.gather_block(state["params"],
-                                           mesh.devices[c], j))
-        return out
-
     def step(state: Tree, batch: Tree):
         with _alike(alike):
-            trees = blocks(state, groups[0])
+            trees = _model_blocks(state["params"], groups[0], mesh)
             with at(c0):
                 b = _gather_where(batch, mesh.devices[c0], shards[0])
             # outside any coordinate: each shard's ops run in its own
@@ -363,7 +358,7 @@ def _mesh_train_step_tp(cfg: ArchConfig, optimizer, mesh, st_sh: Tree,
             loss, ce, grads = grad_fn(trees, b)
             del trees, b
         for g in groups[1:]:
-            blocks(state, g)
+            _model_blocks(state["params"], g, mesh)
         gp = _reduce_scatter_blocks_alike(
             grads, st_sh["params"], groups,
             tree_map(lambda p: p.shape, state["params"]))
@@ -371,6 +366,80 @@ def _mesh_train_step_tp(cfg: ArchConfig, optimizer, mesh, st_sh: Tree,
         return _update(optimizer, mesh, c0, state, gp, loss, ce)
 
     return step, len(groups), c0
+
+
+def _model_blocks(params: Tree, group: tp.Group, mesh) -> list:
+    """Each of ``group``'s model coordinates' blocks of ``params``
+    (:func:`~repro_torch.dist.tensor_parallel.gather_block`), gathered
+    as that coordinate."""
+    out = []
+    for j, c in enumerate(group.coords):
+        with at(c):
+            out.append(tp.gather_block(params, mesh.devices[c], j))
+    return out
+
+
+def _prefill_cell_tp(cfg: ArchConfig, mesh, args: Tree, shards: list,
+                     cache_sh: Tree, cache_meta: Tree, last_only: bool
+                     ) -> Cell:
+    """The prefill cell over data shard 0's model coordinates
+    (``make_prefill_step`` with its group): coordinate ``j`` gathers
+    model block ``j`` of each leaf and computes with it, and its caches
+    stay there as its block of ``cache_sh`` (checked), with no gather to
+    home and no scatter from it.  Data shard 0 stands for all
+    (:func:`_alike`); every other data shard's gathers run."""
+    groups = [tp.Group.of(mesh, **w) for w in shards]
+    g0, c0 = groups[0], groups[0].coords[0]
+    step = steps_lib.make_prefill_step(cfg, last_only=last_only, group=g0)
+    shapes = tree_map(lambda a: a.shape, cache_meta)
+
+    def run():
+        with _alike(len(groups)):
+            trees = _model_blocks(args["params"], g0, mesh)
+            with at(c0):
+                batch = _gather_where(args["batch"], mesh.devices[c0],
+                                      shards[0])
+            nxt, caches = step(trees, batch)
+            del trees, batch
+        held: dict = {c0: [nxt]}
+        for c, cj in zip(g0.coords, caches):
+            tp.check_cache_blocks(cj, shapes, cache_sh, c)
+            held.setdefault(c, []).extend(tree_leaves(cj))
+        for g in groups[1:]:
+            _model_blocks(args["params"], g, mesh)
+        return held, {}
+    return Cell(run, args, mesh, False, len(groups), 1, c0)
+
+
+def _decode_cell_tp(cfg: ArchConfig, mesh, args: Tree, shards: list,
+                    pos: int) -> Cell:
+    """The decode cell over data shard 0's model coordinates
+    (``make_serve_step`` with its group): coordinate ``j`` gathers model
+    block ``j`` of each leaf and reads and writes its own cache blocks
+    in place (outputs aliasing the arguments, on every coordinate).
+    Data shard 0 stands for all; every other data shard's gathers
+    run."""
+    groups = [tp.Group.of(mesh, **w) for w in shards]
+    g0, c0 = groups[0], groups[0].coords[0]
+    step = steps_lib.make_serve_step(cfg, group=g0)
+
+    def run():
+        with _alike(len(groups)):
+            trees = _model_blocks(args["params"], g0, mesh)
+            local = [tp.cache_shards(args["caches"], c) for c in g0.coords]
+            with at(c0):
+                tok = gather(args["token"], mesh.devices[c0], where=shards[0])
+            nxt, _ = step(trees, local, tok, pos)
+            del trees, local, tok
+        for g in groups[1:]:
+            _model_blocks(args["params"], g, mesh)
+        aliased = {c: [a.shards[c] for a in tree_leaves(args["caches"])]
+                   for g in groups for c in g.coords}
+        held: dict = {c0: [nxt]}
+        for c, ts in aliased.items():
+            held.setdefault(c, []).extend(ts)
+        return held, aliased
+    return Cell(run, args, mesh, False, len(groups), 1, c0)
 
 
 def _update(optimizer, mesh, c0: tuple, state: Tree, gp: Tree, loss, ce):
@@ -397,7 +466,8 @@ def build_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, remat="block",
     ``make_pipeline_train_step`` with 8 microbatches on a ``multi`` mesh
     and a stage-periodic config), prefill (``make_prefill_step``) and
     decode (``make_serve_step``, caches by
-    ``cache_shardings_from_specs``)."""
+    ``cache_shardings_from_specs``); each over data shard 0's model
+    coordinates where :func:`_tensor_parallel` holds."""
     multipod = _pod_axes(mesh)
     batch_axis = ("pod", "data") if multipod else "data"
     if strategy == "dp":
@@ -459,6 +529,10 @@ def build_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, remat="block",
                                   batch_axis=batch_axis)
         args = {"params": params, "batch": placed(specs["batch"], b_sh)}
         shards = _data_shards(mesh, b_sh["tokens"])
+        if _tensor_parallel(cfg, mesh, b_sh["tokens"].spec[0] if
+                            b_sh["tokens"].spec else None):
+            return _prefill_cell_tp(cfg, mesh, args, shards, cache_sh,
+                                    cache_meta, not full_logits)
 
         def run():
             held: dict = {}
@@ -492,6 +566,8 @@ def build_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, remat="block",
             "token": place_as(specs["token"], tok_sh)}
     shards = _data_shards(mesh, tok_sh)
     pos = shape.seq_len - 1
+    if _tensor_parallel(cfg, mesh, tok_sh.spec[0] if tok_sh.spec else None):
+        return _decode_cell_tp(cfg, mesh, args, shards, pos)
 
     def run():
         held: dict = {}

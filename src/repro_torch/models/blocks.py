@@ -249,16 +249,19 @@ def moe_prefill(cfg, p, x, positions, cache_len):
     return x, aux, cache
 
 
+def _latent_cache(cfg, c_kv, k_rope, cache_len):
+    return {"c_kv": L.ring_place(c_kv.to(cfg.compute_jdtype), cache_len),
+            "k_rope": L.ring_place(k_rope.to(cfg.compute_jdtype),
+                                   cache_len)}
+
+
 def _mla_prefill_inner(cfg, p, x, positions, cache_len):
     """MLA over the sequence, and its latent decode caches placed in ring
     layout at ``cache_len`` slots (as the attention caches are)."""
     y, (c_kv, k_rope) = mla_lib.apply_mla(
         cfg, p["mla"], L.apply_norm(cfg, p["ln1"], x), positions,
         return_cache=True)
-    cache = {"c_kv": L.ring_place(c_kv.to(cfg.compute_jdtype), cache_len),
-             "k_rope": L.ring_place(k_rope.to(cfg.compute_jdtype),
-                                    cache_len)}
-    return y, cache
+    return y, _latent_cache(cfg, c_kv, k_rope, cache_len)
 
 
 def mla_prefill(cfg, p, x, positions, cache_len):
@@ -476,6 +479,16 @@ def apply_lockstep_tp(cfg, kind: str, pss: list, xs: list, positions: list,
         return [y for y, _ in outs], [a for _, a in outs]
     hs = [pre(cfg, ps, x, pos, g)
           for ps, x, pos, g in zip(pss, xs, positions, groups)]
+    return _moe_lockstep_tp(cfg, pss, hs, groups)
+
+
+def _moe_lockstep_tp(cfg, pss: list, hs: list, groups: list):
+    """``h + moe(ln2(h))`` over the data shards of one batch (row order),
+    ``hs[i]`` data shard ``i``'s stream up to its MoE at its home: every
+    shard's route at its home first, then every shard's expert-parallel
+    MoE under its split context
+    (:func:`~repro_torch.models.layers.apply_moe_shards_tp`).  Returns
+    ``(ys, auxs)``."""
     ns = [_moe_norm(cfg, ps, h, g) for ps, h, g in zip(pss, hs, groups)]
     ys, auxs = L.apply_moe_shards_tp(
         cfg, [[p["moe"] for p in ps] for ps in pss], ns, groups)
@@ -484,3 +497,177 @@ def apply_lockstep_tp(cfg, kind: str, pss: list, xs: list, positions: list,
         with g.scope(0):
             out.append(h + y)
     return out, auxs
+
+
+# ------------------------------------------ serving over the model shards
+# Prefill and decode over a data shard's model shards.  Each decode cache
+# is held by every model shard as its block of JAX's layout (the ``kv_heads``
+# rule: split over ``model`` where the kv heads divide it, else a copy a
+# shard; MLA's latent cache is a copy a shard).  Every shard writes its
+# own block or copy from its copy of the stream: ``ln1`` on the copy,
+# then the projections of every kv head it holds (or the latents), the
+# same ops on the same bits as the shard that attends, so the copies are
+# equal to the bit and nothing crosses a shard for them.  Where the heads
+# split, each shard's q heads attend over their kv heads of its block or
+# copy and its partial is all-reduced; else the mixer runs whole at home,
+# as one device runs it, and the other shards only write their copies.
+def _serve_mixer_tp(cfg, ps: list, x, group, key: str, sp: bool,
+                    attend: Callable, copy_rows: Callable):
+    """``(x + mixer(ln1(x)), caches)``, ``caches[j]`` model shard ``j``'s
+    block or copy: each shard norms its copy of ``x``; ``attend(j, p,
+    h)`` gives ``(output, cache)`` (a partial where the heads of
+    ``p[key]`` split, ``sp``, all-reduced at home; else home's whole
+    output), ``copy_rows(j, p, h)`` a shard's cache where home attends
+    alone."""
+    from repro_torch.dist import tensor_parallel as tp
+    xs = tp.fanout(x, group)
+
+    def one(j, p, xj):
+        h = L.apply_norm(cfg, p["ln1"], xj)
+        if sp or j == 0:
+            return attend(j, p[key], h)
+        return None, copy_rows(j, p[key], h)
+    outs = group.per_shard(one, ps, xs)
+    y = tp.all_reduce([o[0] for o in outs], group, dtype=x.dtype) if sp \
+        else outs[0][0]
+    with group.scope(0):
+        return x + y, [o[1] for o in outs]
+
+
+def _attn_prefill_half_tp(cfg, ps: list, x, positions, cache_len, group):
+    """``x + attn(ln1(x))`` and every shard's cache: the prefill
+    counterpart of :func:`_attn_half_tp`."""
+    from repro_torch.dist import tensor_parallel as tp
+    pos = tp.on_shards(positions, group)
+    sp = L.heads_split(cfg, ps[0]["attn"])
+
+    def attend(j, p, h):
+        y, (k, v) = L.apply_attn(cfg, p, h, pos[j], return_kv=True,
+                                 partial=sp, shard=j if sp else None)
+        return y, _pad_kv(cfg, k, v, cache_len)
+    return _serve_mixer_tp(
+        cfg, ps, x, group, "attn", sp, attend,
+        lambda j, p, h: _pad_kv(cfg, *L.kv_rows(cfg, p, h, pos[j]),
+                                cache_len))
+
+
+def _attn_decode_half_tp(cfg, ps: list, x, caches: list, pos: int,
+                         positions, group):
+    """``x + attn(ln1(x))`` for one token, each shard's row written into
+    its block or copy of the cache in place."""
+    from repro_torch.dist import tensor_parallel as tp
+    ppos = tp.on_shards(positions, group)
+    sp = L.heads_split(cfg, ps[0]["attn"])
+    return _serve_mixer_tp(
+        cfg, ps, x, group, "attn", sp,
+        lambda j, p, h: L.apply_attn_decode(
+            cfg, p, h, caches[j], pos, ppos[j], partial=sp,
+            shard=j if sp else None),
+        lambda j, p, h: L.write_kv_row(cfg, p, h, caches[j], pos, ppos[j]))
+
+
+def _mla_prefill_half_tp(cfg, ps: list, x, positions, cache_len, group):
+    """``x + mla(ln1(x))`` and every shard's copy of the latent cache:
+    the prefill counterpart of :func:`_mla_half_tp`."""
+    from repro_torch.dist import tensor_parallel as tp
+    pos = tp.on_shards(positions, group)
+    sp = mla_lib.mla_heads_split(cfg, ps[0]["mla"])
+
+    def attend(j, p, h):
+        y, rows = (mla_lib.mla_part(cfg, p, h, pos[j], return_cache=True)
+                   if sp else mla_lib.apply_mla(cfg, p, h, pos[j],
+                                                return_cache=True))
+        return y, _latent_cache(cfg, *rows, cache_len)
+    return _serve_mixer_tp(
+        cfg, ps, x, group, "mla", sp, attend,
+        lambda j, p, h: _latent_cache(
+            cfg, *mla_lib.latent_rows(cfg, p, h, pos[j]), cache_len))
+
+
+def _mla_decode_half_tp(cfg, ps: list, x, caches: list, pos: int,
+                        positions, group):
+    """The absorbed MLA decode over a data shard's model shards, each
+    shard's latent row written into its copy in place."""
+    from repro_torch.dist import tensor_parallel as tp
+    ppos = tp.on_shards(positions, group)
+    sp = mla_lib.mla_heads_split(cfg, ps[0]["mla"])
+    return _serve_mixer_tp(
+        cfg, ps, x, group, "mla", sp,
+        lambda j, p, h: mla_lib.apply_mla_decode(
+            cfg, p, h, caches[j], pos, ppos[j], partial=sp),
+        lambda j, p, h: mla_lib.write_latent_row(cfg, p, h, caches[j], pos,
+                                                 ppos[j]))
+
+
+# each kind's (prefill, decode) mixer half over the model shards
+SERVE_MIXERS_TP = {
+    "attn": (_attn_prefill_half_tp, _attn_decode_half_tp),
+    "moe": (_attn_prefill_half_tp, _attn_decode_half_tp),
+    "mla": (_mla_prefill_half_tp, _mla_decode_half_tp),
+    "mla_moe": (_mla_prefill_half_tp, _mla_decode_half_tp)}
+
+
+def _tp_prefill(kind: str):
+    mix = SERVE_MIXERS_TP[kind][0]
+    rest = _moe_half_tp if kind in MOE_PRE_TP else _ffn_half_tp
+
+    def prefill(cfg, ps: list, x, positions, cache_len: int, group):
+        h, caches = mix(cfg, ps, x, positions, cache_len, group)
+        y, aux = rest(cfg, ps, h, group)
+        return y, aux, caches
+    return prefill
+
+
+def _tp_decode(kind: str):
+    mix = SERVE_MIXERS_TP[kind][1]
+    rest = _moe_half_tp if kind in MOE_PRE_TP else _ffn_half_tp
+
+    def decode(cfg, ps: list, x, caches: list, pos: int, positions, group):
+        h, caches = mix(cfg, ps, x, caches, pos, positions, group)
+        return rest(cfg, ps, h, group)[0], caches
+    return decode
+
+
+# one layer over a data shard's model shards, as REGISTRY's prefill and
+# decode: ``(x, aux, caches)`` and ``(x, caches)``, ``caches[j]`` model
+# shard ``j``'s block or copy of the layer's cache
+TP_PREFILL = {k: _tp_prefill(k) for k in SERVE_MIXERS_TP}
+TP_DECODE = {k: _tp_decode(k) for k in SERVE_MIXERS_TP}
+
+
+def prefill_lockstep_tp(cfg, kind: str, pss: list, xs: list,
+                        positions: list, cache_len: int, groups: list):
+    """:data:`TP_PREFILL` over the data shards of one batch (row order;
+    ``pss[i]`` / ``xs[i]`` / ``positions[i]`` / ``groups[i]`` data shard
+    ``i``'s, as :func:`apply_lockstep_tp` takes them): ``(ys, auxs,
+    caches)``, ``caches[i][j]`` the layer's cache held by data shard
+    ``i``'s model shard ``j``.  A MoE kind over several data shards runs
+    every shard up to its MoE, then the MoE in lockstep
+    (:func:`_moe_lockstep_tp`): the shards route as the whole batch
+    would."""
+    if kind not in MOE_PRE_TP or len(xs) == 1:
+        outs = [TP_PREFILL[kind](cfg, ps, x, pos, cache_len, g)
+                for ps, x, pos, g in zip(pss, xs, positions, groups)]
+        return ([o[0] for o in outs], [o[1] for o in outs],
+                [o[2] for o in outs])
+    mix = SERVE_MIXERS_TP[kind][0]
+    out = [mix(cfg, ps, x, pos, cache_len, g)
+           for ps, x, pos, g in zip(pss, xs, positions, groups)]
+    ys, auxs = _moe_lockstep_tp(cfg, pss, [h for h, _ in out], groups)
+    return ys, auxs, [c for _, c in out]
+
+
+def decode_lockstep_tp(cfg, kind: str, pss: list, xs: list, caches: list,
+                       pos: int, positions: list, groups: list) -> list:
+    """:data:`TP_DECODE` over the data shards of one batch, ``caches[i]
+    [j]`` data shard ``i``'s model shard ``j``'s block or copy of the
+    layer's cache, written in place: the new streams (a MoE kind's data
+    shards in lockstep)."""
+    if kind not in MOE_PRE_TP or len(xs) == 1:
+        return [TP_DECODE[kind](cfg, ps, x, c, pos, pp, g)[0]
+                for ps, x, c, pp, g in zip(pss, xs, caches, positions,
+                                           groups)]
+    mix = SERVE_MIXERS_TP[kind][1]
+    hs = [mix(cfg, ps, x, c, pos, pp, g)[0]
+          for ps, x, c, pp, g in zip(pss, xs, caches, positions, groups)]
+    return _moe_lockstep_tp(cfg, pss, hs, groups)[0]

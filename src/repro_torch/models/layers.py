@@ -144,24 +144,41 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
 
 
-def _project_qkv(cfg: ArchConfig, p: Tree, x: torch.Tensor):
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+def _project_kv(cfg: ArchConfig, p: Tree, x: torch.Tensor):
+    k, v = _proj(x, p["wk"]), _proj(x, p["wv"])
     if cfg.qkv_bias:
-        cd = x.dtype
-        q = q + p["bq"].to(cd)
-        k = k + p["bk"].to(cd)
-        v = v + p["bv"].to(cd)
-    return q, k, v
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    return k, v
+
+
+def _project_qkv(cfg: ArchConfig, p: Tree, x: torch.Tensor):
+    q = _proj(x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+    return (q, *_project_kv(cfg, p, x))
+
+
+def _rope(cfg: ArchConfig, t: torch.Tensor, positions) -> torch.Tensor:
+    if cfg.rope == "rope":
+        return rope_lib.apply_rope(t, positions, cfg.rope_theta)
+    if cfg.rope == "mrope":
+        return rope_lib.apply_mrope(t, positions, cfg.rope_theta)
+    return t
 
 
 def _pos_embed(cfg: ArchConfig, q, k, positions):
-    if cfg.rope == "rope":
-        q = rope_lib.apply_rope(q, positions, cfg.rope_theta)
-        k = rope_lib.apply_rope(k, positions, cfg.rope_theta)
-    elif cfg.rope == "mrope":
-        q = rope_lib.apply_mrope(q, positions, cfg.rope_theta)
-        k = rope_lib.apply_mrope(k, positions, cfg.rope_theta)
-    return q, k
+    return _rope(cfg, q, positions), _rope(cfg, k, positions)
+
+
+def kv_rows(cfg: ArchConfig, p: Tree, x: torch.Tensor,
+            positions: torch.Tensor):
+    """The keys (rotated) and values of ``x`` (already normed) for every
+    kv head ``p`` holds, computed as :func:`apply_attn` computes them: a
+    model shard's copy of a replicated cache, bit for bit the copy the
+    shard that attends writes."""
+    k, v = _project_kv(cfg, p, x)
+    return _rope(cfg, k, positions), v
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor,
@@ -177,14 +194,19 @@ def apply_attn(cfg: ArchConfig, p: Tree, x: torch.Tensor,
                positions: torch.Tensor, *, causal: Optional[bool] = None,
                window: Optional[int] = None, chunk_q: int = 512,
                chunk_k: int = 1024, return_kv: bool = False,
-               partial: bool = False):
+               partial: bool = False, shard: Optional[int] = None):
     """Full-sequence (prefill) attention. x [B, S, d].  ``partial``: a
     model shard's block of the heads, the output a row-parallel partial
-    in f32 (:class:`_RowPartial`)."""
+    in f32 (:class:`_RowPartial`).  ``shard``: the model shard ``j``
+    whose q heads ``p`` holds, reading their kv heads of every kv head
+    ``p`` holds (:func:`read_kv`); ``return_kv`` then returns every one
+    of those, the shard's block or copy of the cache."""
     q, k, v = _project_qkv(cfg, p, x)
     q, k = _pos_embed(cfg, q, k, positions)
+    kr, vr = (k, v) if shard is None else read_kv(cfg, k, v, shard,
+                                                  q.shape[-2])
     out = flash_lib.flash_attention(
-        q, k, v,
+        q, kr, vr,
         causal=cfg.causal if causal is None else causal,
         window=cfg.sliding_window if window is None else window,
         softcap=cfg.attn_logit_softcap,
@@ -203,15 +225,33 @@ def kv_heads_of(n_heads: int, n_kv: int, j: int, h_j: int) -> list[int]:
     return [(j * h_j + t) // g for t in range(h_j)]
 
 
-def _kv_block(p: Tree, idx: list[int]) -> Tree:
-    """``p``'s ``wk`` / ``wv`` (and biases) narrowed to the kv heads
-    ``idx`` a shard's q heads read: a slice where each kv head serves
-    an equal run of them (``H_j % KV_j == 0``, the flash kernel's GQA),
-    else one kv head a q head."""
+def kv_index(n_heads: int, n_kv: int, j: int, h_j: int):
+    """The kv heads model shard ``j``'s ``h_j`` q heads read, as an index
+    of a kv-heads dim: a slice where each kv head serves an equal run of
+    them (``H_j % KV_j == 0``, the flash kernel's GQA), else a tensor of
+    one kv head a q head."""
+    idx = kv_heads_of(n_heads, n_kv, j, h_j)
     uniq = sorted(set(idx))
     even = len(idx) % len(uniq) == 0 and idx == [
         u for u in uniq for _ in range(len(idx) // len(uniq))]
-    sel = slice(uniq[0], uniq[-1] + 1) if even else torch.tensor(idx)
+    return slice(uniq[0], uniq[-1] + 1) if even else torch.tensor(idx)
+
+
+def read_kv(cfg: ArchConfig, k: torch.Tensor, v: torch.Tensor, j: int,
+            h_j: int):
+    """The kv heads of ``k`` / ``v`` ``[B, S, KV_p, D]`` that model shard
+    ``j``'s ``h_j`` q heads read: those heads of a whole (replicated)
+    set, else every one (a split ``wk`` / ``wv`` holds exactly the kv
+    heads its q heads read; whole heads read them all)."""
+    if k.shape[-2] != cfg.n_kv_heads or h_j == cfg.n_heads:
+        return k, v
+    sel = kv_index(cfg.n_heads, cfg.n_kv_heads, j, h_j)
+    return k[:, :, sel], v[:, :, sel]
+
+
+def _kv_block(p: Tree, sel) -> Tree:
+    """``p``'s ``wk`` / ``wv`` (and biases) narrowed to the kv heads
+    ``sel`` (:func:`kv_index`) a shard's q heads read."""
     out = dict(p)
     for key in ("wk", "wv"):
         out[key] = p[key][:, sel]
@@ -230,7 +270,7 @@ def attn_part(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     ``wo``; the shards' partials sum to the attention's output."""
     h_j, kv_j = p["wq"].shape[-2], p["wk"].shape[-2]
     if kv_j == cfg.n_kv_heads and h_j < cfg.n_heads:
-        p = _kv_block(p, kv_heads_of(cfg.n_heads, cfg.n_kv_heads, j, h_j))
+        p = _kv_block(p, kv_index(cfg.n_heads, cfg.n_kv_heads, j, h_j))
     return apply_attn(cfg, p, x, positions, partial=True)
 
 
@@ -255,9 +295,27 @@ def ring_place(x_seq: torch.Tensor, cache_len: int) -> torch.Tensor:
     return out
 
 
+def _decode_slot(cfg: ArchConfig, cache: Tree, pos: int,
+                 window: Optional[int]):
+    """``(slot, ring, window)``: the cache slot decode position ``pos``
+    writes, and whether the cache is a ring of exactly ``window``
+    slots."""
+    window = cfg.sliding_window if window is None else window
+    S_c = cache["k"].shape[1]
+    ring = window > 0 and S_c == window
+    return (pos % S_c if ring else pos), ring, window
+
+
+def _write_row(cache: Tree, slot: int, k: torch.Tensor, v: torch.Tensor
+               ) -> None:
+    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+
+
 def apply_attn_decode(cfg: ArchConfig, p: Tree, x: torch.Tensor,
                       cache: Tree, pos: int, positions: torch.Tensor,
-                      *, window: Optional[int] = None):
+                      *, window: Optional[int] = None,
+                      partial: bool = False, shard: Optional[int] = None):
     """One-token decode. x [B, 1, d]; cache {'k','v'} [B, S_c, KV, hd].
 
     The new key/value row is written into the cache IN PLACE (the JAX
@@ -265,21 +323,35 @@ def apply_attn_decode(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     exclusively, so the old contents are dead the moment the row lands,
     and the stacked per-layer caches need no restacking.  Sliding-window
     archs use a ring buffer of exactly ``window`` slots.
+
+    ``partial`` / ``shard``: model shard ``j``'s partial, as
+    :func:`apply_attn` takes them: its q heads attend over their kv
+    heads of the cache it holds, into which it writes the row of every
+    kv head ``p`` holds (its block, or the whole row of its copy).
     """
-    window = cfg.sliding_window if window is None else window
-    S_c = cache["k"].shape[1]
-    ring = window > 0 and S_c == window
-    slot = pos % S_c if ring else pos
+    slot, ring, window = _decode_slot(cfg, cache, pos, window)
     q, k, v = _project_qkv(cfg, p, x)
     q, k = _pos_embed(cfg, q, k, positions)
-    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    _write_row(cache, slot, k, v)
+    kc, vc = cache["k"], cache["v"]
+    if shard is not None:
+        kc, vc = read_kv(cfg, kc, vc, shard, q.shape[-2])
     out = attn_lib.decode_attention(
-        q, cache["k"], cache["v"], pos,
+        q, kc, vc, pos,
         window=0 if ring else window,   # ring geometry enforces the window
         softcap=cfg.attn_logit_softcap)
-    y = _out_proj(out, p["wo"], x.dtype)
+    y = _out_proj(out, p["wo"], x.dtype, partial)
     return y, cache
+
+
+def write_kv_row(cfg: ArchConfig, p: Tree, x: torch.Tensor, cache: Tree,
+                 pos: int, positions: torch.Tensor) -> Tree:
+    """The decode row of ``x`` (already normed) written into ``cache`` in
+    place, as :func:`apply_attn_decode` writes it: a model shard's copy
+    of a replicated cache, where another shard attends."""
+    slot, _, _ = _decode_slot(cfg, cache, pos, None)
+    _write_row(cache, slot, *kv_rows(cfg, p, x, positions))
+    return cache
 
 
 def attn_cache_specs(cfg: ArchConfig, batch: int, seq: int) -> Tree:

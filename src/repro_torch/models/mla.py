@@ -18,7 +18,11 @@ Over a data shard's model shards (``dist.tensor_parallel``) the heads
 split and the down-projections (``w_dq``, ``w_dkv``, ``w_krope``)
 replicate, as the JAX package's sharding rules lay them out:
 :func:`mla_part` is model shard ``j``'s f32 partial of
-:func:`apply_mla`, computed from the shard's copy of the stream.
+:func:`apply_mla`, computed from the shard's copy of the stream, and
+``apply_mla_decode(..., partial=True)`` that of the absorbed decode.
+The latent cache replicates over ``model`` (``kv_lora`` maps to no mesh
+axis): every shard computes its copy's rows from its copy of the stream
+(:func:`latent_rows`), bit for bit the same rows.
 """
 from __future__ import annotations
 
@@ -119,15 +123,39 @@ def apply_mla(cfg: ArchConfig, p: Tree, x: torch.Tensor,
 
 
 def mla_part(cfg: ArchConfig, p: Tree, x: torch.Tensor,
-             positions: torch.Tensor) -> torch.Tensor:
+             positions: torch.Tensor, return_cache: bool = False):
     """Model shard ``j``'s partial of :func:`apply_mla` (``x`` already
     normed), in f32: the down-projections whole, on the shard's copy of
     the stream (they replicate over ``model``, as in GSPMD's program),
     its block of the heads' up-projections (``w_uq`` or ``wq``,
     ``w_uk``, ``w_uv``), the flash kernel over those heads at the
     config's scale, and its rows of ``wo``; the shards' partials sum to
-    the attention's output."""
-    return apply_mla(cfg, p, x, positions, partial=True)
+    the attention's output.  ``return_cache``: also the shard's copy of
+    the latent cache rows (the latents replicate over ``model``)."""
+    return apply_mla(cfg, p, x, positions, partial=True,
+                     return_cache=return_cache)
+
+
+def latent_rows(cfg: ArchConfig, p: Tree, x: torch.Tensor,
+                positions: torch.Tensor):
+    """The latent cache rows ``(c_kv [B, S, r], k_rope [B, S, dr])`` of
+    ``x`` (already normed), computed as :func:`apply_mla` and
+    :func:`apply_mla_decode` compute them: a model shard's copy of the
+    replicated latent cache, bit for bit the copy the shards that attend
+    write."""
+    return x @ p["w_dkv"].to(x.dtype), \
+        _rope_key(cfg, p, x, positions)[:, :, 0, :]
+
+
+def write_latent_row(cfg: ArchConfig, p: Tree, x: torch.Tensor,
+                     cache: Tree, pos: int, positions: torch.Tensor
+                     ) -> Tree:
+    """The decode latent row of ``x`` written into ``cache`` at ``pos``
+    in place."""
+    c_new, kr_new = latent_rows(cfg, p, x, positions)
+    cache["c_kv"][:, pos] = c_new[:, 0].to(cache["c_kv"].dtype)
+    cache["k_rope"][:, pos] = kr_new[:, 0].to(cache["k_rope"].dtype)
+    return cache
 
 
 def mla_heads_split(cfg: ArchConfig, p: Tree) -> bool:
@@ -146,19 +174,20 @@ def mla_cache_specs(cfg: ArchConfig, batch: int, seq: int) -> Tree:
 
 
 def apply_mla_decode(cfg: ArchConfig, p: Tree, x: torch.Tensor,
-                     cache: Tree, pos: int, positions: torch.Tensor):
+                     cache: Tree, pos: int, positions: torch.Tensor,
+                     partial: bool = False):
     """Absorbed one-token decode. x [B, 1, d]; cache ``c_kv`` [B, S, r],
     ``k_rope`` [B, S, dr], written at ``pos`` in place.  Scores are f32
     (the JAX package's ``preferred_element_type``); P is rounded to the
-    compute dtype for the latent-space sum."""
+    compute dtype for the latent-space sum.  The heads are those ``p``
+    holds; ``partial``: the output a row-parallel partial in f32 (a
+    model shard's, its latent row written into its copy of the
+    cache)."""
     cd = x.dtype
     q_nope, q_rope = _queries(cfg, p, x)                     # [B,1,H,*]
     q_rope = rope_lib.apply_rope(q_rope, positions, cfg.rope_theta)
-    c_new = x @ p["w_dkv"].to(cd)                            # [B, 1, r]
-    kr_new = _rope_key(cfg, p, x, positions)[:, :, 0, :]     # [B, 1, dr]
+    write_latent_row(cfg, p, x, cache, pos, positions)
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]
-    c_kv[:, pos] = c_new[:, 0].to(c_kv.dtype)
-    k_rope[:, pos] = kr_new[:, 0].to(k_rope.dtype)
 
     # absorb W_uk into q: q_abs [B, H, r]
     q_abs = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], p["w_uk"].to(cd))
@@ -173,5 +202,10 @@ def apply_mla_decode(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     # attend in latent space, then absorb W_uv
     out_c = torch.einsum("bhs,bsr->bhr", pattn.to(cd), c_kv.to(cd))
     out = torch.einsum("bhr,rhk->bhk", out_c, p["w_uv"].to(cd))
+    if partial:
+        h, k, d = p["wo"].shape
+        y = L._product(out.reshape(-1, h * k),
+                       p["wo"].to(cd).reshape(h * k, d), True)
+        return y[:, None], cache
     y = torch.einsum("bhk,hkd->bd", out, p["wo"].to(cd))[:, None]
     return y, cache

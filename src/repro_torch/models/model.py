@@ -471,3 +471,112 @@ def lm_decode_step(cfg: ArchConfig, params: Tree, token: torch.Tensor,
     x, caches = decode_runs(cfg, runs, params["blocks"], caches, x, pos,
                             positions, reps)
     return head(cfg, params, x), caches
+
+
+def head_blocks_tp(cfg: ArchConfig, ps: list, x: torch.Tensor, group
+                   ) -> list:
+    """The logits of ``x`` as its vocab blocks, one a model shard
+    (:func:`head_tp`), or ``[logits]`` at home where the vocab does not
+    split."""
+    parts = head_tp(cfg, ps, x, group)
+    if parts is None:
+        with group.scope(0):
+            parts = [head(cfg, ps[0], x)]
+    return parts
+
+
+def _into(stack: Optional[Tree], c: Tree, k: int, rows: int) -> Tree:
+    """Layer cache ``c`` written into row ``k`` of ``stack`` (``[rows,
+    ...]``, allocated at the first row): a run's caches stacked as its
+    layers emit them, without holding every layer's beside the stack."""
+    if stack is None:
+        stack = tree_map(lambda a: a.new_empty((rows,) + tuple(a.shape)),
+                         c)
+    tree_map(lambda s, a: s[k].copy_(a), stack, c)
+    return stack
+
+
+def _run_layers(pss: list, groups: list, r: int, reps: int, dtype):
+    """Run ``r``'s layers over every data shard's model shards, one at a
+    time: ``[i][j]`` the layer's params as data shard ``i``'s model
+    shard ``j`` applies them (cast once where applied ``reps`` > 1
+    times, as :func:`_applied`)."""
+    per = [[layers(p["blocks"][r]) for p in ps] for ps in pss]
+    for l in range(len(per[0][0])):
+        yield [g.per_shard(
+            lambda j, ls: compute_cast(ls[l], dtype) if reps > 1 else ls[l],
+            row) for g, row in zip(groups, per)]
+
+
+def lm_prefill_tp(cfg: ArchConfig, pss: list, groups: list, tokens: list,
+                  positions: Optional[list] = None, *,
+                  cache_len: Optional[int] = None, last_only: bool = True):
+    """:func:`lm_prefill` over the data shards of one batch (row order),
+    each over its model shards (``dist.tensor_parallel``): ``pss[i][j]``
+    data shard ``i``'s model shard ``j``'s tree, ``groups[i]`` its
+    group, ``tokens[i]`` / ``positions[i]`` its rows at its home.
+    Returns ``(logits, caches)``: ``logits[i]`` data shard ``i``'s
+    logits of its last position (``last_only``, cut before the head) or
+    of every position, as :func:`head_blocks_tp`'s blocks;
+    ``caches[i][j]`` one stacked tree a run, model shard ``j``'s block
+    or copy of each layer's cache (``models.blocks``' serving halves).
+    A MoE layer's data shards route as the whole batch would.  Every
+    layer kind must be in ``models.blocks.TP_PREFILL``."""
+    from repro_torch.models.blocks import prefill_lockstep_tp
+    S = tokens[0].shape[1]
+    cache_len = cache_len or S
+    positions = [default_positions(cfg, t.shape[0], S, device=t.device)
+                 if p is None else p
+                 for t, p in zip(tokens, positions or [None] * len(tokens))]
+    xs = [embed_tp(cfg, ps, t, g) for ps, t, g in zip(pss, tokens, groups)]
+    runs, reps = model_runs(cfg)
+    caches = [[[] for _ in g.devs] for g in groups]
+    for r, (kind, n) in enumerate(runs):
+        stacks = [[None] * g.m for g in groups]
+        k = 0
+        for lp in _run_layers(pss, groups, r, reps, xs[0].dtype):
+            for _ in range(reps):
+                xs, _, c = prefill_lockstep_tp(cfg, kind, lp, xs, positions,
+                                               cache_len, groups)
+                for i, g in enumerate(groups):
+                    stacks[i] = g.per_shard(
+                        lambda j, st, cj: _into(st, cj, k, n * reps),
+                        stacks[i], c[i])
+                del c
+                k += 1
+        for i, row in enumerate(stacks):
+            for j, st in enumerate(row):
+                caches[i][j].append(st)
+    out = []
+    for ps, x, g in zip(pss, xs, groups):
+        if last_only:
+            with g.scope(0):
+                x = x[:, -1:]
+        out.append(head_blocks_tp(cfg, ps, x, g))
+    return out, caches
+
+
+def lm_decode_step_tp(cfg: ArchConfig, pss: list, groups: list,
+                      tokens: list, caches: list, pos: int,
+                      positions: Optional[list] = None):
+    """:func:`lm_decode_step` over the data shards of one batch, each
+    over its model shards, as :func:`lm_prefill_tp` takes them:
+    ``caches[i][j]`` data shard ``i``'s model shard ``j``'s caches (its
+    blocks or copies), written in place.  Returns ``(logits, caches)``,
+    ``logits[i]`` as :func:`head_blocks_tp`'s blocks."""
+    from repro_torch.models.blocks import decode_lockstep_tp
+    positions = [decode_positions(cfg, t.shape[0], pos, t.device)
+                 if p is None else p
+                 for t, p in zip(tokens, positions or [None] * len(tokens))]
+    xs = [embed_tp(cfg, ps, t, g) for ps, t, g in zip(pss, tokens, groups)]
+    runs, reps = model_runs(cfg)
+    for r, (kind, _) in enumerate(runs):
+        for l, lp in enumerate(_run_layers(pss, groups, r, reps,
+                                           xs[0].dtype)):
+            for rr in range(reps):
+                cl = [[layer(c[r], l * reps + rr) for c in row]
+                      for row in caches]
+                xs = decode_lockstep_tp(cfg, kind, lp, xs, cl, pos,
+                                        positions, groups)
+    return [head_blocks_tp(cfg, ps, x, g)
+            for ps, x, g in zip(pss, xs, groups)], caches

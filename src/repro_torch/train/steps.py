@@ -178,13 +178,50 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer,
     return train_step
 
 
+def _data_shards(group, *cols):
+    """``(groups, cols a data shard each, one)``: a ``Group`` is one data
+    shard (each of ``cols`` its entry), a list of them the data shards
+    of one batch in row order (each of ``cols`` a list a data shard)."""
+    if isinstance(group, (list, tuple)):
+        return list(group), [list(c) for c in cols], False
+    return [group], [[c] for c in cols], True
+
+
+def _serving_group(cfg: ArchConfig) -> None:
+    """Raise unless ``cfg`` serves over model shards: every block kind in
+    ``dist.tensor_parallel.SUPPORTED_KINDS``, no encoder."""
+    from repro_torch.dist import tensor_parallel as tp
+    kinds = set(cfg.block_kinds)
+    if cfg.encoder_layers or not kinds <= tp.SUPPORTED_KINDS:
+        raise ValueError(f"{cfg.name}: block kinds {sorted(kinds)}, "
+                         f"encoder layers {cfg.encoder_layers}: serving "
+                         f"over model shards takes "
+                         f"{sorted(tp.SUPPORTED_KINDS)} and no encoder")
+
+
 def make_prefill_step(cfg: ArchConfig, remat: bool = True,
                       last_only: bool = True,
-                      cache_len: Optional[int] = None):
+                      cache_len: Optional[int] = None, group=None):
     """Inference prefill: forward + decode-cache emission + first token.
     ``cache_len`` sizes the caches for the session's full horizon.  An
-    audio config's batch is ``{"audio_embed", "tokens"}``."""
+    audio config's batch is ``{"audio_embed", "tokens"}``.
+
+    With a ``dist.tensor_parallel.Group`` the step computes over its
+    model shards (``models.model.lm_prefill_tp``): ``params`` is the
+    list of their trees and the caches come back as one tree a model
+    shard (its block or copy of each cache, as JAX's layout holds it);
+    the greedy token is taken at home without gathering the logits
+    (``dist.tensor_parallel.vocab_parallel_argmax``).  With a list of
+    groups (a batch's data shards, row order) ``params``, ``batch`` and
+    both outputs are lists a data shard, and MoE layers route as the
+    whole batch would.  Without a group the step is as it was."""
+    if group is not None:
+        _serving_group(cfg)
+
     def prefill_step(params: Tree, batch: Tree):
+        if group is not None:
+            return _prefill_tp(cfg, group, params, batch, cache_len,
+                               last_only)
         if cfg.family == "audio":
             logits, caches = whisper_lib.whisper_prefill(
                 cfg, params, batch, cache_len=cache_len, remat=remat,
@@ -199,11 +236,49 @@ def make_prefill_step(cfg: ArchConfig, remat: bool = True,
     return prefill_step
 
 
-def make_serve_step(cfg: ArchConfig):
+def _prefill_tp(cfg: ArchConfig, group, params, batch, cache_len,
+                last_only):
+    from repro_torch.dist import tensor_parallel as tp
+    groups, (pss, batches), one = _data_shards(group, params, batch)
+    logits, caches = model_lib.lm_prefill_tp(
+        cfg, pss, groups, [b["tokens"] for b in batches],
+        [b.get("positions") for b in batches], cache_len=cache_len,
+        last_only=last_only)
+    nxt = []
+    for parts, g in zip(logits, groups):
+        tok = tp.vocab_parallel_argmax(
+            g.per_shard(lambda j, x: x[:, -1:], parts), g)
+        with g.scope(0):
+            nxt.append(tok.to(torch.int32))
+    return (nxt[0], caches[0]) if one else (nxt, caches)
+
+
+def _decode_tp(cfg: ArchConfig, group, params, caches, token, pos):
+    from repro_torch.dist import tensor_parallel as tp
+    groups, (pss, cs, toks), one = _data_shards(group, params, caches,
+                                                token)
+    logits, cs = model_lib.lm_decode_step_tp(cfg, pss, groups, toks, cs,
+                                             pos)
+    nxt = []
+    for parts, g, t in zip(logits, groups, toks):
+        tok = tp.vocab_parallel_argmax(parts, g)
+        with g.scope(0):
+            nxt.append(tok.to(t.dtype))
+    return (nxt[0], cs[0]) if one else (nxt, cs)
+
+
+def make_serve_step(cfg: ArchConfig, group=None):
     """One greedy decode step: (params, caches, token [B,1], pos) ->
-    (next_token [B,1], caches)."""
+    (next_token [B,1], caches).  With a ``dist.tensor_parallel.Group``
+    (or a list of them) as :func:`make_prefill_step` takes one: each
+    model shard reads and writes its own caches in place."""
+    if group is not None:
+        _serving_group(cfg)
+
     def serve_step(params: Tree, caches: Tree, token: torch.Tensor,
                    pos: int):
+        if group is not None:
+            return _decode_tp(cfg, group, params, caches, token, pos)
         if cfg.family == "audio":
             logits, caches = whisper_lib.whisper_decode_step(
                 cfg, params, token, caches, pos)
