@@ -226,7 +226,15 @@ JSON line; any failure raises and exits non-zero):
              128), 160 experts x 1536 top-6, 2 shared), one mla_moe
              layer a stage, tensor-parallel over (1, 2) and (2, 2) (MLA
              by heads, flash at (64, 192, 128) on every coordinate), and
-             an f32 twin of its mla kind's last stage.
+             an f32 twin of its mla kind's last stage.  On (2, 2) the
+             expert stacks hold their data slice and each expert's
+             slots are computed once per microbatch (buffers
+             [E / 2, C, d / 2] by coordinate and the exchanges over
+             data against the plan); llama4-scout runs once more on
+             (2, 2) with the weights replicated over data (no FSDP):
+             there each data shard holds the stacks whole and the
+             shards run in lockstep under their split contexts, checked
+             the same way against one device.
 13e. train_pipeline_moe — ``make_pipeline_train_step``'s loss and
              gradients for the same config over (``pod`` 2, ``data`` 2)
              of the card, 2 microbatches of 2 x 512 each split 1 + 1,
@@ -4326,14 +4334,17 @@ def _tp_bytes(ex, state, name: str = "train_mesh_tp") -> list:
     stages = list(ex.stages) if isinstance(ex.param_shardings, dict) \
         and all(isinstance(k, int) for k in ex.param_shardings) else None
     rows = []
-    for i in range(int(ex.mesh.shape.get("data", 1))):
-        ms = ex._model_shards(state, i)
+    n = int(ex.mesh.shape.get("data", 1))
+    for i in range(n):
+        data = i if ex.slices_experts(n) else None
+        ms = ex._model_shards(state, i, data)
         for j, tree in enumerate(ms.trees):
             got = sum(a.numel() * a.element_size()
                       for a in tree_leaves(tree))
-            want = (sum(tp.block_bytes(specs[s], ex.param_shardings[s], j)
-                        for s in stages) if stages else
-                    tp.block_bytes(specs, ex.param_shardings, j))
+            want = (sum(tp.block_bytes(specs[s], ex.param_shardings[s], j,
+                                       data) for s in stages) if stages
+                    else tp.block_bytes(specs, ex.param_shardings, j,
+                                        data))
             rows.append({"coord": list(ms.group.coords[j]),
                          "gathered_bytes": got, "reckoned_bytes": want})
         del ms
@@ -4782,11 +4793,13 @@ def moe_config(arch: str = MOE_ARCH, kind: str = None):
 def moe_calls():
     """Record every ``apply_moe`` and ``apply_moe_tp`` call's router (the
     model shards' blocks joined at home), input and split rule (the
-    routes are recomputed from them afterwards)."""
+    routes are recomputed from them afterwards); an ``apply_moe_a2a``
+    call as one such call a data shard, under the microbatch's split
+    contexts."""
     import torch
     from repro_torch.models import layers as L
     calls: list = []
-    orig, orig_tp = L.apply_moe, L.apply_moe_tp
+    orig, orig_tp, orig_a2a = L.apply_moe, L.apply_moe_tp, L.apply_moe_a2a
 
     def recorded(cfg, p, x, route=None):
         calls.append((cfg, p["router"], x.detach(), L.split_provider()))
@@ -4798,11 +4811,26 @@ def moe_calls():
                                         for p in ps], dim=-1)
         calls.append((cfg, router, x.detach(), L.split_provider()))
         return orig_tp(cfg, ps, x, group, route=route)
+
+    def recorded_a2a(cfg, pss, xs, groups):
+        routers = [torch.cat([p["router"].detach().to(x.device)
+                              for p in ps], dim=-1)
+                   for ps, x in zip(pss, xs)]
+        counts = [L.moe_route(cfg, {"router": r}, x)[3].sum(0)
+                  for r, x in zip(routers, xs)]
+        splits = L.split_contexts(counts, [x.shape[0] * x.shape[1]
+                                           for x in xs])
+        for r, x, sp in zip(routers, xs, splits):
+            calls.append((cfg, r, x.detach(),
+                          lambda tokens, cnt, _s=sp: _s))
+        return orig_a2a(cfg, pss, xs, groups)
     L.apply_moe, L.apply_moe_tp = recorded, recorded_tp
+    L.apply_moe_a2a = recorded_a2a
     try:
         yield calls
     finally:
         L.apply_moe, L.apply_moe_tp = orig, orig_tp
+        L.apply_moe_a2a = orig_a2a
 
 
 def _routing(torch, call) -> dict:
@@ -4939,38 +4967,69 @@ def _leaf_gaps(torch, got: list, want: list, chunk: int = 1 << 24
 
 # the mesh peers of train_mesh_moe, by name: one device; the microbatch
 # split 1 + 1 over [cuda:0] x 2 (the gathered path); expert-parallel over
-# ("data", "model") (1, 2) and (2, 2)
-MOE_MESHES = {"one": None, "data2": None, "tp1x2": (1, 2), "tp2x2": (2, 2)}
-MOE_TP = ("tp1x2", "tp2x2")
+# ("data", "model") (1, 2) and (2, 2); and (2, 2) with the weights
+# replicated over "data" (MOE_RULES: no FSDP), where each data shard
+# holds the expert stacks whole and the shards run in lockstep under
+# their split contexts (models.layers.apply_moe_shards_tp)
+MOE_MESHES = {"one": None, "data2": None, "tp1x2": (1, 2), "tp2x2": (2, 2),
+              "tp2x2w": (2, 2)}
+MOE_TP = ("tp1x2", "tp2x2", "tp2x2w")
+# the meshes whose stacks come whole over "data", by name: the rules'
+# overrides of DEFAULT_RULES
+MOE_RULES = {"tp2x2w": {"embed": None}}
+# the meshes of a run of _mesh_moe, the one-device run first: both archs
+# on the first; MOE_ARCH alone on the second, a run of its own (a stage
+# replicated over "data" holds twice its 6.5 GB beside the others)
+MOE_RUNS = (("one", "data2", "tp1x2", "tp2x2"), ("one", "tp2x2w"))
+
+
+def moe_rules(name: str):
+    """The ``ShardingRules`` of mesh ``name`` (None: the defaults)."""
+    if name not in MOE_RULES:
+        return None
+    from repro_torch.dist.sharding import DEFAULT_RULES
+    return DEFAULT_RULES.with_rules(**MOE_RULES[name])
 # the f32 expert-parallel twin's floor under a leaf's largest gradient
 # entry, as a share of the stage's largest: the top-1 router's gradient
 # is rounding noise (1e-8 against entries of 0.1-10 on the CPU)
 MOE_NOISE_FLOOR = 1e-6
 
 
-def _moe_meshes(torch) -> dict:
+def _moe_meshes(torch, names) -> dict:
     return {name: (_card_mesh(torch, 1) if name == "one" else
-                   _card_mesh(torch, 2) if shape is None else
-                   _tp_mesh(torch, shape))
-            for name, shape in MOE_MESHES.items()}
+                   _card_mesh(torch, 2) if MOE_MESHES[name] is None else
+                   _tp_mesh(torch, MOE_MESHES[name]))
+            for name in names}
 
 
-def moe_all_reduces_planned(n: int) -> dict:
+def moe_all_reduces_planned(n: int, sliced: bool = True) -> dict:
     """``ALL_REDUCES`` a microbatch of ``n`` data shards adds on a
     tensor-parallel mesh in train_mesh_moe's sequence (stage 0's and
     stage 1's forward, stage 1's then stage 0's backward; a layer a
     stage): a layer application (forward or recompute) makes one
-    attention all-reduce, one router gather, one return of expert rows
-    and one shared-expert all-reduce a data shard; stage 0's embedding
-    one; the head's loss three; the backward one cotangent all-reduce a
-    fanout (the attention's and the MoE's a layer, the head's)."""
-    return {"activation": 4 * n, "router": 4 * n, "expert_rows": 4 * n,
-            "shared_expert": 4 * n, "embedding": 2 * n, "loss": 6 * n,
-            "cotangent": 5 * n}
+    attention all-reduce, one router gather and one shared-expert
+    all-reduce a data shard, and with one data shard one return of
+    expert rows; with more (each expert's slots once per microbatch,
+    ``apply_moe_a2a``) once for the microbatch the columns' all-to-all,
+    the slots' all-gather, the gate and up partials' all-reduces and the
+    rows' return; stage 0's embedding one a data shard; the head's loss
+    three; the backward one cotangent all-reduce a fanout (the
+    attention's and the MoE's a layer, the head's) a data shard and,
+    with more than one, a layer's columns transposed and its two
+    partials' sums.  Where the stacks come whole over ``data``
+    (``sliced`` false) every data shard returns its own expert rows and
+    nothing else crosses ``data``."""
+    out = {"activation": 4 * n, "router": 4 * n, "shared_expert": 4 * n,
+           "embedding": 2 * n, "loss": 6 * n, "cotangent": 5 * n}
+    if n == 1 or not sliced:
+        return {**out, "expert_rows": 4 * n}
+    return {**out, "expert_rows": 4, "expert_columns": 4,
+            "expert_slots": 4, "expert_partials": 8,
+            "cotangent": 5 * n + 6}
 
 
-def _moe_meta_peak(torch, cfg, s: int, shape, inp_shape, last: bool
-                   ) -> int:
+def _moe_meta_peak(torch, cfg, s: int, shape, inp_shape, last: bool,
+                   rules=None) -> int:
     """The bytes stage ``s``'s ``run_bwd`` on a ``shape`` ("data",
     "model") mesh allocates at its peak, every coordinate's together
     (the card holds them all), reckoned on meta by the dry run's ledger
@@ -4982,7 +5041,8 @@ def _moe_meta_peak(torch, cfg, s: int, shape, inp_shape, last: bool
     meta = torch.device("meta")
     mesh = make_debug_mesh(shape, ("data", "model"),
                            devices=[meta] * (shape[0] * shape[1]))
-    ex = MeshExecutor(cfg, 2, MOE_SEQ, s, mesh, compress="none")
+    ex = MeshExecutor(cfg, 2, MOE_SEQ, s, mesh, compress="none",
+                      rules=rules)
     st = StageState(params=ex._place(P.abstract(ex.prog.specs),
                                      ex.param_shardings))
     tok = torch.empty(inp_shape[:2], dtype=torch.int64, device=meta)
@@ -5010,6 +5070,45 @@ def moe_launches_planned(mesh) -> dict:
 
 
 @contextlib.contextmanager
+def dispatch_shapes():
+    """The shape of every expert buffer ``apply_moe_a2a`` fills
+    (``models.layers._dispatch``), by the mesh coordinate it ran as."""
+    import collections
+    from repro_torch.dist.mesh import current_coord
+    from repro_torch.models import layers as L
+    seen: dict = collections.defaultdict(set)
+    orig = L._dispatch
+
+    def recorded(*args):
+        out = orig(*args)
+        seen[current_coord()].add(tuple(out.shape))
+        return out
+    L._dispatch = recorded
+    try:
+        yield seen
+    finally:
+        L._dispatch = orig
+
+
+def moe_buffers_planned(cfg, shape, sliced: bool = True) -> dict:
+    """Each coordinate's expert buffer on a ``shape`` ("data", "model")
+    mesh in train_mesh_moe: ``[E / m, C, d / n]`` with C the
+    microbatch's capacity where the microbatch splits over ``n > 1``
+    data shards holding the stacks' data slices (each expert's slots
+    once per microbatch), none where it runs on one data shard
+    (``apply_moe_tp``'s ``[E / m, Cb, d]``) or the stacks come whole
+    over ``data`` (``sliced`` false: ``apply_moe_shards_tp``)."""
+    n, m = shape
+    if n == 1 or not sliced:
+        return {}
+    mo = cfg.moe
+    C = max(1, int(mo.capacity_factor * MOE_MB * MOE_SEQ * mo.top_k
+                   / mo.num_experts))
+    return {str([i, j]): [[mo.num_experts // m, C, cfg.d_model // n]]
+            for i in range(n) for j in range(m)}
+
+
+@contextlib.contextmanager
 def flash_dims_by_coord():
     """The ``(heads, Dqk, Dv)`` of every flash kernel call, by the mesh
     coordinate it ran as."""
@@ -5033,13 +5132,16 @@ def phase_train_mesh_moe(torch) -> dict:
     """A MoE stage on split meshes, for ``MOE_ARCH`` (llama4-scout's
     ``moe`` kind) and ``MLA_ARCH`` (deepseek-v2's ``mla_moe``): each stage
     of ``moe_config(arch)`` as a ``MeshExecutor`` on the meshes of
-    ``MOE_MESHES`` (:func:`_mesh_moe`), then the f32 twins:
+    ``MOE_RUNS[0]`` (:func:`_mesh_moe`), ``MOE_ARCH`` again on
+    ``MOE_RUNS[1]`` (the stacks whole over ``data``), then the f32
+    twins:
     llama4-scout's MoE layer split against unsplit, and the last stage
     tensor-parallel against one device (llama4-scout's, and deepseek-v2's
     of the dense ``mla`` kind)."""
     t0 = time.time()
     row = _mesh_moe(torch, MOE_ARCH)
     row[MLA_ARCH] = _mesh_moe(torch, MLA_ARCH)
+    row["stacks_whole"] = _mesh_moe(torch, MOE_ARCH, MOE_RUNS[1])
     twins = ((row, "f32_twin", _moe_twin),
              (row, "f32_tp_twin", lambda t: _moe_tp_twin(t, moe_config())),
              (row[MLA_ARCH], "f32_tp_twin", lambda t: _moe_tp_twin(
@@ -5053,17 +5155,18 @@ def phase_train_mesh_moe(torch) -> dict:
         r[key]["seconds"] = time.time() - t1
     row["seconds"] = time.time() - t0
     emit(row)
-    for r in (row, row[MLA_ARCH]):
+    for r in (row, row[MLA_ARCH], row["stacks_whole"]):
         _mesh_moe_checks(r)
     return row
 
 
-def _mesh_moe(torch, arch: str) -> dict:
+def _mesh_moe(torch, arch: str, names=MOE_RUNS[0]) -> dict:
     """``moe_config(arch)``'s stages as ``MeshExecutor`` s on the meshes
-    of ``MOE_MESHES`` (one device; the microbatch split 1 + 1 over
-    ``[cuda:0] x 2``, its MoE layers in lockstep; tensor-parallel over
-    ("data", "model") (1, 2) and (2, 2), the data shards in lockstep
-    there too) from the same weights and inputs: each run's path; routes
+    ``names`` of ``MOE_MESHES`` (one device; the microbatch split 1 + 1
+    over ``[cuda:0] x 2``, its MoE layers in lockstep; tensor-parallel
+    over ("data", "model") (1, 2) and (2, 2), the data shards in lockstep
+    there too, with each mesh's ``moe_rules``) from the same weights and
+    inputs: each run's path; routes
     per layer (every split's identical to the whole-microbatch routing of
     the same router inputs; flips against the one-device run reported);
     the bf16 losses, the gradients' gap reported; on the tensor-parallel
@@ -5093,14 +5196,16 @@ def _mesh_moe(torch, arch: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     cfg = moe_config(arch)
     progs = get_stage_programs(cfg, 2, MOE_SEQ, "none")
-    meshes = _moe_meshes(torch)
+    meshes = _moe_meshes(torch, names)
+    tps = [n for n in names if n in MOE_TP]
 
     def stage(s: int) -> dict:
         """Stage ``s``'s executors on every mesh over one weight tree."""
         params = P.init(11 + s, progs[s].specs, "cuda")
         out = {}
         for name, mesh in meshes.items():
-            ex = MeshExecutor(cfg, 2, MOE_SEQ, s, mesh, compress="none")
+            ex = MeshExecutor(cfg, 2, MOE_SEQ, s, mesh, compress="none",
+                              rules=moe_rules(name))
             st = StageState()
             ex.restore(st, {"params": params, "opt": None})
             # the phase never accumulates: no zeroed copy of the stage a
@@ -5116,10 +5221,11 @@ def _mesh_moe(torch, arch: str) -> dict:
     routes = {name: [] for name in meshes if name != "one"}
     losses, gaps, peaks, reckoned, card_bytes = {}, {}, {}, {}, {}
     secs = collections.Counter()
-    reduces = {name: collections.Counter() for name in MOE_TP}
+    reduces = {name: collections.Counter() for name in tps}
     per = {name: collections.defaultdict(collections.Counter)
-           for name in MOE_TP}
-    dims = {name: collections.defaultdict(set) for name in MOE_TP}
+           for name in tps}
+    dims = {name: collections.defaultdict(set) for name in tps}
+    bufs = {name: collections.defaultdict(set) for name in tps}
     paths, nbytes, plain = {}, {}, []
 
     def run(name: str, fn):
@@ -5128,7 +5234,8 @@ def _mesh_moe(torch, arch: str) -> dict:
         ``ALL_REDUCES`` kept under ``name``."""
         was = collections.Counter(tp.ALL_REDUCES)
         with moe_calls() as calls, coord_launches() as by, \
-                plain_flash_calls() as pf, flash_dims_by_coord() as fd:
+                plain_flash_calls() as pf, flash_dims_by_coord() as fd, \
+                dispatch_shapes() as ds:
             torch.cuda.synchronize()
             t1 = time.time()
             out = fn()
@@ -5141,6 +5248,8 @@ def _mesh_moe(torch, arch: str) -> dict:
                 per[name][c].update(n)
             for c, d in fd.items():
                 dims[name][c] |= d
+            for c, d in ds.items():
+                bufs[name][c] |= d
         return out, calls
 
     def forward(ex, s: int, inp, *extra):
@@ -5165,7 +5274,8 @@ def _mesh_moe(torch, arch: str) -> dict:
             if name in MOE_TP:
                 reckoned[f"stage{s}_{name}"] = _moe_meta_peak(
                     torch, cfg, s, MOE_MESHES[name],
-                    (MOE_MB, MOE_SEQ, cfg.d_model), s == 1)
+                    (MOE_MB, MOE_SEQ, cfg.d_model), s == 1,
+                    moe_rules(name))
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
@@ -5189,6 +5299,8 @@ def _mesh_moe(torch, arch: str) -> dict:
                     a.shards.fill(None)
                     del g
                 gx_ref = gx
+                # no later run reads the reference's weights
+                st.params = None
             else:
                 got = {}
                 for path, a, r in zip(_leaf_paths(gp), tree_leaves(gp),
@@ -5215,11 +5327,12 @@ def _mesh_moe(torch, arch: str) -> dict:
         free(torch)
         return gx_ref
 
-    probe = MeshExecutor(cfg, 2, MOE_SEQ, 0, meshes["data2"],
-                         compress="none")
-    if meshes["data2"].shape["data"] != 2 or \
-            probe.dp_shards(MOE_MB) != 2:
-        raise AssertionError("train_mesh_moe: the microbatch did not split")
+    for name in names[1:]:
+        probe = MeshExecutor(cfg, 2, MOE_SEQ, 0, meshes[name],
+                             compress="none")
+        if probe.dp_shards(MOE_MB) != (MOE_MESHES[name] or (2,))[0]:
+            raise AssertionError(f"train_mesh_moe: the microbatch did not "
+                                 f"split over {name}")
     ex0 = stage(0)
     w = forward(ex0, 0, tok)
     wire_gap = {name: _max_gap(torch, [w[name]], [w["one"]])
@@ -5245,7 +5358,8 @@ def _mesh_moe(torch, arch: str) -> dict:
            "kinds": sorted(set(cfg.block_kinds)),
            "layers": cfg.n_layers, "stages": 2,
            "microbatch": [MOE_MB, MOE_SEQ],
-           "meshes": {k: v for k, v in MOE_MESHES.items() if v},
+           "meshes": {k: MOE_MESHES[k] for k in tps},
+           "rules": {k: MOE_RULES[k] for k in tps if k in MOE_RULES},
            "paths": paths, "routes": routes, "losses": losses,
            "loss_rel_diff": {n: abs(v - losses["one"]) / abs(losses["one"])
                              for n, v in losses.items() if n != "one"},
@@ -5256,24 +5370,33 @@ def _mesh_moe(torch, arch: str) -> dict:
            "launches_by_coord": {n: _tp_require(
                "train_mesh_moe", per[n], meshes[n].coords(),
                ("flash_attention_fwd", "rmsnorm"), plain)
-               for n in MOE_TP},
+               for n in tps},
            "launches_by_coord_planned": {
                n: {str(list(c)): v for c, v in moe_launches_planned(
-                   meshes[n]).items()} for n in MOE_TP},
+                   meshes[n]).items()} for n in tps},
            # every flash call's (heads, Dqk, Dv) on each coordinate, and
            # the plan's: the config's heads over the model shards
            "flash_dims_by_coord": {n: {str(list(c)): [list(d) for d in
                                                       sorted(v)]
                                        for c, v in dims[n].items()}
-                                   for n in MOE_TP},
+                                   for n in tps},
            "flash_dims_planned": {n: {str(list(c)): [[
                cfg.n_heads // MOE_MESHES[n][1],
                a.qk_nope_dim + a.qk_rope_dim if a else cfg.hd,
                a.v_head_dim if a else cfg.hd]] for c in meshes[n].coords()}
-               for n in MOE_TP},
+               for n in tps},
+           # each coordinate's expert buffers (apply_moe_a2a) and the
+           # plan's: [E / m, C, d / n] where the microbatch splits over
+           # the stacks' data slices
+           "buffers_by_coord": {n: {str(list(c)): [list(d) for d in
+                                                   sorted(v)]
+                                    for c, v in bufs[n].items()}
+                                for n in tps},
+           "buffers_planned": {n: moe_buffers_planned(
+               cfg, MOE_MESHES[n], n not in MOE_RULES) for n in tps},
            "all_reduces": {n: dict(v) for n, v in reduces.items()},
            "all_reduces_planned": {n: moe_all_reduces_planned(
-               MOE_MESHES[n][0]) for n in MOE_TP},
+               MOE_MESHES[n][0], n not in MOE_RULES) for n in tps},
            "gathered_bytes": nbytes, "peaks_gb": peaks,
            # a backward's peak above what was allocated before it, on the
            # card and reckoned on meta
@@ -5292,7 +5415,8 @@ def _mesh_moe_checks(row: dict) -> None:
            if not r["semantics_equal"]]
     if bad or max(row["loss_rel_diff"].values()) > MOE_BF16_RTOL:
         raise AssertionError(f"{name}: routes {routes}, losses {losses}")
-    if sum(r["old_capacity_differs"] for r in routes["data2"]) == 0:
+    if "data2" in routes and \
+            sum(r["old_capacity_differs"] for r in routes["data2"]) == 0:
         raise AssertionError(f"{name}: the shards' own capacity keeps the "
                              "same pairs; the check does not bite")
     if any(p != ("tensor_parallel" if k.split("_")[1] in MOE_TP
@@ -5300,6 +5424,9 @@ def _mesh_moe_checks(row: dict) -> None:
         raise AssertionError(f"{name}: paths {paths}")
     if row["all_reduces"] != row["all_reduces_planned"]:
         raise AssertionError(f"{name}: all-reduces {row}")
+    if row["buffers_by_coord"] != row["buffers_planned"]:
+        raise AssertionError(f"{name}: expert buffers "
+                             f"{row['buffers_by_coord']}")
     if row["launches_by_coord"] != row["launches_by_coord_planned"]:
         raise AssertionError(f"{name}: launches by coordinate "
                              f"{row['launches_by_coord']}")
@@ -5340,7 +5467,8 @@ def _moe_tp_twin(torch, cfg) -> dict:
                     device="cuda")
     lab = torch.randint(0, cfg.vocab_size, (MOE_MB, MOE_SEQ),
                         generator=gen, device="cuda")
-    meshes = _moe_meshes(torch)
+    tps = [n for n in MOE_TP if n not in MOE_RULES]
+    meshes = _moe_meshes(torch, ["one"] + tps)
 
     def grads(name: str):
         ex = MeshExecutor(cfg, 2, MOE_SEQ, 1, meshes[name], compress="none")
@@ -5364,7 +5492,7 @@ def _moe_tp_twin(torch, cfg) -> dict:
         free(torch)
         scales = [float(r.abs().max()) for r in ref]
         floor = MOE_NOISE_FLOOR * max(scales)
-        for name in MOE_TP:
+        for name in tps:
             path, loss, gx, gp = grads(name)
             gaps = {}
             for path_, a, r, bmax in zip(_leaf_paths(gp), tree_leaves(gp),
@@ -5664,8 +5792,13 @@ def _serve_tp_arch(torch, arch: str, layers: int, shapes) -> dict:
             groups = [tp.Group.of(mesh, data=i) for i in range(shape[0])]
             placed = tree_map(place_as, params,
                               sh.param_shardings(cfg, mesh))
-            trees = [[tp.gather_block(placed, mesh.devices[c], j)
-                      for j, c in enumerate(g.coords)] for g in groups]
+            # the routed expert stacks as their data slices where the
+            # batch splits over every data shard (apply_moe_a2a)
+            sliced = tp.slices_experts(mesh, len(groups))
+            trees = [[tp.gather_block(placed, mesh.devices[c], j,
+                                      i if sliced else None)
+                      for j, c in enumerate(g.coords)]
+                     for i, g in enumerate(groups)]
             specs = model_lib.lm_cache_specs(
                 cfg, SERVE_TP_BATCH, SERVE_TP_PROMPT + SERVE_TP_NEW)
             cache_sh = sh.cache_shardings_from_specs(cfg, mesh, specs,
@@ -5688,7 +5821,8 @@ def _serve_tp_arch(torch, arch: str, layers: int, shapes) -> dict:
             group = groups if len(groups) > 1 else groups[0]
             t0 = time.time()
             with ctx(), moe_calls() as calls, coord_launches() as per, \
-                    flash_dims_by_coord() as dims, plain_flash_calls() as pf:
+                    flash_dims_by_coord() as dims, plain_flash_calls() as pf, \
+                    dispatch_shapes() as bufs:
                 t2, l2 = _serve_session(
                     torch, cfg, trees if len(groups) > 1 else trees[0], tok,
                     group, after)
@@ -5710,6 +5844,11 @@ def _serve_tp_arch(torch, arch: str, layers: int, shapes) -> dict:
                 "cache_bytes_by_coord": blocks,
                 "routes_semantics_equal": all(r["semantics_equal"]
                                               for r in routes),
+                # each coordinate's expert buffer shapes where the
+                # experts hold their data slices (apply_moe_a2a)
+                "expert_slices": sliced,
+                "buffers_by_coord": {str(list(c)): sorted(
+                    list(x) for x in v) for c, v in bufs.items()},
                 "route_flips_vs_one_device": sum(
                     r["route_flips_vs_one_device"] for r in routes),
                 "plain_flash_calls": len(pf),
@@ -5751,6 +5890,9 @@ def _serve_tp_checks(row: dict) -> None:
             bad.append("cache copies")
         if not r["routes_semantics_equal"]:
             bad.append("routes")
+        if r["expert_slices"] and \
+                len(r["buffers_by_coord"]) != r["mesh"][0] * r["mesh"][1]:
+            bad.append("expert buffers")
         if r["plain_flash_calls"] or \
                 r["launches_by_coord"] != r["launches_by_coord_planned"]:
             bad.append("launches")

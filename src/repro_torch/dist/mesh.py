@@ -550,12 +550,15 @@ def reduce_scatter_tree(parts: Iterable[Tree], shardings: Tree,
 
     Parts are full-shape, unless ``wheres`` names the block each part
     holds (a model shard's gradients, tensor-parallel): part ``k``'s
-    leaf is then either the whole leaf or the block that the
-    coordinates with ``wheres[k]``'s axis indices hold together, told
-    apart by ``shapes`` (a tree of the leaves' global ``torch.Size``),
-    or None (a leaf the part's coordinate did not compute with, or a
-    subtree it does not hold).  Each coordinate whose shard lies inside
-    a part's block adds its piece of it; the sums start at zero."""
+    leaf is then either the whole leaf, the block that the coordinates
+    with ``wheres[k]``'s axis indices hold together, or the shard of
+    its own coordinate ``sources[k]`` (a routed expert stack's data
+    slice, whose gradient is already the microbatch's: added there
+    alone, with no move), told apart by ``shapes`` (a tree of the
+    leaves' global ``torch.Size``), or None (a leaf the part's
+    coordinate did not compute with, or a subtree it does not hold).
+    Each coordinate whose shard lies inside a part's block adds its
+    piece of it; the sums start at zero."""
     if wheres is not None:
         return _reduce_scatter_blocks(parts, shardings, dtype, sources,
                                       wheres, shapes)
@@ -660,6 +663,9 @@ def _reduce_scatter_blocks(parts, shardings, dtype, sources, wheres,
             region = (tuple(slice(0, d) for d in a.shape)
                       if tuple(t.shape) == tuple(a.shape) else
                       _block_region(a.shape, a.mesh, a.spec, wheres[k]))
+            if tuple(r.stop - r.start for r in region) != tuple(t.shape):
+                # the part's own shard: added there alone
+                region = shard_slices(a.shape, a.mesh, a.spec, src)
             for c in a.mesh.coords():
                 sl = shard_slices(a.shape, a.mesh, a.spec, c)
                 if any(x.start < r.start or x.stop > r.stop

@@ -44,12 +44,24 @@ tensor parallelism, where its residual stream lives.
 * Routed experts split over ``model`` (``"experts": "model"``, expert
   parallelism sharing the axis, as JAX's rules say): home gathers the
   router's column blocks (:func:`gather_home`) and routes as one device
-  does; each shard runs its experts over the pairs routed to them from
-  its copy of the stream, and home takes each pair's row from its
-  expert's shard by selection (:func:`select_home`), then weights and
-  sums: the routed output is the one-device one.  The data shards of a
-  microbatch route in lockstep, as on the gathered path
-  (``models.layers.apply_moe_tp``, ``models.blocks.apply_lockstep_tp``).
+  does.  Where one data shard computes a microbatch, each shard runs its
+  experts over the pairs routed to them from its copy of the stream, and
+  home takes each pair's row from its expert's shard by selection
+  (:func:`select_home`), then weights and sums: the routed output is the
+  one-device one (``models.layers.apply_moe_tp``).  Where the microbatch
+  is split over every data shard and the model width divides ``data``,
+  the routed expert stacks stay on their FSDP slice (``gather_block``
+  with ``data``) and each expert's C slots are computed once per
+  microbatch, in the layout JAX compiles
+  (``models.layers.apply_moe_a2a``): at each model index the data
+  shards' coordinates (a :class:`Column`) exchange the stream's columns
+  (:func:`columns_to_slices`, an all-to-all) and the route's integers
+  (:func:`gather_slots`, an all-gather), fill ``[E / m, C, d / n]``,
+  sum their gate and up partials (:func:`sum_partials`, an all-reduce
+  in f32) and send each pair's row slice to its home
+  (:func:`rows_to_home`).  Either way the data shards of a microbatch
+  route in lockstep, as on the gathered path
+  (``models.blocks.apply_lockstep_tp``).
 * One autograd graph spans the shards.  :func:`fanout`'s backward is the
   all-reduce of the shards' cotangents (f32, rounded once), so the
   stage's input cotangent is their sum; a replicated leaf used on
@@ -71,9 +83,11 @@ taken from vocab-split logits without gathering them
 
 Every collective here is logged (``dist.mesh.log_collective``): an
 all-reduce as received by each shard of the group, a gather to home
-(``all-gather``, ``all-to-all``) as received by home; and counted in
-:data:`ALL_REDUCES` by what it carries.  With one model shard none of this
-runs: the one-device functions are the ``m = 1`` case.
+(``all-gather``, ``all-to-all``) as received by home; an exchange over
+``data`` as received by each coordinate of its column, forward and
+backward; and counted in :data:`ALL_REDUCES` by what it carries.  With
+one model shard none of this runs: the one-device functions are the
+``m = 1`` case.
 """
 from __future__ import annotations
 
@@ -86,11 +100,15 @@ import torch
 
 from repro_torch.dist.mesh import Mesh, NamedSharding, Placed, at, \
     axis_names_of, gather, gather_tree, log_collective
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten_like
 
 Tree = Any
 
 MODEL_AXIS = "model"
+DATA_AXIS = "data"
+# the routed expert stacks of a ``moe`` subtree: held as their data slice
+# where each expert's slots are computed once per microbatch
+EXPERT_STACKS = ("wi_gate", "wi_up", "wo")
 # the block kinds whose layers compute tensor-parallel (the dense
 # attention stack, attention + routed experts, and latent attention with
 # a dense FFN or routed experts); a stage holding any other kind keeps
@@ -107,7 +125,12 @@ WHOLE_AT_HOME = ("boundary",)
 # "router" (its column blocks gathered at home), "expert_rows" (each
 # pair's row taken at home from its expert's shard) and "shared_expert"
 # (the shared expert's partials), and serving's "argmax" (each vocab
-# block's largest logit and its index, gathered at home)
+# block's largest logit and its index, gathered at home).  Where experts
+# are computed once per microbatch, a MoE layer counts once a pass
+# "expert_columns" (the stream's columns over ``data``), "expert_slots"
+# (the route's integers), "expert_partials" (the gate and up partials)
+# and "expert_rows" (each pair's row slices at home); the backward of
+# the first and third counts under "cotangent"
 ALL_REDUCES: collections.Counter = collections.Counter()
 
 
@@ -175,45 +198,122 @@ class Group:
 @dataclasses.dataclass
 class ModelShards:
     """One data shard's params over its model shards: ``trees[j]`` on
-    ``group.devs[j]``, each the block :func:`gather_block` gives."""
+    ``group.devs[j]``, each the block :func:`gather_block` gives;
+    ``data`` the data shard whose slice of the routed expert stacks they
+    hold (None: the stacks whole over ``data``)."""
     trees: list
     group: Group
+    data: Optional[int] = None
 
     def sub(self, key) -> "ModelShards":
         """Every shard's ``tree[key]`` (a span's per-stage tree)."""
-        return ModelShards([t[key] for t in self.trees], self.group)
+        return ModelShards([t[key] for t in self.trees], self.group,
+                           self.data)
 
 
-def gather_block(tree: Tree, device, j: int) -> Tree:
+def _expert_mask(t, parent, key, is_leaf, out: list) -> None:
+    # module-level, as ``tree._collect`` (a closure calling itself is a
+    # reference cycle)
+    if (is_leaf is not None and is_leaf(t)) or not (
+            t is None or isinstance(t, (dict, list, tuple))):
+        out.append(parent == "moe" and key in EXPERT_STACKS)
+    elif isinstance(t, dict):
+        for k in sorted(t):
+            _expert_mask(t[k], key, k, is_leaf, out)
+    elif isinstance(t, (list, tuple)):
+        for v in t:
+            _expert_mask(v, None, None, is_leaf, out)
+
+
+def expert_mask(tree: Tree, is_leaf=None, key=None) -> list:
+    """For each leaf of ``tree`` (``tree_leaves`` order; ``key`` the
+    tree's own key in its parent): is it a routed expert stack
+    (:data:`EXPERT_STACKS` of a ``moe`` subtree)?"""
+    out: list = []
+    _expert_mask(tree, None, key, is_leaf, out)
+    return out
+
+
+def slices_experts(mesh, n_shards: int, batch_axis: str = DATA_AXIS
+                   ) -> bool:
+    """Are the routed expert stacks held as their data slice, a
+    microbatch split into ``n_shards`` over ``batch_axis``?  Only where
+    it is split over every shard of ``data``, with more than one model
+    shard (ROADMAP 5(d)1; a stack whose width does not divide ``data``
+    replicates over it and comes whole all the same)."""
+    return (batch_axis == DATA_AXIS and model_size(mesh) > 1
+            and n_shards > 1 and int(mesh.shape.get(DATA_AXIS, 1))
+            == n_shards)
+
+
+def _sliced(mesh, spec) -> bool:
+    """Does a routed expert stack laid out by ``spec`` come as its data
+    slice: its experts split over ``model`` and its width over
+    ``data``?"""
+    sh = NamedSharding(mesh, tuple(spec))
+    return split_dim(sh) is not None and \
+        split_dim(sh, DATA_AXIS) is not None
+
+
+def holds_slices(shardings: Tree) -> bool:
+    """Does a routed expert stack of ``shardings`` (a stage's, or a
+    span's per-stage dict, of ``NamedSharding`` s) come as its data
+    slice: its experts split over ``model`` and its width over
+    ``data``?"""
+    is_sh = lambda x: isinstance(x, NamedSharding)  # noqa: E731
+    return any(e and _sliced(sh.mesh, sh.spec) for sh, e in zip(
+        tree_leaves(shardings, is_leaf=is_sh),
+        expert_mask(shardings, is_sh)))
+
+
+def gather_block(tree: Tree, device, j: int, data: Optional[int] = None
+                 ) -> Tree:
     """Model block ``j`` of every placed leaf of a stage (or model) tree,
     gathered over the other axes onto ``device``: a leaf split over
-    ``model`` as its block ``j``, any other leaf whole.  The subtrees of
+    ``model`` as its block ``j``, any other leaf whole.  With ``data``,
+    a routed expert stack comes as the block of coordinate ``(data,
+    j)``: its own FSDP slice of the model width, never gathered over
+    ``data`` (where its experts split ``model`` and its width splits
+    ``data``; else as any other leaf).  The subtrees of
     :data:`WHOLE_AT_HOME` come whole at ``j == 0`` and as None
     elsewhere."""
-    def blk(sub):
-        return tree_map(lambda p: gather(p, device, where={MODEL_AXIS: j})
-                        if isinstance(p, Placed) else p, sub)
+    def blk(key, sub):
+        out = []
+        for p, e in zip(tree_leaves(sub), expert_mask(sub, key=key)):
+            where = {MODEL_AXIS: j}
+            if e and data is not None and isinstance(p, Placed) and \
+                    _sliced(p.mesh, p.spec):
+                where[DATA_AXIS] = data
+            out.append(gather(p, device, where=where)
+                       if isinstance(p, Placed) else p)
+        return tree_unflatten_like(sub, out)
     return {k: (gather_tree(sub, device) if j == 0 else None)
-            if k in WHOLE_AT_HOME else blk(sub) for k, sub in tree.items()}
+            if k in WHOLE_AT_HOME else blk(k, sub) for k, sub in tree.items()}
 
 
-def block_bytes(specs: Tree, shardings: Tree, j: int) -> int:
+def block_bytes(specs: Tree, shardings: Tree, j: int,
+                data: Optional[int] = None) -> int:
     """The bytes :func:`gather_block` gives model shard ``j`` of a stage
     (or model) tree, reckoned from its ``ParamSpec`` tree and the plan:
     a leaf split over ``model`` a ``1 / m`` block, any other leaf whole,
-    the :data:`WHOLE_AT_HOME` subtrees whole at ``j == 0`` only."""
+    with ``data`` a routed expert stack whose experts split ``model`` and
+    whose width splits ``data`` a ``1 / (m n)`` block, the
+    :data:`WHOLE_AT_HOME` subtrees whole at ``j == 0`` only."""
     from repro_torch.models.params import is_spec
     total = 0
     for k, sub in specs.items():
         if k in WHOLE_AT_HOME and j:
             continue
-        for spec, sh in zip(tree_leaves(sub, is_leaf=is_spec), tree_leaves(
-                shardings[k], is_leaf=lambda x: isinstance(
-                    x, NamedSharding))):
+        for spec, sh, e in zip(
+                tree_leaves(sub, is_leaf=is_spec), tree_leaves(
+                    shardings[k], is_leaf=lambda x: isinstance(
+                        x, NamedSharding)), expert_mask(sub, is_spec, k)):
             d = None if k in WHOLE_AT_HOME else split_dim(sh)
             n = math.prod(spec.shape)
             if d is not None:
                 n //= model_size(sh.mesh)
+            if e and data is not None and _sliced(sh.mesh, sh.spec):
+                n //= int(sh.mesh.shape[DATA_AXIS])
             total += n * torch.empty((), dtype=spec.dtype).element_size()
     return total
 
@@ -350,7 +450,10 @@ def select_home(parts: Sequence[torch.Tensor], owner: torch.Tensor,
     home): taken by selection, never summed, so each row is its owner's
     to the bit.  Logged as an all-to-all received by home;
     differentiable: shard ``j``'s cotangent is home's on its rows,
-    zeros elsewhere."""
+    zeros elsewhere.  The expert-parallel MoE uses it where one data
+    shard computes a microbatch (``models.layers.apply_moe_tp``); where
+    the microbatch is split over ``data`` and experts are computed once
+    per microbatch, :func:`rows_to_home` takes its place."""
     with group.scope(0):
         out = parts[0]
         for j in range(1, group.m):
@@ -359,6 +462,277 @@ def select_home(parts: Sequence[torch.Tensor], owner: torch.Tensor,
     _logged(group, what, sum(_nbytes(p) for p in parts[1:]), "all-to-all",
             group.coords[:1])
     return out
+
+
+# ---------------------------------------------- exchanges over ``data``
+@dataclasses.dataclass
+class Column:
+    """The coordinates of a microbatch's data shards at one model index:
+    ``devs[i]`` / ``coords[i]`` data shard ``i``'s.  The first
+    ``computed`` compute; where fewer than all do (the dry run computes
+    data shard 0 for equal ones), each other shard's part in an exchange
+    stands as shard 0's tensor of the same shape, moved and logged from
+    its own coordinate, so that each computed coordinate receives the
+    bytes a real exchange gives it (a reckoning of shapes and bytes, not
+    of values)."""
+    devs: list
+    coords: list
+    computed: int
+
+    @classmethod
+    def of(cls, groups: Sequence[Group], j: int,
+           computed: Optional[int] = None) -> "Column":
+        return cls([g.devs[j] for g in groups], [g.coords[j] for g in groups],
+                   len(groups) if computed is None else computed)
+
+    @property
+    def n(self) -> int:
+        return len(self.devs)
+
+    def scope(self, i: int):
+        return at(self.coords[i])
+
+    def per_shard(self, f: Callable, *cols) -> list:
+        """``f(i, *entries)`` for every computed data shard, each in its
+        scope."""
+        out = []
+        for i, args in enumerate(zip(*cols)):
+            with self.scope(i):
+                out.append(f(i, *args))
+        return out
+
+    def cross(self, x: torch.Tensor, src: int, dst: int) -> torch.Tensor:
+        """``x`` from data shard ``src``'s coordinate on ``dst``'s (a copy
+        on ``meta`` where the coordinates differ, as :func:`_move`)."""
+        dev = self.devs[dst]
+        copy = dev.type == "meta" and self.coords[src] != self.coords[dst]
+        with self.scope(dst):
+            return x.to(dev, copy=copy)
+
+    def log(self, kind: str, nbytes: Sequence[int]) -> None:
+        """Log ``nbytes[i]`` received by data shard ``i``'s coordinate."""
+        for c, b in zip(self.coords, nbytes):
+            if b:
+                log_collective(kind, [c], b)
+
+
+def _row_bounds(rows: Sequence[int]) -> list:
+    out, lo = [], 0
+    for r in rows:
+        out.append((lo, lo + r))
+        lo += r
+    return out
+
+
+class _ColumnsToSlices(torch.autograd.Function):
+    """Every data shard's rows of the stream, slice ``i`` of its columns,
+    at data shard ``i``'s coordinate (an all-to-all over ``data``);
+    backward: the transpose, each source's rows of every slice's
+    cotangent joined back along its columns."""
+
+    @staticmethod
+    def forward(ctx, col, dn, count, *xs):
+        ctx.col, ctx.dn, ctx.count = col, dn, count
+        ctx.bounds = _row_bounds([x.shape[0] for x in xs])
+        outs = []
+        for i in range(col.computed):
+            sl = slice(i * dn, (i + 1) * dn)
+            pieces = [col.cross(x[:, sl], src, i) for src, x in
+                      enumerate(xs)]
+            with col.scope(i):
+                outs.append(torch.cat(pieces))
+        es = xs[0].element_size()
+        col.log("all-to-all", [
+            sum(x.shape[0] for s, x in enumerate(xs) if s != i) * dn * es
+            for i in range(col.n)])
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        col, dn, bounds = ctx.col, ctx.dn, ctx.bounds
+        grads = []
+        for src in range(col.computed):
+            lo, hi = bounds[src]
+            pieces = []
+            for i in range(col.n):
+                g = gs[i if i < col.computed else 0]
+                pieces.append(col.cross(g[lo:hi], i, src))
+            with col.scope(src):
+                grads.append(torch.cat(pieces, dim=1))
+        es = gs[0].element_size()
+        col.log("all-to-all", [(hi - lo) * dn * es * (col.n - 1)
+                               for lo, hi in bounds])
+        ALL_REDUCES["cotangent"] += ctx.count
+        return (None, None, None, *grads,
+                *([None] * (col.n - col.computed)))
+
+
+def columns_to_slices(xs: Sequence[torch.Tensor], col: Column, dn: int,
+                      count: bool = True) -> list:
+    """Data shard ``i``'s coordinate's ``[sum rows, dn]``: every data
+    shard's rows (``xs[s]`` ``[rows_s, d]`` on shard ``s``'s coordinate,
+    row order; a list of ``col.n`` where shards past ``col.computed``
+    stand as shard 0's) sliced to columns ``i * dn`` on, for each
+    computed ``i`` (differentiable).  ``count``: count it in
+    :data:`ALL_REDUCES` (once a layer pass over every model index), its
+    backward under "cotangent"."""
+    xs = list(xs) + [xs[0]] * (col.n - len(xs))
+    ALL_REDUCES["expert_columns"] += count
+    return list(_ColumnsToSlices.apply(col, dn, count, *xs))
+
+
+def gather_slots(slots: Sequence[torch.Tensor], homes: Sequence[Group],
+                 col: Column, count: bool = True) -> list:
+    """Every data shard's integers (``slots[s]`` at data shard ``s``'s
+    home, row order; ``homes`` every data shard's group), joined at each
+    computed coordinate of ``col`` (an
+    all-gather over ``data``; the integers reach a data shard's model
+    shards with its stream, unlogged, as :func:`on_shards` sends
+    them)."""
+    slots = list(slots) + [slots[0]] * (col.n - len(slots))
+    out = []
+    for i in range(col.computed):
+        with col.scope(i):
+            out.append(torch.cat([
+                s.to(col.devs[i], copy=col.devs[i].type == "meta"
+                     and homes[k].coords[0] != col.coords[i])
+                for k, s in enumerate(slots)]))
+    es = slots[0].element_size()
+    col.log("all-gather", [sum(s.numel() for k, s in enumerate(slots)
+                               if k != i) * es for i in range(col.n)])
+    ALL_REDUCES["expert_slots"] += count
+    return out
+
+
+class _SumPartials(torch.autograd.Function):
+    """The data shards' f32 partials summed in data order, rounded once
+    to ``dtype``, on every computed coordinate (an all-reduce over
+    ``data``); backward: the cotangents summed the same way, in f32."""
+
+    @staticmethod
+    def forward(ctx, col, dtype, count, *parts):
+        ctx.col, ctx.count = col, count
+        total = _sum_at(col, parts)
+        col.log("all-reduce", [_nbytes(total)] * col.n)
+        return _distinct([col.cross(total, 0, i).to(dtype)
+                          for i in range(col.computed)])
+
+    @staticmethod
+    def backward(ctx, *gs):
+        col = ctx.col
+        gs = list(gs) + [gs[0]] * (col.n - col.computed)
+        total = _sum_at(col, gs)
+        col.log("all-reduce", [_nbytes(total)] * col.n)
+        ALL_REDUCES["cotangent"] += ctx.count
+        grads = _distinct([col.cross(total, 0, i)
+                           for i in range(col.computed)])
+        return (None, None, None, *grads,
+                *([None] * (col.n - col.computed)))
+
+
+def _distinct(ts: list) -> tuple:
+    """``ts`` with a repeated tensor (one device listed twice) cloned."""
+    out: list = []
+    for t in ts:
+        out.append(t.clone() if any(t is o for o in out) else t)
+    return tuple(out)
+
+
+# the rows of another shard's partial received at a time by
+# :func:`_sum_at`: an all-reduce receives in chunks, so no coordinate
+# holds a second whole partial beside its own and the sum
+SUM_CHUNK_BYTES = 64 << 20
+
+
+def _sum_at(col: Column, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``parts`` (one a data shard, on its coordinate, ``[E, C, .]``)
+    added in f32 in data order at data shard 0's coordinate, each other
+    shard's part received :data:`SUM_CHUNK_BYTES` of slots at a time
+    (elementwise, so the bits are the whole sum's)."""
+    with col.scope(0):
+        total = parts[0].to(torch.float32, copy=True)
+        step = max(1, SUM_CHUNK_BYTES // max(
+            1, _nbytes(total[:, :1])))
+        for i, p in enumerate(parts[1:], 1):
+            for lo in range(0, p.shape[1], step):
+                total[:, lo:lo + step].add_(col.cross(
+                    p[:, lo:lo + step], i, 0).to(torch.float32))
+    return total
+
+
+def sum_partials(parts: Sequence[torch.Tensor], col: Column,
+                 dtype: torch.dtype, count: bool = True) -> list:
+    """The sum of the data shards' f32 ``parts`` (one a computed
+    coordinate of ``col``) on each of them, rounded once to ``dtype``
+    (differentiable; ``count`` as :func:`columns_to_slices`)."""
+    parts = list(parts) + [parts[0]] * (col.n - len(parts))
+    ALL_REDUCES["expert_partials"] += count
+    return list(_SumPartials.apply(col, dtype, count, *parts))
+
+
+class _RowsToHome(torch.autograd.Function):
+    """Home's ``[R, n * dn]``: column slice ``i`` of row ``r`` from the
+    coordinate ``(i, owner[r])``, taken by selection; backward: each
+    coordinate's slice of the cotangent on its rows, zeros elsewhere,
+    made on that coordinate."""
+
+    @staticmethod
+    def forward(ctx, home, cols, owner, *parts):
+        ctx.home, ctx.cols = home, cols
+        ctx.save_for_backward(owner)
+        m = len(cols)
+        slices = []
+        for i in range(cols[0].n):
+            with at(home.coords[0]):
+                out = _to_home(parts[i * m], home, cols[0], i)
+                for j in range(1, m):
+                    mine = (owner == j)[:, None]
+                    out = torch.where(mine, _to_home(parts[i * m + j], home,
+                                                     cols[j], i), out)
+                slices.append(out)
+        with at(home.coords[0]):
+            return torch.cat(slices, dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        (owner,) = ctx.saved_tensors
+        home, cols = ctx.home, ctx.cols
+        m, n, comp = len(cols), cols[0].n, cols[0].computed
+        dn = g.shape[1] // n
+        grads = [None] * (n * m)
+        for i in range(comp):
+            for j, col in enumerate(cols):
+                dev = col.devs[i]
+                copy = dev.type == "meta" and col.coords[i] != home.coords[0]
+                with col.scope(i):
+                    gi = g[:, i * dn:(i + 1) * dn].to(dev, copy=copy)
+                    mine = owner.to(dev, copy=copy) == j
+                    grads[i * m + j] = torch.where(mine[:, None], gi, 0.0)
+        return (None, None, None, *grads)
+
+
+def _to_home(x: torch.Tensor, home: Group, col: Column, i: int
+             ) -> torch.Tensor:
+    copy = home.home.type == "meta" and col.coords[i] != home.coords[0]
+    return x.to(home.home, copy=copy)
+
+
+def rows_to_home(parts: Sequence[Sequence[torch.Tensor]],
+                 owner: torch.Tensor, home: Group, cols: Sequence[Column]
+                 ) -> torch.Tensor:
+    """A data shard's pairs' rows ``[R, n * dn]`` at its ``home``:
+    ``parts[i][j]`` ``[R, dn]`` on coordinate ``(i, j)`` (``cols[j]``'s
+    ``i``; zeros where model shard ``j`` does not own the pair; rows
+    past ``cols[j].computed`` stand as shard 0's), column slice ``i`` of
+    row ``r`` taken from ``(i, owner[r])`` by selection, never summed.
+    Logged as an all-to-all received by home; differentiable."""
+    n, m = cols[0].n, len(cols)
+    parts = [list(parts[i]) if i < len(parts) else
+             [p.detach() for p in parts[0]] for i in range(n)]
+    flat = [p for row in parts for p in row]
+    nb = _nbytes(flat[0])
+    log_collective("all-to-all", home.coords[:1], nb * (n * m - 1))
+    return _RowsToHome.apply(home, list(cols), owner, *flat)
 
 
 def on_shards(x: torch.Tensor, group: Group) -> list:

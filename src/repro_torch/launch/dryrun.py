@@ -31,7 +31,10 @@ Record keys are JAX's with JAX's meanings (``status``, ``reason``,
 JAX has ``hlo_flops_per_device_raw`` / ``hlo_bytes_per_device_raw``:
 they count the whole step (aten ops priced by
 ``torch.utils.flop_counter``, plus the kernels' counted work) and need
-no probe correction.  Every figure is a reckoning on meta, not a
+no probe correction; ``flops_per_device_mean`` is the mean over the
+coordinates that computed (the ledger places a backward op made outside
+any coordinate by its largest input, so work moves between a data
+shard's model coordinates).  Every figure is a reckoning on meta, not a
 measurement.
 
 Usage:
@@ -249,7 +252,8 @@ def _reduce_scatter_blocks_alike(grads: list, shardings: Tree,
     shards' parts are folded; each later one adds the second one's
     bytes moved to the open ledgers, and its reduce-scatter moves (the
     blocks each coordinate receives from the other coordinates) to the
-    recorder."""
+    recorder.  A routed expert stack held as its data slice moves
+    nowhere: each coordinate adds its own."""
     m, n = len(grads), len(groups)
     wheres = [{tp.MODEL_AXIS: j} for j in range(m)]
     meta = all(t.device.type == "meta" for t in tree_leaves(grads))
@@ -285,6 +289,11 @@ def _reduce_scatter_blocks_alike(grads: list, shardings: Tree,
             if t is None:
                 continue
             whole = tuple(t.shape) == tuple(shape)
+            if not whole and tuple(r.stop - r.start for r in
+                                   mesh_lib._block_region(
+                                       shape, mesh, tuple(s.spec),
+                                       wheres[j])) != tuple(t.shape):
+                continue         # its own coordinate's shard: no move
             for c in mesh.coords():
                 if not whole and c[mesh.axis_names.index(tp.MODEL_AXIS)] \
                         != j and tp.split_dim(s) is not None:
@@ -347,18 +356,20 @@ def _mesh_train_step_tp(cfg: ArchConfig, optimizer, mesh, st_sh: Tree,
     c0 = groups[0].coords[0]
     grad_fn, alike = _shard_grad_fn(cfg, remat, accum, batch, len(groups),
                                     groups[0])
+    sliced = _expert_slices(mesh, shards, alike)
 
     def step(state: Tree, batch: Tree):
-        with _alike(alike):
-            trees = _model_blocks(state["params"], groups[0], mesh)
+        with _alike(alike), _moe_stands(groups, sliced):
+            trees = _model_blocks(state["params"], groups[0], mesh,
+                                  0 if sliced else None)
             with at(c0):
                 b = _gather_where(batch, mesh.devices[c0], shards[0])
             # outside any coordinate: each shard's ops run in its own
             # scope, and the backward pass is owned by its inputs' shards
             loss, ce, grads = grad_fn(trees, b)
             del trees, b
-        for g in groups[1:]:
-            _model_blocks(state["params"], g, mesh)
+        for i, g in enumerate(groups[1:], 1):
+            _model_blocks(state["params"], g, mesh, i if sliced else None)
         gp = _reduce_scatter_blocks_alike(
             grads, st_sh["params"], groups,
             tree_map(lambda p: p.shape, state["params"]))
@@ -368,15 +379,41 @@ def _mesh_train_step_tp(cfg: ArchConfig, optimizer, mesh, st_sh: Tree,
     return step, len(groups), c0
 
 
-def _model_blocks(params: Tree, group: tp.Group, mesh) -> list:
+def _model_blocks(params: Tree, group: tp.Group, mesh,
+                  data: Optional[int] = None) -> list:
     """Each of ``group``'s model coordinates' blocks of ``params``
-    (:func:`~repro_torch.dist.tensor_parallel.gather_block`), gathered
-    as that coordinate."""
+    (:func:`~repro_torch.dist.tensor_parallel.gather_block`, the routed
+    expert stacks as data slice ``data`` where given), gathered as that
+    coordinate."""
     out = []
     for j, c in enumerate(group.coords):
         with at(c):
-            out.append(tp.gather_block(params, mesh.devices[c], j))
+            out.append(tp.gather_block(params, mesh.devices[c], j, data))
     return out
+
+
+def _mean_flops(ledger, mesh) -> float:
+    """The FLOPs of a coordinate that computed, on average over them."""
+    busy = [f for f in map(ledger.total_flops, mesh.coords()) if f > 0]
+    return sum(busy) / max(len(busy), 1)
+
+
+def _expert_slices(mesh, shards: list, alike: int) -> bool:
+    """Do the cell's routed expert stacks stay on their data slice, each
+    expert's slots computed once per microbatch
+    (``models.layers.apply_moe_a2a``)?  Where the microbatch is split
+    over every ``data`` shard and nothing else (``alike`` of them route
+    together)."""
+    return all(set(w) == {tp.DATA_AXIS} for w in shards) and \
+        alike == len(shards) and tp.slices_experts(mesh, len(shards))
+
+
+def _moe_stands(groups: list, sliced: bool):
+    """Data shard 0's expert-parallel MoE layers stand for ``groups``
+    where the expert stacks hold their data slice."""
+    if not sliced:
+        return contextlib.nullcontext()
+    return L.moe_data_groups(groups)
 
 
 def _prefill_cell_tp(cfg: ArchConfig, mesh, args: Tree, shards: list,
@@ -392,10 +429,12 @@ def _prefill_cell_tp(cfg: ArchConfig, mesh, args: Tree, shards: list,
     g0, c0 = groups[0], groups[0].coords[0]
     step = steps_lib.make_prefill_step(cfg, last_only=last_only, group=g0)
     shapes = tree_map(lambda a: a.shape, cache_meta)
+    sliced = _expert_slices(mesh, shards, len(groups))
 
     def run():
-        with _alike(len(groups)):
-            trees = _model_blocks(args["params"], g0, mesh)
+        with _alike(len(groups)), _moe_stands(groups, sliced):
+            trees = _model_blocks(args["params"], g0, mesh,
+                                  0 if sliced else None)
             with at(c0):
                 batch = _gather_where(args["batch"], mesh.devices[c0],
                                       shards[0])
@@ -405,8 +444,8 @@ def _prefill_cell_tp(cfg: ArchConfig, mesh, args: Tree, shards: list,
         for c, cj in zip(g0.coords, caches):
             tp.check_cache_blocks(cj, shapes, cache_sh, c)
             held.setdefault(c, []).extend(tree_leaves(cj))
-        for g in groups[1:]:
-            _model_blocks(args["params"], g, mesh)
+        for i, g in enumerate(groups[1:], 1):
+            _model_blocks(args["params"], g, mesh, i if sliced else None)
         return held, {}
     return Cell(run, args, mesh, False, len(groups), 1, c0)
 
@@ -422,17 +461,19 @@ def _decode_cell_tp(cfg: ArchConfig, mesh, args: Tree, shards: list,
     groups = [tp.Group.of(mesh, **w) for w in shards]
     g0, c0 = groups[0], groups[0].coords[0]
     step = steps_lib.make_serve_step(cfg, group=g0)
+    sliced = _expert_slices(mesh, shards, len(groups))
 
     def run():
-        with _alike(len(groups)):
-            trees = _model_blocks(args["params"], g0, mesh)
+        with _alike(len(groups)), _moe_stands(groups, sliced):
+            trees = _model_blocks(args["params"], g0, mesh,
+                                  0 if sliced else None)
             local = [tp.cache_shards(args["caches"], c) for c in g0.coords]
             with at(c0):
                 tok = gather(args["token"], mesh.devices[c0], where=shards[0])
             nxt, _ = step(trees, local, tok, pos)
             del trees, local, tok
-        for g in groups[1:]:
-            _model_blocks(args["params"], g, mesh)
+        for i, g in enumerate(groups[1:], 1):
+            _model_blocks(args["params"], g, mesh, i if sliced else None)
         aliased = {c: [a.shards[c] for a in tree_leaves(args["caches"])]
                    for g in groups for c in g.coords}
         held: dict = {c0: [nxt]}
@@ -622,14 +663,26 @@ def _tensor_bytes(ts: list) -> int:
 def run_cell(arch: str, shape_name: str, mesh_kind: str,
              skip_probe: bool = False, remat: str = "block",
              accum: int = 1, cf: float = 0.0, opt_bf16: bool = False,
-             full_logits: bool = False, strategy: str = "auto") -> dict:
+             full_logits: bool = False, strategy: str = "auto",
+             breakdown: bool = False, layers: int = 0) -> dict:
+    """One cell's record.  ``breakdown``: run the step a second time and
+    add what the busiest device holds at its peak, grouped by the op
+    that made each storage (``peak_breakdown``,
+    :meth:`~repro_torch.launch.hlo_analysis.DeviceLedger.breakdown`).
+    ``layers``: the depth cut to its first ``layers`` layers (a
+    prediction's 1- and 2-layer runs, extrapolated to full depth)."""
     cfg = get_config(arch)
+    if layers:
+        cfg = cfg.with_overrides(n_layers=layers, block_pattern=(
+            cfg.block_pattern[:layers] if cfg.block_pattern else None))
     if cf and cfg.moe is not None:
         cfg = cfg.with_overrides(
             moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
     shape = SHAPES[shape_name]
     record: dict = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
                     "time": time.strftime("%Y-%m-%d %H:%M:%S")}
+    if layers:
+        record["layers"] = cfg.n_layers
     ok, reason = cell_supported(cfg, shape)
     if not ok:
         record["status"] = "skipped"
@@ -683,11 +736,25 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
             "peak_per_device": arg_b + out_b + temp_b - alias_b,
         },
         "flops_per_device": ledger.total_flops(dev),
+        # the mean over the coordinates that computed: the ledger books
+        # a backward op made outside any coordinate on its largest
+        # input's owner, which moves work between a data shard's model
+        # coordinates but not out of them
+        "flops_per_device_mean": _mean_flops(ledger, mesh),
         "bytes_per_device": ledger.total_bytes(dev),
         "kernel_flops_per_device": ledger.kernel_flops.get(dev, 0.0),
         "collectives": hlo_analysis.collective_bytes(rec, dev),
         "reckoned_on": "meta",
     })
+    if breakdown:
+        again = build_cell(cfg, shape, mesh, remat=remat, accum=accum,
+                           opt_bf16=opt_bf16, full_logits=full_logits,
+                           strategy=strategy)
+        watched = hlo_analysis.DeviceLedger(
+            home=again.home, watch=(dev, ledger.peak.get(dev, 0)))
+        with mesh_lib.record_collectives(), watched:
+            again.run()
+        record["peak_breakdown"] = watched.breakdown()
     if cell.pipeline:
         record["argument_layout"] = ("the state and batch whole on the "
                                      "home device; the step places the "
@@ -723,6 +790,10 @@ def main():
                     help="paper-naive prefill emitting [B,S,V] logits")
     ap.add_argument("--strategy", default="auto", choices=["auto", "dp"])
     ap.add_argument("--cf", type=float, default=0.0)
+    ap.add_argument("--breakdown", action="store_true",
+                    help="add the busiest device's holdings at its peak")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers")
     ap.add_argument("--tag", default="",
                     help="artifact name suffix (hillclimb iterations)")
     args = ap.parse_args()
@@ -775,7 +846,8 @@ def main():
             rec = run_cell(a, s, m, remat=args.remat, accum=args.accum,
                            cf=args.cf, opt_bf16=args.opt_bf16,
                            full_logits=args.full_logits,
-                           strategy=args.strategy)
+                           strategy=args.strategy,
+                           breakdown=args.breakdown, layers=args.layers)
         except Exception as e:
             rec = {"arch": a, "shape": s, "mesh": m, "status": "error",
                    "error": f"{type(e).__name__}: {e}",

@@ -22,7 +22,11 @@ counterpart.  Three instruments take its place:
   ``torch.utils.flop_counter``'s table prices (FlopCounterMode's own
   counts: matmuls, convolutions, attention); the bytes every other op
   reads and writes; and the work the kernels' meta routes report
-  (``repro_torch.kernels.meta_call``).
+  (``repro_torch.kernels.meta_call``).  Given ``watch=(device, bytes)``
+  (a device and its peak, from a first run of the same step), it also
+  keeps what that device holds the first time its live bytes reach
+  ``bytes``: each storage's bytes with the op that made it, its shape,
+  dtype and pass (:meth:`DeviceLedger.breakdown`).
 * :func:`layer_flop_probe` counts one layer of each block kind on meta
   under ``models.probe.probe_mode``, as JAX's does.
 
@@ -97,9 +101,13 @@ class DeviceLedger(TorchDispatchMode):
     tensors' device names; ``home`` stands for a meta tensor made off
     any coordinate."""
 
-    def __init__(self, home: Any = "meta"):
+    def __init__(self, home: Any = "meta",
+                 watch: Optional[tuple] = None):
         super().__init__()
         self.home = home
+        self.watch = watch
+        self._tags: dict = {}           # storage -> (bytes, tag), watched
+        self.at_watch: Optional[list] = None
         self.live: dict = defaultdict(int)
         self.peak: dict = defaultdict(int)
         # every device's live bytes together, and their peak: what one
@@ -138,10 +146,11 @@ class DeviceLedger(TorchDispatchMode):
 
     def _free(self, key: int, dev, nbytes: int) -> None:
         self._owner.pop(key, None)
+        self._tags.pop(key, None)
         self.live[dev] -= nbytes
         self.live_total -= nbytes
 
-    def _track(self, t: torch.Tensor, dev, seen: set) -> None:
+    def _track(self, t: torch.Tensor, dev, seen: set, op: str) -> None:
         st = _storage(t)
         if st is None or st._cdata in seen or st._cdata in self._owner:
             return
@@ -149,6 +158,13 @@ class DeviceLedger(TorchDispatchMode):
         self._owner[st._cdata] = dev
         self.live[dev] += nbytes
         self.peak[dev] = max(self.peak[dev], self.live[dev])
+        if self.watch is not None and dev == self.watch[0]:
+            backward = torch._C._current_graph_task_id() != -1
+            self._tags[st._cdata] = (nbytes, (
+                op, tuple(t.shape), str(t.dtype).replace("torch.", ""),
+                "backward" if backward else "forward"))
+            if self.at_watch is None and self.live[dev] >= self.watch[1]:
+                self.at_watch = list(self._tags.values())
         self.live_total += nbytes
         self.peak_total = max(self.peak_total, self.live_total)
         weakref.finalize(st, self._free, st._cdata, dev, nbytes)
@@ -170,10 +186,12 @@ class DeviceLedger(TorchDispatchMode):
         ins = _tensors(args) + _tensors(kwargs.values())
         dev = self._device_of(ins, outs[0])
         seen = {st._cdata for st in map(_storage, ins) if st is not None}
-        for o in outs:
-            self._track(o, dev, seen)
         packet = func._overloadpacket
+        for o in outs:
+            self._track(o, dev, seen, packet.__name__)
         if packet in flop_registry:
+            if func._overloadname == "dtype":   # mm / bmm with out_dtype
+                args, kwargs = args[:2], {}
             self.flops[dev] += float(flop_registry[packet](
                 *args, **kwargs, out_val=out))
         if not func.is_view:
@@ -195,6 +213,18 @@ class DeviceLedger(TorchDispatchMode):
 
     def total_bytes(self, dev) -> float:
         return self.bytes.get(dev, 0.0) + self.work_bytes.get(dev, 0.0)
+
+    def breakdown(self) -> list:
+        """What the watched device held at its watched bytes, grouped by
+        ``(op, shape, dtype, pass)``: ``[bytes, count, op, shape, dtype,
+        pass]`` rows, the largest first (empty where it never got
+        there)."""
+        groups: dict = defaultdict(lambda: [0, 0])
+        for nbytes, tag in self.at_watch or []:
+            groups[tag][0] += nbytes
+            groups[tag][1] += 1
+        return sorted(([b, n, op, list(shape), dt, ps] for (
+            op, shape, dt, ps), (b, n) in groups.items()), reverse=True)
 
 
 def active_ledgers() -> list:

@@ -386,12 +386,32 @@ def _moe_norm(cfg, ps: list, h, group):
         return L.apply_norm(cfg, ps[0]["ln2"], h)
 
 
+def _a2a(cfg, mps: list) -> bool:
+    """Do the routed experts of ``mps`` (a model shard's MoE trees) split
+    over ``model`` and hold a data slice, so that their slots are
+    computed once per microbatch
+    (:func:`~repro_torch.models.layers.apply_moe_a2a`)?"""
+    return L.experts_split(cfg, mps[0]) and L.expert_slices(cfg, mps[0]) > 1
+
+
 def _moe_half_tp(cfg, ps: list, h, group):
     """``h + moe(ln2(h))``: the MoE expert-parallel
     (:func:`~repro_torch.models.layers.apply_moe_tp`) on ``ln2`` of the
-    stream, normed at home."""
-    y, aux = L.apply_moe_tp(cfg, [p["moe"] for p in ps],
-                            _moe_norm(cfg, ps, h, group), group)
+    stream, normed at home.  Where the experts hold a data slice, this
+    data shard stands for the microbatch's
+    (:func:`~repro_torch.models.layers.moe_data_groups`, the dry run)
+    and the layer computes each expert's slots once per microbatch."""
+    mps = [p["moe"] for p in ps]
+    x = _moe_norm(cfg, ps, h, group)
+    if _a2a(cfg, mps):
+        groups = L.data_groups()
+        if not groups or groups[0].coords != group.coords:
+            raise ValueError("expert stacks holding a data slice need the "
+                             "microbatch's data shards (moe_data_groups)")
+        ys, auxs = L.apply_moe_a2a(cfg, [mps], [x], groups)
+        y, aux = ys[0], auxs[0]
+    else:
+        y, aux = L.apply_moe_tp(cfg, mps, x, group)
     with group.scope(0):
         return h + y, aux
 
@@ -485,13 +505,16 @@ def apply_lockstep_tp(cfg, kind: str, pss: list, xs: list, positions: list,
 def _moe_lockstep_tp(cfg, pss: list, hs: list, groups: list):
     """``h + moe(ln2(h))`` over the data shards of one batch (row order),
     ``hs[i]`` data shard ``i``'s stream up to its MoE at its home: every
-    shard's route at its home first, then every shard's expert-parallel
-    MoE under its split context
+    shard's route at its home first, then, where the experts hold a data
+    slice, each expert's slots computed once for the batch
+    (:func:`~repro_torch.models.layers.apply_moe_a2a`), else every
+    shard's expert-parallel MoE under its split context
     (:func:`~repro_torch.models.layers.apply_moe_shards_tp`).  Returns
     ``(ys, auxs)``."""
     ns = [_moe_norm(cfg, ps, h, g) for ps, h, g in zip(pss, hs, groups)]
-    ys, auxs = L.apply_moe_shards_tp(
-        cfg, [[p["moe"] for p in ps] for ps in pss], ns, groups)
+    mpss = [[p["moe"] for p in ps] for ps in pss]
+    moe = L.apply_moe_a2a if _a2a(cfg, mpss[0]) else L.apply_moe_shards_tp
+    ys, auxs = moe(cfg, mpss, ns, groups)
     out = []
     for h, y, g in zip(hs, ys, groups):
         with g.scope(0):

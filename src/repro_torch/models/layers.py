@@ -635,7 +635,16 @@ def apply_moe_tp(cfg: ArchConfig, ps: list, x: torch.Tensor, group,
     column- then row-parallel where its width splits
     (``ALL_REDUCES["shared_expert"]``), else whole at home, and is added
     at home in the stream's dtype.  Experts that do not split run
-    :func:`apply_moe` whole at home."""
+    :func:`apply_moe` whole at home.
+
+    This is the path where one data shard computes the microbatch (a
+    ``(1, m)`` mesh, a microbatch that does not divide ``data``, or
+    expert stacks whose width does not divide ``data``): each data shard
+    of a split microbatch would fill ``min(C, T_shard k)`` slots an
+    expert (deliberate difference 9).  Where the microbatch is split
+    over every data shard and the stacks hold their data slice, the
+    experts' slots are computed once per microbatch instead
+    (:func:`apply_moe_a2a`)."""
     from repro_torch.dist import tensor_parallel as tp
     m = cfg.moe
     route = route or moe_route_tp(cfg, ps, x, group)
@@ -661,17 +670,225 @@ def apply_moe_tp(cfg: ArchConfig, ps: list, x: torch.Tensor, group,
     with group.scope(0):
         y = _combine(route[1], keep, got, T, k)
     if m.num_shared:
-        if ffn_split(ps[0]["shared"], m.num_shared * m.d_ff_expert):
-            shared = tp.all_reduce(group.per_shard(
-                lambda j, p, xj: apply_ffn(cfg, p["shared"], xj,
-                                           partial=True), ps, xs),
-                group, "shared_expert", dtype=xt.dtype)
-        else:
-            with group.scope(0):
-                shared = apply_ffn(cfg, ps[0]["shared"], xt)
+        shared = _shared_tp(cfg, ps, xt, xs, group)
         with group.scope(0):
             y = y + shared
     return y.reshape(B, S, d), aux * m.aux_loss_coef
+
+
+class _BatchedPartial(torch.autograd.Function):
+    """``torch.bmm(x, w)`` left in f32: a partial over a slice of the
+    contraction, rounded to the compute dtype only once the data shards'
+    partials are summed (``dist.tensor_parallel.sum_partials``), as
+    :class:`_RowPartial` leaves a row-parallel product.  The backward
+    runs in the operands' dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        if x.dtype == torch.float32:
+            return torch.bmm(x, w)
+        if x.device.type == "cpu":
+            return torch.bmm(x.float(), w.float())
+        return torch.bmm(x, w, out_dtype=torch.float32)    # cuBLAS, f32
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        return torch.bmm(g, w.transpose(1, 2)), torch.bmm(x.transpose(1, 2),
+                                                          g)
+
+
+def expert_slices(cfg: ArchConfig, p: Tree) -> int:
+    """Into how many slices of the model width the routed expert stacks
+    ``p`` hold one (1: the whole width; ``dist.tensor_parallel.
+    gather_block`` with ``data``)."""
+    return cfg.d_model // p["wi_gate"].shape[-2]
+
+
+# the data shards' groups an expert-parallel MoE layer computed for one
+# data shard stands for (the dry run), where its experts hold a data slice
+_DATA_GROUPS: contextvars.ContextVar = contextvars.ContextVar(
+    "moe_data_groups", default=None)
+
+
+@contextlib.contextmanager
+def moe_data_groups(groups: list):
+    """Every expert-parallel MoE layer inside whose routed experts hold a
+    data slice and that computes one data shard (``models.blocks.
+    _moe_half_tp``) computes data shard 0 of ``groups`` (the
+    microbatch's data shards, row order), the others standing as it
+    (:func:`apply_moe_a2a` with one shard: the dry run's reckoning)."""
+    tok = _DATA_GROUPS.set(list(groups))
+    try:
+        yield
+    finally:
+        _DATA_GROUPS.reset(tok)
+
+
+def data_groups() -> Optional[list]:
+    """The groups :func:`moe_data_groups` set here (None: none)."""
+    return _DATA_GROUPS.get()
+
+
+def _dispatch(cols: torch.Tensor, slots: torch.Tensor, lo: int, Ep: int,
+              C: int, k: int) -> torch.Tensor:
+    """The ``[Ep, C, dn]`` buffer of the experts whose slots start at
+    ``lo``: each kept pair's row of ``cols [T, dn]`` (``slots [T * k]``
+    every pair's global slot ``e * C + rank``, -1 where dropped) in its
+    own slot, one plain index put a choice (every slot holds at most one
+    pair), every other pair to a spare row past them (never read)."""
+    local = slots.long() - lo
+    mine = (local >= 0) & (local < Ep * C)
+    rows = torch.where(mine, local, Ep * C).view(-1, k)
+    buf = cols.new_zeros((Ep * C + 1, cols.shape[-1]))
+    for ch in range(k):
+        buf[rows[:, ch]] = cols
+    return buf[:Ep * C].view(Ep, C, cols.shape[-1])
+
+
+def _pair_rows(out: torch.Tensor, slots: torch.Tensor, lo: int
+               ) -> torch.Tensor:
+    """Each pair's row of ``out [Ep, C, dn]`` (the experts whose slots
+    start at ``lo``) by its global slot, zeros for the pairs these
+    experts do not hold."""
+    Ep, C, dn = out.shape
+    local = slots.long() - lo
+    mine = (local >= 0) & (local < Ep * C)
+    got = out.reshape(Ep * C, dn)[local.clamp(0, Ep * C - 1)]
+    return torch.where(mine[:, None], got, 0.0)
+
+
+def apply_moe_a2a(cfg: ArchConfig, pss: list, xs: list, groups: list):
+    """:func:`apply_moe_shards_tp` with each expert's C slots computed
+    once per microbatch, in the layout JAX compiles (``experts`` over
+    ``model``, the model width over ``data``; ROADMAP 5(d)1).
+    ``pss[i][j]`` data shard ``i``'s model shard ``j``'s block of the MoE
+    tree, its routed expert stacks its FSDP slice ``[E / m, d / n, .]``
+    (``dist.tensor_parallel.gather_block`` with ``data``); ``xs[i]`` the
+    normed stream ``[B, S, d]`` at its home; ``groups`` every data shard
+    of the microbatch (row order, ``n`` of them, the width's slices).
+    Where ``xs`` holds one shard for ``n`` groups (the dry run), the
+    others stand as it (``dist.tensor_parallel.Column``).
+
+    1. Every home routes (:func:`moe_route_tp`); each pair takes its
+       global slot (its :class:`MoESplit` offset plus its local rank), C
+       from the microbatch's tokens.
+    2. At each model index ``j`` the data shards' coordinates exchange
+       the stream's columns (``columns_to_slices``: coordinate ``(i,
+       j)`` gets every token's slice ``i``) and the route's integers
+       (``gather_slots``), and fill ``[E / m, C, d / n]`` by plain index
+       puts.
+    3. Each multiplies its buffer by its slices; the gate and up
+       partials are summed over ``data`` in f32 and rounded once
+       (``sum_partials``), then ``silu(g) u`` multiplies ``wo``'s slice:
+       ``[E / m, C, d / n]``, the expert outputs' columns ``i``.
+    4. Each pair's row comes back to its home, slice ``i`` from ``(i,
+       owner)`` by selection (``rows_to_home``), where it is weighted and
+       summed as :func:`apply_moe` does.
+
+    The expert stacks' gradients are their slices' over the whole
+    microbatch: nothing sums them over ``data``.  The shared expert runs
+    as in :func:`apply_moe_tp`.  Returns ``(ys, auxs)`` for the computed
+    shards; the aux shares add up to the microbatch's balance loss."""
+    from repro_torch.dist import tensor_parallel as tp
+    m = cfg.moe
+    E, k = m.num_experts, m.top_k
+    n, c = len(groups), len(xs)
+    Ep, dn = pss[0][0]["wi_gate"].shape[:2]
+    if dn * n != cfg.d_model:
+        raise ValueError(f"{n} data shards for expert stacks holding "
+                         f"{dn} of {cfg.d_model} columns")
+    routes = [moe_route_tp(cfg, ps, x, g)
+              for ps, x, g in zip(pss, xs, groups)]
+    Ts = [x.shape[0] * x.shape[1] for x in xs]
+    Ts += [Ts[0]] * (n - c)
+    counts = [r[3].sum(0) for r in routes]
+    splits = split_contexts(counts + [counts[0]] * (n - c), Ts)
+    C = max(1, int(m.capacity_factor * splits[0].tokens * k / E))
+    plans, slots = [], []
+    for i, g in enumerate(groups):
+        r = routes[i] if i < c else routes[0]
+        with g.scope(0), moe_split(lambda tokens, cnt, _s=splits[i]: _s):
+            e_flat, pos, keep, _, aux = _moe_plan(cfg, r, Ts[i])
+            gpos = splits[i].offsets[e_flat] + pos
+            slots.append(torch.where(keep, e_flat * C + gpos, -1)
+                         .to(torch.int32))
+        plans.append((e_flat, keep, aux))
+    xts, fans = [], []
+    for x, g in zip(xs, groups):
+        with g.scope(0):
+            xts.append(x.reshape(-1, x.shape[-1]))
+        fans.append(tp.fanout(xts[-1], g))
+    cols = [tp.Column.of(groups, j, c) for j in range(groups[0].m)]
+    outs = [[None] * len(cols) for _ in range(c)]
+    held = [[None] * len(cols) for _ in range(c)]
+    cd = xs[0].dtype
+    for j, col in enumerate(cols):
+        xc = tp.columns_to_slices([f[j] for f in fans], col, dn, j == 0)
+        held_j = tp.gather_slots(slots, groups, col, j == 0)
+        bufs = col.per_shard(lambda i, x, s: _dispatch(
+            x, s, j * Ep * C, Ep, C, k), xc, held_j)
+        del xc
+        # the gate's partials summed before the up's are made: one pair
+        # of [E / m, C, f] f32 tensors a coordinate at a time
+        gs, us = ([tp.sum_partials(col.per_shard(
+            lambda i, b, _w=w: _BatchedPartial.apply(
+                b, pss[i][j][_w].to(cd)), bufs), col, cd, j == 0)
+            for w in ("wi_gate", "wi_up")])
+        del bufs
+        for i, o in enumerate(col.per_shard(
+                lambda i, g, u: torch.bmm(F.silu(g) * u,
+                                          pss[i][j]["wo"].to(cd)), gs, us)):
+            outs[i][j], held[i][j] = o, held_j[i]
+        del gs, us
+    bounds = [0]
+    for T in Ts:
+        bounds.append(bounds[-1] + T * k)
+    ys, auxs = [], []
+    tp.ALL_REDUCES["expert_rows"] += 1
+    for h in range(c):
+        lo, hi = bounds[h], bounds[h + 1]
+        parts = []
+        for i in range(c):
+            row = []
+            for j, col in enumerate(cols):
+                with col.scope(i):
+                    row.append(_pair_rows(outs[i][j], held[i][j][lo:hi],
+                                          j * Ep * C))
+            parts.append(row)
+        g = groups[h]
+        e_flat, keep, aux = plans[h]
+        with g.scope(0):
+            owner = e_flat // Ep
+        got = tp.rows_to_home(parts, owner, g, cols)
+        del parts
+        with g.scope(0):
+            y = _combine(routes[h][1], keep, got, Ts[h], k)
+        if m.num_shared:
+            shared = _shared_tp(cfg, pss[h], xts[h], fans[h], g)
+            with g.scope(0):
+                y = y + shared
+        with g.scope(0):
+            ys.append(y.reshape(xs[h].shape))
+        auxs.append(aux * m.aux_loss_coef)
+    return ys, auxs
+
+
+def _shared_tp(cfg: ArchConfig, ps: list, xt: torch.Tensor, xs: list,
+               group) -> torch.Tensor:
+    """The shared expert over a data shard's model shards, at home:
+    column- then row-parallel where its width splits
+    (``ALL_REDUCES["shared_expert"]``), else whole at home."""
+    from repro_torch.dist import tensor_parallel as tp
+    m = cfg.moe
+    if ffn_split(ps[0]["shared"], m.num_shared * m.d_ff_expert):
+        return tp.all_reduce(group.per_shard(
+            lambda j, p, xj: apply_ffn(cfg, p["shared"], xj, partial=True),
+            ps, xs), group, "shared_expert", dtype=xt.dtype)
+    with group.scope(0):
+        return apply_ffn(cfg, ps[0]["shared"], xt)
 
 
 def apply_moe_shards_tp(cfg: ArchConfig, pss: list, xs: list,
@@ -680,7 +897,11 @@ def apply_moe_shards_tp(cfg: ArchConfig, pss: list, xs: list,
     (``pss[i]`` / ``xs[i]`` / ``groups[i]`` data shard ``i``'s, row
     order): every shard's route at its home first, then every shard's
     :func:`apply_moe_tp` under its :class:`MoESplit`.  Returns ``(ys,
-    auxs)``; the aux shares add up to the microbatch's balance loss."""
+    auxs)``; the aux shares add up to the microbatch's balance loss.
+    The path of a split microbatch whose data shards hold the expert
+    stacks whole (a model width that does not divide ``data``, rules
+    without FSDP, a batch axis other than ``data``): where they hold
+    their data slices, :func:`apply_moe_a2a` runs instead."""
     routes = [moe_route_tp(cfg, ps, x, g) for ps, x, g in zip(pss, xs,
                                                               groups)]
     splits = split_contexts([r[3].sum(0) for r in routes],

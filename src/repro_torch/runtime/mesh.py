@@ -37,7 +37,13 @@ single-device peer.  One process drives the mesh (see
     split by each leaf's resolved spec (MLA's down-projections
     replicate: every shard computes the latents), activation partials
     are all-reduced at home, and a MoE layer routes at home and
-    takes each routed row back from its expert's shard.  The learned
+    takes each routed row back from its expert's shard.  Where a MoE
+    stage's microbatch is split over every ``data`` shard, the routed
+    expert stacks stay on their data slice and each expert's slots are
+    computed once per microbatch (``models.layers.apply_moe_a2a``): the
+    data shards' backward is then one pass, and each coordinate's
+    expert gradients, already the microbatch's, go to its own shard
+    unsummed over ``data``.  The learned
     codec's ``w_c`` / ``w_d`` are gathered whole at home, where the wire
     runs, as on the other path.  Each model shard's gradients come back
     as its blocks, reduce-scattered into the shards that hold them.
@@ -155,6 +161,16 @@ class _MeshBacked:
         n = int(self.mesh.shape.get(self.batch_axis, 1))
         return n if n > 1 and batch % n == 0 else 1
 
+    def slices_experts(self, n: int) -> bool:
+        """Do a microbatch's ``n`` data shards hold the routed expert
+        stacks as their data slices, each expert's slots computed once
+        per microbatch (``dist.tensor_parallel.slices_experts``: a MoE
+        stage on the tensor-parallel path, split over every ``data``
+        shard, whose rules split the stacks' width over ``data``)?"""
+        return self.tensor_parallel and self.prog.routes_whole and \
+            tp.slices_experts(self.mesh, n, self.batch_axis) and \
+            tp.holds_slices(self.param_shardings)
+
     def _data_devices(self, n: int) -> list[torch.device]:
         if n == 1:
             return [self.device]
@@ -229,26 +245,31 @@ class _MeshBacked:
         got: dict = {}
         if self.tensor_parallel:
             out = []
+            sliced = self.slices_experts(len(shards))
             for sh in shards:
-                group = tp.Group.of(self.mesh, **{self.batch_axis: sh[-1]})
-                key = tuple(group.devs)
+                i = sh[-1]
+                data = i if sliced else None
+                group = tp.Group.of(self.mesh, **{self.batch_axis: i})
+                key = (tuple(group.devs), data)
                 if key not in got:
-                    got[key] = self._model_shards(state, sh[-1]).trees
-                out.append(tp.ModelShards(got[key], group))
+                    got[key] = self._model_shards(state, i, data).trees
+                out.append(tp.ModelShards(got[key], group, data))
             return out
         for dev, *_ in shards:
             if dev not in got:
                 got[dev] = self._gathered(state, dev)
         return [got[dev] for dev, *_ in shards]
 
-    def _model_shards(self, state: StageState, i: int) -> tp.ModelShards:
-        """Data shard ``i``'s model shards and their blocks."""
+    def _model_shards(self, state: StageState, i: int,
+                      data: Optional[int] = None) -> tp.ModelShards:
+        """Data shard ``i``'s model shards and their blocks (with
+        ``data``, the routed expert stacks as their data slice)."""
         group = tp.Group.of(self.mesh, **{self.batch_axis: i})
         trees = []
         for j, (d, c) in enumerate(zip(group.devs, group.coords)):
             with at(c):
-                trees.append(self._blocks(state, d, j))
-        return tp.ModelShards(trees, group)
+                trees.append(self._blocks(state, d, j, data))
+        return tp.ModelShards(trees, group, data)
 
     def _reduce_grads(self, parts, shardings, shapes):
         """Reduce-scatter the gradient parts ``_bwd_parts`` yields: one
@@ -403,8 +424,9 @@ class MeshExecutor(_MeshBacked):
     def _gathered(self, state: StageState, dev: torch.device) -> Tree:
         return gather_tree(state.params, dev)
 
-    def _blocks(self, state: StageState, dev, j: int) -> Tree:
-        return tp.gather_block(state.params, dev, j)
+    def _blocks(self, state: StageState, dev, j: int,
+                data: Optional[int] = None) -> Tree:
+        return tp.gather_block(state.params, dev, j, data)
 
     def _per_model_shard(self, gp: list):
         yield from gp
@@ -550,9 +572,10 @@ class MeshSpanExecutor(_MeshBacked):
         return tuple(gather_tree(state.per_stage[s].params, dev)
                      for s in self.stages)
 
-    def _blocks(self, state: StageState, dev, j: int) -> tuple:
-        return tuple(tp.gather_block(state.per_stage[s].params, dev, j)
-                     for s in self.stages)
+    def _blocks(self, state: StageState, dev, j: int,
+                data: Optional[int] = None) -> tuple:
+        return tuple(tp.gather_block(state.per_stage[s].params, dev, j,
+                                     data) for s in self.stages)
 
     def _per_model_shard(self, gps: tuple):
         """A data shard's per-stage gradients (each a list over model

@@ -632,16 +632,19 @@ def build_stage_programs(cfg: ArchConfig, n_stages: int, seq_len: int,
                 xs = [i if _first else i.detach().requires_grad_()
                       for i in inps]
                 ys = _sf(trees, xs)
-            for j in range(len(ps)):
+            for idx in _backward_sets(ps):
                 with torch.enable_grad():
-                    out = _stage_grads(cfg, ps[j], trees[j], leaves[j],
-                                       xs[j], ys[j], dys_or_labels[j],
-                                       _first, _last)
-                # shard j's recompute and params go before its consumer
-                # folds the result
-                ps[j] = ys[j] = xs[j] = trees[j] = leaves[j] = None
-                yield out
-                del out
+                    outs = _stage_grads(
+                        cfg, [ps[j] for j in idx], [trees[j] for j in idx],
+                        [leaves[j] for j in idx], [xs[j] for j in idx],
+                        [ys[j] for j in idx],
+                        [dys_or_labels[j] for j in idx], _first, _last)
+                # the shards' recompute and params go before their
+                # consumer folds the results
+                for j in idx:
+                    ps[j] = ys[j] = xs[j] = trees[j] = leaves[j] = None
+                while outs:
+                    yield outs.pop(0)
 
         fwd_f = _stage_fwd_flops(cfg, s, n_stages, seq_len, comp, learned)
         programs.append(StageProgram(
@@ -652,23 +655,53 @@ def build_stage_programs(cfg: ArchConfig, n_stages: int, seq_len: int,
     return programs
 
 
-def _stage_grads(cfg: ArchConfig, params: Tree, p: Tree, leaves: list,
-                 x: torch.Tensor, y: torch.Tensor, dy_or_labels,
-                 first: bool, last: bool):
-    """One stage's backward from its recomputed output ``y`` (``p`` the
-    tree over the fresh ``leaves``, ``x`` the input leaf): ``(gx, gp)``,
+def _backward_sets(ps: list) -> list:
+    """The data shards whose backward is one pass: all of them where
+    their params hold the routed expert stacks' data slices (a layer
+    exchanges their activations, ``models.layers.apply_moe_a2a``), else
+    one shard at a time."""
+    if any(getattr(p, "data", None) is not None for p in ps):
+        return [list(range(len(ps)))]
+    return [[j] for j in range(len(ps))]
+
+
+def _split_grads(grads: tuple, leaves: list, with_x: bool) -> list:
+    """One ``torch.autograd.grad`` result over several shards' inputs
+    (each shard's ``leaves[j]``, then its input where ``with_x``) as
+    ``(leaf grads, input grad)`` a shard."""
+    out, k = [], 0
+    for lv in leaves:
+        g = grads[k:k + len(lv)]
+        k += len(lv)
+        gx = None
+        if with_x:
+            gx, k = grads[k], k + 1
+        out.append((g, gx))
+    return out
+
+
+def _stage_grads(cfg: ArchConfig, params: list, p: list, leaves: list,
+                 x: list, y: list, dy_or_labels: list, first: bool,
+                 last: bool) -> list:
+    """One stage's backward over data shards (lists a shard) from their
+    recomputed outputs ``y`` (``p[j]`` the tree over the fresh
+    ``leaves[j]``, ``x[j]`` the input leaf), one
+    ``torch.autograd.grad`` for them all: per shard ``(gx, gp)``,
     ``(loss, gx, gp)`` on the last stage, ``gx`` None on stage 0."""
-    ins = leaves if first else leaves + [x]
     if last:
-        out, seed = _head_loss(cfg, p, y, dy_or_labels), None
+        outs = [_head_loss(cfg, pj, yj, lab)
+                for pj, yj, lab in zip(p, y, dy_or_labels)]
+        seeds = [None] * len(outs)
     else:
-        out, seed = y, dy_or_labels.to(y.dtype)
-    grads = torch.autograd.grad(out, ins, seed, allow_unused=True)
-    gp = _grads_like(params, leaves, grads[:len(leaves)])
-    gx = None if first else grads[-1]
-    if last:
-        return out.detach(), gx, gp
-    return gx, gp
+        outs, seeds = y, [d.to(yj.dtype) for d, yj in zip(dy_or_labels, y)]
+    ins = [t for lv, xj in zip(leaves, x)
+           for t in (lv if first else lv + [xj])]
+    grads = torch.autograd.grad(outs, ins, seeds, allow_unused=True)
+    res = []
+    for j, (g, gx) in enumerate(_split_grads(grads, leaves, not first)):
+        gp = _grads_like(params[j], leaves[j], g)
+        res.append((outs[j].detach(), gx, gp) if last else (gx, gp))
+    return res
 
 
 def build_span_program(cfg: ArchConfig, n_stages: int, seq_len: int,
@@ -720,31 +753,40 @@ def build_span_program(cfg: ArchConfig, n_stages: int, seq_len: int,
                         for ps, x, lab in zip(pss, xs, labels)]
             return xs
 
-    def walk_back(ps, leaves, trees, ins, outs, dy_or_labels):
-        """One shard's walk: each covered stage's own
-        ``torch.autograd.grad``, last to first, from the recomputed
-        chain's inputs ``ins`` and outputs ``outs``."""
-        loss = None
+    def walk_back(ps, leaves, trees, ins, outs, dys_or_labels):
+        """The walk of a set of shards (lists a shard, as
+        :func:`_backward_sets` groups them): each covered stage's own
+        ``torch.autograd.grad`` over them, last to first, from the
+        recomputed chain's inputs ``ins`` and outputs ``outs``."""
+        n, ns = len(ps), len(stages)
+        losses = None
         if covers_last:
-            loss = _head_loss(cfg, trees[-1], outs[-1], dy_or_labels)
-        gps: list = [None] * len(ps)
-        gx = None if covers_last else dy_or_labels
-        for i in reversed(range(len(ps))):
-            if covers_last and i == len(ps) - 1:
-                out, seed = loss, None
+            losses = [_head_loss(cfg, t[-1], o[-1], lab)
+                      for t, o, lab in zip(trees, outs, dys_or_labels)]
+        gps = [[None] * ns for _ in range(n)]
+        gxs = [None] * n if covers_last else list(dys_or_labels)
+        for i in reversed(range(ns)):
+            if covers_last and i == ns - 1:
+                out, seed = losses, [None] * n
             else:
-                out, seed = outs[i], gx.to(outs[i].dtype)
+                out = [o[i] for o in outs]
+                seed = [g.to(o[i].dtype) for g, o in zip(gxs, outs)]
             first = stages[i] == 0
-            wrt = leaves[i] if first else leaves[i] + [ins[i]]
+            wrt = [t for lv, x in zip(leaves, ins)
+                   for t in (lv[i] if first else lv[i] + [x[i]])]
             grads = torch.autograd.grad(out, wrt, seed, allow_unused=True)
-            gps[i] = _grads_like(ps[i], leaves[i], grads[:len(leaves[i])])
-            gx = None if first else grads[-1]
+            for j, (g, gx) in enumerate(_split_grads(
+                    grads, [lv[i] for lv in leaves], not first)):
+                gps[j][i] = _grads_like(ps[j][i], leaves[j][i], g)
+                gxs[j] = gx
         if covers_last:
-            return loss.detach(), gx, tuple(gps)
-        return gx, tuple(gps)
+            return [(loss.detach(), gx, tuple(gp))
+                    for loss, gx, gp in zip(losses, gxs, gps)]
+        return [(gx, tuple(gp)) for gx, gp in zip(gxs, gps)]
 
     def bwd_shards(pss, inps, dys_or_labels):
         n = len(pss)
+        sets = _backward_sets(pss)
         pss[:] = [_per_stage(ps, len(stages)) for ps in pss]
         leaves = [[_grad_leaves(p) for p in ps] for ps in pss]
         trees = [[_fresh_params(p, lv) for p, lv in zip(ps, lvs)]
@@ -762,13 +804,14 @@ def build_span_program(cfg: ArchConfig, n_stages: int, seq_len: int,
                 for j in range(n):
                     outs[j].append(xs[j])
         del xs
-        for j in range(n):
+        for idx in sets:
             with torch.enable_grad():
-                out = walk_back(pss[j], leaves[j], trees[j], ins[j],
-                                outs[j], dys_or_labels[j])
-            pss[j] = leaves[j] = trees[j] = ins[j] = outs[j] = None
-            yield out
-            del out
+                res = walk_back(*([col[j] for j in idx] for col in (
+                    pss, leaves, trees, ins, outs, dys_or_labels)))
+            for j in idx:
+                pss[j] = leaves[j] = trees[j] = ins[j] = outs[j] = None
+            while res:
+                yield res.pop(0)
 
     fwd_f = sum(_stage_fwd_flops(cfg, s, n_stages, seq_len, comp, learned)
                 for s in stages)

@@ -1098,6 +1098,44 @@ def test_cuda_moe_never_syncs_the_host():
     assert ys.shape == x.shape and bool(torch.isfinite(auxs))
 
 
+@pytest.mark.cuda
+def test_cuda_moe_a2a_never_syncs_the_host():
+    """The split expert-parallel layer with each expert's slots computed
+    once per microbatch (``apply_moe_a2a``) on a (2, 2) virtual mesh of
+    the card runs under ``torch.cuda.set_sync_debug_mode("error")`` at
+    prefill and decode widths: the route counts, offsets and slots cross
+    the data shards as int tensors, C comes from host integers."""
+    from repro_torch.dist import mesh as M
+    from repro_torch.dist import tensor_parallel as tp
+    from repro_torch.dist.sharding import stage_param_shardings
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import params as P
+    from repro_torch.tree import tree_map
+    dev = _card()
+    cfg = _family_cfg("moe", "bfloat16")
+    specs = L.moe_specs(cfg)
+    mesh = make_debug_mesh((2, 2), ("data", "model"), devices=[dev] * 4)
+    placed = tree_map(M.place_as, {"moe": P.init(0, specs, dev)},
+                      stage_param_shardings({"moe": specs}, mesh))
+    blocks = [[tp.gather_block(placed, dev, j, data=i)["moe"]
+               for j in range(2)] for i in range(2)]
+    assert L.expert_slices(cfg, blocks[0][0]) == 2
+    groups = [tp.Group.of(mesh, data=i) for i in range(2)]
+    for seq in (300, 1):
+        x = torch.randn(2, seq, cfg.d_model, generator=_gen(dev),
+                        device=dev).to(cfg.compute_jdtype)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ys, auxs = L.apply_moe_a2a(cfg, blocks, list(x.chunk(2)),
+                                       groups)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert torch.cat(ys).shape == x.shape
+        assert bool(torch.isfinite(torch.stack(auxs)).all())
+
+
 def _moe_split(cfg, p, x, n: int = 2):
     """``apply_moe`` over ``n`` row shards of ``x`` with the split context
     of the whole microbatch: (outputs joined, aux shares summed)."""

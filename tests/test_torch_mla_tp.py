@@ -303,26 +303,32 @@ def _stage_inputs(tcfg, rows=4, seed=3):
 def test_mla_stage_collectives_a_layer(kind):
     """The last stage (one layer) on (2, 2): forward, a layer a data
     shard, one MLA all-reduce, then the FFN's all-reduce (``mla``) or a
-    router gather, a return of expert rows and a shared-expert
-    all-reduce (``mla_moe``), besides the head's three; backward
-    recomputes them and adds a cotangent all-reduce for each fanout."""
+    router gather and a shared-expert all-reduce a data shard and, once
+    a layer for the microbatch, the columns' all-to-all, the slots'
+    all-gather, the gate and up partials' all-reduces and the rows'
+    return home (``mla_moe``, ``apply_moe_a2a``), besides the head's
+    three; backward recomputes them and adds a cotangent all-reduce for
+    each fanout and, for ``mla_moe``, the columns' transpose and the two
+    partials' sums."""
     jcfg, tcfg = _configs(kind=kind)
     ex = MeshExecutor(tcfg, 2, SEQ, 1, _mesh((2, 2)), compress="none")
     st = StageState()
     ex.restore(st, {"params": _stage_params(jcfg), "opt": None})
     x, labels = _stage_inputs(tcfg)
     xt, lt = torch.as_tensor(x), torch.as_tensor(labels)
-    want = ({"activation": 4, "loss": 6} if kind == "mla" else
-            {"activation": 2, "router": 2, "expert_rows": 2,
+    moe = kind == "mla_moe"
+    want = ({"activation": 4, "loss": 6} if not moe else
+            {"activation": 2, "router": 2, "expert_columns": 1,
+             "expert_slots": 1, "expert_partials": 2, "expert_rows": 1,
              "shared_expert": 2, "loss": 6})
     tp.ALL_REDUCES.clear()
     with M.record_collectives() as rec:
         ex.run_fwd(st, xt, lt)
     assert dict(tp.ALL_REDUCES) == want
-    assert rec.counts[(0, 0)]["all-to-all"] == (kind == "mla_moe")
+    assert rec.counts[(0, 0)]["all-to-all"] == 2 * moe   # columns, rows
     tp.ALL_REDUCES.clear()
     ex.run_bwd(st, xt, labels=lt)
-    assert dict(tp.ALL_REDUCES) == {**want, "cotangent": 6}
+    assert dict(tp.ALL_REDUCES) == {**want, "cotangent": 6 + 3 * moe}
 
 
 _JAX_MESH = textwrap.dedent("""
@@ -462,14 +468,16 @@ def test_dryrun_train_cell_computes_mla_tensor_parallel(monkeypatch):
     """deepseek-v2's ``train_4k`` cell (depth cut to one layer) computes
     tensor-parallel on the production mesh: each of data shard 0's 16
     model coordinates runs flash over its 8 of the 128 heads at the
-    ``(192, 128)`` head dims, and no coordinate runs all 128.  Home
-    receives every pair's row from each of the 15 other model shards,
-    forward and recompute (``[T k, d]`` bf16, T = 16 x 4,096 tokens, k =
-    6: 120.8 GB, ROADMAP 5(d)1's figure), and the busiest coordinate's
-    peak falls below a third of the gathered path's (forced here as
-    ``test_torch_tp.py`` forces it).  Not below a quarter, as the dense
-    cell's: at one layer those rows, 60.4 GB at home in one pass, hold
-    the peak at 25.3 % of the gathered path's."""
+    ``(192, 128)`` head dims, and no coordinate runs all 128.  Each
+    expert's slots are computed once per microbatch
+    (``apply_moe_a2a``): home receives every pair's row slice ``[T k, d
+    / 16]`` from each of the 255 other coordinates, forward and
+    recompute (bf16, T = 16 x 4,096 tokens, k = 6: 128.3 GB, where
+    whole rows from the 15 other model shards were 120.8 GB), and the
+    other data shards' columns of the stream, ``[T, d / 16]`` from 15,
+    forward, recompute and the backward's transpose (1.9 GB); and the
+    busiest coordinate's peak falls below a third of the gathered
+    path's (forced here as ``test_torch_tp.py`` forces it)."""
     from repro_torch.launch import dryrun
     from repro_torch.models import flash as flash_lib
     full = dryrun.get_config(ARCH).with_overrides(
@@ -492,7 +500,10 @@ def test_dryrun_train_cell_computes_mla_tensor_parallel(monkeypatch):
     pairs = shape.global_batch // 16 * shape.seq_len * full.moe.top_k
     coll = rec["collectives"]
     assert coll["counts"]["all-reduce"] > 3
-    assert coll["bytes"]["all-to-all"] == 2 * 15 * pairs * full.d_model * 2
+    tokens = shape.global_batch // 16 * shape.seq_len
+    dn = full.d_model // 16
+    assert coll["bytes"]["all-to-all"] == \
+        2 * 255 * pairs * dn * 2 + 3 * 15 * tokens * dn * 2
     monkeypatch.setattr(dryrun, "_tensor_parallel", lambda *a: False)
     base = dryrun.run_cell(ARCH, "train_4k", "single", skip_probe=True)
     assert rec["memory"]["peak_per_device"] < \

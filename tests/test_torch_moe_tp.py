@@ -40,7 +40,7 @@ from repro.models import layers as jL
 
 from repro_torch.dist import mesh as M
 from repro_torch.dist import tensor_parallel as tp
-from repro_torch.dist.sharding import stage_param_shardings
+from repro_torch.dist.sharding import DEFAULT_RULES, stage_param_shardings
 from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.models import layers as L
 from repro_torch.models import params as P
@@ -230,12 +230,16 @@ def _stage_inputs(tcfg, rows=4, seed=3):
 
 
 def test_moe_stage_collectives_a_layer():
-    """The last stage (one ``moe`` layer) on (2, 2): forward, a layer a
-    data shard, one attention all-reduce, one router gather, one return
-    of expert rows and one shared-expert all-reduce, besides the head's
-    three; backward recomputes them and adds a cotangent all-reduce for
-    the attention's fanout, the MoE's and the head's; the two data
-    shards' calls go to the program at once."""
+    """The last stage (one ``moe`` layer) on (2, 2), its experts computed
+    once per microbatch (``apply_moe_a2a``): forward, an attention
+    all-reduce and a router gather a data shard, once a layer the
+    columns' all-to-all over ``data``, the slots' all-gather, the gate
+    and up partials' all-reduces and the rows' return home, then a
+    shared-expert all-reduce a data shard, besides the head's three;
+    backward recomputes them and adds a cotangent all-reduce for the
+    attention's fanout, the MoE's and the head's a data shard, the
+    columns' transpose and the two partials' sums; the two data shards'
+    calls go to the program at once."""
     jcfg, tcfg = _configs()
     host = _stage1_params(jcfg)
     ex = MeshExecutor(tcfg, 2, SEQ, 1, _mesh((2, 2)), compress="none")
@@ -243,17 +247,18 @@ def test_moe_stage_collectives_a_layer():
     ex.restore(st, {"params": host, "opt": None})
     x, labels = _stage_inputs(tcfg)
     xt, lt = torch.as_tensor(x), torch.as_tensor(labels)
-    want = {"activation": 2, "router": 2, "expert_rows": 2,
+    want = {"activation": 2, "router": 2, "expert_columns": 1,
+            "expert_slots": 1, "expert_partials": 2, "expert_rows": 1,
             "shared_expert": 2, "loss": 6}
     tp.ALL_REDUCES.clear()
     with M.record_collectives() as rec:
         ex.run_fwd(st, xt, lt)
     assert dict(tp.ALL_REDUCES) == want
-    assert rec.counts[(0, 0)]["all-to-all"] == 1
-    assert rec.counts[(0, 1)]["all-to-all"] == 0
+    assert rec.counts[(0, 0)]["all-to-all"] == 2        # columns, rows
+    assert rec.counts[(0, 1)]["all-to-all"] == 1        # columns
     tp.ALL_REDUCES.clear()
     ex.run_bwd(st, xt, labels=lt)
-    assert dict(tp.ALL_REDUCES) == {**want, "cotangent": 6}
+    assert dict(tp.ALL_REDUCES) == {**want, "cotangent": 9}
 
 
 _JAX_MESH = textwrap.dedent("""
@@ -318,8 +323,10 @@ def test_moe_stage_matches_jax_mesh_executor(tmp_path):
         assert_close(a, b, TOL)
 
 
-@pytest.mark.parametrize("shape", [(1, 2), (2, 2)], ids=["1x2", "2x2"])
-def test_moe_tp_trajectory_equals_jax_reference(shape, monkeypatch):
+@pytest.mark.parametrize("shape,whole", [((1, 2), False), ((2, 2), False),
+                                         ((2, 2), True)],
+                         ids=["1x2", "2x2", "2x2-whole"])
+def test_moe_tp_trajectory_equals_jax_reference(shape, whole, monkeypatch):
     """Expert-parallel mesh peers at both stages beside numeric peers,
     and a mesh span peer over [0, 2): a 3-step trajectory within 2e-4 of
     JAX's sequential reference, each microbatch processed exactly once.
@@ -328,24 +335,41 @@ def test_moe_tp_trajectory_equals_jax_reference(shape, monkeypatch):
     package's is rounding noise (~1e-8), which AdamW normalises into
     steps of about the learning rate: the routes then drift apart, and
     the port's one-device numeric peers alone leave JAX's reference by
-    4.9e-4 at step 3."""
+    4.9e-4 at step 3.  ``whole``: the weights replicated over ``data``
+    (the rules without FSDP), so each data shard holds the expert stacks
+    whole and the shards run in lockstep under their split contexts
+    (``apply_moe_shards_tp``, never ``apply_moe_a2a``), their expert
+    gradients summed over ``data``."""
     jcfg, tcfg = _configs(moe=dataclasses.replace(j_get_reduced(ARCH).moe,
                                                   top_k=2))
+    calls = {"apply_moe_shards_tp": 0, "apply_moe_a2a": 0}
+    for name in calls:
+        def spy(*a, _f=getattr(L, name), _k=name, **kw):
+            calls[_k] += 1
+            return _f(*a, **kw)
+        monkeypatch.setattr(L, name, spy)
+    rules = DEFAULT_RULES.with_rules(embed=None) if whole else None
     jprogs, jp = _jax_params(jcfg, "none")
     want = _jax_reference(jcfg, jprogs, jp, 2, 8, monkeypatch)
     r = _runner(tcfg, jp, "none", 2, 8)
     r.build(peers_per_stage=1)
     mesh = _mesh(shape)
     for s in range(2):
-        ex = MeshExecutor(tcfg, 2, SEQ, s, mesh, compress="none")
+        ex = MeshExecutor(tcfg, 2, SEQ, s, mesh, compress="none",
+                          rules=rules)
         assert ex.compute_path == "tensor_parallel"
+        assert ex.slices_experts(shape[0]) == (shape[0] > 1 and not whole)
         r.add_peer(s, executor=ex)
-    span = MeshSpanExecutor(tcfg, 2, SEQ, (0, 2), mesh, compress="none")
+    span = MeshSpanExecutor(tcfg, 2, SEQ, (0, 2), mesh, compress="none",
+                            rules=rules)
     assert span.compute_path == "tensor_parallel"
     r.add_peer(range(0, 2), executor=span)
     m = r.run(until=1e6)
     np.testing.assert_allclose(m["loss"], want, atol=TRAJ_ATOL, rtol=0)
     _assert_exactly_once(r, 2, 4)
+    if whole:
+        assert calls["apply_moe_shards_tp"] > 0
+        assert calls["apply_moe_a2a"] == 0
 
 
 @pytest.mark.parametrize("alike", [1, 2])
@@ -407,20 +431,22 @@ class _Shapes(TorchDispatchMode):
 
 def test_dryrun_train_cell_is_expert_parallel(monkeypatch):
     """llama4-scout's ``train_4k`` cell (depth cut to one layer) computes
-    tensor-parallel on the production mesh: data shard 0's 16 model
-    coordinates each run their one expert, ``[1, Cb, .]``, and no op on
-    any coordinate returns a whole ``[E, Cb, .]`` MoE tensor or the
-    whole ``[E * Cb + 1, d]`` dispatch buffer; home receives the rows
-    and the router gather, and the busiest device's peak falls below a
-    quarter of the gathered path's."""
+    tensor-parallel on the production mesh, each expert's C slots once
+    per microbatch (``apply_moe_a2a``): data shard 0's 16 model
+    coordinates each run their one expert over its data slice, ``[1, C,
+    d / 16]`` and ``[1, C, f]``, and no op on any coordinate returns a
+    whole ``[E, ., .]`` MoE tensor, a shard's ``[1, Cb, d]`` buffer or a
+    whole-width dispatch buffer; home receives the rows and the router
+    gather, and the busiest device's peak falls below a quarter of the
+    gathered path's."""
     from repro_torch.launch import dryrun
     full = dryrun.get_config(ARCH).with_overrides(n_layers=1)
     monkeypatch.setattr(dryrun, "get_config", lambda a: full)
     m = full.moe
     shape = dryrun.SHAPES["train_4k"]
-    Cb = min(int(m.capacity_factor * shape.global_batch * shape.seq_len
-                 * m.top_k / m.num_experts),
-             shape.global_batch // 16 * shape.seq_len * m.top_k)
+    C = int(m.capacity_factor * shape.global_batch * shape.seq_len
+            * m.top_k / m.num_experts)
+    Cb = min(C, shape.global_batch // 16 * shape.seq_len * m.top_k)
     with _Shapes() as spy:
         rec = dryrun.run_cell(ARCH, "train_4k", "single", skip_probe=True)
     assert rec["status"] == "ok"
@@ -428,10 +454,11 @@ def test_dryrun_train_cell_is_expert_parallel(monkeypatch):
         devices=[torch.device("meta")] * 256), "data")
     shapes = {s for _, s in spy.seen}
     E, d, f = m.num_experts, full.d_model, m.d_ff_expert
-    assert (1, Cb, f) in shapes and (1, Cb, d) in shapes
-    assert {(E, Cb, f), (E, Cb, d), (E * Cb + 1, d), (E * Cb, d)} \
+    assert (1, C, f) in shapes and (1, C, d // 16) in shapes
+    assert {(E, C, f), (E, C, d), (E, Cb, f), (E, Cb, d), (1, Cb, d),
+            (E * C + 1, d), (E * Cb + 1, d), (Cb + 1, d)} \
         .isdisjoint(shapes)
-    coords = {c for c, s in spy.seen if s == (1, Cb, f) and c is not None}
+    coords = {c for c, s in spy.seen if s == (1, C, f) and c is not None}
     assert len(coords) == 16
     counts = rec["collectives"]["counts"]
     assert counts["all-to-all"] >= 1 and counts["all-gather"] >= 1
